@@ -1,0 +1,306 @@
+// K2, the planner chain, as a family of kernels driven by a host loop over
+// the denoise steps and the U-Net's layer plan (dadiff_tpu_torch/ops/planner.py).
+//
+// Replaces: the JAX package's ops/pallas_planner.py:95 make_pallas_planner_chain
+// (inner kernel :206, _project :156, _apply_cond :152) and the U-Net body it
+// runs, ops/pallas_unet.py:258 _unet_forward with _conv_stack
+// :184, _shift_rows :161, _even_rows :243 and _interleave_rows :248. The
+// GroupNorm+Mish stages go through K1 (gn_mish.cu).
+//
+//   rows_conv          one conv of the U-Net as an implicit shifted-stack
+//                      GEMM over row-stacked chains: k-tap SAME (k = 5 or 1),
+//                      k=3 stride 2 (even rows only), or the k=4 s=2
+//                      transposed conv as even/odd two-tap products. Zero
+//                      padding applies per segment (chain), so N stacked
+//                      chains equal N separate forwards.
+//   ddpm_project_step  one block per chain: DDPM update from scal[t], the
+//                      interleaved projection alpha*(x@M+b)+(1-alpha)*x, the
+//                      wall revert and the row-0 conditioning, in place.
+//
+// Bound on an H100 (flagship: 8 chains x 32 rows, dim 128, mults 1 2 4):
+// one denoise step is ~2.3 GFLOP of products over ~31.7 MB of bf16 weights,
+// i.e. ~74 operations per weight byte, well under the ~295 the card needs to
+// be compute-bound, so a step is bound by streaming the weights (~9.5 us from
+// HBM, less from the 50 MB L2). This first version is a plain tiled
+// shared-memory GEMM on the CUDA cores (f32 accumulation, bf16 or f32
+// weights) and ~61 launches per step: it is launch-bound, and a persistent
+// single-launch design is the later step.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kSame = 0;  // k-tap SAME conv, stride 1
+constexpr int kDown = 1;  // k=3, stride 2, padding 1: even rows of the SAME conv
+constexpr int kUp = 2;    // ConvTranspose1d k=4, s=2, p=1
+
+constexpr int BM = 32, BN = 32, BK = 32, kThreads = 256;
+
+__device__ __forceinline__ float load_w(const float* w, size_t i) { return w[i]; }
+__device__ __forceinline__ float load_w(const __nv_bfloat16* w, size_t i) {
+  return __bfloat162float(w[i]);
+}
+
+// Input row feeding GEMM row m through virtual tap j, or -1 for a zero pad.
+__device__ __forceinline__ int in_row(int mode, int m, int j, int parity,
+                                      int seg_in, int k) {
+  int s, li;
+  if (mode == kDown) {
+    const int seg_out = seg_in >> 1;
+    s = m / seg_out;
+    li = 2 * (m - s * seg_out) + j - 1;
+  } else {
+    s = m / seg_in;
+    const int l = m - s * seg_in;
+    if (mode == kSame) {
+      li = l + j - k / 2;
+    } else {
+      // even rows: x[h] R1 + x[h-1] R3; odd rows: x[h+1] R0 + x[h] R2
+      li = parity == 0 ? (j == 0 ? l : l - 1) : (j == 0 ? l + 1 : l);
+    }
+  }
+  return (li >= 0 && li < seg_in) ? s * seg_in + li : -1;
+}
+
+// Row block of the flattened weight that virtual tap j multiplies.
+__device__ __forceinline__ int weight_tap(int mode, int j, int parity) {
+  if (mode != kUp) return j;
+  return parity == 0 ? (j == 0 ? 1 : 3) : (j == 0 ? 0 : 2);
+}
+
+__device__ __forceinline__ int out_row(int mode, int m, int parity, int seg_in) {
+  if (mode != kUp) return m;
+  const int s = m / seg_in;
+  return s * 2 * seg_in + 2 * (m - s * seg_in) + parity;
+}
+
+// out[out_row(m)] = bias + sum_{j, ci} x[in_row(m, j), ci] * w[wtap(j)*cin + ci]
+// The input is the channel concatenation [xa | xb] (xb may be null), which
+// covers the decoder's skip concat without a copy. With bf16 weights the
+// activations are rounded to bf16 first, as the TPU kernel casts them to the
+// compute dtype before every product.
+template <typename WT, bool kBf16Act>
+__global__ void __launch_bounds__(kThreads)
+rows_conv_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
+                 int cin_a, int cin_b, const WT* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ out,
+                 int M, int seg_in, int cout, int mode, int k, int splits,
+                 float* __restrict__ partial, unsigned int* __restrict__ counters) {
+  const int cin = cin_a + cin_b;
+  const int ntaps = mode == kUp ? 2 : k;
+  const int K = ntaps * cin;
+  const int split = blockIdx.z % splits;
+  const int parity = blockIdx.z / splits;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // this block's share of the K loop (split-K: see the reduction below)
+  const int k_tiles = (K + BK - 1) / BK;
+  const int per_split = (k_tiles + splits - 1) / splits;
+  const int k_begin = split * per_split * BK;
+  const int k_end = min(K, k_begin + per_split * BK);
+
+  __shared__ float As[BK][BM + 1];
+  __shared__ float Bs[BK][BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;  // 2x2 outputs per thread
+  float acc00 = 0.f, acc01 = 0.f, acc10 = 0.f, acc11 = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+#pragma unroll
+    for (int i = 0; i < (BM * BK) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int kk = e % BK, mm = e / BK;
+      const int kg = k0 + kk, m = m0 + mm;
+      float v = 0.f;
+      if (kg < k_end && m < M) {
+        const int j = kg / cin, ci = kg - j * cin;
+        const int r = in_row(mode, m, j, parity, seg_in, k);
+        if (r >= 0) {
+          v = ci < cin_a ? xa[(size_t)r * cin_a + ci]
+                         : xb[(size_t)r * cin_b + (ci - cin_a)];
+          if (kBf16Act) v = __bfloat162float(__float2bfloat16(v));
+        }
+      }
+      As[kk][mm] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < (BN * BK) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int nn = e % BN, kk = e / BN;
+      const int kg = k0 + kk, n = n0 + nn;
+      float v = 0.f;
+      if (kg < k_end && n < cout) {
+        const int j = kg / cin, ci = kg - j * cin;
+        const int wt = weight_tap(mode, j, parity);
+        v = load_w(w, (size_t)(wt * cin + ci) * cout + n);
+      }
+      Bs[kk][nn] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float a0 = As[kk][2 * ty], a1 = As[kk][2 * ty + 1];
+      const float b0 = Bs[kk][2 * tx], b1 = Bs[kk][2 * tx + 1];
+      acc00 = fmaf(a0, b0, acc00);
+      acc01 = fmaf(a0, b1, acc01);
+      acc10 = fmaf(a1, b0, acc10);
+      acc11 = fmaf(a1, b1, acc11);
+    }
+    __syncthreads();
+  }
+
+  float acc[2][2] = {{acc00, acc01}, {acc10, acc11}};
+  if (splits > 1) {
+    // Split-K: every block stores its partial tile; the last block of the
+    // tile to arrive (counted with an atomic) sums the partials in split
+    // order, so the result does not depend on which block finishes last.
+    float* mine = partial + ((size_t)blockIdx.z * M) * cout;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + 2 * ty + i;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+        const int n = n0 + 2 * tx + jn;
+        if (m < M && n < cout) mine[(size_t)m * cout + n] = acc[i][jn];
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    __shared__ bool last;
+    const int tile = (parity * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    if (tid == 0) last = atomicAdd(&counters[tile], 1u) == (unsigned)splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const float* first = partial + ((size_t)parity * splits * M) * cout;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + 2 * ty + i;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+        const int n = n0 + 2 * tx + jn;
+        if (m >= M || n >= cout) continue;
+        float sum = 0.f;
+        for (int sp = 0; sp < splits; ++sp)
+          sum += __ldcg(first + ((size_t)sp * M + m) * cout + n);
+        acc[i][jn] = sum;
+      }
+    }
+    if (tid == 0) counters[tile] = 0u;  // ready for the next launch
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + 2 * ty + i;
+    if (m >= M) continue;
+    const size_t orow = (size_t)out_row(mode, m, parity, seg_in) * cout;
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int n = n0 + 2 * tx + jn;
+      if (n < cout) out[orow + n] = acc[i][jn] + bias[n];
+    }
+  }
+}
+
+// One block per chain of H rows x D lanes (HD = H*D values).
+__global__ void ddpm_project_kernel(
+    float* __restrict__ x, const float* __restrict__ eps,
+    const float* __restrict__ noise, const float* __restrict__ scal,
+    const float* __restrict__ cond, const float* __restrict__ Mp,
+    const float* __restrict__ bp, int H, int D, int clip, int predict_eps,
+    const int* __restrict__ wall, int grid_h, int grid_w, float mx, float my,
+    float sx, float sy, float margin) {
+  extern __shared__ float sh[];
+  const int HD = H * D;
+  float* xn = sh;       // x after the DDPM update
+  float* xp = sh + HD;  // after projection and wall revert
+  const size_t base = (size_t)blockIdx.x * HD;
+  const float recip = scal[0], recipm1 = scal[1], c1 = scal[2], c2 = scal[3];
+  const float sigma = scal[4], alpha = scal[5];
+
+  for (int i = threadIdx.x; i < HD; i += blockDim.x) {
+    const float xv = x[base + i];
+    const float e = eps[base + i];
+    float xr = predict_eps ? recip * xv - recipm1 * e : e;
+    if (clip) xr = fminf(fmaxf(xr, -1.f), 1.f);
+    xn[i] = c1 * xr + c2 * xv + sigma * noise[base + i];
+  }
+  __syncthreads();
+
+  if (Mp != nullptr) {
+    for (int j = threadIdx.x; j < HD; j += blockDim.x) {
+      float z = 0.f;
+      for (int i = 0; i < HD; ++i) z = fmaf(xn[i], Mp[(size_t)i * HD + j], z);
+      z += bp[j];
+      xp[j] = alpha * z + (1.f - alpha) * xn[j];
+    }
+    __syncthreads();
+    if (wall != nullptr) {
+      for (int h = threadIdx.x; h < H; h += blockDim.x) {
+        // rounded as the reference computes them (no fused multiply-add)
+        const float px = __fadd_rn(__fmul_rn(xp[h * D], sx), mx);
+        const float py = __fadd_rn(__fmul_rn(xp[h * D + 1], sy), my);
+        const int n_probe = margin != 0.f ? 4 : 1;
+        bool bad = false;
+        for (int p = 0; p < n_probe; ++p) {
+          const float dx = n_probe == 1 ? 0.f : (p < 2 ? -margin : margin);
+          const float dy = n_probe == 1 ? 0.f : ((p & 1) ? margin : -margin);
+          int col = (int)floorf(__fadd_rn(__fadd_rn(px, dx), grid_w * 0.5f));
+          int row = (int)floorf(__fsub_rn(grid_h * 0.5f, __fadd_rn(py, dy)));
+          col = min(max(col, 0), grid_w - 1);
+          row = min(max(row, 0), grid_h - 1);
+          bad = bad || wall[row * grid_w + col] == 1;
+        }
+        if (bad)
+          for (int d = 0; d < D; ++d) xp[h * D + d] = xn[h * D + d];
+      }
+      __syncthreads();
+    }
+  } else {
+    for (int i = threadIdx.x; i < HD; i += blockDim.x) xp[i] = xn[i];
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < HD; i += blockDim.x)
+    x[base + i] = i < D ? cond[base + i] : xp[i];
+}
+
+}  // namespace
+
+// splits > 1 needs partial (splits * parities * M * cout floats) and
+// counters (one zeroed unsigned per output tile, left zeroed on return).
+extern "C" int rows_conv(const float* xa, const float* xb, int cin_a, int cin_b,
+                         const void* w, int w_bf16, const float* bias,
+                         float* out, int rows_in, int seg_in, int cout, int mode,
+                         int k, int splits, float* partial,
+                         unsigned int* counters, void* stream) {
+  const int M = mode == kDown ? rows_in / 2 : rows_in;
+  dim3 grid((cout + BN - 1) / BN, (M + BM - 1) / BM,
+            (mode == kUp ? 2 : 1) * splits);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (w_bf16) {
+    rows_conv_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, st>>>(
+        xa, xb, cin_a, cin_b, (const __nv_bfloat16*)w, bias, out, M, seg_in,
+        cout, mode, k, splits, partial, counters);
+  } else {
+    rows_conv_kernel<float, false><<<grid, kThreads, 0, st>>>(
+        xa, xb, cin_a, cin_b, (const float*)w, bias, out, M, seg_in, cout,
+        mode, k, splits, partial, counters);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ddpm_project_step(float* x, const float* eps, const float* noise,
+                                 const float* scal, const float* cond,
+                                 const float* M, const float* b, int n_chains,
+                                 int H, int D, int clip, int predict_eps,
+                                 const int* wall, int grid_h, int grid_w,
+                                 float mx, float my, float sx, float sy,
+                                 float margin, void* stream) {
+  const size_t smem = 2 * (size_t)H * D * sizeof(float);
+  ddpm_project_kernel<<<n_chains, 256, smem, (cudaStream_t)stream>>>(
+      x, eps, noise, scal, cond, M, b, H, D, clip, predict_eps, wall, grid_h,
+      grid_w, mx, my, sx, sy, margin);
+  return (int)cudaGetLastError();
+}

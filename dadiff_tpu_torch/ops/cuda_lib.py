@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels (``dadiff_tpu_torch/csrc/*.cu``).
+
+Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, and loaded with ``ctypes``. Builds
+go to ``build/dadiff_tpu_torch/`` at the root of the checkout, keyed by a
+hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused. All missing libraries are compiled at once, one
+``nvcc`` process per source, started together.
+
+Every C entry point takes device pointers and a stream as ``c_void_p`` and
+returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dadiff_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# library -> {C function: argtypes}; every function returns int
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "gn_mish": {
+        # x, out, scale, bias, te, te_stride, res, n_seg, seg, C, groups, eps, stream
+        "gn_mish": [P, P, P, P, P, I, P, I, I, I, I, F, P],
+    },
+    "planner": {
+        # xa, xb, cin_a, cin_b, w, w_bf16, bias, out, rows_in, seg_in, cout,
+        # mode, k, splits, partial, counters, stream
+        "rows_conv": [P, P, I, I, P, I, P, P, I, I, I, I, I, I, P, P, P],
+        # x, eps, noise, scal, cond, M, b, n_chains, H, D, clip, predict_eps,
+        # wall, grid_h, grid_w, mx, my, sx, sy, margin, stream
+        "ddpm_project_step": [P, P, P, P, P, P, P, I, I, I, I, I,
+                              P, I, I, F, F, F, F, F, P],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_counters: Dict[str, object] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every library that is not built yet, all in parallel.
+    Returns the seconds each build took (0 for a library already built)."""
+    import time
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in SIGNATURES:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp,
+                       target, time.perf_counter())
+    took = {name: 0.0 for name in SIGNATURES}
+    errors = []
+    for name, (proc, tmp, target, t0) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log.decode()}")
+            continue
+        os.replace(tmp, target)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return took
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    with _lock:
+        if name not in _libs:
+            if not _target(name).exists():
+                build_all()
+            cdll = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(cdll, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = cdll
+        return _libs[name]
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
+
+
+def counters(device, n: int):
+    """A zeroed uint32 array of at least ``n`` entries on ``device`` for the
+    split-K tile counters; kernels leave it zeroed. One per device, so
+    launches that use it must not run concurrently on two streams."""
+    import torch
+
+    key = str(device)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1 << 14), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,608 @@
+"""K2: the batched best-of-N planning chain, as hand-written CUDA kernels
+(``csrc/planner.cu`` and K1 in ``csrc/gn_mish.cu``) driven by a host loop.
+
+Counterpart of the JAX package's ops/pallas_planner.py: build_interleaved_projection
+:53, make_pallas_planner_chain :95 (its ``pallas_call`` at :287, inner kernel
+:206, ``_project`` :156, ``_apply_cond`` :152), make_pallas_bo_sampler :305
+and wire_policy_megakernel :449; and of the U-Net body it runs,
+ops/pallas_unet.py:258 ``_unet_forward``.
+
+On the TPU the whole chain is one kernel with the weights resident in VMEM.
+Here each denoise step is a short sequence of launches on PyTorch's current
+stream, ~61 at the flagship:
+
+  rows_conv          every conv of the U-Net (k=5, k=1, the k=3 stride-2
+                     downsample, the k=4 stride-2 transposed conv), on all
+                     chains at once, zero-padded per chain;
+  gn_mish (K1)       every GroupNorm+Mish, statistics per chain, with the
+                     time-embedding add or the residual add fused after it;
+  ddpm_project_step  DDPM update, projection, wall revert, row-0 conditioning.
+
+The per-step time-dense products are hoisted out of the loop: one k=1
+``rows_conv`` per residual block over all T steps. Noise is drawn outside the
+kernels, as on the TPU (pallas_planner.py:414-416).
+
+The same host loop runs the plain PyTorch version of each kernel when the
+tensors lie on the CPU; on CUDA tensors it launches the kernels or raises.
+The plain version of the whole chain, the oracle on the card, is the DDPM
+sampler of guides/sampling.py.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dadiff_tpu_torch.ops import cuda_lib
+from dadiff_tpu_torch.ops.chain_operands import _layer_plan, prepare_chain_operands
+from dadiff_tpu_torch.ops.gn_mish import gn_mish_plain, launch_gn_mish
+from dadiff_tpu_torch.ops.projection import (
+    NormStats,
+    apply_projection,
+    projection_alpha,
+    wall_violation_mask,
+)
+
+SAME, DOWN, UP = 0, 1, 2  # rows_conv modes, as in csrc/planner.cu
+
+
+# ---------------------------------------------------------------------------
+# rows_conv: one conv of the U-Net over row-stacked chains
+# ---------------------------------------------------------------------------
+
+def _shift_rows(x: torch.Tensor, s: int, seg: int) -> torch.Tensor:
+    """y[h] = x[h - s] within each segment of ``seg`` rows, zero padded
+    (pallas_unet.py:161-181)."""
+    if s == 0:
+        return x
+    R, C = x.shape
+    y = torch.zeros_like(x).reshape(R // seg, seg, C)
+    if abs(s) < seg:
+        xs = x.reshape(R // seg, seg, C)
+        if s > 0:
+            y[:, s:] = xs[:, :seg - s]
+        else:
+            y[:, :seg + s] = xs[:, -s:]
+    return y.reshape(R, C)
+
+
+def rows_conv_plain(xa, xb, w, bias, mode: int, k: int, seg_in: int):
+    """Plain version: conv of the channel concat [xa | xb] (R, cin) with a
+    flattened weight (pallas_unet.py:275-323). With bf16 weights the
+    activations are rounded to bf16 first, as the TPU casts them."""
+    x = xa if xb is None else torch.cat([xa, xb], dim=1)
+    if w.dtype == torch.bfloat16:
+        x = x.to(torch.bfloat16).to(torch.float32)
+    wf = w.to(torch.float32)
+    cin, cout = x.shape[1], wf.shape[1]
+    if mode == UP:
+        R = [wf[t * cin:(t + 1) * cin] for t in range(4)]
+        even = x @ R[1] + _shift_rows(x, 1, seg_in) @ R[3] + bias
+        odd = _shift_rows(x, -1, seg_in) @ R[0] + x @ R[2] + bias
+        return torch.stack([even, odd], dim=1).reshape(2 * x.shape[0], cout)
+    half = k // 2
+    stack = torch.cat([_shift_rows(x, half - t, seg_in) for t in range(k)], dim=1)
+    y = stack @ wf + bias
+    if mode == DOWN:
+        y = y.reshape(-1, 2, cout)[:, 0]
+    return y
+
+
+def _conv_out_rows(rows: int, mode: int) -> int:
+    return {SAME: rows, DOWN: rows // 2, UP: 2 * rows}[mode]
+
+
+_TILE, _TARGET_BLOCKS = 32, 2 * 132  # csrc/planner.cu BM = BN; 2 per SM
+
+
+def _split_k(rows: int, cin: int, cout: int, mode: int, k: int):
+    """Output tiles of one launch and the K splits that bring the grid to
+    about two blocks per SM (each split keeps at least 4 K tiles)."""
+    M = rows // 2 if mode == DOWN else rows
+    tiles = -(-cout // _TILE) * -(-M // _TILE) * (2 if mode == UP else 1)
+    k_tiles = -(-(2 if mode == UP else k) * cin // _TILE)
+    return tiles, max(1, min(k_tiles // 4, -(-_TARGET_BLOCKS // tiles)))
+
+
+def launch_rows_conv(xa, xb, w, bias, out, mode: int, k: int, seg_in: int,
+                     stream=None):
+    """Launch the kernel on contiguous CUDA tensors (unchecked)."""
+    cin_b = 0 if xb is None else xb.shape[1]
+    rows, cout = xa.shape[0], w.shape[1]
+    tiles, splits = _split_k(rows, xa.shape[1] + cin_b, cout, mode, k)
+    partial = counters = None
+    if splits > 1:
+        partial = torch.empty(splits * tiles * _TILE * _TILE,
+                              dtype=torch.float32, device=xa.device)
+        counters = cuda_lib.counters(xa.device, tiles)
+    rc = cuda_lib.lib("planner").rows_conv(
+        xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[1],
+        cin_b, w.data_ptr(), int(w.dtype == torch.bfloat16), bias.data_ptr(),
+        out.data_ptr(), rows, seg_in, cout, mode, k, splits,
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        cuda_lib.stream_of(xa) if stream is None else stream)
+    cuda_lib.check(rc, "rows_conv")
+    rows_conv.launches += 1
+
+
+def rows_conv(xa, xb, w, bias, mode: int, k: int, seg_in: int) -> torch.Tensor:
+    """Conv of [xa | xb] ((R, cin_a), (R, cin_b) or None) over R/seg_in
+    stacked chains. ``w``: flattened (taps*cin, cout), bf16 or f32; ``bias``
+    (1, cout) f32; ``mode`` SAME (k odd), DOWN (k=3, s=2) or UP (k=4, s=2).
+    Plain version on the CPU, the kernel on CUDA tensors."""
+    if xa.device.type == "cpu":
+        return rows_conv_plain(xa, xb, w, bias, mode, k, seg_in)
+    for t in (xa, xb, bias):
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+                              or t.device != xa.device):
+            raise ValueError("rows_conv: activations and bias must be "
+                             "contiguous float32 on one device")
+    if w.dtype not in (torch.float32, torch.bfloat16) or not w.is_contiguous() \
+            or w.device != xa.device:
+        raise ValueError("rows_conv: w must be contiguous f32 or bf16")
+    cin = xa.shape[1] + (0 if xb is None else xb.shape[1])
+    taps = 4 if mode == UP else k
+    if w.shape[0] != taps * cin or bias.numel() != w.shape[1] \
+            or xa.shape[0] % seg_in or (xb is not None
+                                        and xb.shape[0] != xa.shape[0]):
+        raise ValueError("rows_conv: shapes do not match")
+    out = torch.empty(_conv_out_rows(xa.shape[0], mode), w.shape[1],
+                      dtype=torch.float32, device=xa.device)
+    launch_rows_conv(xa, xb, w, bias, out, mode, k, seg_in)
+    return out
+
+
+rows_conv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# ddpm_project_step: DDPM update + projection + wall revert + conditioning
+# ---------------------------------------------------------------------------
+
+class StepConfig:
+    """Static options of the step: the TPU kernel bakes them at build."""
+
+    def __init__(self, horizon: int, clip_denoised: bool = True,
+                 predict_epsilon: bool = True, wall_grid=None,
+                 wall_margin: Optional[float] = None, pos_stats=None):
+        self.horizon = horizon
+        self.clip_denoised = clip_denoised
+        self.predict_epsilon = predict_epsilon
+        self.wall_grid = None if wall_grid is None else np.asarray(
+            wall_grid, np.int32)
+        self.wall_margin = float(wall_margin or 0.0)
+        if self.wall_grid is not None and pos_stats is None:
+            raise ValueError("wall-aware step needs pos_stats")
+        self.pos_stats = pos_stats
+        self._grid_dev = {}
+
+    def grid_on(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._grid_dev:
+            self._grid_dev[key] = torch.as_tensor(self.wall_grid,
+                                                  device=device).contiguous()
+        return self._grid_dev[key]
+
+
+def ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b,
+                            cfg: StepConfig) -> torch.Tensor:
+    """Plain version (pallas_planner.py:230-249 with _project :156-204)."""
+    H = cfg.horizon
+    R, D = x.shape
+    recip, recipm1, c1, c2, sigma, alpha = scal_t[:6]
+    xr = recip * x - recipm1 * eps if cfg.predict_epsilon else eps
+    if cfg.clip_denoised:
+        xr = xr.clamp(-1.0, 1.0)
+    xn = c1 * xr + c2 * x + sigma * noise
+    xp = xn
+    if M is not None:
+        flat = xn.reshape(-1, H * D)
+        z = flat @ M + b.reshape(1, -1)
+        xp = (alpha * z + (1.0 - alpha) * flat).reshape(R, D)
+        if cfg.wall_grid is not None:
+            (mx, my), (sx, sy) = cfg.pos_stats
+            pos = torch.stack([xp[:, 0] * sx + mx, xp[:, 1] * sy + my], dim=-1)
+            bad = wall_violation_mask(pos, cfg.grid_on(x.device),
+                                      cfg.wall_margin)
+            xp = torch.where(bad[:, None], xn, xp)
+    row0 = (torch.arange(R, device=x.device) % H == 0)[:, None]
+    return torch.where(row0, cond, xp)
+
+
+def launch_ddpm_project_step(x, eps, noise, scal_t, cond, M, b,
+                             cfg: StepConfig, stream=None) -> None:
+    """Launch the kernel on contiguous float32 CUDA tensors, updating x in
+    place (unchecked)."""
+    R, D = x.shape
+    H = cfg.horizon
+    wall = cfg.grid_on(x.device) if (M is not None and
+                                     cfg.wall_grid is not None) else None
+    (mx, my), (sx, sy) = cfg.pos_stats or ((0.0, 0.0), (1.0, 1.0))
+    gh, gw = cfg.wall_grid.shape if wall is not None else (0, 0)
+    rc = cuda_lib.lib("planner").ddpm_project_step(
+        x.data_ptr(), eps.data_ptr(), noise.data_ptr(), scal_t.data_ptr(),
+        cond.data_ptr(), None if M is None else M.data_ptr(),
+        None if b is None else b.data_ptr(), R // H, H, D,
+        int(cfg.clip_denoised), int(cfg.predict_epsilon),
+        None if wall is None else wall.data_ptr(), gh, gw,
+        mx, my, sx, sy, cfg.wall_margin,
+        cuda_lib.stream_of(x) if stream is None else stream)
+    cuda_lib.check(rc, "ddpm_project_step")
+    ddpm_project_step.launches += 1
+
+
+def ddpm_project_step(x, eps, noise, scal_t, cond, M, b,
+                      cfg: StepConfig) -> torch.Tensor:
+    """One reverse step on (R, D) row-stacked chains of ``cfg.horizon`` rows:
+    x' = cond at row 0, else [wall revert of] alpha*(xn@M+b)+(1-alpha)*xn with
+    xn the DDPM update from scal_t = (recip, recipm1, c1, c2, sigma, alpha).
+    Returns a new tensor on the CPU (plain version); on CUDA it launches the
+    kernel, updates x in place and returns it."""
+    if x.device.type == "cpu":
+        return ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b, cfg)
+    for t in (x, eps, noise, scal_t, cond, M, b):
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+                              or t.device != x.device):
+            raise ValueError("ddpm_project_step: operands must be contiguous "
+                             "float32 on one device")
+    R, D = x.shape
+    HD = cfg.horizon * D
+    if R % cfg.horizon or eps.shape != x.shape or noise.shape != x.shape \
+            or cond.shape != x.shape or scal_t.numel() < 6 or (
+                M is not None and (M.shape != (HD, HD) or b.numel() != HD)):
+        raise ValueError("ddpm_project_step: shapes do not match")
+    launch_ddpm_project_step(x, eps, noise, scal_t, cond, M, b, cfg)
+    return x
+
+
+ddpm_project_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The chain: one host loop over steps and layer-plan ops
+# ---------------------------------------------------------------------------
+
+class _PlainOps:
+    """The plain version of every kernel (CPU tensors)."""
+
+    def conv(self, xa, xb, w, bias, mode, k, seg):
+        return rows_conv_plain(xa, xb, w, bias, mode, k, seg)
+
+    def gn(self, x, scale, bias, seg, te=None, res=None):
+        R, C = x.shape
+        y = gn_mish_plain(x.reshape(R // seg, seg, C), scale, bias, te=te,
+                          res=None if res is None else res.reshape(
+                              R // seg, seg, C))
+        return y.reshape(R, C)
+
+    def step(self, x, eps, noise, scal_t, cond, M, b, cfg):
+        return ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b, cfg)
+
+
+class _CudaOps:
+    """The kernels, launched on buffers the chain allocates itself, so the
+    per-launch checks of the public wrappers are skipped."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.current_stream(device).cuda_stream
+
+    def conv(self, xa, xb, w, bias, mode, k, seg):
+        out = torch.empty(_conv_out_rows(xa.shape[0], mode), w.shape[1],
+                          dtype=torch.float32, device=xa.device)
+        launch_rows_conv(xa, xb, w, bias, out, mode, k, seg, self.stream)
+        return out
+
+    def gn(self, x, scale, bias, seg, te=None, res=None):
+        out = torch.empty_like(x)
+        launch_gn_mish(x, out, scale, bias, te, 0, res, 8, 1e-5, seg,
+                       self.stream)
+        return out
+
+    def step(self, x, eps, noise, scal_t, cond, M, b, cfg):
+        launch_ddpm_project_step(x, eps, noise, scal_t, cond, M, b, cfg,
+                                 self.stream)
+        return x
+
+
+def _program(unet, flat_w):
+    """Group the flattened weights by layer-plan op."""
+    plan, _ = _layer_plan(unet)
+    it = iter(flat_w)
+
+    def take(n):
+        return tuple(next(it) for _ in range(n))
+
+    prog = []
+    for op in plan:
+        kind = op[0]
+        if kind == "res":
+            _, _, cin, cout = op
+            prog.append(("res", take(4), take(2), take(4),
+                         take(2) if cin != cout else None))
+        elif kind in ("down", "up", "final_conv"):
+            prog.append((kind,) + take(2))
+        elif kind == "res_plain":
+            prog.append((kind, take(4)))
+        else:
+            prog.append((kind,))
+    if next(it, None) is not None:
+        raise ValueError("unconsumed flattened weights")
+    return prog
+
+
+def _unet_eps(ops, prog, x, tes, H: int, k: int):
+    """One U-Net forward on (R, D) stacked chains of H rows
+    (pallas_unet.py:258-331); ``tes``: this step's time-dense row per
+    residual block."""
+    seg, skips, pending, r = H, [], None, 0
+    for op in prog:
+        kind = op[0]
+        if kind == "res":
+            _, (w1, b1, s1, g1), _, (w2, b2, s2, g2), rconv = op
+            h = ops.gn(ops.conv(x, pending, w1, b1, SAME, k, seg), s1, g1, seg,
+                       te=tes[r])
+            r += 1
+            res = x if rconv is None else ops.conv(x, pending, rconv[0],
+                                                   rconv[1], SAME, 1, seg)
+            x = ops.gn(ops.conv(h, None, w2, b2, SAME, k, seg), s2, g2, seg,
+                       res=res)
+            pending = None
+        elif kind == "push_skip":
+            skips.append(x)
+        elif kind == "pop_skip":
+            pending = skips.pop()
+        elif kind == "down":
+            x = ops.conv(x, None, op[1], op[2], DOWN, 3, seg)
+            seg //= 2
+        elif kind == "up":
+            x = ops.conv(x, None, op[1], op[2], UP, 4, seg)
+            seg *= 2
+        elif kind == "res_plain":
+            w, b, s, g = op[1]
+            x = ops.gn(ops.conv(x, None, w, b, SAME, k, seg), s, g, seg)
+        elif kind == "final_conv":
+            x = ops.conv(x, None, op[1], op[2], SAME, 1, seg)
+    return x
+
+
+def run_chain(ops, unet, flat_w, x0, m_embs, step_noise, scal, cond, M, b,
+              cfg: StepConfig):
+    """The chain's host loop on ``ops`` (the kernels, or their plain
+    versions): time-dense rows for all steps, cond on x_T, then per step the
+    U-Net and the projected DDPM update (pallas_planner.py:206-250)."""
+    prog = _program(unet, flat_w)
+    T, H = scal.shape[0], cfg.horizon
+    D = x0.shape[1]
+    # time-dense rows of every residual block for all T steps at once
+    tes = [ops.conv(m_embs, None, op[2][0], op[2][1], SAME, 1, T)
+           for op in prog if op[0] == "res"]
+    x = x0.clone()
+    x.view(-1, H, D)[:, 0] = cond.view(-1, H, D)[:, 0]
+    for i in range(T):
+        eps = _unet_eps(ops, prog, x, [te[i] for te in tes], H, unet.kernel_size)
+        x = ops.step(x, eps, step_noise[i], scal[i], cond, M, b, cfg)
+    return x
+
+
+def make_planner_chain(unet, schedule, horizon: int, n_chains: int,
+                       n_groups: int, *, sampling_timesteps: Optional[int] = None,
+                       clip_denoised: bool = True, predict_epsilon: bool = True,
+                       projection: bool = False, wall_grid=None,
+                       wall_margin: Optional[float] = None, pos_stats=None):
+    """Build ``chain(flat_w, x0, m_embs, step_noise, scal, cond[, M, b]) -> x``
+    running ``n_groups * n_chains`` independent reverse chains
+    (pallas_planner.py:95-302). Operands, with R = n_groups*n_chains*horizon:
+
+      x0 (R, D), m_embs (T, time_dim), step_noise (T, R, D),
+      scal (T, 8) lanes recip, recipm1, c1, c2, sigma, alpha,
+      cond (R, D) (row 0 of each chain used), M (H*D, H*D), b (H*D,).
+
+    The TPU walks groups one after another; here all chains of all groups run
+    together, which gives the same result since chains are independent. The
+    flattened weights' dtype (bf16 or f32) selects the product precision.
+    """
+    from dadiff_tpu_torch.models.diffusion import default_timesteps
+
+    ts = default_timesteps(schedule.n_timesteps, sampling_timesteps)
+    cfg = StepConfig(horizon, clip_denoised, predict_epsilon,
+                     wall_grid if projection else None, wall_margin, pos_stats)
+    H = horizon
+
+    @torch.no_grad()
+    def chain(flat_w, x0, m_embs, step_noise, scal, cond, M=None, b=None):
+        ops = _PlainOps() if x0.device.type == "cpu" else _CudaOps(x0.device)
+        T = scal.shape[0]
+        R, D = x0.shape
+        if R != n_groups * n_chains * H or step_noise.shape != (T, R, D) \
+                or cond.shape != (R, D) or (projection and M is None):
+            raise ValueError("planner chain: operand shapes do not match")
+        if not projection:
+            M = b = None
+        if x0.device.type != "cpu":
+            acts = [t for t in (x0, m_embs, step_noise, scal, cond, M, b)
+                    if t is not None]
+            if any(t.dtype != torch.float32 for t in acts) or any(
+                    w.dtype not in (torch.float32, torch.bfloat16)
+                    for w in flat_w) or any(
+                    not t.is_contiguous() or t.device != x0.device
+                    for t in acts + list(flat_w)):
+                raise ValueError("planner chain: operands must be contiguous "
+                                 "on one device, float32 (weights f32 or bf16)")
+        return run_chain(ops, unet, flat_w, x0, m_embs, step_noise, scal,
+                         cond, M, b, cfg)
+
+    chain.timesteps = ts
+    chain.n_steps = len(ts)
+    return chain
+
+
+# ---------------------------------------------------------------------------
+# Projection operands, best-of-N sampler and policy wiring
+# ---------------------------------------------------------------------------
+
+def build_interleaved_projection(P, stats: NormStats, *, observation_dim: int,
+                                 action_dim: int, state_dim: int, horizon: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Collapse apply_projection (alpha=1, no walls) into one affine map on
+    the flattened normalized trajectory, project(x) == x_flat @ M + b, built
+    from apply_projection itself on the standard basis in float64 and cast
+    to float32 (pallas_planner.py:53-86). M is (H*D, H*D), b (H*D,)."""
+    D = observation_dim + action_dim
+    HD = horizon * D
+    def f64(v):
+        v = v.detach().cpu() if torch.is_tensor(v) else np.asarray(v)
+        return torch.as_tensor(v, dtype=torch.float64)
+
+    P64 = f64(P)
+    st64 = NormStats(*(f64(v) for v in stats))
+
+    def f(x_flat):
+        out = apply_projection(
+            x_flat.reshape(-1, horizon, D), P64, 1.0, st64,
+            observation_dim=observation_dim, action_dim=action_dim,
+            state_dim=state_dim,
+        )
+        return out.reshape(-1, HD)
+
+    b = f(torch.zeros(1, HD, dtype=torch.float64))[0]
+    M = f(torch.eye(HD, dtype=torch.float64)) - b[None, :]
+    return M.to(torch.float32), b.to(torch.float32)
+
+
+def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
+                    stats: Optional[NormStats] = None, n_candidates: int = 8,
+                    group_chains: int = 64,
+                    sampling_timesteps: Optional[int] = None,
+                    weight_dtype=torch.bfloat16):
+    """Best-of-N planner through the planner chain (pallas_planner.py:305):
+    ``plan(generator, conditions) -> (B, H, D)``, the best plan per episode
+    stream by physical-space goal distance. ``plan.prepare()`` computes the
+    flattened weights and per-step operands once; pass its result back as
+    ``prepared``. ``x0``/``step_noise`` inject the randomness (tests)."""
+    from dadiff_tpu_torch.models.diffusion import default_timesteps
+
+    unet = diffusion.model
+    device = diffusion.device
+    H, D = diffusion.horizon, diffusion.transition_dim
+    obs_dim = diffusion.observation_dim
+    use_projection = projection_spec is not None
+
+    M = b = None
+    pos_stats = wall_grid = None
+    if use_projection:
+        if P is None or stats is None:
+            raise ValueError("projection needs P and stats at build time")
+        M, b = build_interleaved_projection(
+            P, stats,
+            observation_dim=obs_dim, action_dim=diffusion.action_dim,
+            state_dim=projection_spec.state_dim, horizon=H,
+        )
+        M, b = M.to(device), b.to(device)
+        if projection_spec.wall_grid is not None:
+            wall_grid = np.asarray(projection_spec.wall_grid)
+            pos_stats = (
+                (float(stats.obs_mean[0]), float(stats.obs_mean[1])),
+                (float(stats.obs_std[0]), float(stats.obs_std[1])),
+            )
+    chains = {}
+
+    def _get_chain(n_chains, n_groups):
+        key = (n_chains, n_groups)
+        if key not in chains:
+            chains[key] = make_planner_chain(
+                unet, diffusion.schedule, H, n_chains, n_groups,
+                sampling_timesteps=sampling_timesteps,
+                clip_denoised=diffusion.clip_denoised,
+                predict_epsilon=diffusion.predict_epsilon,
+                projection=use_projection, wall_grid=wall_grid,
+                wall_margin=projection_spec.wall_margin if use_projection
+                else None,
+                pos_stats=pos_stats,
+            )
+        return chains[key]
+
+    def prepare():
+        schedule = diffusion.schedule
+        ts = default_timesteps(schedule.n_timesteps, sampling_timesteps, device)
+        flat_w, m_embs, scal = prepare_chain_operands(unet, schedule, ts,
+                                                      weight_dtype)
+        if use_projection:
+            scal[:, 5] = projection_alpha(
+                ts, diffusion.n_timesteps, projection_spec.schedule,
+                projection_spec.strength, schedule.betas)
+        return flat_w, m_embs, scal
+
+    def plan(generator, conditions, prepared=None, *, x0=None, step_noise=None):
+        values = torch.as_tensor(np.asarray(conditions[0]), dtype=torch.float32,
+                                 device=device)
+        if values.dim() == 2:
+            values = values[None]
+        B = values.shape[0]
+        C_tot = B * n_candidates
+        Ng = min(group_chains, C_tot)
+        G = -(-C_tot // Ng)
+        C_pad = G * Ng
+        flat_w, m_embs, scal = prepared if prepared is not None else prepare()
+        T = scal.shape[0]
+        if x0 is None:
+            x0 = torch.randn(C_pad * H, D, generator=generator, device=device)
+        if step_noise is None:
+            step_noise = torch.randn(T, C_pad * H, D, generator=generator,
+                                     device=device)
+        cond = torch.cat([values.repeat_interleave(n_candidates, dim=0),
+                          values.new_zeros(C_pad - C_tot, H, D)]
+                         ).reshape(C_pad * H, D)
+        out = _get_chain(Ng, G)(flat_w, x0.to(device).contiguous(), m_embs,
+                                step_noise.to(device).contiguous(), scal, cond,
+                                M, b)
+        plans = out[: C_tot * H].reshape(B, n_candidates, H, D)
+        # physical-space goal distance (pallas_planner.py:427-442)
+        gd = obs_dim - 2
+        if stats is not None:
+            pos_m, pos_s = stats.obs_mean[:2], stats.obs_std[:2]
+            goal_m, goal_s = stats.obs_mean[gd:obs_dim], stats.obs_std[gd:obs_dim]
+        else:
+            pos_m = goal_m = torch.zeros(2, device=device)
+            pos_s = goal_s = torch.ones(2, device=device)
+        final_pos = plans[:, :, -1, 0:2] * pos_s + pos_m
+        goal = values[:, 0, gd:obs_dim] * goal_s + goal_m
+        d = torch.linalg.norm(final_pos - goal[:, None, :], dim=-1)
+        best = torch.argmin(d, dim=1)
+        return plans[torch.arange(B, device=device), best]
+
+    plan.uses_projection = use_projection
+    plan.prepare = prepare
+    return plan
+
+
+def wire_policy_megakernel(policy, *, n_candidates: int):
+    """Route a policy's replans through the planner chain: one chain call per
+    replan wave (all candidates, conditioning, per-step projection), then
+    best-of-N selection; ``policy.n_candidates`` becomes 1
+    (pallas_planner.py:449-494). Weights are bf16 on the card and f32 on the
+    CPU, as the TPU path takes bf16 and its interpret mode f32."""
+    cfg = policy._sampler_config
+    cpu = policy.diffusion.device.type == "cpu"
+    mega = make_bo_sampler(
+        policy.diffusion,
+        projection_spec=cfg["projection"],
+        P=getattr(policy, "_P", None),
+        stats=getattr(policy, "_stats", None),
+        n_candidates=n_candidates,
+        sampling_timesteps=cfg["sampling_timesteps"],
+        weight_dtype=torch.float32 if cpu else torch.bfloat16,
+    )
+    box = {}
+
+    def plan(generator, conditions, P=None, stats_=None):
+        if "prep" not in box:
+            box["prep"] = mega.prepare()
+        return mega(generator, conditions, box["prep"])
+
+    policy._plan = plan
+    policy.n_candidates = 1
+    policy.megakernel = True
+    return policy

@@ -1,0 +1,317 @@
+"""The port's projection, sampler, planner chain (K2's host loop on its plain
+kernels) and best-of-N sampler, held against the JAX package on the CPU.
+
+Small size as tests/test_pallas_planner.py:34-47 (H=8, dim=32, mults (1,2),
+T=6). The JAX planner kernel runs in interpret mode with float32 weights;
+tolerances are that file's own (2e-3 plain, 3e-3 with projection).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from dadiff_tpu.dynamics.projection import ProjectionMatrixBuilder as JaxPMB
+from dadiff_tpu.guides.sampling import ProjectionSpec as JaxSpec
+from dadiff_tpu.guides.sampling import conditions_for_initial_obs as jax_cond
+from dadiff_tpu.models.diffusion import GaussianDiffusion as JaxDiffusion
+from dadiff_tpu.models.temporal_unet import TemporalUnet as JaxUnet
+from dadiff_tpu.ops import pallas_planner as jpp
+from dadiff_tpu.ops import projection as jproj
+from dadiff_tpu.ops.pallas_unet import prepare_chain_operands as jax_prepare
+
+from dadiff_tpu_torch.dynamics.projection import ProjectionMatrixBuilder
+from dadiff_tpu_torch.guides.sampling import (
+    ProjectionSpec,
+    conditions_for_initial_obs,
+    make_sampler,
+)
+from dadiff_tpu_torch.io.torch_compat import params_from_jax
+from dadiff_tpu_torch.models.diffusion import GaussianDiffusion, default_timesteps
+from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
+from dadiff_tpu_torch.ops import projection as proj
+from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
+from dadiff_tpu_torch.ops.planner import (
+    build_interleaved_projection,
+    make_bo_sampler,
+    make_planner_chain,
+    wire_policy_megakernel,
+)
+
+H, OBS, ACT = 8, 6, 2
+D = OBS + ACT
+STATE = 4
+T_STEPS = 6
+GRID = ((1, 1, 1, 1, 1), (1, 0, 0, 0, 1), (1, 0, 1, 0, 1), (1, 0, 0, 0, 1),
+        (1, 1, 1, 1, 1))
+
+
+@pytest.fixture(scope="module")
+def models():
+    jax_unet = JaxUnet(transition_dim=D, dim=32, dim_mults=(1, 2))
+    jax_diff = JaxDiffusion(model=jax_unet, horizon=H, observation_dim=OBS,
+                            action_dim=ACT, n_timesteps=T_STEPS)
+    params = jax.jit(jax_diff.init_params)(jax.random.PRNGKey(0))
+    unet = TemporalUnet(transition_dim=D, dim=32, dim_mults=(1, 2))
+    unet.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                                params)),
+                         strict=True)
+    diff = GaussianDiffusion(unet, horizon=H, observation_dim=OBS,
+                             action_dim=ACT, n_timesteps=T_STEPS).eval()
+    return jax_diff, params, diff
+
+
+@pytest.fixture(scope="module")
+def proj_setup():
+    A = np.eye(STATE) + 0.1 * np.eye(STATE, k=2)
+    B = np.zeros((STATE, ACT))
+    B[2:, :] = 0.1 * np.eye(ACT)
+    P = ProjectionMatrixBuilder(A, B, STATE, ACT).get_projection_matrix(H)
+    np.testing.assert_allclose(P, JaxPMB(A, B, STATE, ACT)
+                               .get_projection_matrix(H), atol=1e-6)
+    rng = np.random.RandomState(3)
+    stats_np = (rng.randn(OBS), 0.5 + rng.rand(OBS), rng.randn(ACT),
+                0.5 + rng.rand(ACT))
+    jstats = jproj.NormStats(*(jnp.asarray(v, jnp.float32) for v in stats_np))
+    stats = proj.NormStats(*(torch.tensor(v, dtype=torch.float32)
+                             for v in stats_np))
+    return P, jstats, stats
+
+
+def _inputs(C, seed):
+    rng = np.random.RandomState(seed)
+    x0 = rng.randn(C, H, D).astype(np.float32)
+    noise = rng.randn(T_STEPS, C, H, D).astype(np.float32)
+    obs = rng.randn(C, OBS).astype(np.float32)
+    return x0, noise, obs
+
+
+@pytest.mark.parametrize("schedule", ["constant", "linear", "quadratic",
+                                      "noise_schedule"])
+@pytest.mark.parametrize("walls", [None, 0.0, 0.1])
+def test_apply_projection_matches_jax(models, proj_setup, schedule, walls):
+    jax_diff, _, diff = models
+    P, jstats, stats = proj_setup
+    ts = np.arange(T_STEPS)
+    a_want = jproj.projection_alpha(jnp.asarray(ts), T_STEPS, schedule, 0.8,
+                                    jax_diff.schedule.betas)
+    a_got = proj.projection_alpha(torch.from_numpy(ts), T_STEPS, schedule, 0.8,
+                                  diff.schedule.betas)
+    np.testing.assert_allclose(a_got.numpy(), np.asarray(a_want), atol=1e-6)
+    x = np.random.RandomState(5).randn(3, H, D).astype(np.float32) * 2
+    kw = dict(observation_dim=OBS, action_dim=ACT, state_dim=STATE)
+    wall = None if walls is None else np.asarray(GRID)
+    want = jproj.apply_projection(
+        jnp.asarray(x), jnp.asarray(P), a_want[2], jstats,
+        wall_grid=None if wall is None else jnp.asarray(wall),
+        wall_margin=walls, **kw)
+    got = proj.apply_projection(
+        torch.from_numpy(x), torch.from_numpy(P), a_got[2], stats,
+        wall_grid=None if wall is None else torch.from_numpy(wall),
+        wall_margin=walls, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_interleaved_projection_matches_jax(proj_setup):
+    P, jstats, stats = proj_setup
+    kw = dict(observation_dim=OBS, action_dim=ACT, state_dim=STATE, horizon=H)
+    M_want, b_want = jpp.build_interleaved_projection(jnp.asarray(P), jstats, **kw)
+    M, b = build_interleaved_projection(P, stats, **kw)
+    assert M.dtype == torch.float32 and M.shape == (H * D, H * D)
+    np.testing.assert_allclose(M.numpy(), M_want, atol=2e-5)
+    np.testing.assert_allclose(b.numpy(), b_want, atol=2e-5)
+    x = torch.from_numpy(np.random.RandomState(1).randn(3, H, D)
+                         .astype(np.float32))
+    for alpha in (1.0, 0.35):
+        want = proj.apply_projection(x, torch.from_numpy(P), alpha, stats,
+                                     observation_dim=OBS, action_dim=ACT,
+                                     state_dim=STATE)
+        flat = x.reshape(3, H * D)
+        got = alpha * (flat @ M + b) + (1 - alpha) * flat
+        np.testing.assert_allclose(got.reshape(3, H, D).numpy(), want.numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_default_timesteps_clamp_and_raise():
+    assert default_timesteps(6).tolist() == [5, 4, 3, 2, 1, 0]
+    assert default_timesteps(6, 3).tolist() == [2, 1, 0]
+    for bad in (0, 7):
+        with pytest.raises(ValueError):
+            default_timesteps(6, bad)
+
+
+def test_p_sample_loop_matches_jax(models):
+    jax_diff, params, diff = models
+    x0, noise, _ = _inputs(2, 21)
+    want = jax_diff.p_sample_loop(params, jax.random.PRNGKey(0), (2, H, D),
+                                  init_noise=jnp.asarray(x0),
+                                  step_noise=jnp.asarray(noise))
+    got = diff.p_sample_loop((2, H, D), init_noise=torch.from_numpy(x0),
+                             step_noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+CASES = {
+    # name: (n_chains, n_groups, projection, wall margin or None, tolerance)
+    "plain": (2, 1, False, None, 2e-3),
+    "projection": (2, 1, True, None, 3e-3),
+    "wall_aware": (2, 1, True, 0.0, 3e-3),
+    "groups": (2, 2, False, None, 2e-3),
+}
+
+
+def _run_port_chain(diff, x0, noise, cond_values, n_chains, n_groups, *,
+                    projection=False, M=None, b=None, spec=None, stats=None):
+    unet, schedule = diff.model, diff.schedule
+    wall = spec.wall_grid if spec is not None else None
+    chain = make_planner_chain(
+        unet, schedule, H, n_chains, n_groups, projection=projection,
+        wall_grid=wall, wall_margin=spec.wall_margin if spec else None,
+        pos_stats=None if wall is None else (
+            (float(stats.obs_mean[0]), float(stats.obs_mean[1])),
+            (float(stats.obs_std[0]), float(stats.obs_std[1]))),
+    )
+    flat_w, m_embs, scal = prepare_chain_operands(unet, schedule, chain.timesteps,
+                                                  torch.float32)
+    if projection:
+        scal[:, 5] = proj.projection_alpha(chain.timesteps, T_STEPS,
+                                           spec.schedule, spec.strength,
+                                           schedule.betas)
+    C = n_chains * n_groups
+    out = chain(flat_w, torch.from_numpy(x0).reshape(C * H, D), m_embs,
+                torch.from_numpy(noise).reshape(T_STEPS, C * H, D), scal,
+                cond_values.reshape(C * H, D), M, b)
+    return out.reshape(C, H, D)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_planner_chain_matches_pallas_kernel(models, proj_setup, case):
+    """The port's chain against make_pallas_planner_chain(interpret=True),
+    and against the port's own DDPM sampler (the chain's plain version)."""
+    n_chains, n_groups, projection, margin, tol = CASES[case]
+    jax_diff, params, diff = models
+    P, jstats, stats = proj_setup
+    C = n_chains * n_groups
+    x0, noise, obs = _inputs(C, 7 + len(case))
+    wall = GRID if margin is not None else None
+    spec = ProjectionSpec(state_dim=STATE, strength=0.8, wall_grid=wall,
+                          wall_margin=margin) if projection else None
+    M = b = jM = jb = None
+    if projection:
+        kw = dict(observation_dim=OBS, action_dim=ACT, state_dim=STATE,
+                  horizon=H)
+        M, b = build_interleaved_projection(P, stats, **kw)
+        jM, jb = jpp.build_interleaved_projection(jnp.asarray(P), jstats, **kw)
+
+    jchain = jpp.make_pallas_planner_chain(
+        jax_diff.model, jax_diff.schedule, H, n_chains, n_groups,
+        projection=projection, wall_grid=None if wall is None else np.asarray(wall),
+        wall_margin=margin,
+        pos_stats=None if wall is None else (
+            (float(jstats.obs_mean[0]), float(jstats.obs_mean[1])),
+            (float(jstats.obs_std[0]), float(jstats.obs_std[1]))),
+        weight_dtype=jnp.float32, interpret=True)
+    fw, me, sc = jax_prepare(jax_diff.model, jax_diff.schedule, params,
+                             jchain.timesteps, weight_dtype=jnp.float32)
+    if projection:
+        sc = sc.at[:, 5].set(jproj.projection_alpha(
+            jchain.timesteps, T_STEPS, "noise_schedule", 0.8,
+            jax_diff.schedule.betas))
+    jcond = jax_cond(jnp.asarray(obs), OBS, H, D)
+    want = np.asarray(jchain(
+        fw, jnp.asarray(x0).reshape(C * H, D), me,
+        jnp.asarray(noise).reshape(T_STEPS, C * H, D), sc,
+        jcond.values.reshape(C * H, D),
+        None if jM is None else jnp.asarray(jM),
+        None if jb is None else jnp.asarray(jb))).reshape(C, H, D)
+
+    cond = conditions_for_initial_obs(torch.from_numpy(obs), OBS, H, D)
+    got = _run_port_chain(diff, x0, noise, cond.values, n_chains, n_groups,
+                          projection=projection, M=M, b=b, spec=spec,
+                          stats=stats)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+    sampler = make_sampler(diff, projection=spec)
+    plain = sampler(None, cond, torch.from_numpy(P), stats,
+                    init_noise=torch.from_numpy(x0),
+                    step_noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(got[:, 0, :OBS].numpy(), obs, atol=1e-6)
+    np.testing.assert_array_equal(got[:, 0, OBS:].numpy(), 0.0)
+
+
+def test_planner_chain_chains_are_independent(models):
+    """Row-stacking must not leak across chain boundaries
+    (test_pallas_planner.py:171-191)."""
+    _, _, diff = models
+    x0, noise, obs = _inputs(3, 11)
+    cond = conditions_for_initial_obs(torch.from_numpy(obs), OBS, H, D).values
+    stacked = _run_port_chain(diff, x0, noise, cond, 3, 1)
+    solo = _run_port_chain(diff, x0[1:2], noise[:, 1:2], cond[1:2], 1, 1)
+    np.testing.assert_allclose(stacked[1].numpy(), solo[0].numpy(), atol=1e-5)
+    other = _run_port_chain(diff, x0[::-1].copy(), noise[:, ::-1].copy(),
+                            cond.flip(0), 3, 1)
+    np.testing.assert_allclose(other[1].numpy(), solo[0].numpy(), atol=1e-5)
+
+
+def test_bo_sampler_matches_pallas_on_injected_noise(models, proj_setup):
+    """Best-of-N selection (pallas_planner.py:427-442) on the noise the JAX
+    sampler draws, injected into the port's sampler."""
+    jax_diff, params, diff = models
+    P, jstats, stats = proj_setup
+    n_cand, group_chains, B = 3, 4, 2   # C_tot=6 -> 2 groups of 4, 2 padded
+    jspec = JaxSpec(state_dim=STATE, schedule="noise_schedule")
+    jplan = jpp.make_pallas_bo_sampler(
+        jax_diff, projection_spec=jspec, P=jnp.asarray(P), stats=jstats,
+        n_candidates=n_cand, group_chains=group_chains,
+        weight_dtype=jnp.float32, interpret=True)
+    obs = np.random.RandomState(5).randn(B, OBS).astype(np.float32)
+    key = jax.random.PRNGKey(6)
+    want = np.asarray(jplan(params, key, jax_cond(jnp.asarray(obs), OBS, H, D)))
+
+    C_pad = 8
+    init_key, noise_key = jax.random.split(key)
+    x0 = np.array(jax.random.normal(init_key, (C_pad * H, D)))
+    noise = np.array(jax.random.normal(noise_key, (T_STEPS, C_pad * H, D)))
+    plan = make_bo_sampler(diff, projection_spec=ProjectionSpec(state_dim=STATE),
+                           P=P, stats=stats, n_candidates=n_cand,
+                           group_chains=group_chains, weight_dtype=torch.float32)
+    cond = conditions_for_initial_obs(torch.from_numpy(obs), OBS, H, D)
+    got = plan(None, cond, x0=torch.from_numpy(x0),
+               step_noise=torch.from_numpy(noise))
+    assert got.shape == (B, H, D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-3, atol=3e-3)
+
+
+def test_wire_policy_megakernel_cpu(models, proj_setup):
+    from dadiff_tpu_torch.guides.policies import DynamicsAwarePolicy
+
+    _, _, diff = models
+    P, _, _ = proj_setup
+
+    class _Norm:
+        obs_mean = np.zeros(OBS, np.float32)
+        obs_std = np.ones(OBS, np.float32)
+        action_mean = np.zeros(ACT, np.float32)
+        action_std = np.ones(ACT, np.float32)
+
+        def normalize_observations(self, x):
+            return np.asarray(x, np.float32)
+
+        def unnormalize_actions(self, x):
+            return np.asarray(x, np.float32)
+
+    policy = DynamicsAwarePolicy(diff, projection_matrix=P, normalizer=_Norm(),
+                                 state_dim=STATE, action_horizon=4,
+                                 n_candidates=4, wall_grid=GRID)
+    wire_policy_megakernel(policy, n_candidates=4)
+    assert policy.n_candidates == 1 and policy.megakernel
+    a = policy.get_action(np.zeros(OBS, np.float32))
+    assert a.shape == (ACT,)
+    np.testing.assert_array_equal(a, 0.0)  # the executed conditioned t=0 row
+    assert len(policy.action_buffer) == 4
+    traj = policy.plan(np.full(OBS, 0.1, np.float32))
+    assert traj.shape == (1, H, D) and np.isfinite(traj).all()
+    np.testing.assert_allclose(traj[0, 0, :OBS], 0.1, atol=1e-6)

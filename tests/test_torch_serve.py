@@ -1,0 +1,140 @@
+"""The port's entry points on the CPU: a ``.pt`` written by the JAX package
+loads through ``load_model`` with ``strict=True``, the serve handler and the
+TCP server answer ping/obs/plan/reset, and importing the port leaves JAX and
+the JAX package out of ``sys.modules``."""
+
+import json
+import pkgutil
+import socket
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from dadiff_tpu.io.torch_compat import save_pt_checkpoint as jax_save_pt
+from dadiff_tpu.models.diffusion import GaussianDiffusion as JaxDiffusion
+from dadiff_tpu.models.temporal_unet import TemporalUnet as JaxUnet
+
+import dadiff_tpu_torch
+from dadiff_tpu_torch.cli import load_model
+from dadiff_tpu_torch.serve import build_server_parser, make_handler, serve
+
+H, OBS, ACT, T_STEPS = 8, 6, 2, 6
+DATASET = "synthetic:pointmaze:n=6,T=40"
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    unet = JaxUnet(transition_dim=OBS + ACT, dim=32, dim_mults=(1, 2))
+    diff = JaxDiffusion(model=unet, horizon=H, observation_dim=OBS,
+                        action_dim=ACT, n_timesteps=T_STEPS)
+    params = jax.jit(diff.init_params)(jax.random.PRNGKey(4))
+    stats = {"obs_mean": [0.1] * OBS, "obs_std": [2.0] * OBS,
+             "action_mean": [0.0] * ACT, "action_std": [0.5] * ACT}
+    path = str(tmp_path_factory.mktemp("ckpt") / "model.pt")
+    jax_save_pt(path, params, diff.schedule, {
+        "horizon": H, "observation_dim": OBS, "action_dim": ACT,
+        "n_timesteps": T_STEPS, "beta_schedule": "cosine",
+        "dim_mults": (1, 2), "normalizer_stats": stats,
+    })
+    return path, diff, params, stats
+
+
+def test_load_model_reads_jax_written_pt(checkpoint):
+    path, jax_diff, params, stats = checkpoint
+    diff, dataset = load_model(path, DATASET, device="cpu")
+    assert (diff.horizon, diff.n_timesteps, diff.model.dim_mults) == (H, T_STEPS, (1, 2))
+    np.testing.assert_allclose(dataset.normalizer.obs_std, stats["obs_std"])
+    np.testing.assert_allclose(diff.betas.numpy(),
+                               np.asarray(jax_diff.schedule.betas), atol=1e-7)
+    x = np.random.RandomState(0).randn(2, H, OBS + ACT).astype(np.float32)
+    t = np.array([1, 4])
+    want = jax.jit(jax_diff.apply)(params, jnp.asarray(x),
+                                   jnp.asarray(t, jnp.int32))
+    with torch.no_grad():
+        got = diff(torch.from_numpy(x), torch.from_numpy(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def _policy(path, extra=()):
+    from dadiff_tpu_torch.cli import build_policy_from_args
+
+    args = build_server_parser().parse_args(
+        ["--checkpoint", path, "--dataset", DATASET, "--device", "cpu",
+         "--policy-type", "dynamics-aware", "--n-candidates", "3",
+         "--action-horizon", "4", *extra])
+    diff, dataset = load_model(path, DATASET, device="cpu")
+    return build_policy_from_args(args, diff, dataset, DATASET,
+                                  min(200, diff.n_timesteps))
+
+
+@pytest.mark.parametrize("extra", [(), ("--megakernel", "--wall-aware")])
+def test_serve_handler_on_cpu(checkpoint, extra):
+    policy = _policy(checkpoint[0], extra)
+    handle = make_handler(policy)
+    pong = handle({"ping": True})
+    assert pong["ok"] and pong["horizon"] == H and pong["action_dim"] == ACT
+    obs = [0.5, -0.5, 0.0, 0.1, 1.0, 1.0]
+    r = handle({"obs": obs, "plan": True})
+    plan = np.asarray(r["plan"])
+    assert plan.shape == (H, OBS + ACT) and np.isfinite(plan).all()
+    normed = policy.normalizer.normalize_observations(np.asarray(obs, np.float32))
+    np.testing.assert_allclose(plan[0, :OBS], normed, atol=1e-6)
+    np.testing.assert_array_equal(plan[0, OBS:], 0.0)
+    assert len(r["action"]) == ACT and r["plan_ms"] >= 0
+    assert len(handle({"obs": obs})["action"]) == ACT
+    assert handle({"reset": True}) == {"ok": True}
+    assert not policy.action_buffer
+    assert "error" in handle({"bogus": 1})
+
+
+def test_serve_tcp_roundtrip(checkpoint):
+    policy = _policy(checkpoint[0], ("--megakernel",))
+    ready = threading.Event()
+    box = {}
+
+    def on_ready(port):
+        box["port"] = port
+        ready.set()
+
+    th = threading.Thread(target=lambda: box.update(
+        n=serve(policy, "127.0.0.1", 0, max_requests=4, ready_cb=on_ready)),
+        daemon=True)
+    th.start()
+    assert ready.wait(30)
+    reqs = [{"ping": True}, {"obs": [0.0] * OBS, "plan": True}, {"nope": 1},
+            {"reset": True}]
+    with socket.create_connection(("127.0.0.1", box["port"]), timeout=60) as s:
+        f = s.makefile("rwb")
+        out = []
+        for req in reqs:
+            f.write((json.dumps(req) + "\n").encode())
+            f.flush()
+            out.append(json.loads(f.readline()))
+    th.join(timeout=30)
+    assert not th.is_alive() and box["n"] == 4
+    assert out[0]["ok"] and len(out[1]["plan"]) == H
+    assert "error" in out[2] and out[3] == {"ok": True}
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports without JAX or the JAX package."""
+    names = [m.name for m in pkgutil.walk_packages(
+        dadiff_tpu_torch.__path__, "dadiff_tpu_torch.")]
+    assert "dadiff_tpu_torch.ops.planner" in names
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dadiff_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
