@@ -3,18 +3,24 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's CUDA kernels from dadiff_tpu_torch/csrc (nvcc, sm_90a)
-   into build/dadiff_tpu_torch/.
-2. Holds every kernel against its plain PyTorch version on the card, at the
-   flagship planner's shapes (8 chains x horizon 32, dim 128, mults 1 2 4,
-   T=100), and times kernel, plain version, a library call where one exists,
-   and the least time the card could take.
-3. Drives the main path: writes a seeded flagship checkpoint (.pt, reference
-   schema), starts ``python -m dadiff_tpu_torch.serve``'s ``main`` with
-   ``--policy-type dynamics-aware --n-candidates 8 --megakernel`` in a
-   thread, sends ping, plan requests and reset over TCP, checks the answers
-   and that the kernels' launch counters rose.
-4. Prints the card, the kernel table as one JSON line, and as the last line
+1. Builds the port's CUDA kernels from dadiff_tpu_torch/csrc (nvcc, sm_90a,
+   one process per source, all started together) into build/dadiff_tpu_torch/.
+2. Drives the training-and-ladder path: ``dadiff_tpu_torch.cli.train_main`` on
+   the committed PointMaze data at the flagship width (horizon 32, dim 128,
+   mults 1 2 4, T=100, batch 32) for a fixed number of steps, GroupNorm+Mish
+   through K1; the loss must be finite and fall. Then
+   ``dadiff_tpu_torch.probe_megakernel`` samples one batch-1 chain from the
+   exported ``.pt`` through every rung: module path, hoisted sampler, fused
+   U-Net (K4 per residual block), the one-launch chain (K3).
+3. Holds every kernel against its plain PyTorch version on the card at the
+   flagship shapes, and times kernel, plain version, a library call where
+   one exists, and the least time the card could take.
+4. Drives the serving path: starts ``dadiff_tpu_torch.serve``'s ``main`` on
+   the trained ``.pt`` with ``--policy-type dynamics-aware --n-candidates 8
+   --megakernel`` in a thread, sends ping, plan requests and reset over TCP,
+   checks the answers. Each path runs with the kernels' launch counters set
+   to 0 just before and read just after.
+5. Prints the card, the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
@@ -39,6 +45,7 @@ N_CAND, HORIZON, DIM, MULTS, T_STEPS = 8, 32, 128, (1, 2, 4), 100
 DATASET = "npz:data/pointmaze_umaze_expert.npz"
 ENV = "PointMaze_UMaze-v3"
 N_PLANS = 4
+BATCH, N_TRAIN_STEPS, LOG_FREQ = 32, 150, 10
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -51,6 +58,7 @@ TOL_CHAIN_F32 = 2e-3  # tests/test_pallas_planner.py's tolerance for the chain
 # in other orders, so an activation near a bf16 rounding boundary can round
 # the other way (2^-8 relative) and 100 steps carry it on
 TOL_CHAIN_BF16 = 5e-2
+TOL_RESBLOCK = 1e-4   # tests/test_pallas_resblock.py's own, f32 throughout
 
 
 def log(msg: str) -> None:
@@ -159,32 +167,299 @@ def bound_ms(flops, nbytes, peak):
 # Phases
 # ---------------------------------------------------------------------------
 
-def write_checkpoint(path: Path):
-    """A flagship planner with seeded random weights, as a reference-schema
-    .pt carrying the dataset's normalization stats."""
-    from dadiff_tpu_torch.datasets.sequence import SequenceDataset
-    from dadiff_tpu_torch.io.torch_compat import save_pt_checkpoint
-    from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
-    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
+def _counters():
+    """Every kernel wrapper's launch count, by the kernel's name."""
+    from dadiff_tpu_torch.ops.chain import launch_chain
+    from dadiff_tpu_torch.ops.gn_mish import gn_mish
+    from dadiff_tpu_torch.ops.planner import ddpm_project_step, rows_conv
+    from dadiff_tpu_torch.ops.resblock import fused_residual_block
 
-    torch.manual_seed(SEED)
-    ds = SequenceDataset(DATASET, horizon=HORIZON)
-    unet = TemporalUnet(transition_dim=ds.transition_dim, dim=DIM,
-                        dim_mults=MULTS)
-    diff = GaussianDiffusion(unet, horizon=HORIZON,
-                             observation_dim=ds.observation_dim,
-                             action_dim=ds.action_dim, n_timesteps=T_STEPS)
-    n_params = sum(p.numel() for p in unet.parameters())
-    path.parent.mkdir(parents=True, exist_ok=True)
-    save_pt_checkpoint(str(path), diff, {
-        "horizon": HORIZON, "observation_dim": ds.observation_dim,
-        "action_dim": ds.action_dim, "n_timesteps": T_STEPS,
-        "beta_schedule": "cosine", "normalizer_name": "LimitsNormalizer",
-        "normalizer_stats": {k: v.tolist() for k, v in
-                             ds.normalizer.as_arrays().items()},
-    })
-    log(f"checkpoint: {path.relative_to(ROOT)} ({n_params} parameters)")
-    return n_params
+    return {"gn_mish": gn_mish, "rows_conv": rows_conv,
+            "ddpm_project_step": ddpm_project_step,
+            "resblock": fused_residual_block, "chain": launch_chain}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def train_phase(root: Path) -> Path:
+    """The train entry point with its real flags at the flagship width, for
+    N_TRAIN_STEPS steps; returns the exported reference-schema ``.pt``."""
+    from dadiff_tpu_torch.cli import train_main
+
+    t0 = time.perf_counter()
+    log_dir = Path(train_main([
+        "--dataset", DATASET, "--horizon", str(HORIZON), "--dim", str(DIM),
+        "--dim-mults", *map(str, MULTS), "--n-timesteps", str(T_STEPS),
+        "--batch-size", str(BATCH), "--n-epochs", "1",
+        "--max-steps", str(N_TRAIN_STEPS), "--warmup-steps", "10",
+        "--log-freq", str(LOG_FREQ), "--eval-freq", "0", "--save-freq", "0",
+        "--seed", str(SEED), "--use-kernel-norm", "--log-dir", str(root)]))
+    took = time.perf_counter() - t0
+    record = json.loads((log_dir / "metrics.jsonl").read_text().splitlines()[-1])
+    series = record["total_series"]
+    require(record["step"] == N_TRAIN_STEPS, f"trained {record['step']} steps")
+    require(len(series) == 1 + N_TRAIN_STEPS // LOG_FREQ
+            and all(v == v and abs(v) < 1e6 for v in series),
+            f"training loss finite: {series}")
+    first, last = sum(series[:3]) / 3, sum(series[-3:]) / 3
+    log(f"train: {N_TRAIN_STEPS} steps of batch {BATCH} in {took:.1f} s "
+        f"(data and set-up included); loss {first:.4f} (first 3 logged) -> "
+        f"{last:.4f} (last 3)")
+    require(last < first, f"training loss fell ({first} -> {last})")
+    ckpt = log_dir / f"checkpoint_step_{N_TRAIN_STEPS}.pt"
+    require(ckpt.is_file(), f"{ckpt} was exported")
+    return ckpt
+
+
+def train_step_phase(ckpt: Path) -> dict:
+    """Times the port's train step (loss, grad, clip, Adam, EMA) on the
+    trained weights at batch BATCH, GroupNorm+Mish through K1 as trained."""
+    from dadiff_tpu_torch.cli import load_model
+    from dadiff_tpu_torch.datasets.sequence import create_dataloader
+    from dadiff_tpu_torch.losses import build_loss, make_generators
+    from dadiff_tpu_torch.models.temporal_unet import Conv1dBlock
+    from dadiff_tpu_torch.utils import training as tt
+
+    out = {}
+    for name, kernel_norm in (("k1_norm", True), ("library_norm", False)):
+        diff, dataset = load_model(str(ckpt), DATASET, device="cuda")
+        diff.train()
+        for m in diff.modules():
+            if isinstance(m, Conv1dBlock):
+                m.use_pallas_norm = kernel_norm
+        loss_fn, names = build_loss(diff)
+        state = tt.TrainState(diff, tt.make_optimizer(diff.parameters()),
+                              tt.EMA(diff).shadow)
+        step = tt.make_train_step(
+            loss_fn, lr_schedule=tt.warmup_cosine_schedule(3e-4, 10, 10000),
+            gradient_clip=4.0)
+        gens = make_generators(len(names), SEED, "cuda")
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
+            create_dataloader(dataset, BATCH, seed=SEED))).items()}
+        ms = cuda_ms(lambda: step(state, batch, gens), 30, warmup=5)
+        out[name] = {"step_ms": ms, "samples_per_s": BATCH / ms * 1e3}
+        log(f"train step ({name}): {ms:.3f} ms, {BATCH / ms * 1e3:.0f} "
+            f"samples/s at batch {BATCH}")
+    return out
+
+
+def ladder_phase(ckpt: Path) -> dict:
+    """The latency ladder's entry point on the trained checkpoint."""
+    from dadiff_tpu_torch import probe_megakernel
+
+    out = probe_megakernel.main(["--checkpoint", str(ckpt), "--repeats", "3"])
+    rungs = out["rungs"]
+    require(all(r["finite"] for r in rungs.values()), "ladder outputs finite")
+    # the plain block and K4 against the module path (cuDNN f32, TF32 off)
+    # over 100 steps: the f32 chain tolerance; bf16 weights: within the
+    # 0.15 the JAX package's own test allows its bf16 chain
+    for name, tol in (("hoisted", TOL_CHAIN_F32), ("hoisted_fused", TOL_CHAIN_F32),
+                      ("chain_f32", TOL_CHAIN_F32), ("chain_bf16", 0.15)):
+        require(rungs[name]["max_abs_diff"] <= tol,
+                f"ladder rung {name} vs module path "
+                f"{rungs[name]['max_abs_diff']} > {tol}")
+    return out
+
+
+def resblock_phase(unet) -> dict:
+    """K4 against its plain version at the 12 residual blocks of the
+    flagship, B=1 and B=8, on the trained weights; its gradient; then times
+    of the 12 launches of one batch-1 denoise step."""
+    import torch.nn.functional as F
+    from dadiff_tpu_torch.models.fused_unet import fused_block_params
+    from dadiff_tpu_torch.ops.resblock import (
+        fused_residual_block, residual_block_plain,
+    )
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    blocks = [{k: v.detach() for k, v in bp.items()}
+              for bp in fused_block_params(unet)]
+    require(len(blocks) == 12, "the flagship has 12 residual blocks")
+    L = len(unet.dim_mults)   # rows per block: down levels, mid, up levels
+    rows = ([HORIZON >> i for i in range(L) for _ in range(2)]
+            + [HORIZON >> (L - 1)] * 2
+            + [HORIZON >> (L - 1 - j) for j in range(L - 1) for _ in range(2)])
+    err, bufs, bnd = 0.0, [], 0.0
+    for B in (1, 8):
+        for H, bp in zip(rows, blocks):
+            k, cin, cout = bp["w1"].shape
+            x = torch.randn(B, H, cin, device=dev, generator=g)
+            te = torch.randn(B, cout, device=dev, generator=g)
+            e = (fused_residual_block(x, te, bp)
+                 - residual_block_plain(x, te, bp)).abs().max().item()
+            log(f"K4 resblock B={B} H={H} {cin}->{cout} "
+                f"res={'wr' in bp}: max|err| {e:.3e}")
+            err = max(err, e)
+            if B == 1:
+                n_w = sum(v.numel() for v in bp.values())
+                flops = 2.0 * B * H * (n_w - (6 + ("wr" in bp)) * cout)
+                nbytes = 4 * (B * H * cin + B * cout + n_w + B * H * cout)
+                bnd += bound_ms(flops, nbytes, F32_FLOPS)[0]
+                bufs.append((x, te, bp))
+    require(err <= TOL_RESBLOCK, f"resblock vs plain {err} > {TOL_RESBLOCK}")
+    torch.cuda.synchronize()
+
+    # gradient: the plain version's, through the autograd.Function
+    x, te, bp = bufs[2]
+    gy = torch.randn(1, x.shape[1], bp["w1"].shape[2], device=dev, generator=g)
+    grads = []
+    for fn in (fused_residual_block, residual_block_plain):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in bp.items()}
+        xx, tt = x.clone().requires_grad_(True), te.clone().requires_grad_(True)
+        fn(xx, tt, leaves).backward(gy)
+        grads.append([xx.grad, tt.grad] + [leaves[k].grad for k in bp])
+    e = max((a - b).abs().max().item() for a, b in zip(*grads))
+    log(f"K4 resblock backward vs plain autograd: max|err| {e:.3e}")
+    require(e <= 1e-4, f"resblock backward {e}")
+
+    def library(x, te, bp):
+        """One ResidualTemporalBlock from PyTorch's own calls (cuDNN convs,
+        F.group_norm, F.mish), channels-first."""
+        def conv(h, w, b):
+            return F.conv1d(h, w.permute(2, 1, 0), b, padding=w.shape[0] // 2)
+
+        xc = x.transpose(1, 2)
+        h = F.mish(F.group_norm(conv(xc, bp["w1"], bp["b1"]), 8, bp["s1"],
+                                bp["g1"], 1e-5)) + te[:, :, None]
+        h = F.mish(F.group_norm(conv(h, bp["w2"], bp["b2"]), 8, bp["s2"],
+                                bp["g2"], 1e-5))
+        res = (F.conv1d(xc, bp["wr"].t()[:, :, None], bp["br"])
+               if "wr" in bp else xc)
+        return (h + res).transpose(1, 2)
+
+    e = max((library(*b) - residual_block_plain(*b)).abs().max().item()
+            for b in bufs)
+    require(e <= TOL_RESBLOCK, f"library residual block vs plain {e}")
+
+    def k4():
+        return [fused_residual_block(*b) for b in bufs]
+
+    per_launch = [cuda_ms(lambda b=b: fused_residual_block(*b), 20) for b in bufs]
+    log("K4 ms per launch, B=1, blocks in forward order: "
+        + " ".join(f"{t:.4f}" for t in per_launch))
+    return dict(
+        max_abs_err=err, ms=graph_ms(k4, 10), host_ms=cuda_ms(k4, 10),
+        plain_ms=graph_ms(lambda: [residual_block_plain(*b) for b in bufs], 10),
+        library_ms=graph_ms(lambda: [library(*b) for b in bufs], 10),
+        bound_ms=bnd, bound_by="bytes", per="batch-1 denoise step",
+        launches_per_step=len(bufs), ms_per_launch=per_launch)
+
+
+def one_chain_phase(diff) -> dict:
+    """K3 against the plain chain on the card: f32 and bf16 weights, with and
+    without row-0 conditioning; one launch per chain; ms per chain, per step
+    and per grid barrier; the bounds; the same chain through K2's host loop."""
+    from dadiff_tpu_torch.ops import chain as ch
+    from dadiff_tpu_torch.ops import cuda_lib
+    from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
+    from dadiff_tpu_torch.ops.planner import make_planner_chain
+
+    dev = diff.device
+    unet, H, D = diff.model, diff.horizon, diff.transition_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x0 = torch.randn(H, D, device=dev, generator=g)
+    noise = torch.randn(T_STEPS, H, D, device=dev, generator=g)
+    cond = torch.zeros(H, D, device=dev)
+    cond[0, :diff.observation_dim] = torch.randn(diff.observation_dim,
+                                                 device=dev, generator=g) * 0.5
+    ts = torch.arange(T_STEPS - 1, -1, -1, device=dev)
+    errs, launches = {}, {}
+    for wd, tol in ((torch.float32, TOL_CHAIN_F32),
+                    (torch.bfloat16, TOL_CHAIN_BF16)):
+        fw, me, sc = prepare_chain_operands(unet, diff.schedule, ts, wd)
+        for c in (None, cond):
+            chain = ch.make_chain(unet, diff.schedule, H,
+                                  clip_denoised=diff.clip_denoised,
+                                  predict_epsilon=diff.predict_epsilon,
+                                  condition_row0=c is not None)
+            want = ch.chain_plain(unet, fw, x0, me, noise, sc, c, chain.config)
+            ch.launch_chain.launches = 0
+            got = chain(fw, x0, me, noise, sc, c)
+            torch.cuda.synchronize()
+            require(ch.launch_chain.launches == 1,
+                    f"one launch per chain ({ch.launch_chain.launches})")
+            launch = chain.bind(fw, x0, me, noise, sc, c)
+            again = launch().clone()
+            require(torch.equal(got, again) and torch.equal(again, launch()),
+                    "the chain repeats bit for bit")
+            e = (got - want).abs().max().item()
+            name = f"{str(wd)[6:]}{'_cond' if c is not None else ''}"
+            log(f"K3 chain {name} vs plain chain (T={T_STEPS}): max|err| "
+                f"{e:.3e} (tolerance {tol})")
+            require(e <= tol and bool(torch.isfinite(got).all()),
+                    f"K3 chain {name} vs plain")
+            if c is not None:
+                require(bool((got[0] == c[0]).all()), "K3 row 0 conditioned")
+            errs[name] = e
+            launches[name] = launch
+    bf16, f32 = launches["bfloat16"], launches["float32"]
+    fw, me, sc = prepare_chain_operands(unet, diff.schedule, ts, torch.bfloat16)
+    chain = ch.make_chain(unet, diff.schedule, H)
+    plain_ms = cuda_ms(lambda: ch.chain_plain(unet, fw, x0, me, noise, sc, None,
+                                              chain.config), 2, warmup=1)
+    ms = cuda_ms(bf16, 5, warmup=1)
+    ms_f32 = cuda_ms(f32, 5, warmup=1)
+    call_ms = cuda_ms(lambda: chain(fw, x0, me, noise, sc), 5, warmup=1)
+
+    lib, n_sync = cuda_lib.lib("chain"), 6000
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def probe():
+        cuda_lib.check(lib.grid_sync_probe(n_sync, bf16.grid, stream),
+                       "grid_sync_probe")
+
+    sync_us = cuda_ms(probe, 3, warmup=1) / n_sync * 1e3
+    # where block 0 spends a chain: clock cycles by kind of op and at barriers
+    prof = torch.zeros(len(ch.PROFILE_SLOTS), dtype=torch.int64, device=dev)
+    bf16(prof)
+    cycles = dict(zip(ch.PROFILE_SLOTS, prof.tolist()))
+    share = {k: v / max(sum(cycles.values()), 1) for k, v in cycles.items()}
+    log("K3 chain, share of block 0's cycles: "
+        + " ".join(f"{k} {v:.3f}" for k, v in share.items()))
+
+    # the same chain through K2's host loop, one chain, no projection
+    k2 = make_planner_chain(unet, diff.schedule, H, 1, 1,
+                            clip_denoised=diff.clip_denoised,
+                            predict_epsilon=diff.predict_epsilon)
+    x0r, nr = x0.reshape(H, D), noise.reshape(T_STEPS, H, D)
+    e = (k2(fw, x0r, me, nr, sc, cond) - launches["bfloat16_cond"]()
+         ).abs().max().item()
+    require(e <= TOL_CHAIN_BF16, f"K3 vs K2's host loop at N=1: {e}")
+    k2_ms = cuda_ms(lambda: k2(fw, x0r, me, nr, sc, cond), 3, warmup=1)
+
+    # bounds from the shapes: products of T U-Net forwards at batch 1 (and
+    # the hoisted time-dense rows), each weight read once
+    calls, _, _ = step_launches(unet, H, D)
+    flops = sum(conv_cost(*c[1:7], 2)[0] for c in calls if c[0] == "conv")
+    flops_step = flops
+    from dadiff_tpu_torch.ops.planner import _program
+
+    flops = flops * T_STEPS + sum(
+        2.0 * T_STEPS * op[2][0].shape[0] * op[2][0].shape[1]
+        for op in _program(unet, fw) if op[0] == "res")
+    w_bytes = sum(t.numel() * t.element_size() for t in fw)
+    nbytes = w_bytes + 4 * H * D * (T_STEPS + 2) + 4 * T_STEPS * (
+        8 + me.shape[1])
+    b_ms, b_by = bound_ms(flops, nbytes, BF16_FLOPS)
+    return dict(
+        max_abs_err=errs["float32"], errs=errs, ms=ms, ms_f32=ms_f32,
+        call_ms=call_ms, host_ms=call_ms, ms_per_step=ms / T_STEPS,
+        plain_ms=plain_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, per="batch-1 chain",
+        flops_per_step=flops_step, flops_per_chain=flops, weight_bytes=w_bytes,
+        reread_weights_ms=T_STEPS * w_bytes / HBM_BPS * 1e3,
+        grid=bf16.grid, grid_syncs=bf16.syncs, sync_us=sync_us,
+        syncs_ms=bf16.syncs * sync_us * 1e-3, ops=bf16.n_ops,
+        cycle_share=share,
+        k2_host_loop_ms=k2_ms)
 
 
 def kernel_phase(unet, rows, D):
@@ -481,8 +756,6 @@ def main_path(ckpt: Path, obs_rows):
     """The serving entry point with its real flags, driven over TCP."""
     import numpy as np
     from dadiff_tpu_torch import serve
-    from dadiff_tpu_torch.ops.gn_mish import gn_mish
-    from dadiff_tpu_torch.ops.planner import ddpm_project_step, rows_conv
 
     port = free_port()
     n_requests = 1 + N_PLANS + 1 + 1
@@ -490,8 +763,7 @@ def main_path(ckpt: Path, obs_rows):
             "--policy-type", "dynamics-aware", "--n-candidates", str(N_CAND),
             "--megakernel", "--port", str(port),
             "--max-requests", str(n_requests)]
-    for fn in (gn_mish, rows_conv, ddpm_project_step):
-        fn.launches = 0
+    reset_counts()
     failure = []
 
     def run():
@@ -536,8 +808,7 @@ def main_path(ckpt: Path, obs_rows):
         r_reset = ask({"reset": True})
     th.join(timeout=120)
     require(not th.is_alive() and not failure, f"server did not stop {failure}")
-    counts = {fn.__name__: fn.launches for fn in (gn_mish, rows_conv,
-                                                  ddpm_project_step)}
+    counts = read_counts()
     require(len(r_act["action"]) == 2 and r_reset == {"ok": True},
             "action / reset responses")
 
@@ -561,9 +832,10 @@ def main_path(ckpt: Path, obs_rows):
         plan_ms.append(r["plan_ms"])
         log(f"main path: plan_ms {r['plan_ms']} device wave {wave_ms:.3f} ms "
             f"(CUDA events) row0 err {row_err:.1e}")
-    for name, n in counts.items():
-        require(n > 0, f"{name} was not launched on the main path")
-    log(f"main path launches: {counts}")
+    for name in ("gn_mish", "rows_conv", "ddpm_project_step"):
+        require(counts[name] > 0,
+                f"{name} was not launched on the serving path")
+    log(f"serving path launches: {counts}")
     return counts, plan_ms, [w for _, _, w in out]
 
 
@@ -596,44 +868,70 @@ def main() -> int:
     log(f"build: {json.dumps({k: round(v, 2) for k, v in took.items()})} "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    ckpt = ROOT / "build" / "dadiff_tpu_torch" / "smoke" / "flagship.pt"
-    n_params = write_checkpoint(ckpt)
+    # -- the training path: train, export the .pt, run the ladder on it
+    reset_counts()
+    ckpt = train_phase(ROOT / "build" / "dadiff_tpu_torch" / "smoke")
+    ladder = ladder_phase(ckpt)
+    train_counts = read_counts()
+    log(f"train + ladder launches: {train_counts}")
+    for name in ("gn_mish", "resblock", "chain"):
+        require(train_counts[name] > 0,
+                f"{name} was not launched on the train-and-ladder path")
+    log(f"ladder: {json.dumps(ladder)}")
+    train = train_step_phase(ckpt)
+
     args = build_server_parser().parse_args(
         ["--checkpoint", str(ckpt), "--env", ENV, "--dataset", DATASET,
          "--policy-type", "dynamics-aware", "--n-candidates", str(N_CAND)])
     diff, dataset = load_model(str(ckpt), DATASET, device="cuda")
+    n_params = sum(p.numel() for p in diff.model.parameters())
     policy = build_policy_from_args(args, diff, dataset, DATASET, T_STEPS)
 
+    # -- every kernel against its plain version, and its times
     kern = kernel_phase(diff.model, N_CAND * HORIZON, diff.transition_dim)
     log(f"kernels per step: {json.dumps(kern)}")
+    kern["resblock"] = resblock_phase(diff.model)
+    log(f"resblock: {json.dumps(kern['resblock'])}")
+    kern["chain"] = one_chain_phase(diff)
+    log(f"one-launch chain: {json.dumps(kern['chain'])}")
     chain = chain_phase(policy)
-    log(f"chain: {json.dumps(chain)}")
+    log(f"planner chain: {json.dumps(chain)}")
 
+    # -- the serving path: the server on the trained checkpoint
     eps = load_episodes(DATASET)
     obs_rows = [np.asarray(eps[i]["observations"][0], np.float32)
                 for i in range(0, 4 * N_PLANS, 4)]
     counts, plan_ms, wave_ms = main_path(ckpt, obs_rows)
-    log(f"main path: plan_ms {plan_ms}; device ms per bo8 wave {wave_ms}")
+    log(f"serving path: plan_ms {plan_ms}; device ms per bo8 wave {wave_ms}")
 
-    src = {"gn_mish": "dadiff_tpu_torch/csrc/gn_mish.cu",
-           "rows_conv": "dadiff_tpu_torch/csrc/planner.cu",
-           "ddpm_project_step": "dadiff_tpu_torch/csrc/planner.cu"}
+    csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
-    replaces = {"gn_mish": f"{ref}/ops/pallas_kernels.py:84",
-                "rows_conv": f"{ref}/ops/pallas_planner.py:95",
-                "ddpm_project_step": f"{ref}/ops/pallas_planner.py:95"}
+    table = {  # name: (source, TPU kernel replaced, launches on its path)
+        "gn_mish": (f"{csrc}/gn_mish.cu", f"{ref}/ops/pallas_kernels.py:84",
+                    counts["gn_mish"]),
+        "rows_conv": (f"{csrc}/planner.cu", f"{ref}/ops/pallas_planner.py:95",
+                      counts["rows_conv"]),
+        "ddpm_project_step": (f"{csrc}/planner.cu",
+                              f"{ref}/ops/pallas_planner.py:95",
+                              counts["ddpm_project_step"]),
+        "chain": (f"{csrc}/chain.cu", f"{ref}/ops/pallas_unet.py:334",
+                  train_counts["chain"]),
+        "resblock": (f"{csrc}/resblock.cu", f"{ref}/ops/pallas_resblock.py:132",
+                     train_counts["resblock"]),
+    }
     kernels = []
-    for name in ("gn_mish", "rows_conv", "ddpm_project_step"):
+    for name, (source, replaces, launches) in table.items():
         r = kern[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src[name],
-            "replaces": replaces[name], "launches": counts[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "per": r["per"], "launches_per_step": r["launches_per_step"],
-            "host_ms": r["host_ms"],
+            "per": r["per"], "launches_per_step": r.get("launches_per_step"),
+            "host_ms": r.get("host_ms"),
         })
+    kernels[0]["launches_train_and_ladder"] = train_counts["gn_mish"]
     kernels.append({
         "name": "planner_chain", "route": "cuda",
         "source": "dadiff_tpu_torch/ops/planner.py",
@@ -645,7 +943,9 @@ def main() -> int:
         "launches_per_wave": chain["launches_per_wave"],
         "graph_ms": chain["graph_ms"], "plain_graph_ms": chain["plain_graph_ms"],
     })
-    log(f"flagship: {n_params} parameters; total {time.perf_counter() - t_start:.1f} s")
+    log(f"train step: {json.dumps(train)}")
+    log(f"flagship: {n_params} parameters; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

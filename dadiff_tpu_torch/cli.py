@@ -1,7 +1,10 @@
-"""Command-line pieces of the planning path: flags, model loading, policy
-construction.
+"""Command-line pieces: training, and the planning path's flags, model
+loading and policy construction.
 
-Counterpart of the JAX package's cli.py: build_eval_parser :695 (the flags this
+Counterpart of the JAX package's cli.py: build_train_parser :57 and train_main
+:147 (the U-Net family and the flagship flags, fine-tune and resume
+included; ``--model-type transformer``, ``--mesh-dp``, ``--config`` and
+``--dtype`` are not ported), build_eval_parser :695 (the flags the planning
 path uses), maze_grid_for_env :810, _apply_stored_normalizer :821,
 load_model :854 (the ``.pt`` branch; orbax is JAX-only) and
 build_policy_from_args :992 (the dynamics-aware branch and ``--megakernel``).
@@ -11,6 +14,8 @@ Everything runs on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -21,6 +26,218 @@ ENV_TO_DATASET = {
     "PointMaze_Medium-v3": "npz:data/pointmaze_medium_expert.npz",
     "PointMaze_Large-v3": "npz:data/pointmaze_large_expert.npz",
 }
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train/Fine-tune a diffusion planner", allow_abbrev=False)
+    # Dataset
+    p.add_argument("--dataset", type=str, default="synthetic:pointmaze",
+                   help="dataset spec: synthetic:* | npz:*")
+    p.add_argument("--horizon", type=int, default=16)
+    p.add_argument("--normalizer", type=str, default="LimitsNormalizer",
+                   choices=["LimitsNormalizer", "GaussianNormalizer"])
+    p.add_argument("--max-path-length", type=int, default=1000)
+    # Model
+    p.add_argument("--dim", type=int, default=128)
+    p.add_argument("--dim-mults", type=int, nargs="+", default=[1, 2, 4])
+    p.add_argument("--kernel-size", type=int, default=5)
+    p.add_argument("--n-timesteps", type=int, default=200)
+    p.add_argument("--beta-schedule", type=str, default="cosine",
+                   choices=["linear", "cosine"])
+    p.add_argument("--loss-type", type=str, default="l2", choices=["l1", "l2"])
+    p.add_argument("--predict-epsilon", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="model predicts noise (default) vs x0 directly")
+    p.add_argument("--prediction", type=str, default=None,
+                   choices=["epsilon", "x0", "v"],
+                   help="explicit parameterization; overrides "
+                        "--predict-epsilon when given")
+    p.add_argument("--clip-denoised", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--use-kernel-norm", action="store_true",
+                   help="every GroupNorm+Mish of the U-Net through the K1 "
+                        "CUDA kernel (its gradient is the plain version's)")
+    # Training
+    p.add_argument("--n-epochs", type=int, default=100)
+    p.add_argument("--max-steps", type=int, default=None,
+                   help="stop after this many steps, whatever the epoch")
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--warmup-steps", type=int, default=2000)
+    p.add_argument("--gradient-clip", type=float, default=4.0)
+    # Fine-tuning
+    p.add_argument("--checkpoint", type=str, default=None)
+    p.add_argument("--reset-optimizer", action="store_true")
+    p.add_argument("--finetune-mode", action="store_true")
+    # Loss composition and dynamics
+    p.add_argument("--projection-weight", type=float, default=0.0)
+    p.add_argument("--env", type=str, default="PointMaze_UMaze-v3")
+    p.add_argument("--dynamics-method", type=str, default="data-driven",
+                   choices=["data-driven", "none"])
+    # EMA
+    p.add_argument("--use-ema", action=argparse.BooleanOptionalAction,
+                   default=True, help="EMA shadow params (--no-use-ema off)")
+    p.add_argument("--ema-decay", type=float, default=0.995)
+    # Logging
+    p.add_argument("--log-dir", type=str, default="./logs")
+    p.add_argument("--save-freq", type=int, default=10000)
+    p.add_argument("--eval-freq", type=int, default=5000)
+    p.add_argument("--log-freq", type=int, default=50)
+    p.add_argument("--run-name", type=str, default=None)
+    # System
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--num-workers", type=int, default=0)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--no-export-pt", action="store_true",
+                   help="skip reference-schema .pt checkpoint export")
+    p.add_argument("--resume", action="store_true",
+                   help="auto-resume from the latest checkpoint in the log dir")
+    p.add_argument("--skip-nonfinite", action="store_true",
+                   help="skip updates from batches with non-finite gradients")
+    return p
+
+
+def train_main(argv=None) -> str:
+    """Train or fine-tune a U-Net planner; returns the log directory, which
+    holds the train states, the reference-schema ``.pt`` exports,
+    ``metrics.jsonl`` and the configs (cli.py:147-350)."""
+    from dadiff_tpu_torch.datasets.sequence import (
+        SequenceDataset,
+        create_dataloader,
+    )
+    from dadiff_tpu_torch.losses import build_loss
+    from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
+    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
+    from dadiff_tpu_torch.utils.training import (
+        Trainer,
+        count_parameters,
+        save_config,
+    )
+
+    args = build_train_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    torch.manual_seed(args.seed)
+    np.random.seed(args.seed)
+
+    mode = "Fine-tuning" if args.checkpoint else "Training"
+    print(f"=== {mode}: dataset={args.dataset} horizon={args.horizon} "
+          f"device={device} ===")
+    safe_ds = args.dataset.replace("/", "_").replace(":", "_")
+    log_dir = Path(args.log_dir) / safe_ds
+    if args.run_name:
+        log_dir = log_dir / args.run_name
+    log_dir.mkdir(parents=True, exist_ok=True)
+    save_config(vars(args), str(log_dir / "config.json"))
+
+    # fine-tune / resume from a .pt: the architecture comes from the weights
+    checkpoint = None
+    if args.checkpoint:
+        from dadiff_tpu_torch.io.torch_compat import (
+            infer_model_config_from_checkpoint,
+            load_pt_checkpoint,
+        )
+
+        checkpoint = load_pt_checkpoint(args.checkpoint)
+        inferred = infer_model_config_from_checkpoint(checkpoint)
+        args.dim, args.dim_mults = inferred["dim"], inferred["dim_mults"]
+        args.n_timesteps = inferred["n_timesteps"]
+        args.beta_schedule = inferred["beta_schedule"]
+        args.horizon = inferred["horizon"]
+        print(f"checkpoint config inferred: dim={args.dim} "
+              f"mults={args.dim_mults} T={args.n_timesteps} "
+              f"horizon={args.horizon}")
+
+    dataset = SequenceDataset(
+        dataset_name=args.dataset, horizon=args.horizon,
+        normalizer=args.normalizer, max_path_length=args.max_path_length)
+    loader = create_dataloader(dataset, batch_size=args.batch_size,
+                               shuffle=True, num_workers=args.num_workers,
+                               seed=args.seed)
+    print(f"dataset: {len(dataset)} windows, obs={dataset.observation_dim} "
+          f"act={dataset.action_dim}")
+    if checkpoint is not None:
+        # the pretrained weights expect the ORIGINAL dataset's scaling
+        _apply_stored_normalizer(dataset, checkpoint.get("config", {}))
+
+    unet = TemporalUnet(
+        transition_dim=dataset.transition_dim, dim=args.dim,
+        dim_mults=tuple(args.dim_mults), kernel_size=args.kernel_size,
+        use_pallas_norm=args.use_kernel_norm)
+    diffusion = GaussianDiffusion(
+        unet, horizon=args.horizon, observation_dim=dataset.observation_dim,
+        action_dim=dataset.action_dim, n_timesteps=args.n_timesteps,
+        beta_schedule=args.beta_schedule, loss_type=args.loss_type,
+        predict_epsilon=args.predict_epsilon,
+        clip_denoised=args.clip_denoised, prediction=args.prediction)
+    if checkpoint is not None:
+        diffusion.load_state_dict(checkpoint["model_state_dict"], strict=True)
+    diffusion.to(device)
+
+    projection_matrix, state_dim = None, None
+    if args.projection_weight > 0 and args.dynamics_method != "none":
+        from dadiff_tpu_torch.datasets.sources import load_episodes
+        from dadiff_tpu_torch.dynamics.projection import ProjectionMatrixBuilder
+        from dadiff_tpu_torch.dynamics.registry import get_dynamics_for_env
+
+        A, B, state_dim, act_dim = get_dynamics_for_env(
+            args.env, episodes=load_episodes(args.dataset))
+        projection_matrix = ProjectionMatrixBuilder(
+            A, B, state_dim, act_dim).get_projection_matrix(args.horizon)
+        print(f"projection loss enabled: state_dim={state_dim} "
+              f"P{projection_matrix.shape}")
+    loss_fn, loss_names = build_loss(
+        diffusion, projection_weight=args.projection_weight,
+        projection_matrix=projection_matrix, normalizer=dataset.normalizer,
+        state_dim=state_dim)
+
+    lr = args.lr
+    if args.finetune_mode and not args.reset_optimizer:
+        lr = args.lr * 0.1
+        print(f"fine-tune mode: lr -> {lr}")
+    # held-out probe batch from the tail of the window index
+    val_batch = None
+    if args.eval_freq and len(dataset) > 512:
+        val_batch = dataset.get_batch(
+            np.arange(len(dataset) - 256, len(dataset)))
+
+    trainer = Trainer(
+        diffusion, loader, loss_fn, lr=lr,
+        warmup_steps=args.warmup_steps
+        if (args.reset_optimizer or not args.checkpoint) else 0,
+        total_steps=args.n_epochs * len(loader),
+        gradient_clip=args.gradient_clip, use_ema=args.use_ema,
+        ema_decay=args.ema_decay, log_dir=str(log_dir),
+        save_freq=args.save_freq, eval_freq=args.eval_freq,
+        log_freq=args.log_freq, loss_names=loss_names, seed=args.seed,
+        export_pt=not args.no_export_pt, skip_nonfinite=args.skip_nonfinite,
+        val_batch=val_batch, normalizer=dataset.normalizer)
+    print(f"model parameters: {count_parameters(diffusion.model):,}")
+
+    start_epoch = 0
+    if checkpoint is not None and not args.reset_optimizer:
+        start_epoch = int(checkpoint.get("epoch", 0))
+    if args.resume:
+        resumed_epoch = trainer.load_latest()
+        if resumed_epoch is not None:
+            start_epoch = resumed_epoch
+            print(f"auto-resumed at step {trainer.global_step} "
+                  f"(epoch {start_epoch})")
+    try:
+        trainer.train(args.n_epochs, start_epoch=start_epoch,
+                      max_steps=args.max_steps)
+    finally:
+        trainer.close()
+
+    final_config = {
+        **trainer._config_dict(), "projection_weight": args.projection_weight,
+        "loss_components": loss_names, "normalizer": args.normalizer,
+        "dataset": args.dataset,
+    }
+    with open(log_dir / "final_config.json", "w") as f:
+        json.dump(final_config, f, indent=2)
+    print(f"{mode} complete. Logs: {log_dir}")
+    return str(log_dir)
 
 
 def build_eval_parser() -> argparse.ArgumentParser:
@@ -98,32 +315,47 @@ def load_model(checkpoint_path: str, dataset_spec: str, horizon_hint=None,
         infer_model_config_from_checkpoint,
         load_pt_checkpoint,
     )
+
+    checkpoint = load_pt_checkpoint(checkpoint_path)
+    horizon = horizon_hint or infer_model_config_from_checkpoint(
+        checkpoint)["horizon"]
+    dataset = SequenceDataset(dataset_name=dataset_spec, horizon=horizon,
+                              normalizer="LimitsNormalizer",
+                              max_path_length=1000, use_padding=True)
+    _apply_stored_normalizer(dataset, checkpoint.get("config", {}) or {})
+    diffusion = diffusion_from_checkpoint(
+        checkpoint, dataset.observation_dim, dataset.action_dim, horizon)
+    return diffusion.to(device).eval(), dataset
+
+
+def diffusion_from_checkpoint(checkpoint: dict, observation_dim: int,
+                              action_dim: int, horizon: int):
+    """Rebuild the GaussianDiffusion of a loaded reference-schema checkpoint
+    from its weight shapes and stored flags, and load it with
+    ``strict=True`` (on the CPU)."""
+    from dadiff_tpu_torch.io.torch_compat import (
+        infer_model_config_from_checkpoint,
+    )
     from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
     from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
 
-    checkpoint = load_pt_checkpoint(checkpoint_path)
     cfg = infer_model_config_from_checkpoint(checkpoint)
     saved = checkpoint.get("config", {}) or {}
     for key in ("predict_epsilon", "clip_denoised", "prediction"):
         if key in saved:
             cfg[key] = saved[key]
-    horizon = horizon_hint or cfg["horizon"]
-    dataset = SequenceDataset(dataset_name=dataset_spec, horizon=horizon,
-                              normalizer="LimitsNormalizer",
-                              max_path_length=1000, use_padding=True)
-    _apply_stored_normalizer(dataset, saved)
-    unet = TemporalUnet(transition_dim=dataset.transition_dim, dim=cfg["dim"],
-                        dim_mults=tuple(cfg["dim_mults"]))
+    unet = TemporalUnet(transition_dim=observation_dim + action_dim,
+                        dim=cfg["dim"], dim_mults=tuple(cfg["dim_mults"]))
     diffusion = GaussianDiffusion(
-        unet, horizon=horizon, observation_dim=dataset.observation_dim,
-        action_dim=dataset.action_dim, n_timesteps=cfg["n_timesteps"],
+        unet, horizon=horizon, observation_dim=observation_dim,
+        action_dim=action_dim, n_timesteps=cfg["n_timesteps"],
         beta_schedule=cfg["beta_schedule"],
         predict_epsilon=bool(cfg.get("predict_epsilon", True)),
         clip_denoised=bool(cfg.get("clip_denoised", True)),
         prediction=cfg.get("prediction"),
     )
     diffusion.load_state_dict(checkpoint["model_state_dict"], strict=True)
-    return diffusion.to(device).eval(), dataset
+    return diffusion
 
 
 def build_policy_from_args(args, diffusion, dataset, dataset_spec: str,

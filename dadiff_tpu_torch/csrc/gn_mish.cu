@@ -17,22 +17,12 @@
 // the sums, a second that rereads it from L1/L2 and writes the result; no
 // shared-memory staging beyond the 2 x 32-float reduction.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float mish(float y) {
-  // x * tanh(softplus(x)); softplus with torch's threshold of 20
-  float sp = (y > 20.f) ? y : log1pf(expf(y));
-  return y * tanhf(sp);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
+using dadiff::mish;
+using dadiff::warp_sum;
 
 __global__ void gn_mish_kernel(const float* __restrict__ x,
                                float* __restrict__ out,

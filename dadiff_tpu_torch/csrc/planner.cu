@@ -23,64 +23,18 @@
 // be compute-bound, so a step is bound by streaming the weights (~9.5 us from
 // HBM, less from the 50 MB L2). This first version is a plain tiled
 // shared-memory GEMM on the CUDA cores (f32 accumulation, bf16 or f32
-// weights) and ~61 launches per step: it is launch-bound, and a persistent
-// single-launch design is the later step.
+// weights) and ~61 launches per step. The tile product and the row
+// arithmetic live in common.cuh, shared with the one-launch chain (chain.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kSame = 0;  // k-tap SAME conv, stride 1
-constexpr int kDown = 1;  // k=3, stride 2, padding 1: even rows of the SAME conv
-constexpr int kUp = 2;    // ConvTranspose1d k=4, s=2, p=1
-
-constexpr int BM = 32, BN = 32, BK = 32, kThreads = 256;
-
-__device__ __forceinline__ float load_w(const float* w, size_t i) { return w[i]; }
-__device__ __forceinline__ float load_w(const __nv_bfloat16* w, size_t i) {
-  return __bfloat162float(w[i]);
-}
-
-// Input row feeding GEMM row m through virtual tap j, or -1 for a zero pad.
-__device__ __forceinline__ int in_row(int mode, int m, int j, int parity,
-                                      int seg_in, int k) {
-  int s, li;
-  if (mode == kDown) {
-    const int seg_out = seg_in >> 1;
-    s = m / seg_out;
-    li = 2 * (m - s * seg_out) + j - 1;
-  } else {
-    s = m / seg_in;
-    const int l = m - s * seg_in;
-    if (mode == kSame) {
-      li = l + j - k / 2;
-    } else {
-      // even rows: x[h] R1 + x[h-1] R3; odd rows: x[h+1] R0 + x[h] R2
-      li = parity == 0 ? (j == 0 ? l : l - 1) : (j == 0 ? l + 1 : l);
-    }
-  }
-  return (li >= 0 && li < seg_in) ? s * seg_in + li : -1;
-}
-
-// Row block of the flattened weight that virtual tap j multiplies.
-__device__ __forceinline__ int weight_tap(int mode, int j, int parity) {
-  if (mode != kUp) return j;
-  return parity == 0 ? (j == 0 ? 1 : 3) : (j == 0 ? 0 : 2);
-}
-
-__device__ __forceinline__ int out_row(int mode, int m, int parity, int seg_in) {
-  if (mode != kUp) return m;
-  const int s = m / seg_in;
-  return s * 2 * seg_in + 2 * (m - s * seg_in) + parity;
-}
+using namespace dadiff;
 
 // out[out_row(m)] = bias + sum_{j, ci} x[in_row(m, j), ci] * w[wtap(j)*cin + ci]
-// The input is the channel concatenation [xa | xb] (xb may be null), which
-// covers the decoder's skip concat without a copy. With bf16 weights the
-// activations are rounded to bf16 first, as the TPU kernel casts them to the
-// compute dtype before every product.
+// One block per (output tile, parity, K split); the tile product is
+// conv_tile_acc of common.cuh.
 template <typename WT, bool kBf16Act>
 __global__ void __launch_bounds__(kThreads)
 rows_conv_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
@@ -105,53 +59,10 @@ rows_conv_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;  // 2x2 outputs per thread
-  float acc00 = 0.f, acc01 = 0.f, acc10 = 0.f, acc11 = 0.f;
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  conv_tile_acc<WT, kBf16Act>(xa, xb, cin_a, cin_b, w, M, seg_in, cout, mode, k,
+                              parity, m0, n0, k_begin, k_end, As, Bs, acc);
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int kk = e % BK, mm = e / BK;
-      const int kg = k0 + kk, m = m0 + mm;
-      float v = 0.f;
-      if (kg < k_end && m < M) {
-        const int j = kg / cin, ci = kg - j * cin;
-        const int r = in_row(mode, m, j, parity, seg_in, k);
-        if (r >= 0) {
-          v = ci < cin_a ? xa[(size_t)r * cin_a + ci]
-                         : xb[(size_t)r * cin_b + (ci - cin_a)];
-          if (kBf16Act) v = __bfloat162float(__float2bfloat16(v));
-        }
-      }
-      As[kk][mm] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < (BN * BK) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int nn = e % BN, kk = e / BN;
-      const int kg = k0 + kk, n = n0 + nn;
-      float v = 0.f;
-      if (kg < k_end && n < cout) {
-        const int j = kg / cin, ci = kg - j * cin;
-        const int wt = weight_tap(mode, j, parity);
-        v = load_w(w, (size_t)(wt * cin + ci) * cout + n);
-      }
-      Bs[kk][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float a0 = As[kk][2 * ty], a1 = As[kk][2 * ty + 1];
-      const float b0 = Bs[kk][2 * tx], b1 = Bs[kk][2 * tx + 1];
-      acc00 = fmaf(a0, b0, acc00);
-      acc01 = fmaf(a0, b1, acc01);
-      acc10 = fmaf(a1, b0, acc10);
-      acc11 = fmaf(a1, b1, acc11);
-    }
-    __syncthreads();
-  }
-
-  float acc[2][2] = {{acc00, acc01}, {acc10, acc11}};
   if (splits > 1) {
     // Split-K: every block stores its partial tile; the last block of the
     // tile to arrive (counted with an atomic) sums the partials in split
@@ -216,15 +127,11 @@ __global__ void ddpm_project_kernel(
   float* xn = sh;       // x after the DDPM update
   float* xp = sh + HD;  // after projection and wall revert
   const size_t base = (size_t)blockIdx.x * HD;
-  const float recip = scal[0], recipm1 = scal[1], c1 = scal[2], c2 = scal[3];
-  const float sigma = scal[4], alpha = scal[5];
+  const float alpha = scal[5];
 
   for (int i = threadIdx.x; i < HD; i += blockDim.x) {
-    const float xv = x[base + i];
-    const float e = eps[base + i];
-    float xr = predict_eps ? recip * xv - recipm1 * e : e;
-    if (clip) xr = fminf(fmaxf(xr, -1.f), 1.f);
-    xn[i] = c1 * xr + c2 * xv + sigma * noise[base + i];
+    xn[i] = ddpm_update(x[base + i], eps[base + i], noise[base + i], scal,
+                        clip, predict_eps);
   }
   __syncthreads();
 

@@ -9,7 +9,9 @@ ema_state_dict?}`` with the denoiser under ``model.`` and the 12 schedule
 buffers at the top of ``model_state_dict``.
 
 ``params_from_jax`` turns a Flax TemporalUnet parameter tree (as numpy)
-into the port's TemporalUnet state dict. Layouts:
+into the port's TemporalUnet state dict; ``block_params_from_jax`` one
+residual block's dict and ``train_state_from_jax`` an optax Adam state and
+EMA tree. Layouts:
   Conv1d          flax (k, in, out) -> torch (out, in, k)
   ConvTranspose1d jax  (k, out, in) -> torch (in, out, k)
   Dense           flax (in, out)    -> torch Linear (out, in)
@@ -19,7 +21,7 @@ into the port's TemporalUnet state dict. Layouts:
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +86,46 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def block_params_from_jax(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """One Flax ResidualTemporalBlock's params (numpy) -> the dict of
+    ops/resblock.py, whose layout is the JAX package's own
+    (fused_unet.py:44-58)."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    out = {}
+    for i, blk in ((1, "block1"), (2, "block2")):
+        out[f"w{i}"] = t(p[blk]["conv"]["kernel"])
+        out[f"b{i}"] = t(p[blk]["conv"]["bias"])
+        out[f"s{i}"] = t(p[blk]["norm"]["scale"])
+        out[f"g{i}"] = t(p[blk]["norm"]["bias"])
+    if "residual_conv" in p:
+        out["wr"] = t(p["residual_conv"]["kernel"][0])
+        out["br"] = t(p["residual_conv"]["bias"])
+    return out
+
+
+def train_state_from_jax(state, *, count: int, mu: Dict[str, Any],
+                         nu: Dict[str, Any],
+                         ema: Optional[Dict[str, Any]] = None) -> None:
+    """Carry an optax Adam state (``count``, and ``mu``/``nu`` as Flax
+    TemporalUnet trees of numpy) and an EMA tree into a port
+    ``TrainState`` whose module is a GaussianDiffusion over a TemporalUnet:
+    Adam's moments and step count, ``n_updates``/``step``, and the EMA
+    shadow, in place."""
+    moments = [params_from_jax(tree) for tree in (mu, nu)]
+    for name, p in state.module.model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": moments[0][name].to(p),
+            "exp_avg_sq": moments[1][name].to(p),
+        }
+    state.step = state.n_updates = int(count)
+    if ema is not None:
+        for name, v in params_from_jax(ema).items():
+            state.ema_params[f"model.{name}"].copy_(v)
+
+
 def infer_n_levels(model_state: Dict[str, Any]) -> int:
     """Encoder levels from ``model.downs.{i}`` keys (torch_compat.py:190-199)."""
     idx = [int(k.split(".")[2]) for k in model_state
@@ -127,9 +169,12 @@ _CONFIG_EXTRAS = ("normalizer_name", "normalizer_stats", "predict_epsilon",
 
 
 def save_pt_checkpoint(path: str, diffusion, config: Dict[str, Any], *,
+                       ema_params: Optional[Dict[str, torch.Tensor]] = None,
                        epoch: int = 0, global_step: int = 0) -> None:
     """Write a reference-schema ``.pt`` from a GaussianDiffusion module
-    (torch_compat.py:258-305)."""
+    (torch_compat.py:258-305). ``ema_params`` (parameter name -> tensor, as
+    the trainer keeps them) adds ``ema_state_dict``: the module's state with
+    the EMA weights in place of the live ones."""
 
     def cpu_state(module):
         return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
@@ -148,6 +193,10 @@ def save_pt_checkpoint(path: str, diffusion, config: Dict[str, Any], *,
             **{k: config[k] for k in _CONFIG_EXTRAS if k in config},
         },
     }
+    if ema_params is not None:
+        checkpoint["ema_state_dict"] = {
+            **checkpoint["model_state_dict"],
+            **{k: v.detach().cpu().clone() for k, v in ema_params.items()}}
     torch.save(checkpoint, path)
 
 

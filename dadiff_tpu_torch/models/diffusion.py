@@ -1,16 +1,18 @@
 """Gaussian diffusion over trajectories: the functional core and the module
 that holds the denoiser and the schedule.
 
-Counterpart of the JAX package's models/diffusion.py: p_mean_variance :95,
-p_sample :116, default_timesteps :129, p_sample_loop :152 and the
-GaussianDiffusion container :323. The module's state dict is the reference
-schema: the denoiser's weights under ``model.`` and the 12 schedule buffers
-at the top level. ``diffusion_loss`` and DDIM are not ported yet.
+Counterpart of the JAX package's models/diffusion.py: q_sample :38,
+predict_start_from_noise :50, v_from_x0_eps :60, epsilon_from_v :71,
+p_mean_variance :95, p_sample :116, default_timesteps :129, p_sample_loop
+:152, diffusion_loss :274 and the GaussianDiffusion container :323. The
+module's state dict is the reference schema: the denoiser's weights under
+``model.`` and the 12 schedule buffers at the top level. DDIM is not ported
+yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -28,6 +30,76 @@ def _extract(a: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     if out.dim() == 0:
         return out
     return out.reshape(out.shape[0], *((1,) * (ndim - 1)))
+
+
+def q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor,
+             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) (diffusion.py:38-47)."""
+    c1 = _extract(schedule.sqrt_alphas_cumprod, t, x_start.dim())
+    c2 = _extract(schedule.sqrt_one_minus_alphas_cumprod, t, x_start.dim())
+    return c1 * x_start + c2 * noise
+
+
+def predict_start_from_noise(schedule: DiffusionSchedule, x_t: torch.Tensor,
+                             t: torch.Tensor, noise: torch.Tensor
+                             ) -> torch.Tensor:
+    """x_0 estimate from x_t and predicted noise (diffusion.py:50-57)."""
+    return (_extract(schedule.sqrt_recip_alphas_cumprod, t, x_t.dim()) * x_t
+            - _extract(schedule.sqrt_recipm1_alphas_cumprod, t, x_t.dim())
+            * noise)
+
+
+def v_from_x0_eps(schedule: DiffusionSchedule, x_start: torch.Tensor,
+                  noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """v-parameterization target, v = sqrt(abar_t) eps - sqrt(1 - abar_t) x_0
+    (diffusion.py:60-68)."""
+    c1 = _extract(schedule.sqrt_alphas_cumprod, t, x_start.dim())
+    c2 = _extract(schedule.sqrt_one_minus_alphas_cumprod, t, x_start.dim())
+    return c1 * noise - c2 * x_start
+
+
+def epsilon_from_v(schedule: DiffusionSchedule, x_t: torch.Tensor,
+                   v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A v-prediction as the equivalent epsilon-prediction,
+    eps = sqrt(1 - abar_t) x_t + sqrt(abar_t) v (diffusion.py:71-79)."""
+    c1 = _extract(schedule.sqrt_one_minus_alphas_cumprod, t, x_t.dim())
+    c2 = _extract(schedule.sqrt_alphas_cumprod, t, x_t.dim())
+    return c1 * x_t + c2 * v
+
+
+def diffusion_loss(apply_fn: Callable, schedule: DiffusionSchedule,
+                   x_start: torch.Tensor, *,
+                   generator: Optional[torch.Generator] = None,
+                   loss_type: str = "l2", predict_epsilon: bool = True,
+                   prediction: Optional[str] = None,
+                   weights: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training loss with uniform random t (diffusion.py:274-316).
+    ``apply_fn(x, t)`` is the denoiser; with ``prediction="v"`` it must be
+    the RAW model, not an epsilon-wrapped one. ``t`` and ``noise`` inject the
+    randomness; otherwise both are drawn from ``generator``, which must live
+    on ``x_start``'s device."""
+    if t is None:
+        t = torch.randint(0, schedule.n_timesteps, (x_start.shape[0],),
+                          generator=generator, device=x_start.device)
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator,
+                            device=x_start.device, dtype=x_start.dtype)
+    model_out = apply_fn(q_sample(schedule, x_start, t, noise), t)
+    if prediction == "v":
+        target = v_from_x0_eps(schedule, x_start, noise, t)
+    else:
+        target = noise if predict_epsilon else x_start
+    if loss_type == "l2":
+        loss = (model_out - target) ** 2
+    elif loss_type == "l1":
+        loss = (model_out - target).abs()
+    else:
+        raise ValueError(f"Unknown loss type: {loss_type}")
+    if weights is not None:
+        loss = loss * weights
+    return loss.mean()
 
 
 def p_mean_variance(model_out: torch.Tensor, schedule: DiffusionSchedule,
@@ -83,12 +155,12 @@ class GaussianDiffusion(nn.Module):
                  action_dim: int, n_timesteps: int = 1000,
                  clip_denoised: bool = True, predict_epsilon: bool = True,
                  beta_schedule: str = "cosine",
-                 prediction: Optional[str] = None):
+                 prediction: Optional[str] = None, loss_type: str = "l2"):
         super().__init__()
-        if prediction not in (None, "epsilon", "x0"):
-            raise NotImplementedError(
-                f"prediction={prediction!r} is not ported yet")
+        if prediction not in (None, "epsilon", "x0", "v"):
+            raise ValueError(f"Unknown prediction mode: {prediction}")
         if prediction is not None:
+            # v-models are consumed through the epsilon path (apply wraps)
             predict_epsilon = prediction != "x0"
         self.model = model
         self.horizon = horizon
@@ -99,6 +171,7 @@ class GaussianDiffusion(nn.Module):
         self.predict_epsilon = predict_epsilon
         self.beta_schedule = beta_schedule
         self.prediction = prediction
+        self.loss_type = loss_type
         sched = make_schedule(n_timesteps, beta_schedule)
         for name in BUFFER_NAMES:
             self.register_buffer(name, getattr(sched, name))
@@ -116,11 +189,35 @@ class GaussianDiffusion(nn.Module):
         return self.betas.device
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return self.model(x, t)
+        """The denoiser's output as an epsilon (or x0) prediction: a v-model's
+        output is converted (diffusion.py:371-375)."""
+        out = self.model(x, t)
+        if self.prediction == "v":
+            out = epsilon_from_v(self.schedule, x, out, t)
+        return out
+
+    def q_sample(self, x_start, t, noise):
+        return q_sample(self.schedule, x_start, t, noise)
+
+    def predict_start_from_noise(self, x_t, t, noise):
+        return predict_start_from_noise(self.schedule, x_t, t, noise)
+
+    def loss(self, x_start: torch.Tensor,
+             weights: Optional[torch.Tensor] = None, *,
+             generator: Optional[torch.Generator] = None,
+             t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Denoising loss (diffusion.py:433-453). v-mode trains the RAW model
+        output against the v target; the epsilon wrapping is for sampling."""
+        return diffusion_loss(
+            self.model if self.prediction == "v" else self, self.schedule,
+            x_start, generator=generator, loss_type=self.loss_type,
+            predict_epsilon=self.predict_epsilon, prediction=self.prediction,
+            weights=weights, t=t, noise=noise)
 
     def p_mean_variance(self, x, t):
         return p_mean_variance(
-            self.model(x, t), self.schedule, x, t,
+            self(x, t), self.schedule, x, t,
             clip_denoised=self.clip_denoised,
             predict_epsilon=self.predict_epsilon,
         )

@@ -1,0 +1,368 @@
+"""K3: the whole batch-1 reverse chain as ONE kernel launch, a hand-written
+CUDA kernel (``csrc/chain.cu``).
+
+Counterpart of the JAX package's ops/pallas_unet.py: make_pallas_chain :334
+(``pallas_call`` :437, body ``kernel`` :362, ``_unet_forward`` :258) and
+pallas_p_sample_loop :481. It reuses the planner chain's host side:
+``flatten_unet_params`` and ``prepare_chain_operands``
+(ops/chain_operands.py) and the layer plan (``_program`` of ops/planner.py).
+
+What this kernel is, against the planner chain of ops/planner.py, is the
+single launch: the host writes a *layer program* (one :class:`ChainOp` per
+conv, reduce, GroupNorm+Mish, DDPM step) to device memory and launches one
+persistent cooperative kernel that walks it, once for the prologue (x_T
+conditioning and the time-dense rows of all T steps, computed inside the same
+launch) and once per denoise step, with a grid-wide barrier between dependent
+ops. Every conv is split over K and its consumer sums the partial tiles in a
+fixed order, so a chain repeats bit for bit. The partial tiles live in buffers
+of the chain's own, not in the per-device split-K counters of ``rows_conv``.
+
+On the CPU the chain runs its plain version, :func:`chain_plain`: the planner
+chain's host loop on the plain version of every kernel, one chain, no
+projection. On
+CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from dadiff_tpu_torch.ops import cuda_lib
+from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
+from dadiff_tpu_torch.ops.planner import (
+    DOWN, SAME, UP, StepConfig, _PlainOps, _TILE, _program, run_chain,
+)
+
+_PTRS = ("xa", "xb", "w", "bias", "partial", "scale", "gbias", "te", "res",
+         "res_partial", "res_bias", "out", "noise", "scal", "cond")
+_INTS = ("kind", "sync_after", "rot", "cin_a", "cin_b", "rows_in", "seg_in",
+         "cout", "mode", "k", "w_bf16", "splits", "res_splits", "te_stride",
+         "clip", "predict_eps", "groups", "pad_")
+CONV, REDUCE, GN, STEP, INIT = range(5)  # ChainOp.kind, as in csrc/chain.cu
+_GROUPS = 8
+# blocks of the persistent kernel per SM: a grid barrier costs less with fewer
+_BLOCKS_PER_SM = 2
+
+
+class ChainOp(ctypes.Structure):
+    """One op of the layer program; the struct of the same name in
+    csrc/chain.cu."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
+                + [(n, ctypes.c_int) for n in _INTS])
+
+
+def chain_plain(unet, flat_w, x0, m_embs, step_noise, scal, cond,
+                cfg: StepConfig) -> torch.Tensor:
+    """Plain version of the chain on any device: x0 (H, D), step_noise
+    (T, H, D), cond (H, D) or None -> (H, D)."""
+    with torch.no_grad():
+        return run_chain(_PlainOps(), unet, flat_w, x0, m_embs, step_noise,
+                         scal, cond, None, None, cfg)
+
+
+def device_limits(device) -> Tuple[int, int]:
+    """(co-resident blocks of the chain kernel per SM, SM count); raises if
+    the device cannot launch cooperatively."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        cuda_lib.check(cuda_lib.lib("chain").chain_limits(out), "chain_limits")
+    per_sm, n_sm, coop, size = out
+    if not coop or per_sm < 1:
+        raise RuntimeError("the chain kernel needs a device that can launch "
+                           "cooperatively with at least one block per SM")
+    if size != ctypes.sizeof(ChainOp):
+        raise RuntimeError(f"ChainOp is {ctypes.sizeof(ChainOp)} bytes here "
+                           f"and {size} in csrc/chain.cu")
+    return per_sm, n_sm
+
+
+PROFILE_SLOTS = ("conv", "reduce", "gn", "step", "init", "barrier")
+
+
+def launch_chain(prog: torch.Tensor, n_pre: int, n_step: int, T: int,
+                 grid: int, prof: Optional[torch.Tensor] = None,
+                 stream=None) -> None:
+    """One cooperative launch of the program (unchecked). ``prof``: zeroed
+    int64 tensor of ``len(PROFILE_SLOTS)`` on the device, which receives the
+    clock cycles one thread of block 0 spent in each kind of op and at the
+    barriers."""
+    rc = cuda_lib.lib("chain").chain_run(
+        prog.data_ptr(), n_pre, n_step, T, grid,
+        None if prof is None else prof.data_ptr(),
+        cuda_lib.stream_of(prog) if stream is None else stream)
+    cuda_lib.check(rc, "chain")
+    launch_chain.launches += 1
+
+
+launch_chain.launches = 0
+
+
+class _ProgramBuilder:
+    """Lays the U-Net's layer plan out as ChainOps over buffers it owns."""
+
+    def __init__(self, device, grid: int):
+        self.device, self.grid = device, grid
+        self.ops, self.keep = [], []
+        self.region_elems = [0, 0]    # partials of main convs, of 1x1 residuals
+        self.patches = []             # (op, field, region) resolved by finish
+        self.rot = 0                  # items already given out in this phase
+
+    def buf(self, *shape) -> torch.Tensor:
+        t = torch.empty(*shape, dtype=torch.float32, device=self.device)
+        self.keep.append(t)
+        return t
+
+    def emit(self, kind: int, sync: bool, region=None, res_region=None,
+             **fields) -> ChainOp:
+        """Append an op; ``region``/``res_region`` name the partial region it
+        writes or reads, whose address is known once all ops are laid out."""
+        op = ChainOp(kind=kind, sync_after=int(sync), groups=_GROUPS)
+        for name, v in fields.items():
+            setattr(op, name, v.data_ptr() if torch.is_tensor(v) else v)
+        if region is not None:
+            self.patches.append((op, "partial", region))
+        if res_region is not None:
+            self.patches.append((op, "res_partial", res_region))
+        self.ops.append(op)
+        return op
+
+    def splits_for(self, rows: int, cin: int, cout: int, mode: int, k: int):
+        """(K splits, output tiles, partial elements) of a conv: the splits
+        that bring its items to about one per block, none of them empty."""
+        M = rows // 2 if mode == DOWN else rows
+        parities = 2 if mode == UP else 1
+        tiles = -(-cout // _TILE) * -(-M // _TILE) * parities
+        k_tiles = -(-(2 if mode == UP else k) * cin // _TILE)
+        splits = max(1, min(k_tiles, self.grid // tiles))
+        splits = -(-k_tiles // -(-k_tiles // splits))
+        return splits, tiles, parities * splits * M * cout
+
+    def conv(self, xa, xb, w, mode: int, k: int, seg: int, *, region=0,
+             partial=None, sync=True) -> int:
+        """A conv split over K into partial tiles, in ``partial`` or in a
+        shared region; returns its splits, which its consumer needs."""
+        cin_b = 0 if xb is None else xb.shape[1]
+        splits, tiles, elems = self.splits_for(
+            xa.shape[0], xa.shape[1] + cin_b, w.shape[1], mode, k)
+        if partial is None:
+            self.region_elems[region] = max(self.region_elems[region], elems)
+        self.emit(CONV, sync, region=None if partial is not None else region,
+                  xa=xa, xb=xb, w=w, partial=partial, cin_a=xa.shape[1],
+                  cin_b=cin_b, rows_in=xa.shape[0], seg_in=seg,
+                  cout=w.shape[1], mode=mode, k=k,
+                  w_bf16=int(w.dtype == torch.bfloat16), splits=splits,
+                  rot=self.rot % self.grid)
+        self.rot = 0 if sync else self.rot + tiles * splits
+        return splits
+
+    def finish(self) -> torch.Tensor:
+        """Allocate the partial regions, patch their addresses in and return
+        the program as a uint8 tensor on the device."""
+        regions = [self.buf(max(n, 1)) for n in self.region_elems]
+        for op, field, region in self.patches:
+            setattr(op, field, regions[region].data_ptr())
+        raw = bytearray(b"".join(bytes(op) for op in self.ops))
+        return torch.frombuffer(raw, dtype=torch.uint8).to(self.device)
+
+
+def _build_program(unet, flat_w, x0, m_embs, step_noise, scal, cond,
+                   cfg: StepConfig, grid: int):
+    """The layer program of one chain: (program tensor, n_pre, n_step, grid
+    barriers per launch, x, tensors to keep alive)."""
+    b = _ProgramBuilder(x0.device, grid)
+    prog = _program(unet, flat_w)
+    T, H, D, k = scal.shape[0], cfg.horizon, x0.shape[1], unet.kernel_size
+    x = b.buf(H, D)
+
+    # -- prologue: x = x_T (row 0 conditioned), time-dense rows of all steps;
+    # every table has its own partials, so the convs need no barrier between
+    b.emit(INIT, False, xa=x0, cond=cond, out=x, rows_in=H, seg_in=H, cout=D)
+    dense = [op[2] for op in prog if op[0] == "res"]
+    tables = []
+    for i, (wt, bt) in enumerate(dense):
+        splits, _, elems = b.splits_for(T, wt.shape[0], wt.shape[1], SAME, 1)
+        part = b.buf(elems)
+        b.conv(m_embs, None, wt, SAME, 1, T, partial=part,
+               sync=i == len(dense) - 1)
+        tables.append((part, splits, bt, b.buf(T, wt.shape[1])))
+    for i, (part, splits, bt, table) in enumerate(tables):
+        b.emit(REDUCE, i == len(tables) - 1, partial=part, splits=splits,
+               bias=bt, out=table, rows_in=T, seg_in=T, cout=table.shape[1],
+               mode=SAME)
+    n_pre = len(b.ops)
+
+    # -- one denoise step (the walk of planner._unet_eps)
+    def gn(splits, bias, scale, gbias, rows, C, **extra):
+        out = b.buf(rows, C)
+        b.emit(GN, True, region=0, splits=splits, bias=bias, scale=scale,
+               gbias=gbias, rows_in=rows, seg_in=rows, cout=C, out=out, **extra)
+        return out
+
+    cur, seg, skips, pending, r = x, H, [], None, 0
+    for op in prog:
+        kind = op[0]
+        if kind == "res":
+            _, (w1, b1, s1, g1), _, (w2, b2, s2, g2), rconv = op
+            if rconv is None and pending is not None:
+                raise ValueError("chain: an identity residual cannot follow "
+                                 "a skip concat")
+            cout = w1.shape[1]
+            # conv1 and the 1x1 residual conv both read x: one phase
+            sp1 = b.conv(cur, pending, w1, SAME, k, seg, sync=rconv is None)
+            if rconv is not None:
+                spr = b.conv(cur, pending, rconv[0], SAME, 1, seg, region=1)
+            h = gn(sp1, b1, s1, g1, seg, cout, te=tables[r][3], te_stride=cout)
+            r += 1
+            sp2 = b.conv(h, None, w2, SAME, k, seg)
+            if rconv is None:
+                cur = gn(sp2, b2, s2, g2, seg, cout, res=cur)
+            else:
+                cur = gn(sp2, b2, s2, g2, seg, cout, res_region=1,
+                         res_bias=rconv[1], res_splits=spr)
+            pending = None
+        elif kind == "push_skip":
+            skips.append(cur)
+        elif kind == "pop_skip":
+            pending = skips.pop()
+        elif kind in ("down", "up"):
+            mode, kk = (DOWN, 3) if kind == "down" else (UP, 4)
+            sp = b.conv(cur, None, op[1], mode, kk, seg)
+            out = b.buf(seg // 2 if kind == "down" else seg * 2,
+                        op[1].shape[1])
+            b.emit(REDUCE, True, region=0, splits=sp, bias=op[2], out=out,
+                   rows_in=seg, seg_in=seg, cout=out.shape[1], mode=mode)
+            cur, seg = out, out.shape[0]
+        elif kind == "res_plain":
+            w, bias, s, g = op[1]
+            sp = b.conv(cur, None, w, SAME, k, seg)
+            cur = gn(sp, bias, s, g, seg, w.shape[1])
+        elif kind == "final_conv":
+            sp = b.conv(cur, None, op[1], SAME, 1, seg)
+            b.emit(STEP, True, region=0, splits=sp, bias=op[2], out=x,
+                   noise=step_noise, scal=scal, cond=cond, rows_in=H, seg_in=H,
+                   cout=D, clip=int(cfg.clip_denoised),
+                   predict_eps=int(cfg.predict_epsilon))
+    n_step = len(b.ops) - n_pre
+    syncs = (sum(op.sync_after for op in b.ops[:n_pre])
+             + T * sum(op.sync_after for op in b.ops[n_pre:]))
+    return b.finish(), n_pre, n_step, syncs, x, b.keep
+
+
+def make_chain(unet, schedule, horizon: int, *,
+               sampling_timesteps: Optional[int] = None,
+               clip_denoised: bool = True, predict_epsilon: bool = True,
+               condition_row0: bool = False):
+    """Build ``chain(flat_w, x0, m_embs, step_noise, scal[, cond]) -> x``
+    running the full T-step reverse diffusion of one chain
+    (pallas_unet.py:334-451). Operands: x0 (H, D), m_embs (T, time_dim),
+    step_noise (T, H, D), scal (T, 8) lanes recip, recipm1, c1, c2, sigma,
+    cond (H, D) whose row 0 is inpainted into x_T and after every step. The
+    flattened weights' dtype (bf16 or f32) selects the product precision.
+
+    ``chain.bind(...)`` takes the same operands (on the card), writes the
+    layer program once and returns ``launch(prof=None) -> x``: each call is
+    one kernel launch, reading the operands as they are then and writing the
+    same output buffer (``prof`` as in :func:`launch_chain`).
+    """
+    from dadiff_tpu_torch.models.diffusion import default_timesteps
+
+    ts = default_timesteps(schedule.n_timesteps, sampling_timesteps)
+    cfg = StepConfig(horizon, clip_denoised, predict_epsilon)
+    H = horizon
+
+    def _check(flat_w, x0, m_embs, step_noise, scal, cond):
+        T, D = scal.shape[0], x0.shape[1]
+        if x0.shape != (H, D) or step_noise.shape != (T, H, D) \
+                or m_embs.shape[0] != T or scal.shape != (T, 8) \
+                or (cond is None) == condition_row0 \
+                or (cond is not None and cond.shape != (H, D)):
+            raise ValueError("chain: operand shapes do not match")
+        if x0.device.type == "cpu":
+            return
+        acts = [t for t in (x0, m_embs, step_noise, scal, cond)
+                if t is not None]
+        if any(t.dtype != torch.float32 for t in acts) or any(
+                w.dtype not in (torch.float32, torch.bfloat16)
+                for w in flat_w) or any(
+                not t.is_contiguous() or t.device != x0.device
+                for t in acts + list(flat_w)):
+            raise ValueError("chain: operands must be contiguous on one "
+                             "device, float32 (weights f32 or bf16)")
+
+    def bind(flat_w, x0, m_embs, step_noise, scal, cond=None):
+        _check(flat_w, x0, m_embs, step_noise, scal, cond)
+        if x0.device.type == "cpu":
+            raise ValueError("chain.bind: the kernel needs CUDA tensors")
+        per_sm, n_sm = device_limits(x0.device)
+        grid = min(per_sm, _BLOCKS_PER_SM) * n_sm
+        prog, n_pre, n_step, syncs, x, keep = _build_program(
+            unet, flat_w, x0, m_embs, step_noise, scal, cond, cfg, grid)
+        keep += [prog, x0, m_embs, step_noise, scal, cond, *flat_w]
+        T = scal.shape[0]
+
+        def launch(prof=None):
+            launch_chain(prog, n_pre, n_step, T, grid, prof)
+            return x
+
+        launch.keep, launch.grid, launch.syncs = keep, grid, syncs
+        launch.n_ops = (n_pre, n_step)
+        return launch
+
+    @torch.no_grad()
+    def chain(flat_w, x0, m_embs, step_noise, scal, cond=None):
+        _check(flat_w, x0, m_embs, step_noise, scal, cond)
+        if x0.device.type == "cpu":
+            return chain_plain(unet, flat_w, x0, m_embs, step_noise, scal,
+                               cond, cfg)
+        return bind(flat_w, x0, m_embs, step_noise, scal, cond)()
+
+    chain.bind = bind
+    chain.timesteps = ts
+    chain.n_steps = len(ts)
+    chain.config = cfg
+    return chain
+
+
+@torch.no_grad()
+def chain_p_sample_loop(unet, schedule, shape: Tuple[int, int, int], *,
+                        generator: Optional[torch.Generator] = None,
+                        sampling_timesteps: Optional[int] = None,
+                        weight_dtype=torch.bfloat16,
+                        init_noise: Optional[torch.Tensor] = None,
+                        step_noise: Optional[torch.Tensor] = None,
+                        clip_denoised: bool = True,
+                        predict_epsilon: bool = True,
+                        cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batch-1 equivalent of ``GaussianDiffusion.p_sample_loop`` running the
+    entire chain as one kernel launch; shape = (1, H, D)
+    (pallas_unet.py:481-529). ``cond``: optional (H, D) or (1, H, D) whose
+    row 0 is inpainted into every iterate, the initial one included."""
+    if shape[0] != 1:
+        raise ValueError("the one-launch chain is the batch-1 latency path")
+    _, H, D = shape
+    device = schedule.betas.device
+    chain = make_chain(unet, schedule, H,
+                       sampling_timesteps=sampling_timesteps,
+                       clip_denoised=clip_denoised,
+                       predict_epsilon=predict_epsilon,
+                       condition_row0=cond is not None)
+    ts = chain.timesteps.to(device)
+    T = chain.n_steps
+    x = (torch.randn(shape, generator=generator, device=device)
+         if init_noise is None else init_noise.to(device))
+    if step_noise is None:
+        step_noise = torch.randn((T,) + tuple(shape), generator=generator,
+                                 device=device)
+    flat_w, m_embs, scal = prepare_chain_operands(unet, schedule, ts,
+                                                  weight_dtype)
+    if cond is not None:
+        cond = torch.as_tensor(cond, dtype=torch.float32, device=device
+                               ).reshape(H, D).contiguous()
+    out = chain(flat_w, x[0].to(torch.float32).contiguous(), m_embs,
+                step_noise.to(device)[:, 0].to(torch.float32).contiguous(),
+                scal, cond)
+    return out[None]

@@ -3,9 +3,10 @@
 Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, and loaded with ``ctypes``. Builds
 go to ``build/dadiff_tpu_torch/`` at the root of the checkout, keyed by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. All missing libraries are compiled at once, one
-``nvcc`` process per source, started together.
+hash of the source, of the shared headers (``csrc/*.cuh``) and of the flags,
+so an edited source or header is rebuilt and an unchanged one is reused. All
+missing libraries are compiled at once, one ``nvcc`` process per source,
+started together.
 
 Every C entry point takes device pointers and a stream as ``c_void_p`` and
 returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -45,6 +46,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ddpm_project_step": [P, P, P, P, P, P, P, I, I, I, I, I,
                               P, I, I, F, F, F, F, F, P],
     },
+    "chain": {
+        # out[4]: blocks per SM, SMs, cooperative launch, sizeof(ChainOp)
+        "chain_limits": [P],
+        # prog, n_pre, n_step, T, grid, prof, stream
+        "chain_run": [P, I, I, I, I, P, P],
+        # n, grid, stream
+        "grid_sync_probe": [I, I, P],
+    },
+    "resblock": {
+        # x, te, w1, b1, s1, g1, w2, b2, s2, g2, wr, br, out, B, H, cin, cout,
+        # k, groups, eps, stream
+        "resblock": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                     F, P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -60,7 +75,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers are shared: an edit to one rebuilds every library
+    src = b"".join(f.read_bytes() for f in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

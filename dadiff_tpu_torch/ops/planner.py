@@ -189,7 +189,8 @@ class StepConfig:
 
 def ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b,
                             cfg: StepConfig) -> torch.Tensor:
-    """Plain version (pallas_planner.py:230-249 with _project :156-204)."""
+    """Plain version (pallas_planner.py:230-249 with _project :156-204);
+    ``cond`` None leaves row 0 unconditioned (pallas_unet.py:404)."""
     H = cfg.horizon
     R, D = x.shape
     recip, recipm1, c1, c2, sigma, alpha = scal_t[:6]
@@ -208,6 +209,8 @@ def ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b,
             bad = wall_violation_mask(pos, cfg.grid_on(x.device),
                                       cfg.wall_margin)
             xp = torch.where(bad[:, None], xn, xp)
+    if cond is None:
+        return xp
     row0 = (torch.arange(R, device=x.device) % H == 0)[:, None]
     return torch.where(row0, cond, xp)
 
@@ -380,7 +383,8 @@ def run_chain(ops, unet, flat_w, x0, m_embs, step_noise, scal, cond, M, b,
     tes = [ops.conv(m_embs, None, op[2][0], op[2][1], SAME, 1, T)
            for op in prog if op[0] == "res"]
     x = x0.clone()
-    x.view(-1, H, D)[:, 0] = cond.view(-1, H, D)[:, 0]
+    if cond is not None:  # only the plain step takes an unconditioned chain
+        x.view(-1, H, D)[:, 0] = cond.view(-1, H, D)[:, 0]
     for i in range(T):
         eps = _unet_eps(ops, prog, x, [te[i] for te in tes], H, unet.kernel_size)
         x = ops.step(x, eps, step_noise[i], scal[i], cond, M, b, cfg)
@@ -484,6 +488,10 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
     ``prepared``. ``x0``/``step_noise`` inject the randomness (tests)."""
     from dadiff_tpu_torch.models.diffusion import default_timesteps
 
+    if diffusion.prediction == "v":
+        raise NotImplementedError(
+            "the planner chain reads the model output as epsilon or x0; a "
+            "v-model needs the module path (guides/sampling.py)")
     unet = diffusion.model
     device = diffusion.device
     H, D = diffusion.horizon, diffusion.transition_dim

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ops/projection.py: NormStats :23,
 to_concatenated/from_concatenated :50-72 (the duplicated final state is kept
-on purpose), projection_alpha :75, wall_violation_mask :98 and
-apply_projection :130. Projection runs in physical (unnormalized) space.
+on purpose), projection_alpha :75, wall_violation_mask :98,
+apply_projection :130 and projection_residual :197. Projection runs in
+physical (unnormalized) space.
 """
 
 from __future__ import annotations
@@ -126,3 +127,17 @@ def apply_projection(x: torch.Tensor, P: torch.Tensor, alpha, stats: NormStats,
     states_norm = (new_states - s_mean) / s_std
     act_norm = (new_actions - stats.action_mean) / stats.action_std
     return torch.cat([states_norm, rest_obs, act_norm], dim=-1)
+
+
+def projection_residual(x: torch.Tensor, P: torch.Tensor, stats: NormStats, *,
+                        observation_dim: int, action_dim: int,
+                        state_dim: int) -> torch.Tensor:
+    """Mean-squared dynamics violation ||tau - P tau||^2 in physical space,
+    the ProjectionLoss integrand (projection.py:197-217)."""
+    states_norm = x[..., :state_dim]
+    act_norm = x[..., observation_dim:]
+    states_phys = states_norm * stats.obs_std[:state_dim] \
+        + stats.obs_mean[:state_dim]
+    actions_phys = act_norm * stats.action_std + stats.action_mean
+    xc = to_concatenated(states_phys, actions_phys)
+    return ((xc - xc @ P) ** 2).mean()

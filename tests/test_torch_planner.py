@@ -39,6 +39,10 @@ from dadiff_tpu_torch.ops.planner import (
     wire_policy_megakernel,
 )
 
+# the models here are tiny: one thread per test process, so that several
+# processes side by side do not oversubscribe the cores
+torch.set_num_threads(1)
+
 H, OBS, ACT = 8, 6, 2
 D = OBS + ACT
 STATE = 4

@@ -3,7 +3,9 @@ loads through ``load_model`` with ``strict=True``, the serve handler and the
 TCP server answer ping/obs/plan/reset, and importing the port leaves JAX and
 the JAX package out of ``sys.modules``."""
 
+import ast
 import json
+import pathlib
 import pkgutil
 import socket
 import subprocess
@@ -23,6 +25,10 @@ from dadiff_tpu.models.temporal_unet import TemporalUnet as JaxUnet
 import dadiff_tpu_torch
 from dadiff_tpu_torch.cli import load_model
 from dadiff_tpu_torch.serve import build_server_parser, make_handler, serve
+
+# the models here are tiny: one thread per test process, so that several
+# processes side by side do not oversubscribe the cores
+torch.set_num_threads(1)
 
 H, OBS, ACT, T_STEPS = 8, 6, 2, 6
 DATASET = "synthetic:pointmaze:n=6,T=40"
@@ -126,7 +132,12 @@ def test_port_imports_no_jax():
     """Every module of the port imports without JAX or the JAX package."""
     names = [m.name for m in pkgutil.walk_packages(
         dadiff_tpu_torch.__path__, "dadiff_tpu_torch.")]
-    assert "dadiff_tpu_torch.ops.planner" in names
+    assert {"dadiff_tpu_torch.ops.planner", "dadiff_tpu_torch.ops.chain",
+            "dadiff_tpu_torch.ops.resblock", "dadiff_tpu_torch.losses",
+            "dadiff_tpu_torch.utils.training", "dadiff_tpu_torch.train",
+            "dadiff_tpu_torch.models.fused_unet",
+            "dadiff_tpu_torch.models.fast_sampler",
+            "dadiff_tpu_torch.probe_megakernel"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -138,3 +149,20 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """The smoke script, like the port, names no module of JAX or of the JAX
+    package in any import, top-level or inside a function."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    tree = ast.parse(path.read_text())
+    mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names}
+    mods |= {n.module for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n.module}
+    assert "dadiff_tpu_torch.probe_megakernel" in mods | {
+        f"{n.module}.{a.name}" for n in ast.walk(tree)
+        if isinstance(n, ast.ImportFrom) and n.module for a in n.names}
+    bad = [m for m in mods if m.split(".")[0] in
+           ("jax", "jaxlib", "flax", "optax", "orbax", "dadiff_tpu")]
+    assert not bad, bad

@@ -30,6 +30,10 @@ from dadiff_tpu_torch.ops.chain_operands import (
 from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain
 from dadiff_tpu_torch.ops.planner import DOWN, SAME, UP, rows_conv
 
+# the models here are tiny: one thread per test process, so that several
+# processes side by side do not oversubscribe the cores
+torch.set_num_threads(1)
+
 D = 8
 
 
