@@ -7,11 +7,12 @@
    one process per source, all started together) into build/dadiff_tpu_torch/.
 2. Drives the training-and-ladder path: ``dadiff_tpu_torch.cli.train_main`` on
    the committed PointMaze data at the flagship width (horizon 32, dim 128,
-   mults 1 2 4, T=100, batch 32) for a fixed number of steps, GroupNorm+Mish
-   through K1; the loss must be finite and fall. Then
+   mults 1 2 4, T=100, batch 32) for a fixed number of steps; the loss must
+   be finite and fall. Then
    ``dadiff_tpu_torch.probe_megakernel`` samples one batch-1 chain from the
    exported ``.pt`` through every rung: module path, hoisted sampler, fused
-   U-Net (K4 per residual block), the one-launch chain (K3).
+   U-Net (K4 per residual block, K1 in its final block), the one-launch
+   chain (K3).
 3. Holds every kernel against its plain PyTorch version on the card at the
    flagship shapes, and times kernel, plain version, a library call where
    one exists, and the least time the card could take.
@@ -200,7 +201,7 @@ def train_phase(root: Path) -> Path:
         "--batch-size", str(BATCH), "--n-epochs", "1",
         "--max-steps", str(N_TRAIN_STEPS), "--warmup-steps", "10",
         "--log-freq", str(LOG_FREQ), "--eval-freq", "0", "--save-freq", "0",
-        "--seed", str(SEED), "--use-kernel-norm", "--log-dir", str(root)]))
+        "--seed", str(SEED), "--log-dir", str(root)]))
     took = time.perf_counter() - t0
     record = json.loads((log_dir / "metrics.jsonl").read_text().splitlines()[-1])
     series = record["total_series"]
@@ -220,7 +221,9 @@ def train_phase(root: Path) -> Path:
 
 def train_step_phase(ckpt: Path) -> dict:
     """Times the port's train step (loss, grad, clip, Adam, EMA) on the
-    trained weights at batch BATCH, GroupNorm+Mish through K1 as trained."""
+    trained weights at batch BATCH: with the library GroupNorm as trained,
+    and with the U-Net's ``use_pallas_norm`` option (GroupNorm+Mish through
+    K1, its backward through the plain version)."""
     from dadiff_tpu_torch.cli import load_model
     from dadiff_tpu_torch.datasets.sequence import create_dataloader
     from dadiff_tpu_torch.losses import build_loss, make_generators
@@ -287,7 +290,7 @@ def resblock_phase(unet) -> dict:
     rows = ([HORIZON >> i for i in range(L) for _ in range(2)]
             + [HORIZON >> (L - 1)] * 2
             + [HORIZON >> (L - 1 - j) for j in range(L - 1) for _ in range(2)])
-    err, bufs, bnd = 0.0, [], 0.0
+    err, bufs, flops, nbytes = 0.0, [], 0.0, 0.0
     for B in (1, 8):
         for H, bp in zip(rows, blocks):
             k, cin, cout = bp["w1"].shape
@@ -300,12 +303,13 @@ def resblock_phase(unet) -> dict:
             err = max(err, e)
             if B == 1:
                 n_w = sum(v.numel() for v in bp.values())
-                flops = 2.0 * B * H * (n_w - (6 + ("wr" in bp)) * cout)
-                nbytes = 4 * (B * H * cin + B * cout + n_w + B * H * cout)
-                bnd += bound_ms(flops, nbytes, F32_FLOPS)[0]
+                flops += 2.0 * B * H * (n_w - (6 + ("wr" in bp)) * cout)
+                nbytes += 4 * (B * H * cin + B * cout + n_w + B * H * cout)
                 bufs.append((x, te, bp))
     require(err <= TOL_RESBLOCK, f"resblock vs plain {err} > {TOL_RESBLOCK}")
     torch.cuda.synchronize()
+    # the 12 launches of a step as one piece of work: products and bytes summed
+    bnd, bnd_by = bound_ms(flops, nbytes, F32_FLOPS)
 
     # gradient: the plain version's, through the autograd.Function
     x, te, bp = bufs[2]
@@ -349,7 +353,7 @@ def resblock_phase(unet) -> dict:
         max_abs_err=err, ms=graph_ms(k4, 10), host_ms=cuda_ms(k4, 10),
         plain_ms=graph_ms(lambda: [residual_block_plain(*b) for b in bufs], 10),
         library_ms=graph_ms(lambda: [library(*b) for b in bufs], 10),
-        bound_ms=bnd, bound_by="bytes", per="batch-1 denoise step",
+        bound_ms=bnd, bound_by=bnd_by, per="batch-1 denoise step",
         launches_per_step=len(bufs), ms_per_launch=per_launch)
 
 
@@ -495,6 +499,32 @@ def kernel_phase(unet, rows, D):
         log(f"K1 gn_mish ({R}, {C}) seg={seg} te={has_te} res={has_res}: "
             f"max|err| {e:.3e}")
         err = max(err, e)
+    # the train-and-ladder path's shapes, without epilogue adds: a batch of
+    # BATCH through the U-Net's use_pallas_norm option at every level, and
+    # the final block of the fused U-Net at batch 1; the gradient (the plain
+    # version's, through the autograd.Function) at the training shapes
+    L = len(unet.dim_mults)
+    train_shapes = [(BATCH, HORIZON >> i, unet.dim * m)
+                    for i, m in enumerate(unet.dim_mults)]
+    for S, Hh, C in train_shapes + [(1, HORIZON, unet.dim)]:
+        args = [torch.randn(S, Hh, C, device=dev, generator=g) * 2 + 0.3,
+                torch.randn(C, device=dev, generator=g),
+                torch.randn(C, device=dev, generator=g)]
+        gy = torch.randn(S, Hh, C, device=dev, generator=g)
+        outs, grads = [], []
+        for fn in (gn_mish, gn_mish_plain):
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            y = fn(*leaves)
+            y.backward(gy)
+            outs.append(y.detach())
+            grads.append([a.grad for a in leaves])
+        e = (outs[0] - outs[1]).abs().max().item()
+        eb = max((a - b).abs().max().item() for a, b in zip(*grads))
+        log(f"K1 gn_mish ({S}, {Hh}, {C}) train/ladder shape: max|err| "
+            f"{e:.3e}, backward {eb:.3e}")
+        err = max(err, e)
+        require(eb <= 1e-4, f"gn_mish backward at ({S}, {Hh}, {C}): {eb}")
+    require(len(train_shapes) == L, "one training shape per level")
     require(err <= TOL_GN, f"gn_mish vs plain {err} > {TOL_GN}")
     # its gradient is the plain version's (the JAX custom_vjp's backward)
     args = [torch.randn(8, HORIZON, DIM, device=dev, generator=g),

@@ -55,9 +55,6 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "--predict-epsilon when given")
     p.add_argument("--clip-denoised", action=argparse.BooleanOptionalAction,
                    default=True)
-    p.add_argument("--use-kernel-norm", action="store_true",
-                   help="every GroupNorm+Mish of the U-Net through the K1 "
-                        "CUDA kernel (its gradient is the plain version's)")
     # Training
     p.add_argument("--n-epochs", type=int, default=100)
     p.add_argument("--max-steps", type=int, default=None,
@@ -162,8 +159,7 @@ def train_main(argv=None) -> str:
 
     unet = TemporalUnet(
         transition_dim=dataset.transition_dim, dim=args.dim,
-        dim_mults=tuple(args.dim_mults), kernel_size=args.kernel_size,
-        use_pallas_norm=args.use_kernel_norm)
+        dim_mults=tuple(args.dim_mults), kernel_size=args.kernel_size)
     diffusion = GaussianDiffusion(
         unet, horizon=args.horizon, observation_dim=dataset.observation_dim,
         action_dim=dataset.action_dim, n_timesteps=args.n_timesteps,

@@ -196,10 +196,6 @@ resblock_kernel(const float* __restrict__ x, const float* __restrict__ te,
   }
 }
 
-// dynamic shared memory the kernel is opted in for: static plus dynamic
-// above 48 KB needs cudaFuncAttributeMaxDynamicSharedMemorySize
-int configured_smem = 0;
-
 }  // namespace
 
 // x (B, H, cin), te (B, cout), w1 (k*cin, cout) and w2 (k*cout, cout)
@@ -214,12 +210,11 @@ extern "C" int resblock(const float* x, const float* te, const float* w1,
   const int p = k / 2;
   const int smem = (int)sizeof(float) * ((H + 2 * p) * cin + (H + 2 * p) * cout +
                                          2 * H * (cout / groups));
-  if (smem > configured_smem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        resblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured_smem = smem;
-  }
+  // static plus dynamic shared memory above 48 KB needs this opt-in, which
+  // holds per device: set on every launch, it is cheap
+  cudaError_t e = cudaFuncSetAttribute(
+      resblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * groups);
   cfg.blockDim = dim3(kBlock);
@@ -232,8 +227,7 @@ extern "C" int resblock(const float* x, const float* te, const float* w1,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, resblock_kernel, x, te, w1, b1, s1,
-                                     g1, w2, b2, s2, g2, wr, br, out, H, cin,
-                                     cout, k, eps);
+  e = cudaLaunchKernelEx(&cfg, resblock_kernel, x, te, w1, b1, s1, g1, w2, b2,
+                         s2, g2, wr, br, out, H, cin, cout, k, eps);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
