@@ -19,8 +19,9 @@
 4. Drives the serving path: starts ``dadiff_tpu_torch.serve``'s ``main`` on
    the trained ``.pt`` with ``--policy-type dynamics-aware --n-candidates 8
    --megakernel`` in a thread, sends ping, plan requests and reset over TCP,
-   checks the answers. Each path runs with the kernels' launch counters set
-   to 0 just before and read just after.
+   checks the answers. The first plan is driven from the host and its wave
+   captured in a CUDA graph; the later plans replay it. Each path runs with
+   the kernels' launch counters set to 0 just before and read just after.
 5. Prints the card, the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -108,43 +109,13 @@ def graph_ms(fn, reps: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# The launches of one denoise step, recorded from the chain's own host loop
+# The launches of one denoise step and their least cost
 # ---------------------------------------------------------------------------
 
-class _Recorder:
-    """Stands in for the chain's ops on meta tensors and records each launch
-    with its shapes."""
-
-    def __init__(self):
-        self.calls = []
-
-    def conv(self, xa, xb, w, bias, mode, k, seg):
-        from dadiff_tpu_torch.ops.planner import _conv_out_rows
-
-        self.calls.append(("conv", xa.shape[0], xa.shape[1],
-                           0 if xb is None else xb.shape[1], w.shape[1], mode,
-                           k, seg))
-        return torch.empty(_conv_out_rows(xa.shape[0], mode), w.shape[1],
-                           device="meta")
-
-    def gn(self, x, scale, bias, seg, te=None, res=None):
-        self.calls.append(("gn", x.shape[0], x.shape[1], seg, te is not None,
-                           res is not None))
-        return torch.empty_like(x, device="meta")
-
-
 def step_launches(unet, rows: int, D: int):
-    from dadiff_tpu_torch.ops.chain_operands import flatten_unet_params
-    from dadiff_tpu_torch.ops.planner import _program, _unet_eps
+    from dadiff_tpu_torch.sweep_kernels import step_launches as record
 
-    rec = _Recorder()
-    prog = _program(unet, [w.to("meta") for w in flatten_unet_params(unet)])
-    n_res = sum(op[0] == "res" for op in prog)
-    tes = [torch.empty(op[2][0].shape[1], device="meta") for op in prog
-           if op[0] == "res"]
-    _unet_eps(rec, prog, torch.empty(rows, D, device="meta"), tes, HORIZON,
-              unet.kernel_size)
-    return rec.calls, prog, n_res
+    return record(unet, rows, D, HORIZON)
 
 
 def conv_cost(rows, cin_a, cin_b, cout, mode, k, wbytes):
@@ -412,6 +383,21 @@ def one_chain_phase(diff) -> dict:
     ms = cuda_ms(bf16, 5, warmup=1)
     ms_f32 = cuda_ms(f32, 5, warmup=1)
     call_ms = cuda_ms(lambda: chain(fw, x0, me, noise, sc), 5, warmup=1)
+    # the same chain with another cap on the K splits of a conv (what a
+    # consumer sums per value): the program is rebuilt, the kernel is the same
+    capped = ch.MAX_FAN_IN
+    ms_by_fan_in = {capped: ms}
+    for cap in (8, 33):
+        ch.MAX_FAN_IN = cap
+        try:
+            other = chain.bind(fw, x0, me, noise, sc)
+            e = (other() - launches["bfloat16"]()).abs().max().item()
+            require(e <= TOL_CHAIN_BF16, f"K3 at fan-in {cap} vs {capped}: {e}")
+            ms_by_fan_in[cap] = cuda_ms(other, 3, warmup=1)
+        finally:
+            ch.MAX_FAN_IN = capped
+    log("K3 chain bf16, ms per chain by cap on the K splits: "
+        + " ".join(f"{k}: {v:.2f}" for k, v in sorted(ms_by_fan_in.items())))
 
     lib, n_sync = cuda_lib.lib("chain"), 6000
     stream = torch.cuda.current_stream().cuda_stream
@@ -437,7 +423,9 @@ def one_chain_phase(diff) -> dict:
     e = (k2(fw, x0r, me, nr, sc, cond) - launches["bfloat16_cond"]()
          ).abs().max().item()
     require(e <= TOL_CHAIN_BF16, f"K3 vs K2's host loop at N=1: {e}")
-    k2_ms = cuda_ms(lambda: k2(fw, x0r, me, nr, sc, cond), 3, warmup=1)
+    k2_ms = cuda_ms(lambda: k2(fw, x0r, me, nr, sc, cond, graph=False), 3,
+                    warmup=1)
+    k2_graph_ms = cuda_ms(lambda: k2(fw, x0r, me, nr, sc, cond), 3, warmup=1)
 
     # bounds from the shapes: products of T U-Net forwards at batch 1 (and
     # the hoisted time-dense rows), each weight read once
@@ -462,8 +450,8 @@ def one_chain_phase(diff) -> dict:
         reread_weights_ms=T_STEPS * w_bytes / HBM_BPS * 1e3,
         grid=bf16.grid, grid_syncs=bf16.syncs, sync_us=sync_us,
         syncs_ms=bf16.syncs * sync_us * 1e-3, ops=bf16.n_ops,
-        cycle_share=share,
-        k2_host_loop_ms=k2_ms)
+        cycle_share=share, ms_by_fan_in=ms_by_fan_in,
+        k2_host_loop_ms=k2_ms, k2_graph_ms=k2_graph_ms)
 
 
 def kernel_phase(unet, rows, D):
@@ -619,8 +607,27 @@ def kernel_phase(unet, rows, D):
     def k2():
         return [rows_conv(*c[:7]) for c in conv_bufs]
 
+    from dadiff_tpu_torch.ops.planner import _split_k
+
+    per_launch = []
+    for c in conv_bufs:
+        t = _split_k(c[0].shape[0], c[2].shape[0] // (4 if c[4] == UP else c[5]),
+                     c[2].shape[1], c[4], c[5], True)
+        per_launch.append({
+            "M": t.M, "K": t.K, "N": t.cout, "mode": c[4],
+            "tile": [t.bm, t.bn], "splits": t.splits,
+            "us": 1e3 * graph_ms(lambda c=c: [rows_conv(*c[:7])
+                                               for _ in range(10)], 5) / 10,
+            "library_us": 1e3 * graph_ms(
+                lambda c=c: [lib_conv(c[7], c[8], c[9], c[4], c[5])
+                             for _ in range(10)], 5) / 10})
+    log("K2 rows_conv per launch (bf16, weights warm in L2), in forward "
+        "order: " + json.dumps(per_launch))
+    ms = graph_ms(k2, 20)
     results["rows_conv"] = dict(
-        max_abs_err=err, ms=graph_ms(k2, 20), host_ms=cuda_ms(k2, 20),
+        max_abs_err=err, ms=ms, host_ms=cuda_ms(k2, 20),
+        # the variants of the bf16 product that were built and timed
+        variants={"mma.sync m16n8k16, cp.async ring": ms},
         plain_ms=graph_ms(lambda: [rows_conv_plain(*c[:7]) for c in conv_bufs],
                           20),
         library_ms=graph_ms(lambda: [lib_conv(c[7], c[8], c[9], c[4], c[5])
@@ -705,11 +712,11 @@ def chain_phase(policy):
                                     spec.strength, diff.schedule.betas)
         return fw, me, sc
 
-    def run(ops_w):
+    def run(ops_w, graph=True, noise=noise):
         fw, me, sc = ops_w
         return chain(fw, x0.reshape(rows, D), me,
                      noise.reshape(T_STEPS, rows, D), sc,
-                     cond.values.reshape(rows, D), M, b)
+                     cond.values.reshape(rows, D), M, b, graph=graph)
 
     sampler = make_sampler(diff, projection=spec)
 
@@ -740,6 +747,29 @@ def chain_phase(policy):
     require(bool((got16.reshape(N_CAND, H, D)[:, 0] ==
                   cond.values[:, 0]).all()), "chain row 0 conditioned")
 
+    # the wave replayed from its CUDA graph (captured by the call above)
+    # against the wave driven from the host: the same noise gives the same
+    # bits, other noise through the same buffers too, and a replay counts
+    # the launches of a host-driven wave
+    counters = _counters()
+    noise2 = torch.randn(T_STEPS, N_CAND, H, D, device=dev, generator=g)
+    for nz in (noise, noise2, noise):
+        before = {k: f.launches for k, f in counters.items()}
+        replayed = run(ops16, noise=nz)
+        mid = {k: f.launches for k, f in counters.items()}
+        hosted = run(ops16, graph=False, noise=nz)
+        after = {k: f.launches for k, f in counters.items()}
+        require(torch.equal(replayed, hosted),
+                "a replayed wave equals the host-driven wave bit for bit")
+        require(all(mid[k] - before[k] == after[k] - mid[k] for k in before),
+                f"a replay counts a wave's launches ({before} {mid} {after})")
+    require(torch.equal(replayed, got16), "the wave repeats bit for bit")
+    require(not torch.equal(run(ops16, noise=noise2), got16),
+            "other noise gives another plan")
+    per_wave = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+    log(f"K2 chain: replayed wave == host-driven wave bit for bit on 3 "
+        f"waves; launches per wave {per_wave}")
+
     # wave times and the bound of one bo8 wave
     calls, _, n_res = step_launches(diff.model, rows, D)
     flops = nbytes = 0.0
@@ -757,9 +787,10 @@ def chain_phase(policy):
     b_ms, b_by = bound_ms(flops, nbytes, BF16_FLOPS)
     return dict(
         max_abs_err=err32, bf16_max_abs_err=err16,
-        ms=cuda_ms(lambda: run(ops16), 5, warmup=1),
-        graph_ms=graph_ms(lambda: run(ops16), 5),
+        ms=cuda_ms(lambda: run(ops16, graph=False), 5, warmup=1),
+        graph_ms=cuda_ms(lambda: run(ops16), 5, warmup=1),
         ms_f32=cuda_ms(lambda: run(ops32), 3, warmup=1),
+        launches_by_kernel=per_wave,
         plain_ms=cuda_ms(plain, 3, warmup=1),
         plain_graph_ms=graph_ms(plain, 3),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, per="bo8 wave",
@@ -860,8 +891,10 @@ def main_path(ckpt: Path, obs_rows):
         require(row_err <= 1e-6, f"row 0 holds the observation ({row_err})")
         require(np.all(plan[0, 6:] == 0.0), "row-0 action columns are 0")
         plan_ms.append(r["plan_ms"])
+        how = ("replayed from the CUDA graph" if len(plan_ms) > 1 else
+               "driven from the host, then captured")
         log(f"main path: plan_ms {r['plan_ms']} device wave {wave_ms:.3f} ms "
-            f"(CUDA events) row0 err {row_err:.1e}")
+            f"(CUDA events) row0 err {row_err:.1e}; {how}")
     for name in ("gn_mish", "rows_conv", "ddpm_project_step"):
         require(counts[name] > 0,
                 f"{name} was not launched on the serving path")
@@ -933,6 +966,11 @@ def main() -> int:
                 for i in range(0, 4 * N_PLANS, 4)]
     counts, plan_ms, wave_ms = main_path(ckpt, obs_rows)
     log(f"serving path: plan_ms {plan_ms}; device ms per bo8 wave {wave_ms}")
+    # the first plan drove its wave from the host, the others replayed the
+    # graph: each counts the launches of one wave
+    for name, n in chain["launches_by_kernel"].items():
+        require(counts[name] == N_PLANS * n,
+                f"{name}: {counts[name]} launches for {N_PLANS} waves of {n}")
 
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
@@ -961,17 +999,24 @@ def main() -> int:
             "per": r["per"], "launches_per_step": r.get("launches_per_step"),
             "host_ms": r.get("host_ms"),
         })
+        for extra in ("variants", "ms_f32", "cycle_share", "grid_syncs",
+                      "ms_by_fan_in"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     kernels[0]["launches_train_and_ladder"] = train_counts["gn_mish"]
     kernels.append({
         "name": "planner_chain", "route": "cuda",
         "source": "dadiff_tpu_torch/ops/planner.py",
         "replaces": f"{ref}/ops/pallas_planner.py:95",
         "launches": len(wave_ms), "max_abs_err": chain["max_abs_err"],
-        "ms": chain["ms"], "plain_ms": chain["plain_ms"],
+        # what a served plan runs: the wave replayed from its CUDA graph,
+        # staging copies included; host_ms: every launch driven from Python
+        "ms": chain["graph_ms"], "plain_ms": chain["plain_ms"],
         "bound_ms": chain["bound_ms"], "bound_by": chain["bound_by"],
         "library_ms": None, "per": "bo8 wave",
         "launches_per_wave": chain["launches_per_wave"],
-        "graph_ms": chain["graph_ms"], "plain_graph_ms": chain["plain_graph_ms"],
+        "host_ms": chain["ms"], "plain_graph_ms": chain["plain_graph_ms"],
+        "served_plan_ms": plan_ms, "served_wave_ms": wave_ms,
     })
     log(f"train step: {json.dumps(train)}")
     log(f"flagship: {n_params} parameters; total "

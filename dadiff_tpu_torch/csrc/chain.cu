@@ -10,25 +10,34 @@
 // resident in VMEM. A Hopper SM has 227 KB, so here one persistent kernel,
 // launched cooperatively with at most as many blocks as are co-resident,
 // walks a LAYER PROGRAM that the host wrote to device memory: a list of ops
-// (conv, reduce, GroupNorm+Mish, DDPM step, init), run once as a prologue
+// (conv, GroupNorm+Mish, DDPM step, init), run once as a prologue
 // (x_T conditioning and the time-dense rows of all T steps) and then once per
 // step. Each op's work items are spread over the blocks and a grid-wide
 // barrier separates dependent ops. Weights stay in global memory and are
 // served by the 50 MB L2 (31.5 MB in bf16 at the flagship); only the iterate,
 // the activations (a few KB each) and the split-K partials move between ops.
 //
-// At 32 rows a conv has 1-16 output tiles of 32x32, so every conv is split
-// over K: an item is (tile, parity, K split) and stores its partial tile;
-// the op that consumes the conv (reduce, GroupNorm, DDPM step) sums the
-// partials in split order, so a run repeats bit for bit. GroupNorm statistics
-// are one block per (segment, group), var = E[x^2] - mean^2 in f32 as K1.
-// With bf16 weights the activations are rounded to bf16 before every
-// product, at the same points as rows_conv (common.cuh).
+// At 32, 16 and 8 rows a conv has 1-16 output tiles of 16x64 (chosen by the
+// host: ops/conv_tiling.py), so every conv is split over K: an item
+// is (tile, parity, K split), runs the tile product of common.cuh (mma.sync
+// on bf16 weights, a cp.async ring over its K tiles) and stores its partial
+// tile; the op that consumes the conv (GroupNorm, DDPM step) sums the
+// partials in split order, so a run repeats bit for bit. A conv whose output
+// another conv reads (the down- and upsampling convs, the time-dense tables)
+// needs no op and no barrier for that: the last item of a tile to arrive
+// sums it, as in rows_conv (split_k_last of common.cuh). The host caps
+// the splits at sixteen, which a consumer loads in one round trip to L2.
+// GroupNorm statistics are one block per (segment, group), var = E[x^2] -
+// mean^2 in f32 as K1; a value's partials are summed once and kept in shared
+// memory between the statistics pass and the output pass. With bf16 weights
+// the activations are rounded to bf16 before every product, at the same
+// points as rows_conv (common.cuh).
 //
 // Bound on an H100 (flagship, batch 1): 29.1 GFLOP of products per chain,
 // 0.029 ms at the bf16 tensor-core peak, with each weight read once (31.5 MB,
-// 0.009 ms). This design re-reads the weights every step (L2) and pays ~60
-// grid barriers per step; the barriers are its floor.
+// 0.009 ms). This design re-reads the weights every step (L2) and pays 56
+// grid barriers per step, ~1.1 us each at one block per SM: the barriers are
+// its floor.
 
 #include <cooperative_groups.h>
 
@@ -50,57 +59,45 @@ struct ChainOp {
   const float* res;          // GN: residual read directly
   const float* res_partial;  // GN: residual as partials of a 1x1 conv
   const float* res_bias;     // GN: bias of that conv
-  float* out;                // reduce / GN / init output; step: x in place
+  float* out;                // GN / init output; step: x in place; conv:
+                             // null, or where a tile's last item sums it
   const float* noise;        // step: (T, H, D)
   const float* scal;         // step: (T, 8)
   const float* cond;         // init / step: row-0 conditioning or null
+  unsigned int* counters;    // conv with out: one zeroed counter per tile
   int kind, sync_after, rot;
   int cin_a, cin_b, rows_in, seg_in, cout, mode, k, w_bf16, splits;
-  int res_splits, te_stride, clip, predict_eps, groups, pad_;
+  int res_splits, te_stride, clip, predict_eps, groups;
+  int bm, bn, pad_;          // conv: the tile of common.cuh that runs it
 };
 
 namespace {
 
 using namespace dadiff;
 
-constexpr int kOpConv = 0, kOpReduce = 1, kOpGn = 2, kOpStep = 3, kOpInit = 4;
+constexpr int kOpConv = 0, kOpGn = 1, kOpStep = 2, kOpInit = 3, kBarrier = 4;
 constexpr float kEps = 1e-5f;
+constexpr int kStash = kConvSmemBytes / 4;  // floats of the conv ring
 
 __device__ __forceinline__ int first_item(int rot) {
   const int G = gridDim.x;
   return (blockIdx.x + G - rot % G) % G;
 }
 
-// sum over splits of partial[sp][idx], in split order; the loads of eight
-// splits are issued together, since each is an L2 round trip
-__device__ __forceinline__ float sum_partials(const float* partial, int splits,
-                                              size_t plane, size_t idx) {
-  const float* p = partial + idx;
-  float s = 0.f;
-  int sp = 0;
-  for (; sp + 8 <= splits; sp += 8) {
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __ldcg(p + (sp + i) * plane);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s += v[i];
-  }
-  for (; sp < splits; ++sp) s += __ldcg(p + sp * plane);
-  return s;
-}
-
-template <typename WT, bool kBf16Act>
-__device__ void conv_items(const ChainOp& op, float (*As)[BM + 1],
-                           float (*Bs)[BN]) {
+template <class Tile>
+__device__ void conv_items(const ChainOp& op, unsigned char* smem) {
   const int M = op.mode == kDown ? op.rows_in / 2 : op.rows_in;
   const int cin = op.cin_a + op.cin_b;
   const int K = (op.mode == kUp ? 2 : op.k) * cin;
-  const int tiles_n = (op.cout + BN - 1) / BN, tiles_m = (M + BM - 1) / BM;
+  const int tiles_n = (op.cout + Tile::BN - 1) / Tile::BN;
+  const int tiles_m = (M + Tile::BM - 1) / Tile::BM;
   const int parities = op.mode == kUp ? 2 : 1;
   const int k_tiles = (K + BK - 1) / BK;
   const int per_split = (k_tiles + op.splits - 1) / op.splits;
   const int n_items = tiles_n * tiles_m * parities * op.splits;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int cout = op.cout;
+  const ConvIn c{op.xa,     op.xb,   op.cin_a, op.cin_b, M,
+                 op.seg_in, op.cout, op.mode,  op.k};
   for (int item = first_item(op.rot); item < n_items; item += gridDim.x) {
     const int tn = item % tiles_n;
     const int t = item / tiles_n;
@@ -109,64 +106,141 @@ __device__ void conv_items(const ChainOp& op, float (*As)[BM + 1],
     const int split = z % op.splits, parity = z / op.splits;
     const int k_begin = split * per_split * BK;
     const int k_end = min(K, k_begin + per_split * BK);
-    const int m0 = tm * BM, n0 = tn * BN;
-    float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    conv_tile_acc<WT, kBf16Act>(op.xa, op.xb, op.cin_a, op.cin_b,
-                                (const WT*)op.w, M, op.seg_in, op.cout, op.mode,
-                                op.k, parity, m0, n0, k_begin, k_end, As, Bs,
-                                acc);
-    float* mine = op.partial + ((size_t)z * M) * op.cout;
+    const int m0 = tm * Tile::BM, n0 = tn * Tile::BN;
+    float acc[Tile::ACC];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + 2 * ty + i;
-#pragma unroll
-      for (int jn = 0; jn < 2; ++jn) {
-        const int n = n0 + 2 * tx + jn;
-        if (m < M && n < op.cout) mine[(size_t)m * op.cout + n] = acc[i][jn];
-      }
+    for (int i = 0; i < Tile::ACC; ++i) acc[i] = 0.f;
+    Tile::product(c, (const typename Tile::W*)op.w, parity, m0, n0, k_begin,
+                  k_end, smem, acc);
+    if (op.out == nullptr) {  // the consumer sums the partial tiles
+      float* mine = op.partial + ((size_t)z * M) * cout;
+      Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+        if (m < M && n < cout)
+          *reinterpret_cast<float2*>(mine + (size_t)m * cout + n) =
+              make_float2(v0, v1);
+      });
+    } else if (split_k_last<Tile>(
+                   acc, op.partial, parity, split, op.splits, M, cout, m0, n0,
+                   &op.counters[(parity * tiles_m + tm) * tiles_n + tn])) {
+      Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+        if (m >= M || n >= cout) return;
+        const size_t o =
+            (size_t)out_row(op.mode, m, parity, op.seg_in) * cout + n;
+        *reinterpret_cast<float2*>(op.out + o) =
+            make_float2(v0 + op.bias[n], v1 + op.bias[n + 1]);
+      });
     }
-  }
-}
-
-// out[out_row(m, parity)] = bias + sum of the conv's partials
-__device__ void reduce_items(const ChainOp& op) {
-  const int M = op.mode == kDown ? op.rows_in / 2 : op.rows_in;
-  const int parities = op.mode == kUp ? 2 : 1;
-  const size_t plane = (size_t)M * op.cout;
-  const int total = parities * M * op.cout;
-  for (int e = first_item(op.rot) * kThreads + threadIdx.x; e < total;
-       e += gridDim.x * kThreads) {
-    const int n = e % op.cout;
-    const int m = (e / op.cout) % M;
-    const int parity = e / (op.cout * M);
-    const float v = op.bias[n] + sum_partials(
-        op.partial + (size_t)parity * op.splits * plane, op.splits, plane,
-        (size_t)m * op.cout + n);
-    op.out[(size_t)out_row(op.mode, m, parity, op.seg_in) * op.cout + n] = v;
   }
 }
 
 // GroupNorm + Mish of (bias + partials), then + te row of this step and
 // + residual (direct, or bias + partials of the 1x1 conv). One block per
-// (segment, group), two passes as K1.
-__device__ void gn_items(const ChainOp& op, int step, float* red1, float* red2,
-                         float* stat) {
+// (segment, group), two passes as K1. Where a group fits `stash` (kStash
+// floats: always at the U-Net's shapes), the first pass keeps there each
+// value, its scale and bias and everything added after the Mish, two values
+// per thread with all their loads in flight together, and the second pass
+// reads nothing from global memory again.
+__device__ void gn_items(const ChainOp& op, int step, float* stash, float* red1,
+                         float* red2, float* stat) {
   const int C = op.cout, rows = op.rows_in, seg = op.seg_in;
   const int cgp = C / op.groups;
   const int n = seg * cgp;
   const size_t plane = (size_t)rows * C;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_items = (rows / seg) * op.groups;
+  const bool keep = 4 * n <= kStash;
+  float* stash_add = stash + n;
+  float* stash_scale = stash + 2 * n;
+  float* stash_gbias = stash + 3 * n;
   for (int item = first_item(op.rot); item < n_items; item += gridDim.x) {
     const int s = item / op.groups, g = item - s * op.groups;
     const size_t base = (size_t)s * seg * C + (size_t)g * cgp;
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
+    auto index = [&](int i, int& ch) {
       const int r = i / cgp, c = i - r * cgp;
-      const float v = op.bias[g * cgp + c] + sum_partials(
-          op.partial, op.splits, plane, base + (size_t)r * C + c);
-      s1 += v;
-      s2 += v * v;
+      ch = g * cgp + c;
+      return base + (size_t)r * C + c;
+    };
+    auto addend = [&](size_t idx, int ch) {
+      float a = 0.f;
+      if (op.te != nullptr) a += __ldcg(op.te + (size_t)step * op.te_stride + ch);
+      if (op.res != nullptr) a += __ldcg(op.res + idx);
+      if (op.res_partial != nullptr)
+        a += op.res_bias[ch] +
+             sum_partials(op.res_partial, op.res_splits, plane, idx);
+      return a;
+    };
+    const bool res_p = op.res_partial != nullptr;
+    const int fan_in = max(op.splits, res_p ? op.res_splits : 0);
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = threadIdx.x; i < n; i += 2 * kThreads) {
+      const int i2 = i + kThreads;
+      const bool two = i2 < n;
+      int ch1, ch2;
+      const size_t idx1 = index(i, ch1), idx2 = index(two ? i2 : i, ch2);
+      // everything this pair of values reads crosses L2: start the loads of
+      // the addends and of both values' partials, the residual conv's too,
+      // before the first sum waits for one of them
+      const float b1 = op.bias[ch1], b2 = op.bias[ch2];
+      const float sc1 = op.scale[ch1], sc2 = op.scale[ch2];
+      const float gb1 = op.gbias[ch1], gb2 = op.gbias[ch2];
+      float a1 = 0.f, a2 = 0.f;
+      if (op.te != nullptr) {
+        a1 = __ldcg(op.te + (size_t)step * op.te_stride + ch1);
+        a2 = __ldcg(op.te + (size_t)step * op.te_stride + ch2);
+      }
+      float d1 = 0.f, d2 = 0.f;
+      if (op.res != nullptr) {
+        d1 = __ldcg(op.res + idx1);
+        d2 = __ldcg(op.res + idx2);
+      }
+      float v1 = 0.f, v2 = 0.f, q1 = 0.f, q2 = 0.f;
+      for (int sp = 0; sp < fan_in; sp += kBatch) {
+        float m1[kBatch], m2[kBatch], r1[kBatch], r2[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const bool in = sp + b < op.splits;
+          const size_t off = (size_t)(sp + b) * plane;
+          m1[b] = in ? __ldcg(op.partial + off + idx1) : 0.f;
+          m2[b] = in ? __ldcg(op.partial + off + idx2) : 0.f;
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const bool in = res_p && sp + b < op.res_splits;
+          const size_t off = (size_t)(sp + b) * plane;
+          r1[b] = in ? __ldcg(op.res_partial + off + idx1) : 0.f;
+          r2[b] = in ? __ldcg(op.res_partial + off + idx2) : 0.f;
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          v1 += m1[b];
+          v2 += m2[b];
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          q1 += r1[b];
+          q2 += r2[b];
+        }
+      }
+      v1 += b1;
+      v2 += b2;
+      s1 += v1;
+      s2 += v1 * v1;
+      if (two) {
+        s1 += v2;
+        s2 += v2 * v2;
+      }
+      if (keep) {
+        stash[i] = v1;
+        stash_add[i] = a1 + d1 + (res_p ? op.res_bias[ch1] + q1 : 0.f);
+        stash_scale[i] = sc1;
+        stash_gbias[i] = gb1;
+        if (two) {
+          stash[i2] = v2;
+          stash_add[i2] = a2 + d2 + (res_p ? op.res_bias[ch2] + q2 : 0.f);
+          stash_scale[i2] = sc2;
+          stash_gbias[i2] = gb2;
+        }
+      }
     }
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
@@ -189,20 +263,18 @@ __device__ void gn_items(const ChainOp& op, int step, float* red1, float* red2,
     __syncthreads();
     const float mean = stat[0], rstd = stat[1];
     for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int r = i / cgp, c = i - r * cgp;
-      const int ch = g * cgp + c;
-      const size_t idx = base + (size_t)r * C + c;
-      const float v = op.bias[ch] + sum_partials(op.partial, op.splits, plane,
-                                                 idx);
-      float y = mish((v - mean) * rstd * op.scale[ch] + op.gbias[ch]);
-      if (op.te != nullptr) y += __ldcg(op.te + (size_t)step * op.te_stride + ch);
-      if (op.res != nullptr) y += __ldcg(op.res + idx);
-      if (op.res_partial != nullptr)
-        y += op.res_bias[ch] + sum_partials(op.res_partial, op.res_splits,
-                                            plane, idx);
-      op.out[idx] = y;
+      int ch;
+      const size_t idx = index(i, ch);
+      // a thread reads back only what it stored itself
+      const float v = keep ? stash[i]
+                           : op.bias[ch] + sum_partials(op.partial, op.splits,
+                                                        plane, idx);
+      const float scale = keep ? stash_scale[i] : op.scale[ch];
+      const float gbias = keep ? stash_gbias[i] : op.gbias[ch];
+      const float y = mish((v - mean) * rstd * scale + gbias);
+      op.out[idx] = y + (keep ? stash_add[i] : addend(idx, ch));
     }
-    __syncthreads();  // stat and red are reused by the next item
+    __syncthreads();  // stat, red and stash are reused by the next item
   }
 }
 
@@ -235,14 +307,14 @@ __device__ void init_items(const ChainOp& op) {
 }
 
 // `prof`, when not null, takes the clock cycles that thread 0 of block 0
-// spent in the ops of each kind (slots 0-4) and waiting at the barriers
-// (slot 5): where a chain's time goes, as one block sees it.
+// spent in the ops of each kind (slots 0-3) and waiting at the barriers
+// (slot 4): where a chain's time goes, as one block sees it.
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const ChainOp* __restrict__ prog, int n_pre, int n_step, int T,
              long long* __restrict__ prof) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
+  // the conv ring; between convs the GroupNorm items keep their values here
+  __shared__ __align__(128) unsigned char smem[kConvSmemBytes];
   __shared__ float red1[kThreads / 32], red2[kThreads / 32], stat[2];
   __shared__ ChainOp op;
   constexpr int kWords = sizeof(ChainOp) / sizeof(int);
@@ -257,14 +329,16 @@ chain_kernel(const ChainOp* __restrict__ prog, int n_pre, int n_step, int T,
     const bool timed = prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
     long long t0 = timed ? clock64() : 0;
     switch (op.kind) {
-      case kOpConv:
-        if (op.w_bf16)
-          conv_items<__nv_bfloat16, true>(op, As, Bs);
-        else
-          conv_items<float, false>(op, As, Bs);
+      case kOpConv: {
+        bool known;  // the host takes its tiles from the same table
+        DADIFF_WITH_TILE(op.w_bf16, op.bm, op.bn, known,
+                         conv_items<Tile>(op, smem));
+        (void)known;
         break;
-      case kOpReduce: reduce_items(op); break;
-      case kOpGn: gn_items(op, step, red1, red2, stat); break;
+      }
+      case kOpGn:
+        gn_items(op, step, reinterpret_cast<float*>(smem), red1, red2, stat);
+        break;
       case kOpStep: step_items(op, step); break;
       case kOpInit: init_items(op); break;
     }
@@ -274,7 +348,7 @@ chain_kernel(const ChainOp* __restrict__ prog, int n_pre, int n_step, int T,
       t0 = t1;
     }
     if (op.sync_after) grid.sync();
-    if (timed) prof[5] += clock64() - t0;
+    if (timed) prof[kBarrier] += clock64() - t0;
   }
 }
 
@@ -304,7 +378,7 @@ extern "C" int chain_limits(int* out) {
 // One cooperative launch runs the n_pre prologue ops, then the n_step ops of
 // a denoise step T times. `grid` must not exceed out[0] * out[1] of
 // chain_limits: a grid that is not co-resident is refused, not run. `prof`
-// is null or 6 zeroed int64 on the device (see chain_kernel).
+// is null or 5 zeroed int64 on the device (see chain_kernel).
 extern "C" int chain_run(const void* prog, int n_pre, int n_step, int T,
                          int grid, long long* prof, void* stream) {
   void* args[] = {(void*)&prog, (void*)&n_pre, (void*)&n_step, (void*)&T,

@@ -1,5 +1,6 @@
 // K2, the planner chain, as a family of kernels driven by a host loop over
-// the denoise steps and the U-Net's layer plan (dadiff_tpu_torch/ops/planner.py).
+// the denoise steps and the U-Net's layer plan (dadiff_tpu_torch/ops/planner.py),
+// captured once per set of operands in a CUDA graph and replayed per wave.
 //
 // Replaces: the JAX package's ops/pallas_planner.py:95 make_pallas_planner_chain
 // (inner kernel :206, _project :156, _apply_cond :152) and the U-Net body it
@@ -20,11 +21,18 @@
 // Bound on an H100 (flagship: 8 chains x 32 rows, dim 128, mults 1 2 4):
 // one denoise step is ~2.3 GFLOP of products over ~31.7 MB of bf16 weights,
 // i.e. ~74 operations per weight byte, well under the ~295 the card needs to
-// be compute-bound, so a step is bound by streaming the weights (~9.5 us from
-// HBM, less from the 50 MB L2). This first version is a plain tiled
-// shared-memory GEMM on the CUDA cores (f32 accumulation, bf16 or f32
-// weights) and ~61 launches per step. The tile product and the row
-// arithmetic live in common.cuh, shared with the one-launch chain (chain.cu).
+// be compute-bound: the least time is ~2.4 us of tensor-core work and ~9.5 us
+// of weight streaming from HBM per step. What a step really costs is 35
+// dependent launches whose GEMMs are 64-256 rows by 8-512 columns: each is
+// bound by the latency of its K loop and by L2, not by the tensor cores.
+// rows_conv therefore takes the tile product of common.cuh (mma.sync on
+// bf16, cp.async ring, hoisted row arithmetic) with the smallest tile that
+// still leaves the card room for every block, 16 x 64 at these shapes, and
+// splits K over blocks (ops/planner.py _want_splits), so that some 200
+// blocks each walk 2-10 K tiles with their own loads in flight: on the card
+// that beat the 64-row tiles, which read the deep layers' weights once, by
+// 1.4-1.9x. Split-K stays deterministic: the last block of a tile to arrive
+// sums the partial tiles in split order (split_k_last of common.cuh).
 
 #include "common.cuh"
 
@@ -34,84 +42,46 @@ using namespace dadiff;
 
 // out[out_row(m)] = bias + sum_{j, ci} x[in_row(m, j), ci] * w[wtap(j)*cin + ci]
 // One block per (output tile, parity, K split); the tile product is
-// conv_tile_acc of common.cuh.
-template <typename WT, bool kBf16Act>
-__global__ void __launch_bounds__(kThreads)
-rows_conv_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
-                 int cin_a, int cin_b, const WT* __restrict__ w,
+// Tile::product of common.cuh.
+template <class Tile>
+__global__ void __launch_bounds__(kThreads, 2)
+rows_conv_kernel(ConvIn c, const typename Tile::W* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ out,
-                 int M, int seg_in, int cout, int mode, int k, int splits,
-                 float* __restrict__ partial, unsigned int* __restrict__ counters) {
-  const int cin = cin_a + cin_b;
-  const int ntaps = mode == kUp ? 2 : k;
-  const int K = ntaps * cin;
+                 int splits, float* __restrict__ partial,
+                 unsigned int* __restrict__ counters) {
+  const int cin = c.cin_a + c.cin_b;
+  const int K = (c.mode == kUp ? 2 : c.k) * cin;
   const int split = blockIdx.z % splits;
   const int parity = blockIdx.z / splits;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * Tile::BM, n0 = blockIdx.x * Tile::BN;
   // this block's share of the K loop (split-K: see the reduction below)
   const int k_tiles = (K + BK - 1) / BK;
   const int per_split = (k_tiles + splits - 1) / splits;
   const int k_begin = split * per_split * BK;
   const int k_end = min(K, k_begin + per_split * BK);
 
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
+  __shared__ __align__(128) unsigned char smem[kConvSmemBytes];
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // 2x2 outputs per thread
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  conv_tile_acc<WT, kBf16Act>(xa, xb, cin_a, cin_b, w, M, seg_in, cout, mode, k,
-                              parity, m0, n0, k_begin, k_end, As, Bs, acc);
+  float acc[Tile::ACC];
+#pragma unroll
+  for (int i = 0; i < Tile::ACC; ++i) acc[i] = 0.f;
+  Tile::product(c, w, parity, m0, n0, k_begin, k_end, smem, acc);
 
+  const int M = c.M, cout = c.cout;
   if (splits > 1) {
-    // Split-K: every block stores its partial tile; the last block of the
-    // tile to arrive (counted with an atomic) sums the partials in split
-    // order, so the result does not depend on which block finishes last.
-    float* mine = partial + ((size_t)blockIdx.z * M) * cout;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + 2 * ty + i;
-#pragma unroll
-      for (int jn = 0; jn < 2; ++jn) {
-        const int n = n0 + 2 * tx + jn;
-        if (m < M && n < cout) mine[(size_t)m * cout + n] = acc[i][jn];
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    __shared__ bool last;
+    // every block stores its partial tile; the last of a tile to arrive
+    // holds their sum, in split order (split_k_last of common.cuh)
     const int tile = (parity * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    if (tid == 0) last = atomicAdd(&counters[tile], 1u) == (unsigned)splits - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    const float* first = partial + ((size_t)parity * splits * M) * cout;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + 2 * ty + i;
-#pragma unroll
-      for (int jn = 0; jn < 2; ++jn) {
-        const int n = n0 + 2 * tx + jn;
-        if (m >= M || n >= cout) continue;
-        float sum = 0.f;
-        for (int sp = 0; sp < splits; ++sp)
-          sum += __ldcg(first + ((size_t)sp * M + m) * cout + n);
-        acc[i][jn] = sum;
-      }
-    }
-    if (tid == 0) counters[tile] = 0u;  // ready for the next launch
+    if (!split_k_last<Tile>(acc, partial, parity, split, splits, M, cout, m0,
+                            n0, &counters[tile]))
+      return;
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + 2 * ty + i;
-    if (m >= M) continue;
-    const size_t orow = (size_t)out_row(mode, m, parity, seg_in) * cout;
-#pragma unroll
-    for (int jn = 0; jn < 2; ++jn) {
-      const int n = n0 + 2 * tx + jn;
-      if (n < cout) out[orow + n] = acc[i][jn] + bias[n];
-    }
-  }
+  Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+    if (m >= M || n >= cout) return;
+    const size_t o = (size_t)out_row(c.mode, m, parity, c.seg_in) * cout + n;
+    *reinterpret_cast<float2*>(out + o) =
+        make_float2(v0 + bias[n], v1 + bias[n + 1]);
+  });
 }
 
 // One block per chain of H rows x D lanes (HD = H*D values).
@@ -175,26 +145,28 @@ __global__ void ddpm_project_kernel(
 
 }  // namespace
 
-// splits > 1 needs partial (splits * parities * M * cout floats) and
-// counters (one zeroed unsigned per output tile, left zeroed on return).
+// A (bm x bn) tile per block, one of those DADIFF_WITH_TILE knows (else
+// cudaErrorInvalidValue); cout must be a multiple of 8. splits > 1 needs
+// partial (parities * splits * M * cout floats) and counters (one zeroed
+// unsigned per output tile, left zeroed on return).
 extern "C" int rows_conv(const float* xa, const float* xb, int cin_a, int cin_b,
                          const void* w, int w_bf16, const float* bias,
                          float* out, int rows_in, int seg_in, int cout, int mode,
-                         int k, int splits, float* partial,
+                         int k, int bm, int bn, int splits, float* partial,
                          unsigned int* counters, void* stream) {
   const int M = mode == kDown ? rows_in / 2 : rows_in;
-  dim3 grid((cout + BN - 1) / BN, (M + BM - 1) / BM,
+  if (cout % 8 != 0 || splits < 1 || bm < 1 || bn < 1)
+    return (int)cudaErrorInvalidValue;
+  const ConvIn c{xa, xb, cin_a, cin_b, M, seg_in, cout, mode, k};
+  dim3 grid((cout + bn - 1) / bn, (M + bm - 1) / bm,
             (mode == kUp ? 2 : 1) * splits);
   cudaStream_t st = (cudaStream_t)stream;
-  if (w_bf16) {
-    rows_conv_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, st>>>(
-        xa, xb, cin_a, cin_b, (const __nv_bfloat16*)w, bias, out, M, seg_in,
-        cout, mode, k, splits, partial, counters);
-  } else {
-    rows_conv_kernel<float, false><<<grid, kThreads, 0, st>>>(
-        xa, xb, cin_a, cin_b, (const float*)w, bias, out, M, seg_in, cout,
-        mode, k, splits, partial, counters);
-  }
+  bool ok;
+  DADIFF_WITH_TILE(w_bf16, bm, bn, ok,
+                   rows_conv_kernel<Tile><<<grid, kThreads, 0, st>>>(
+                       c, (const Tile::W*)w, bias, out, splits,
+                       partial, counters));
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -9,13 +9,17 @@ pallas_p_sample_loop :481. It reuses the planner chain's host side:
 
 What this kernel is, against the planner chain of ops/planner.py, is the
 single launch: the host writes a *layer program* (one :class:`ChainOp` per
-conv, reduce, GroupNorm+Mish, DDPM step) to device memory and launches one
+conv, GroupNorm+Mish, DDPM step) to device memory and launches one
 persistent cooperative kernel that walks it, once for the prologue (x_T
 conditioning and the time-dense rows of all T steps, computed inside the same
 launch) and once per denoise step, with a grid-wide barrier between dependent
-ops. Every conv is split over K and its consumer sums the partial tiles in a
-fixed order, so a chain repeats bit for bit. The partial tiles live in buffers
-of the chain's own, not in the per-device split-K counters of ``rows_conv``.
+ops. Every conv is split over K (at most ``MAX_FAN_IN`` ways) into items that
+run the tile product of ``csrc/common.cuh``, the one ``rows_conv`` runs, and
+its consumer (a GroupNorm, the DDPM step) sums the partial tiles in a fixed
+order, so a chain repeats bit for bit; where the consumer is another conv,
+the last item of a tile to arrive sums it and writes the conv's output. The
+partial tiles and the tiles' arrival counters live in buffers of the chain's
+own, not in the per-device split-K counters of ``rows_conv``.
 
 On the CPU the chain runs its plain version, :func:`chain_plain`: the planner
 chain's host loop on the plain version of every kernel, one chain, no
@@ -32,19 +36,23 @@ import torch
 
 from dadiff_tpu_torch.ops import cuda_lib
 from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
+from dadiff_tpu_torch.ops.conv_tiling import DOWN, SAME, UP, Tiling, tiling
 from dadiff_tpu_torch.ops.planner import (
-    DOWN, SAME, UP, StepConfig, _PlainOps, _TILE, _program, run_chain,
+    StepConfig, _PlainOps, _program, run_chain,
 )
 
 _PTRS = ("xa", "xb", "w", "bias", "partial", "scale", "gbias", "te", "res",
-         "res_partial", "res_bias", "out", "noise", "scal", "cond")
+         "res_partial", "res_bias", "out", "noise", "scal", "cond", "counters")
 _INTS = ("kind", "sync_after", "rot", "cin_a", "cin_b", "rows_in", "seg_in",
          "cout", "mode", "k", "w_bf16", "splits", "res_splits", "te_stride",
-         "clip", "predict_eps", "groups", "pad_")
-CONV, REDUCE, GN, STEP, INIT = range(5)  # ChainOp.kind, as in csrc/chain.cu
+         "clip", "predict_eps", "groups", "bm", "bn", "pad_")
+CONV, GN, STEP, INIT = range(4)  # ChainOp.kind, as in csrc/chain.cu
 _GROUPS = 8
 # blocks of the persistent kernel per SM: a grid barrier costs less with fewer
-_BLOCKS_PER_SM = 2
+_BLOCKS_PER_SM = 1
+# most K splits of a conv: what its consumer sums per value, and loads in one
+# round trip to L2 (csrc/common.cuh kBatch)
+MAX_FAN_IN = 16
 
 
 class ChainOp(ctypes.Structure):
@@ -80,7 +88,7 @@ def device_limits(device) -> Tuple[int, int]:
     return per_sm, n_sm
 
 
-PROFILE_SLOTS = ("conv", "reduce", "gn", "step", "init", "barrier")
+PROFILE_SLOTS = ("conv", "gn", "step", "init", "barrier")
 
 
 def launch_chain(prog: torch.Tensor, n_pre: int, n_step: int, T: int,
@@ -109,6 +117,8 @@ class _ProgramBuilder:
         self.ops, self.keep = [], []
         self.region_elems = [0, 0]    # partials of main convs, of 1x1 residuals
         self.patches = []             # (op, field, region) resolved by finish
+        self.counted = []             # (op, first of its tiles' counters)
+        self.n_counters = 0
         self.rot = 0                  # items already given out in this phase
 
     def buf(self, *shape) -> torch.Tensor:
@@ -130,34 +140,37 @@ class _ProgramBuilder:
         self.ops.append(op)
         return op
 
-    def splits_for(self, rows: int, cin: int, cout: int, mode: int, k: int):
-        """(K splits, output tiles, partial elements) of a conv: the splits
-        that bring its items to about one per block, none of them empty."""
-        M = rows // 2 if mode == DOWN else rows
-        parities = 2 if mode == UP else 1
-        tiles = -(-cout // _TILE) * -(-M // _TILE) * parities
-        k_tiles = -(-(2 if mode == UP else k) * cin // _TILE)
-        splits = max(1, min(k_tiles, self.grid // tiles))
-        splits = -(-k_tiles // -(-k_tiles // splits))
-        return splits, tiles, parities * splits * M * cout
+    def tiling_for(self, rows: int, cin: int, w, mode: int, k: int) -> Tiling:
+        """Tile and K splits of a conv: the splits that bring its items to
+        about one per block, none of them empty, at most MAX_FAN_IN."""
+        return tiling(rows, cin, w.shape[1], mode, k,
+                      w.dtype == torch.bfloat16, self.grid,
+                      lambda tiles, k_tiles: min(self.grid // tiles,
+                                                 MAX_FAN_IN))
 
     def conv(self, xa, xb, w, mode: int, k: int, seg: int, *, region=0,
-             partial=None, sync=True) -> int:
+             partial=None, sync=True, out=None, bias=None) -> int:
         """A conv split over K into partial tiles, in ``partial`` or in a
-        shared region; returns its splits, which its consumer needs."""
+        shared region; returns its splits, which its consumer needs. With
+        ``out`` (and the conv's ``bias``) the last item of each tile to
+        arrive sums the tile into ``out``: for a conv that feeds a conv."""
         cin_b = 0 if xb is None else xb.shape[1]
-        splits, tiles, elems = self.splits_for(
-            xa.shape[0], xa.shape[1] + cin_b, w.shape[1], mode, k)
+        t = self.tiling_for(xa.shape[0], xa.shape[1] + cin_b, w, mode, k)
         if partial is None:
-            self.region_elems[region] = max(self.region_elems[region], elems)
-        self.emit(CONV, sync, region=None if partial is not None else region,
-                  xa=xa, xb=xb, w=w, partial=partial, cin_a=xa.shape[1],
-                  cin_b=cin_b, rows_in=xa.shape[0], seg_in=seg,
-                  cout=w.shape[1], mode=mode, k=k,
-                  w_bf16=int(w.dtype == torch.bfloat16), splits=splits,
-                  rot=self.rot % self.grid)
-        self.rot = 0 if sync else self.rot + tiles * splits
-        return splits
+            self.region_elems[region] = max(self.region_elems[region],
+                                            t.partial_elems)
+        op = self.emit(
+            CONV, sync, region=None if partial is not None else region,
+            xa=xa, xb=xb, w=w, partial=partial, cin_a=xa.shape[1],
+            cin_b=cin_b, rows_in=xa.shape[0], seg_in=seg, cout=w.shape[1],
+            mode=mode, k=k, w_bf16=int(w.dtype == torch.bfloat16),
+            splits=t.splits, bm=t.bm, bn=t.bn, rot=self.rot % self.grid,
+            out=out, bias=bias)
+        if out is not None:
+            self.counted.append((op, self.n_counters))
+            self.n_counters += t.tiles
+        self.rot = 0 if sync else self.rot + t.tiles * t.splits
+        return t.splits
 
     def finish(self) -> torch.Tensor:
         """Allocate the partial regions, patch their addresses in and return
@@ -165,6 +178,11 @@ class _ProgramBuilder:
         regions = [self.buf(max(n, 1)) for n in self.region_elems]
         for op, field, region in self.patches:
             setattr(op, field, regions[region].data_ptr())
+        counters = torch.zeros(max(self.n_counters, 1), dtype=torch.int32,
+                               device=self.device)
+        self.keep.append(counters)
+        for op, first in self.counted:
+            op.counters = counters.data_ptr() + 4 * first
         raw = bytearray(b"".join(bytes(op) for op in self.ops))
         return torch.frombuffer(raw, dtype=torch.uint8).to(self.device)
 
@@ -179,20 +197,16 @@ def _build_program(unet, flat_w, x0, m_embs, step_noise, scal, cond,
     x = b.buf(H, D)
 
     # -- prologue: x = x_T (row 0 conditioned), time-dense rows of all steps;
-    # every table has its own partials, so the convs need no barrier between
+    # every table has its own partials and counters, so the convs need no
+    # barrier between
     b.emit(INIT, False, xa=x0, cond=cond, out=x, rows_in=H, seg_in=H, cout=D)
     dense = [op[2] for op in prog if op[0] == "res"]
     tables = []
     for i, (wt, bt) in enumerate(dense):
-        splits, _, elems = b.splits_for(T, wt.shape[0], wt.shape[1], SAME, 1)
-        part = b.buf(elems)
-        b.conv(m_embs, None, wt, SAME, 1, T, partial=part,
-               sync=i == len(dense) - 1)
-        tables.append((part, splits, bt, b.buf(T, wt.shape[1])))
-    for i, (part, splits, bt, table) in enumerate(tables):
-        b.emit(REDUCE, i == len(tables) - 1, partial=part, splits=splits,
-               bias=bt, out=table, rows_in=T, seg_in=T, cout=table.shape[1],
-               mode=SAME)
+        t = b.tiling_for(T, wt.shape[0], wt, SAME, 1)
+        tables.append(b.buf(T, wt.shape[1]))
+        b.conv(m_embs, None, wt, SAME, 1, T, partial=b.buf(t.partial_elems),
+               sync=i == len(dense) - 1, out=tables[-1], bias=bt)
     n_pre = len(b.ops)
 
     # -- one denoise step (the walk of planner._unet_eps)
@@ -215,7 +229,7 @@ def _build_program(unet, flat_w, x0, m_embs, step_noise, scal, cond,
             sp1 = b.conv(cur, pending, w1, SAME, k, seg, sync=rconv is None)
             if rconv is not None:
                 spr = b.conv(cur, pending, rconv[0], SAME, 1, seg, region=1)
-            h = gn(sp1, b1, s1, g1, seg, cout, te=tables[r][3], te_stride=cout)
+            h = gn(sp1, b1, s1, g1, seg, cout, te=tables[r], te_stride=cout)
             r += 1
             sp2 = b.conv(h, None, w2, SAME, k, seg)
             if rconv is None:
@@ -230,11 +244,9 @@ def _build_program(unet, flat_w, x0, m_embs, step_noise, scal, cond,
             pending = skips.pop()
         elif kind in ("down", "up"):
             mode, kk = (DOWN, 3) if kind == "down" else (UP, 4)
-            sp = b.conv(cur, None, op[1], mode, kk, seg)
             out = b.buf(seg // 2 if kind == "down" else seg * 2,
                         op[1].shape[1])
-            b.emit(REDUCE, True, region=0, splits=sp, bias=op[2], out=out,
-                   rows_in=seg, seg_in=seg, cout=out.shape[1], mode=mode)
+            b.conv(cur, None, op[1], mode, kk, seg, out=out, bias=op[2])
             cur, seg = out, out.shape[0]
         elif kind == "res_plain":
             w, bias, s, g = op[1]

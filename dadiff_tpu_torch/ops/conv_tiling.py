@@ -1,0 +1,188 @@
+"""The tiling of the conv kernels (``csrc/common.cuh``), written once in
+Python: which tile a conv gets, how its K range is split, and the index
+functions that turn (GEMM row, K index) into (input row, weight row).
+
+A conv of the U-Net over row-stacked chains is an implicit GEMM
+``out[M, cout] = stack[M, K] @ w[K, cout]`` whose left operand, the shifted
+stack of the JAX package's ops/pallas_unet.py ``_conv_stack`` :184, is never
+built: stack index ``K = j * cin + ci`` is tap ``j`` of channel ``ci``, and
+:func:`in_row` finds the input row (or the zero pad) per segment. The k=4 s=2
+transposed conv runs as two parities of two virtual taps each.
+
+The launchers (``ops/planner.py``, ``ops/chain.py``) take tile shapes and
+splits from here and hand them to the kernels; :func:`rows_conv_tiled` walks
+the same tiles on the CPU, so the tests hold the tiling against
+``rows_conv_plain`` where no kernel can run.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+SAME, DOWN, UP = 0, 1, 2  # conv modes, as in csrc/common.cuh
+BK = 32                   # K tile of every kernel tile
+N_SM = 132                # streaming multiprocessors of an H100
+
+
+MMA_TILES = ((16, 64), (32, 64), (64, 64), (64, 128))  # bf16, smallest first
+F32_TILE = (32, 32)
+
+
+def tile_shape(M: int, bf16: bool, cout: int, parities: int = 1,
+               room: int = 2 * N_SM) -> Tuple[int, int]:
+    """(rows, columns) of the output tile of a conv with M GEMM rows; one of
+    the tiles ``DADIFF_WITH_TILE`` of csrc/common.cuh instantiates. bf16
+    weights: the smallest tile that leaves no more than ``room`` output
+    tiles. At the U-Net's sizes a conv is bound by latency, and many small
+    blocks, each with its own loads in flight, beat the fewer re-reads of a
+    large tile: on the card 16 x 64 came first at every conv of the flagship
+    at 8 chains. f32 weights: 32 x 32."""
+    if not bf16:
+        return F32_TILE
+    for bm, bn in MMA_TILES:
+        if -(-M // bm) * -(-cout // bn) * parities <= room:
+            break
+    return bm, bn
+
+
+def tap_row(mode: int, l: int, j: int, parity: int, k: int) -> int:
+    """Row inside its segment that feeds local output row ``l`` through
+    virtual tap ``j`` (outside the segment: a zero pad)."""
+    if mode == DOWN:
+        return 2 * l + j - 1
+    if mode == SAME:
+        return l + j - k // 2
+    # even rows: x[h] R1 + x[h-1] R3; odd rows: x[h+1] R0 + x[h] R2
+    if parity == 0:
+        return l if j == 0 else l - 1
+    return l + 1 if j == 0 else l
+
+
+def in_row(mode: int, m: int, j: int, parity: int, seg_in: int, k: int) -> int:
+    """Input row feeding GEMM row ``m`` through virtual tap ``j``, or -1."""
+    seg_m = seg_in // 2 if mode == DOWN else seg_in
+    s = m // seg_m
+    li = tap_row(mode, m - s * seg_m, j, parity, k)
+    return s * seg_in + li if 0 <= li < seg_in else -1
+
+
+def weight_tap(mode: int, j: int, parity: int) -> int:
+    """Row block of the flattened weight that virtual tap ``j`` multiplies."""
+    if mode != UP:
+        return j
+    return (1, 3)[j] if parity == 0 else (0, 2)[j]
+
+
+def out_row(mode: int, m: int, parity: int, seg_in: int) -> int:
+    if mode != UP:
+        return m
+    s = m // seg_in
+    return s * 2 * seg_in + 2 * (m - s * seg_in) + parity
+
+
+def gemm_dims(rows: int, cin: int, mode: int, k: int) -> Tuple[int, int, int]:
+    """(M, K, parities) of the conv's GEMM."""
+    return (rows // 2 if mode == DOWN else rows,
+            (2 if mode == UP else k) * cin, 2 if mode == UP else 1)
+
+
+def k_range(split: int, splits: int, K: int) -> Tuple[int, int]:
+    """[k_begin, k_end) of one K split: whole K tiles, equal shares."""
+    k_tiles = -(-K // BK)
+    per_split = -(-k_tiles // splits)
+    k_begin = split * per_split * BK
+    return k_begin, max(k_begin, min(K, k_begin + per_split * BK))
+
+
+def even_splits(k_tiles: int, want: int) -> int:
+    """At most ``want`` splits of ``k_tiles`` K tiles, none of them empty."""
+    want = max(1, min(want, k_tiles))
+    return -(-k_tiles // -(-k_tiles // want))
+
+
+class Tiling(NamedTuple):
+    bm: int
+    bn: int
+    tiles: int       # output tiles, parities included
+    splits: int      # K splits per output tile
+    M: int
+    K: int
+    parities: int
+    cout: int
+
+    @property
+    def partial_elems(self) -> int:
+        """Floats of the split-K partial tiles, [parity][split][M][cout]."""
+        return self.parities * self.splits * self.M * self.cout
+
+
+def tiling(rows: int, cin: int, cout: int, mode: int, k: int, bf16: bool,
+           room: int, want_splits) -> Tiling:
+    """Tile and K splits of a conv on a card with room for ``room`` blocks.
+    ``want_splits(tiles, k_tiles)`` says how many splits the launcher would
+    like for that many output tiles; it gets at most that many, none of them
+    empty."""
+    M, K, parities = gemm_dims(rows, cin, mode, k)
+    bm, bn = tile_shape(M, bf16, cout, parities, room)
+    tiles = -(-cout // bn) * -(-M // bm) * parities
+    k_tiles = -(-K // BK)
+    return Tiling(bm, bn, tiles, even_splits(k_tiles, want_splits(tiles, k_tiles)),
+                  M, K, parities, cout)
+
+
+def rows_conv_tiled(xa, xb, w, bias, mode: int, k: int, seg_in: int, bm: int,
+                    bn: int, splits: int):
+    """The conv rebuilt from its kernel tiles on the CPU: every (tile,
+    parity, K split) sums its K tiles into a partial tile, through the index
+    functions above, and the partials are added in split order. Returns
+    (out, cover): ``cover[parity, tile_m, tile_n, K index]`` counts how often
+    a tile's walk multiplied that index."""
+    x = xa if xb is None else torch.cat([xa, xb], dim=1)
+    if w.dtype == torch.bfloat16:  # rounded as they are staged
+        x = x.to(torch.bfloat16).to(torch.float32)
+    wf = w.to(torch.float32)
+    rows, cin = x.shape
+    cout = wf.shape[1]
+    M, K, parities = gemm_dims(rows, cin, mode, k)
+    aligned = xa.shape[1] % BK == 0 and (xb is None or xb.shape[1] % BK == 0)
+    tiles_m, tiles_n = -(-M // bm), -(-cout // bn)
+    out = torch.zeros(parities * M if mode == UP else M, cout)
+    cover = torch.zeros(parities, tiles_m, tiles_n, K, dtype=torch.int64)
+    zero = torch.zeros(cin)
+    for parity in range(parities):
+        for tm in range(tiles_m):
+            ms = range(tm * bm, min(M, (tm + 1) * bm))
+            for tn in range(tiles_n):
+                n0, n1 = tn * bn, min(cout, (tn + 1) * bn)
+                acc = torch.zeros(len(ms), n1 - n0)
+                for split in range(splits):
+                    part = torch.zeros_like(acc)
+                    k_begin, k_end = k_range(split, splits, K)
+                    for k0 in range(k_begin, k_end, BK):
+                        k1 = min(k_end, k0 + BK)
+                        a = torch.zeros(len(ms), k1 - k0)
+                        if aligned:  # one tap per K tile, found once per row
+                            j, ci = divmod(k0, cin)
+                            for i, m in enumerate(ms):
+                                r = in_row(mode, m, j, parity, seg_in, k)
+                                a[i] = (zero if r < 0 else x[r])[ci:ci + k1 - k0]
+                            wr0 = weight_tap(mode, j, parity) * cin + ci
+                            b = wf[wr0:wr0 + k1 - k0, n0:n1]
+                        else:        # ragged: element by element
+                            b = torch.zeros(k1 - k0, n1 - n0)
+                            for kk, kg in enumerate(range(k0, k1)):
+                                j, ci = divmod(kg, cin)
+                                for i, m in enumerate(ms):
+                                    r = in_row(mode, m, j, parity, seg_in, k)
+                                    a[i, kk] = 0.0 if r < 0 else x[r, ci]
+                                b[kk] = wf[weight_tap(mode, j, parity) * cin
+                                           + ci, n0:n1]
+                        part += a @ b
+                        cover[parity, tm, tn, k0:k1] += 1
+                    acc += part
+                for i, m in enumerate(ms):
+                    out[out_row(mode, m, parity, seg_in), n0:n1] = \
+                        acc[i] + bias.reshape(-1)[n0:n1]
+    return out, cover

@@ -39,8 +39,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "planner": {
         # xa, xb, cin_a, cin_b, w, w_bf16, bias, out, rows_in, seg_in, cout,
-        # mode, k, splits, partial, counters, stream
-        "rows_conv": [P, P, I, I, P, I, P, P, I, I, I, I, I, I, P, P, P],
+        # mode, k, bm, bn, splits, partial, counters, stream
+        "rows_conv": [P, P, I, I, P, I, P, P, I, I, I, I, I, I, I, I, P, P, P],
         # x, eps, noise, scal, cond, M, b, n_chains, H, D, clip, predict_eps,
         # wall, grid_h, grid_w, mx, my, sx, sy, margin, stream
         "ddpm_project_step": [P, P, P, P, P, P, P, I, I, I, I, I,

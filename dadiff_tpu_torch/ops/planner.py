@@ -8,12 +8,12 @@ and wire_policy_megakernel :449; and of the U-Net body it runs,
 ops/pallas_unet.py:258 ``_unet_forward``.
 
 On the TPU the whole chain is one kernel with the weights resident in VMEM.
-Here each denoise step is a short sequence of launches on PyTorch's current
-stream, ~61 at the flagship:
+Here each denoise step is a short sequence of launches, ~61 at the flagship:
 
   rows_conv          every conv of the U-Net (k=5, k=1, the k=3 stride-2
                      downsample, the k=4 stride-2 transposed conv), on all
-                     chains at once, zero-padded per chain;
+                     chains at once, zero-padded per chain; the bf16 product
+                     runs on the tensor cores (csrc/common.cuh);
   gn_mish (K1)       every GroupNorm+Mish, statistics per chain, with the
                      time-embedding add or the residual add fused after it;
   ddpm_project_step  DDPM update, projection, wall revert, row-0 conditioning.
@@ -21,6 +21,13 @@ stream, ~61 at the flagship:
 The per-step time-dense products are hoisted out of the loop: one k=1
 ``rows_conv`` per residual block over all T steps. Noise is drawn outside the
 kernels, as on the TPU (pallas_planner.py:414-416).
+
+On the card a chain owns every buffer of its wave (:class:`_WaveRunner`): the
+caller's x_T, noise and conditioning are copied into fixed buffers, the first
+wave on a set of prepared operands is driven from the host and then captured
+in a CUDA graph, and every later wave replays that graph: one graph launch
+instead of ~6,100 kernel launches, the counterpart of the TPU's one jitted
+call. A capture or a replay that fails raises.
 
 The same host loop runs the plain PyTorch version of each kernel when the
 tensors lie on the CPU; on CUDA tensors it launches the kernels or raises.
@@ -37,15 +44,14 @@ import torch
 
 from dadiff_tpu_torch.ops import cuda_lib
 from dadiff_tpu_torch.ops.chain_operands import _layer_plan, prepare_chain_operands
-from dadiff_tpu_torch.ops.gn_mish import gn_mish_plain, launch_gn_mish
+from dadiff_tpu_torch.ops.conv_tiling import DOWN, N_SM, SAME, UP, Tiling, tiling
+from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain, launch_gn_mish
 from dadiff_tpu_torch.ops.projection import (
     NormStats,
     apply_projection,
     projection_alpha,
     wall_violation_mask,
 )
-
-SAME, DOWN, UP = 0, 1, 2  # rows_conv modes, as in csrc/planner.cu
 
 
 # ---------------------------------------------------------------------------
@@ -94,33 +100,49 @@ def _conv_out_rows(rows: int, mode: int) -> int:
     return {SAME: rows, DOWN: rows // 2, UP: 2 * rows}[mode]
 
 
-_TILE, _TARGET_BLOCKS = 32, 2 * 132  # csrc/planner.cu BM = BN; 2 per SM
+# blocks the card has room for at two per SM; a launch may queue twice that
+_ROOM = 2 * N_SM
 
 
-def _split_k(rows: int, cin: int, cout: int, mode: int, k: int):
-    """Output tiles of one launch and the K splits that bring the grid to
-    about two blocks per SM (each split keeps at least 4 K tiles)."""
-    M = rows // 2 if mode == DOWN else rows
-    tiles = -(-cout // _TILE) * -(-M // _TILE) * (2 if mode == UP else 1)
-    k_tiles = -(-(2 if mode == UP else k) * cin // _TILE)
-    return tiles, max(1, min(k_tiles // 4, -(-_TARGET_BLOCKS // tiles)))
+def _want_splits(tiles: int, k_tiles: int) -> int:
+    """K splits of one launch, from a sweep of the flagship's convs on the
+    card: none under 8 K tiles (the partial tiles' round trip costs more
+    than the short loop), else 2 or more K tiles per split, 8 splits (one
+    batch of loads for the block that sums them) until a split would pass 10
+    K tiles, and no more than four blocks per SM in all."""
+    if k_tiles < 8:
+        return 1
+    return min(k_tiles // 2, max(8, k_tiles // 10), -(-2 * _ROOM // tiles))
+
+
+def _split_k(rows: int, cin: int, cout: int, mode: int, k: int,
+             bf16: bool) -> Tiling:
+    """Tile shape, output tiles and K splits of one launch."""
+    return tiling(rows, cin, cout, mode, k, bf16, _ROOM, _want_splits)
 
 
 def launch_rows_conv(xa, xb, w, bias, out, mode: int, k: int, seg_in: int,
-                     stream=None):
-    """Launch the kernel on contiguous CUDA tensors (unchecked)."""
+                     stream=None, scratch=None, t: Optional[Tiling] = None):
+    """Launch the kernel on contiguous CUDA tensors (unchecked). ``scratch``:
+    a float32 tensor that holds the split-K partial tiles if it is large
+    enough; else one is allocated. ``t``: another tile and split than
+    :func:`_split_k`'s (measurements)."""
     cin_b = 0 if xb is None else xb.shape[1]
     rows, cout = xa.shape[0], w.shape[1]
-    tiles, splits = _split_k(rows, xa.shape[1] + cin_b, cout, mode, k)
+    bf16 = w.dtype == torch.bfloat16
+    if t is None:
+        t = _split_k(rows, xa.shape[1] + cin_b, cout, mode, k, bf16)
     partial = counters = None
-    if splits > 1:
-        partial = torch.empty(splits * tiles * _TILE * _TILE,
-                              dtype=torch.float32, device=xa.device)
-        counters = cuda_lib.counters(xa.device, tiles)
+    if t.splits > 1:
+        partial = scratch
+        if partial is None or partial.numel() < t.partial_elems:
+            partial = torch.empty(t.partial_elems, dtype=torch.float32,
+                                  device=xa.device)
+        counters = cuda_lib.counters(xa.device, t.tiles)
     rc = cuda_lib.lib("planner").rows_conv(
         xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[1],
-        cin_b, w.data_ptr(), int(w.dtype == torch.bfloat16), bias.data_ptr(),
-        out.data_ptr(), rows, seg_in, cout, mode, k, splits,
+        cin_b, w.data_ptr(), int(bf16), bias.data_ptr(), out.data_ptr(), rows,
+        seg_in, cout, mode, k, t.bm, t.bn, t.splits,
         None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(),
         cuda_lib.stream_of(xa) if stream is None else stream)
@@ -149,6 +171,11 @@ def rows_conv(xa, xb, w, bias, mode: int, k: int, seg_in: int) -> torch.Tensor:
             or xa.shape[0] % seg_in or (xb is not None
                                         and xb.shape[0] != xa.shape[0]):
         raise ValueError("rows_conv: shapes do not match")
+    if w.shape[1] % 8 or any(t is not None and t.data_ptr() % 16
+                             for t in (xa, xb, w)):
+        raise ValueError("rows_conv: the kernel moves 16 bytes at a time: "
+                         "cout must be a multiple of 8 and the operands "
+                         "16-byte aligned")
     out = torch.empty(_conv_out_rows(xa.shape[0], mode), w.shape[1],
                       dtype=torch.float32, device=xa.device)
     launch_rows_conv(xa, xb, w, bias, out, mode, k, seg_in)
@@ -271,6 +298,9 @@ ddpm_project_step.launches = 0
 class _PlainOps:
     """The plain version of every kernel (CPU tensors)."""
 
+    def begin(self, section: str) -> None:
+        pass
+
     def conv(self, xa, xb, w, bias, mode, k, seg):
         return rows_conv_plain(xa, xb, w, bias, mode, k, seg)
 
@@ -286,20 +316,51 @@ class _PlainOps:
 
 
 class _CudaOps:
-    """The kernels, launched on buffers the chain allocates itself, so the
-    per-launch checks of the public wrappers are skipped."""
+    """The kernels, launched on buffers the chain owns, so the per-launch
+    checks of the public wrappers are skipped. Outputs come from a pool in
+    launch order: the prologue's, and one denoise step's, which every step
+    reuses. Once a first wave has warmed the pool a wave allocates nothing,
+    which capture in a CUDA graph needs. The split-K partial tiles of every
+    conv share one scratch buffer (launches run in stream order)."""
 
     def __init__(self, device):
-        self.stream = torch.cuda.current_stream(device).cuda_stream
+        self.device = torch.device(device)
+        self.pool, self.section, self.cursor = {}, "", 0
+        self.scratch = None
+
+    @property
+    def stream(self):
+        """PyTorch's current stream (the capture stream under capture)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+    def begin(self, section: str) -> None:
+        self.section, self.cursor = section, 0
+
+    def _take(self, rows: int, cols: int) -> torch.Tensor:
+        key = (self.section, self.cursor)
+        self.cursor += 1
+        buf = self.pool.get(key)
+        if buf is None or buf.shape != (rows, cols):
+            buf = self.pool[key] = torch.empty(
+                rows, cols, dtype=torch.float32, device=self.device)
+        return buf
 
     def conv(self, xa, xb, w, bias, mode, k, seg):
-        out = torch.empty(_conv_out_rows(xa.shape[0], mode), w.shape[1],
-                          dtype=torch.float32, device=xa.device)
-        launch_rows_conv(xa, xb, w, bias, out, mode, k, seg, self.stream)
+        out = self._take(_conv_out_rows(xa.shape[0], mode), w.shape[1])
+        t = _split_k(xa.shape[0],
+                     xa.shape[1] + (0 if xb is None else xb.shape[1]),
+                     w.shape[1], mode, k, w.dtype == torch.bfloat16)
+        if self.scratch is None or self.scratch.numel() < t.partial_elems:
+            self.scratch = torch.empty(t.partial_elems, dtype=torch.float32,
+                                       device=self.device)
+        launch_rows_conv(xa, xb, w, bias, out, mode, k, seg, self.stream,
+                         self.scratch, t)
         return out
 
     def gn(self, x, scale, bias, seg, te=None, res=None):
-        out = torch.empty_like(x)
+        out = self._take(*x.shape)
         launch_gn_mish(x, out, scale, bias, te, 0, res, 8, 1e-5, seg,
                        self.stream)
         return out
@@ -372,23 +433,101 @@ def _unet_eps(ops, prog, x, tes, H: int, k: int):
 
 
 def run_chain(ops, unet, flat_w, x0, m_embs, step_noise, scal, cond, M, b,
-              cfg: StepConfig):
+              cfg: StepConfig, out=None):
     """The chain's host loop on ``ops`` (the kernels, or their plain
     versions): time-dense rows for all steps, cond on x_T, then per step the
-    U-Net and the projected DDPM update (pallas_planner.py:206-250)."""
+    U-Net and the projected DDPM update (pallas_planner.py:206-250). The
+    iterate lives in ``out`` if given, else in a new tensor."""
     prog = _program(unet, flat_w)
     T, H = scal.shape[0], cfg.horizon
     D = x0.shape[1]
     # time-dense rows of every residual block for all T steps at once
+    ops.begin("prologue")
     tes = [ops.conv(m_embs, None, op[2][0], op[2][1], SAME, 1, T)
            for op in prog if op[0] == "res"]
-    x = x0.clone()
+    x = x0.clone() if out is None else out.copy_(x0)
     if cond is not None:  # only the plain step takes an unconditioned chain
         x.view(-1, H, D)[:, 0] = cond.view(-1, H, D)[:, 0]
     for i in range(T):
+        ops.begin("step")
         eps = _unet_eps(ops, prog, x, [te[i] for te in tes], H, unet.kernel_size)
         x = ops.step(x, eps, step_noise[i], scal[i], cond, M, b, cfg)
+    if out is not None and x is not out:  # the plain step returns new tensors
+        x = out.copy_(x)
     return x
+
+
+def _launch_counts():
+    return (rows_conv.launches, gn_mish.launches, ddpm_project_step.launches)
+
+
+def _set_launch_counts(counts) -> None:
+    rows_conv.launches, gn_mish.launches, ddpm_project_step.launches = counts
+
+
+class _WaveRunner:
+    """The fixed buffers of one chain's waves and their CUDA graphs.
+
+    ``run`` copies the caller's x_T, noise and conditioning into buffers
+    whose addresses never change. The first wave on a set of prepared
+    operands (flattened weights, time embeddings, step scalars, projection)
+    is driven from the host, which also warms the pool of ``ops``; then the
+    same loop is captured, and every later wave on those operands is one
+    replay. Capture launches nothing, so the launches it counted are taken
+    back, and every replay adds them to the wrappers' counts. The graphs of
+    the last ``MAX_GRAPHS`` operand sets are kept (each holds its operands
+    alive)."""
+
+    MAX_GRAPHS = 4
+
+    def __init__(self, unet, cfg: StepConfig, ops, shape, T: int, device):
+        R, D = shape
+        self.unet, self.cfg, self.ops = unet, cfg, ops
+
+        def new(*s):
+            return torch.empty(*s, dtype=torch.float32, device=device)
+
+        self.x0, self.cond, self.x = new(R, D), new(R, D), new(R, D)
+        self.noise = new(T, R, D)
+        self.graphs = {}   # operand addresses -> (replay, launches, operands)
+
+    def _capture(self, wave):
+        """Record ``wave`` in a CUDA graph; returns its replay."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            wave()
+        return graph.replay
+
+    def run(self, flat_w, x0, m_embs, step_noise, scal, cond, M, b,
+            graph: bool = True) -> torch.Tensor:
+        """One wave; the result stays in a buffer the next wave overwrites."""
+        self.x0.copy_(x0)
+        self.noise.copy_(step_noise)
+        self.cond.copy_(cond)
+
+        def wave():
+            run_chain(self.ops, self.unet, flat_w, self.x0, m_embs, self.noise,
+                      scal, self.cond, M, b, self.cfg, out=self.x)
+
+        operands = [*flat_w, m_embs, scal, M, b]
+        key = tuple(None if t is None else t.data_ptr() for t in operands)
+        if not graph:
+            wave()
+        elif key in self.graphs:
+            replay, launches, _ = self.graphs[key]
+            replay()
+            _set_launch_counts(tuple(
+                n + d for n, d in zip(_launch_counts(), launches)))
+        else:
+            wave()  # answers this call and warms the pool
+            before = _launch_counts()
+            replay = self._capture(wave)
+            launches = tuple(a - c for a, c in zip(_launch_counts(), before))
+            _set_launch_counts(before)
+            if len(self.graphs) >= self.MAX_GRAPHS:
+                del self.graphs[next(iter(self.graphs))]  # the oldest
+            self.graphs[key] = (replay, launches, operands)
+        return self.x
 
 
 def make_planner_chain(unet, schedule, horizon: int, n_chains: int,
@@ -407,6 +546,11 @@ def make_planner_chain(unet, schedule, horizon: int, n_chains: int,
     The TPU walks groups one after another; here all chains of all groups run
     together, which gives the same result since chains are independent. The
     flattened weights' dtype (bf16 or f32) selects the product precision.
+
+    On CUDA operands the wave runs on the chain's own buffers and, with
+    ``graph=True``, from a CUDA graph captured at the first call on these
+    prepared operands (:class:`_WaveRunner`); ``graph=False`` drives every
+    launch from the host. Either way a new tensor is returned.
     """
     from dadiff_tpu_torch.models.diffusion import default_timesteps
 
@@ -414,10 +558,11 @@ def make_planner_chain(unet, schedule, horizon: int, n_chains: int,
     cfg = StepConfig(horizon, clip_denoised, predict_epsilon,
                      wall_grid if projection else None, wall_margin, pos_stats)
     H = horizon
+    runners = {}
 
     @torch.no_grad()
-    def chain(flat_w, x0, m_embs, step_noise, scal, cond, M=None, b=None):
-        ops = _PlainOps() if x0.device.type == "cpu" else _CudaOps(x0.device)
+    def chain(flat_w, x0, m_embs, step_noise, scal, cond, M=None, b=None,
+              graph: bool = True):
         T = scal.shape[0]
         R, D = x0.shape
         if R != n_groups * n_chains * H or step_noise.shape != (T, R, D) \
@@ -425,18 +570,24 @@ def make_planner_chain(unet, schedule, horizon: int, n_chains: int,
             raise ValueError("planner chain: operand shapes do not match")
         if not projection:
             M = b = None
-        if x0.device.type != "cpu":
-            acts = [t for t in (x0, m_embs, step_noise, scal, cond, M, b)
-                    if t is not None]
-            if any(t.dtype != torch.float32 for t in acts) or any(
-                    w.dtype not in (torch.float32, torch.bfloat16)
-                    for w in flat_w) or any(
-                    not t.is_contiguous() or t.device != x0.device
-                    for t in acts + list(flat_w)):
-                raise ValueError("planner chain: operands must be contiguous "
-                                 "on one device, float32 (weights f32 or bf16)")
-        return run_chain(ops, unet, flat_w, x0, m_embs, step_noise, scal,
-                         cond, M, b, cfg)
+        if x0.device.type == "cpu":
+            return run_chain(_PlainOps(), unet, flat_w, x0, m_embs, step_noise,
+                             scal, cond, M, b, cfg)
+        acts = [t for t in (x0, m_embs, step_noise, scal, cond, M, b)
+                if t is not None]
+        if any(t.dtype != torch.float32 for t in acts) or any(
+                w.dtype not in (torch.float32, torch.bfloat16)
+                for w in flat_w) or any(
+                not t.is_contiguous() or t.device != x0.device
+                for t in acts + list(flat_w)):
+            raise ValueError("planner chain: operands must be contiguous "
+                             "on one device, float32 (weights f32 or bf16)")
+        key = (str(x0.device), T, D)
+        if key not in runners:
+            runners[key] = _WaveRunner(unet, cfg, _CudaOps(x0.device), (R, D),
+                                       T, x0.device)
+        return runners[key].run(flat_w, x0, m_embs, step_noise, scal, cond,
+                                M, b, graph).clone()
 
     chain.timesteps = ts
     chain.n_steps = len(ts)
@@ -485,7 +636,10 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
     ``plan(generator, conditions) -> (B, H, D)``, the best plan per episode
     stream by physical-space goal distance. ``plan.prepare()`` computes the
     flattened weights and per-step operands once; pass its result back as
-    ``prepared``. ``x0``/``step_noise`` inject the randomness (tests)."""
+    ``prepared``: on the card the wave of prepared operands is captured in
+    a CUDA graph at its first plan and replayed afterwards, while a plan
+    without them prepares anew and drives its wave from the host.
+    ``x0``/``step_noise`` inject the randomness (tests)."""
     from dadiff_tpu_torch.models.diffusion import default_timesteps
 
     if diffusion.prediction == "v":
@@ -563,9 +717,10 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
         cond = torch.cat([values.repeat_interleave(n_candidates, dim=0),
                           values.new_zeros(C_pad - C_tot, H, D)]
                          ).reshape(C_pad * H, D)
+        # operands prepared for this call alone will not come back: no graph
         out = _get_chain(Ng, G)(flat_w, x0.to(device).contiguous(), m_embs,
                                 step_noise.to(device).contiguous(), scal, cond,
-                                M, b)
+                                M, b, graph=prepared is not None)
         plans = out[: C_tot * H].reshape(B, n_candidates, H, D)
         # physical-space goal distance (pallas_planner.py:427-442)
         gd = obs_dim - 2

@@ -1,0 +1,213 @@
+"""Sweep the free parameters of the conv kernels on the card, at the flagship
+shapes (horizon 32, dim 128, mults 1 2 4, random weights):
+
+    python -m dadiff_tpu_torch.sweep_kernels conv  [--chains 8]
+    python -m dadiff_tpu_torch.sweep_kernels chain
+
+``conv``: every distinct conv of one denoise step through ``rows_conv``
+(bf16 weights) with each tile of ``conv_tiling.MMA_TILES`` and 1-32 K splits,
+timed as ten launches replayed from a CUDA graph (weights warm in L2), beside
+the tile and split that ``ops/planner.py`` takes itself; the sums over a step
+of the best choices and of the rule's. This is where ``tile_shape`` and
+``_want_splits`` come from.
+
+``chain``: the one-launch chain (K3) with 1 or 2 blocks per SM and several
+caps on the K splits of a conv, ms per chain and block 0's cycle shares: where
+``_BLOCKS_PER_SM`` and ``MAX_FAN_IN`` of ``ops/chain.py`` come from.
+
+It needs a CUDA device, prints the card's name and power limit first, and
+checks every variant against the plain version before it times it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import subprocess
+from collections import Counter
+
+import torch
+
+from dadiff_tpu_torch.ops import chain as ch
+from dadiff_tpu_torch.ops import conv_tiling as ct
+from dadiff_tpu_torch.ops import planner as pl
+from dadiff_tpu_torch.ops.chain_operands import (
+    flatten_unet_params, prepare_chain_operands,
+)
+
+HORIZON, DIM, MULTS, D, T_STEPS = 32, 128, (1, 2, 4), 8, 100
+
+
+def graph_ms(fn, reps: int = 5) -> float:
+    """Device ms of ``fn``'s launches, captured once and replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class _Recorder:
+    """Stands in for the chain's ops on meta tensors and records each launch
+    with its shapes."""
+
+    def __init__(self):
+        self.calls = []
+
+    def conv(self, xa, xb, w, bias, mode, k, seg):
+        self.calls.append(("conv", xa.shape[0], xa.shape[1],
+                           0 if xb is None else xb.shape[1], w.shape[1], mode,
+                           k, seg))
+        return torch.empty(pl._conv_out_rows(xa.shape[0], mode), w.shape[1],
+                           device="meta")
+
+    def gn(self, x, scale, bias, seg, te=None, res=None):
+        self.calls.append(("gn", x.shape[0], x.shape[1], seg, te is not None,
+                           res is not None))
+        return torch.empty_like(x, device="meta")
+
+
+def step_launches(unet, rows: int, D: int, horizon: int):
+    """The launches of one denoise step on ``rows`` stacked rows, recorded
+    from the chain's own host loop: (calls, layer program, residual blocks),
+    a call being ("conv", rows, cin_a, cin_b, cout, mode, k, seg) or
+    ("gn", rows, C, seg, has_te, has_res)."""
+    rec = _Recorder()
+    prog = pl._program(unet, [w.to("meta") for w in flatten_unet_params(unet)])
+    tes = [torch.empty(op[2][0].shape[1], device="meta") for op in prog
+           if op[0] == "res"]
+    pl._unet_eps(rec, prog, torch.empty(rows, D, device="meta"), tes, horizon,
+                 unet.kernel_size)
+    return rec.calls, prog, len(tes)
+
+
+def sweep_conv(unet, n_chains: int) -> None:
+    g = torch.Generator(device="cuda").manual_seed(0)
+    total = {"best": 0.0, "rule": 0.0}
+    calls, _, _ = step_launches(unet, n_chains * HORIZON, D, HORIZON)
+    for (_, R, ca, cb, cout, mode, k, seg), n in Counter(
+            c for c in calls if c[0] == "conv").items():
+        cin = ca + cb
+        xa = torch.randn(R, ca, device="cuda", generator=g)
+        xb = torch.randn(R, cb, device="cuda", generator=g) if cb else None
+        w = (torch.randn((4 if mode == ct.UP else k) * cin, cout, device="cuda",
+                         generator=g) / cin ** 0.5).to(torch.bfloat16)
+        bias = torch.randn(1, cout, device="cuda", generator=g)
+        out = torch.empty(pl._conv_out_rows(R, mode), cout, device="cuda")
+        want = pl.rows_conv_plain(xa, xb, w, bias, mode, k, seg)
+        M, K, parities = ct.gemm_dims(R, cin, mode, k)
+        k_tiles = -(-K // ct.BK)
+
+        def time_of(t):
+            scratch = torch.empty(max(t.partial_elems, 1), device="cuda")
+
+            def ten():
+                for _ in range(10):
+                    pl.launch_rows_conv(xa, xb, w, bias, out, mode, k, seg,
+                                        None, scratch, t)
+
+            ten()
+            torch.cuda.synchronize()
+            err = (out - want).abs().max().item()
+            if err > 1e-4:
+                raise SystemExit(f"rows_conv {t} disagrees: {err}")
+            return graph_ms(ten) * 100  # us per launch
+
+        us = {}
+        for bm, bn in ct.MMA_TILES:
+            tiles = -(-cout // bn) * -(-M // bm) * parities
+            for want_s in (1, 2, 4, 8, 16, 32):
+                s = ct.even_splits(k_tiles, want_s)
+                if (bm, bn, s) not in us:
+                    us[bm, bn, s] = time_of(ct.Tiling(bm, bn, tiles, s, M, K,
+                                                      parities, cout))
+        rule = pl._split_k(R, cin, cout, mode, k, True)
+        rule_us = time_of(rule)
+        best = sorted(us, key=us.get)[:3]
+        total["best"] += n * us[best[0]]
+        total["rule"] += n * rule_us
+        print(f"x{n} M={M} K={K} N={cout} mode={mode}: rule "
+              f"{(rule.bm, rule.bn, rule.splits)} {rule_us:.1f} us | best "
+              + " ".join(f"{q}: {us[q]:.1f}" for q in best) + " | by tile "
+              + " ".join(f"{t}: {min(v for q, v in us.items() if q[:2] == t):.1f}"
+                         for t in ct.MMA_TILES), flush=True)
+    print(f"per step at {n_chains} chains: best of the sweep "
+          f"{total['best'] / 1e3:.4f} ms, the rule {total['rule'] / 1e3:.4f} ms")
+
+
+def sweep_chain(unet, schedule) -> None:
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x0 = torch.randn(HORIZON, D, device="cuda", generator=g)
+    noise = torch.randn(T_STEPS, HORIZON, D, device="cuda", generator=g)
+    ts = torch.arange(T_STEPS - 1, -1, -1, device="cuda")
+    chain = ch.make_chain(unet, schedule, HORIZON)
+    defaults = ch._BLOCKS_PER_SM, ch.MAX_FAN_IN
+    try:
+        for wd in (torch.bfloat16, torch.float32):
+            fw, me, sc = prepare_chain_operands(unet, schedule, ts, wd)
+            want = ch.chain_plain(unet, fw, x0, me, noise, sc, None,
+                                  chain.config)
+            for per_sm, cap in itertools.product((1, 2), (8, 16, 33)):
+                ch._BLOCKS_PER_SM, ch.MAX_FAN_IN = per_sm, cap
+                launch = chain.bind(fw, x0, me, noise, sc)
+                err = (launch() - want).abs().max().item()
+                if err > (5e-2 if wd == torch.bfloat16 else 2e-3):
+                    raise SystemExit(f"chain disagrees: {err}")
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                for _ in range(5):
+                    launch()
+                end.record()
+                end.synchronize()
+                prof = torch.zeros(len(ch.PROFILE_SLOTS), dtype=torch.int64,
+                                   device="cuda")
+                launch(prof)
+                cyc = dict(zip(ch.PROFILE_SLOTS, prof.tolist()))
+                tot = max(sum(cyc.values()), 1)
+                print(f"{str(wd)[6:]} blocks/SM {per_sm} (grid {launch.grid}) "
+                      f"splits <= {cap}: {start.elapsed_time(end) / 5:.2f} ms "
+                      "per chain; cycles " + " ".join(
+                          f"{k} {v / tot:.2f}" for k, v in cyc.items()
+                          if v / tot >= 0.005) + f"; err {err:.1e}", flush=True)
+    finally:
+        ch._BLOCKS_PER_SM, ch.MAX_FAN_IN = defaults
+
+
+def main(argv=None) -> None:
+    from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
+    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("what", choices=("conv", "chain"))
+    parser.add_argument("--chains", type=int, default=8)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_kernels: no CUDA device")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.manual_seed(0)
+    unet = TemporalUnet(D, dim=DIM, dim_mults=MULTS).cuda()
+    with torch.no_grad():
+        if args.what == "conv":
+            sweep_conv(unet, args.chains)
+        else:
+            diff = GaussianDiffusion(unet, HORIZON, 6, 2,
+                                     n_timesteps=T_STEPS).cuda().eval()
+            sweep_chain(unet, diff.schedule)
+
+
+if __name__ == "__main__":
+    main()

@@ -48,6 +48,7 @@ from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
 from dadiff_tpu_torch.ops import chain as ch
 from dadiff_tpu_torch.ops import resblock as rb
 from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
+from dadiff_tpu_torch.ops.conv_tiling import rows_conv_tiled, tile_shape
 from dadiff_tpu_torch.ops.planner import DOWN, UP, StepConfig, rows_conv_plain
 
 # the models here are tiny: one thread per test process, so that several
@@ -357,10 +358,13 @@ def _arr(ptr, n):
     return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
 
 
-def _interpret(ops, n_pre, T, weights):
+def _interpret(ops, n_pre, T, weights, walk_tiles=False):
     """Run a layer program op by op. A conv puts its whole product into
     split 0 and an offset that cancels over the splits into the others, so a
-    consumer that reads too few splits, or the wrong plane, shows."""
+    consumer that reads too few splits, or the wrong plane, shows. With
+    ``walk_tiles`` every conv of the prologue and of the first step is also
+    rebuilt from the tiles and K splits its op names, as the kernel's items
+    cut it."""
 
     def partials(ptr, splits, plane):
         return _arr(ptr, splits * plane).reshape(splits, plane).sum(0)
@@ -384,6 +388,12 @@ def _interpret(ops, n_pre, T, weights):
             assert op.w_bf16 == (w.dtype == torch.bfloat16)
             full = rows_conv_plain(xa, xb, w, torch.zeros(1, cout), op.mode,
                                    op.k, op.seg_in).numpy()
+            if walk_tiles and step == 0:
+                tiled, cover = rows_conv_tiled(
+                    xa, xb, w, torch.zeros(1, cout), op.mode, op.k, op.seg_in,
+                    op.bm, op.bn, op.splits)
+                np.testing.assert_allclose(tiled.numpy(), full, atol=1e-5)
+                assert bool((cover == 1).all())
             M = rows // 2 if op.mode == DOWN else rows
             full = (np.stack([full[0::2], full[1::2]]) if op.mode == UP
                     else full[None])
@@ -391,14 +401,12 @@ def _interpret(ops, n_pre, T, weights):
                        ).reshape(full.shape[0], op.splits, M, cout)
             out[:, 1:] = 0.25
             out[:, 0] = full - 0.25 * (op.splits - 1)
-        elif op.kind == ch.REDUCE:
-            M = rows // 2 if op.mode == DOWN else rows
-            par = 2 if op.mode == UP else 1
-            p = _arr(op.partial, par * op.splits * M * cout).reshape(
-                par, op.splits, M, cout).sum(1) + _arr(op.bias, cout)
-            p = (np.stack([p[0], p[1]], axis=1).reshape(2 * M, cout)
-                 if par == 2 else p[0])
-            _arr(op.out, p.size)[:] = p.ravel()
+            if op.out:   # the last item of a tile sums it: no consumer op
+                assert op.counters and not _arr(op.counters, 1).view(np.int32)[0]
+                p = out.sum(1) + _arr(op.bias, cout)
+                p = (np.stack([p[0], p[1]], axis=1).reshape(2 * M, cout)
+                     if op.mode == UP else p[0])
+                _arr(op.out, p.size)[:] = p.ravel()
         elif op.kind == ch.GN:
             v = partials(op.partial, op.splits, n).reshape(rows, cout) \
                 + _arr(op.bias, cout)
@@ -467,30 +475,51 @@ def test_chain_layer_program_equals_plain_chain(monkeypatch, mults, H,
         unet, fw, x0, me, noise, sc, cond, cfg, grid)
     ops = built["ops"]
     assert prog.numel() == len(ops) * ctypes.sizeof(ch.ChainOp) == \
-        (n_pre + n_step) * 192
+        (n_pre + n_step) * 208
     assert bytes(prog.numpy().tobytes()) == b"".join(bytes(op) for op in ops)
     n_res = 2 * (2 * len(mults) - 1) + 2
-    assert n_pre == 1 + 2 * n_res
+    assert n_pre == 1 + n_res
     # every phase ends in a barrier, the last op of a step included, and no
     # conv leaves more items than one per block unless its tiles alone do
     assert ops[n_pre - 1].sync_after and ops[-1].sync_after
     assert ops[-1].kind == ch.STEP
-    assert syncs == 2 + T * sum(op.sync_after for op in ops[n_pre:])
+    assert syncs == 1 + T * sum(op.sync_after for op in ops[n_pre:])
+    # a conv's tile is the one its rows call for, its splits fill the grid
+    # without passing what a consumer sums in one batch of loads, and no
+    # reduce op stands between a conv and a GroupNorm or the DDPM step
     for op in ops:
         assert 0 <= op.rot < grid
         if op.kind == ch.CONV:
-            assert op.splits >= 1 and op.partial
+            M = op.rows_in // 2 if op.mode == DOWN else op.rows_in
+            assert (op.bm, op.bn) == tile_shape(
+                M, bool(op.w_bf16), op.cout, 2 if op.mode == UP else 1, grid)
+            assert 1 <= op.splits <= ch.MAX_FAN_IN and op.partial
+        if op.kind in (ch.GN, ch.STEP):
+            assert 1 <= op.splits <= ch.MAX_FAN_IN
+    # the down and up convs, which feed a conv, sum their own tiles; no other
+    # conv of a step does, and every phase is a conv, a norm or the step
+    own = [op for op in ops[n_pre:] if op.kind == ch.CONV and op.out]
+    assert len(own) == 2 * (len(mults) - 1)
+    assert all(op.mode in (DOWN, UP) and op.sync_after for op in own)
+    assert all(op.out and op.counters for op in ops[1:n_pre])
+    n_blocks, n_cut = 2 * (2 * len(mults) - 1) + 2, len(mults) - 1
+    assert sum(op.sync_after for op in ops[n_pre:]) == \
+        4 * n_blocks + 2 * n_cut + 2 + 2
 
-    _interpret(ops, n_pre, T, {w.data_ptr(): w for w in fw})
+    _interpret(ops, n_pre, T, {w.data_ptr(): w for w in fw},
+               walk_tiles=conditioned and flags[0])
     np.testing.assert_allclose(x.numpy(), want.numpy(), atol=1e-4)
 
 
 def test_chain_op_struct_layout():
-    """The struct the kernel reads: 15 pointers then 18 ints, no padding."""
-    assert ctypes.sizeof(ch.ChainOp) == 15 * 8 + 18 * 4 == 192
+    """The struct the kernel reads: 16 pointers then 20 ints, no padding."""
+    assert ctypes.sizeof(ch.ChainOp) == 16 * 8 + 20 * 4 == 208
     assert ch.ChainOp.xa.offset == 0 and ch.ChainOp.cond.offset == 14 * 8
-    assert ch.ChainOp.kind.offset == 120 and ch.ChainOp.groups.offset == 184
-    assert (ch.CONV, ch.REDUCE, ch.GN, ch.STEP, ch.INIT) == (0, 1, 2, 3, 4)
+    assert ch.ChainOp.counters.offset == 15 * 8
+    assert ch.ChainOp.kind.offset == 128 and ch.ChainOp.groups.offset == 192
+    assert ch.ChainOp.bm.offset == 196 and ch.ChainOp.bn.offset == 200
+    assert (ch.CONV, ch.GN, ch.STEP, ch.INIT) == (0, 1, 2, 3)
+    assert ch.PROFILE_SLOTS.index("barrier") == 4
 
 
 # ---------------------------------------------------------------------------

@@ -319,3 +319,281 @@ def test_wire_policy_megakernel_cpu(models, proj_setup):
     traj = policy.plan(np.full(OBS, 0.1, np.float32))
     assert traj.shape == (1, H, D) and np.isfinite(traj).all()
     np.testing.assert_allclose(traj[0, 0, :OBS], 0.1, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The conv kernels' tiling, walked on the CPU (ops/conv_tiling.py)
+# ---------------------------------------------------------------------------
+
+from dadiff_tpu_torch.ops import chain as ch  # noqa: E402
+from dadiff_tpu_torch.ops import conv_tiling as ct  # noqa: E402
+from dadiff_tpu_torch.ops import planner as pl  # noqa: E402
+from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain  # noqa: E402
+
+KNOWN_TILES = ({(True, *t) for t in ct.MMA_TILES} | {(False, *ct.F32_TILE)})
+assert len(KNOWN_TILES) == 5  # DADIFF_WITH_TILE of csrc/common.cuh has five
+CONV_MODES = {"same5": (ct.SAME, 5), "same1": (ct.SAME, 1),
+              "down": (ct.DOWN, 3), "up": (ct.UP, 4)}
+CONV_INPUTS = {
+    # name: (cin_a, cin_b, cout, segments, rows per segment)
+    "ragged_cin8": (8, 0, 16, 2, 8),      # the first conv: K = 40 at k=5
+    "cout8": (32, 0, 8, 2, 8),            # the final 1x1 conv's width
+    "concat": (32, 32, 72, 2, 8),         # decoder skip concat, ragged N tile
+    "tall": (32, 0, 136, 9, 8),           # 72 rows: the 64-row tiles
+}
+
+
+def _all_splits(rows, cin, w, mode, k):
+    """Every split count the launchers can ask for: rows_conv's, the
+    one-launch chain's on a one- and a two-block-per-SM grid, and every
+    count even_splits can return."""
+    bf16 = w.dtype == torch.bfloat16
+    M, K, _ = ct.gemm_dims(rows, cin, mode, k)
+    k_tiles = -(-K // ct.BK)
+    got = {pl._split_k(rows, cin, w.shape[1], mode, k, bf16).splits}
+    for grid in (132, 264):
+        t = ch._ProgramBuilder("cpu", grid).tiling_for(rows, cin, w, mode, k)
+        assert t.splits <= ch.MAX_FAN_IN
+        got.add(t.splits)
+    got |= {ct.even_splits(k_tiles, want) for want in range(1, k_tiles + 1)}
+    return sorted(got)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("inputs", list(CONV_INPUTS))
+@pytest.mark.parametrize("conv", list(CONV_MODES))
+def test_conv_tiling_rebuilds_rows_conv(conv, inputs, bf16):
+    """The kernel's walk (tile, parity, K split, K tile -> tap, input row,
+    weight row) gives rows_conv_plain, and multiplies every K index of every
+    output tile exactly once, whatever the split."""
+    mode, k = CONV_MODES[conv]
+    ca, cb, cout, n_seg, seg = CONV_INPUTS[inputs]
+    rng = np.random.RandomState(len(conv) + 7 * len(inputs) + bf16)
+    rows, cin = n_seg * seg, ca + cb
+    taps = 4 if mode == ct.UP else k
+    xa = torch.from_numpy(rng.randn(rows, ca).astype(np.float32))
+    xb = torch.from_numpy(rng.randn(rows, cb).astype(np.float32)) if cb else None
+    w = torch.from_numpy((rng.randn(taps * cin, cout) / cin ** 0.5)
+                         .astype(np.float32))
+    w = w.to(torch.bfloat16) if bf16 else w
+    bias = torch.from_numpy(rng.randn(1, cout).astype(np.float32))
+    want = pl.rows_conv_plain(xa, xb, w, bias, mode, k, seg)
+    M, K, parities = ct.gemm_dims(rows, cin, mode, k)
+    # the tile the launchers take, and every other tile of its weight type
+    shapes = [ct.tile_shape(M, bf16, cout, parities)]
+    assert (bf16, *shapes[0]) in KNOWN_TILES
+    shapes += [t for t in (ct.MMA_TILES if bf16 else ()) if t != shapes[0]]
+    work = [(bm, bn, splits) for bm, bn in shapes
+            for splits in (_all_splits(rows, cin, w, mode, k)
+                           if (bm, bn) == shapes[0]
+                           else (ct.even_splits(-(-K // ct.BK), 2),))]
+    for bm, bn, splits in work:
+        got, cover = ct.rows_conv_tiled(xa, xb, w, bias, mode, k, seg, bm, bn,
+                                        splits)
+        assert cover.shape == (parities, -(-M // bm), -(-cout // bn), K)
+        assert bool((cover == 1).all()), splits
+        # f32 sums of at most K = 320 products in another order
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                                   err_msg=f"splits={splits}")
+        ranges = [ct.k_range(s, splits, K) for s in range(splits)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == K
+        assert all(a[1] == b[0] and a[0] < a[1] and a[0] % ct.BK == 0
+                   for a, b in zip(ranges, ranges[1:] + [(K, K)]))
+
+
+FLAGSHIP_CONVS = [
+    # rows, cin, cout, mode, k at 8 chains x 32 rows, dim 128, mults 1 2 4
+    (256, 8, 128, ct.SAME, 5), (256, 128, 128, ct.SAME, 5),
+    (256, 128, 128, ct.DOWN, 3), (128, 256, 256, ct.SAME, 5),
+    (64, 512, 512, ct.SAME, 5), (64, 1024, 256, ct.SAME, 5),
+    (64, 1024, 256, ct.SAME, 1), (64, 256, 256, ct.UP, 4),
+    (256, 128, 8, ct.SAME, 1),
+]
+
+
+@pytest.mark.parametrize("shape", FLAGSHIP_CONVS,
+                         ids=[f"{r}x{ci}-{co}-m{m}k{k}"
+                              for r, ci, co, m, k in FLAGSHIP_CONVS])
+def test_split_k_at_the_flagship_shapes(shape):
+    rows, cin, cout, mode, k = shape
+    for bf16 in (True, False):
+        t = pl._split_k(rows, cin, cout, mode, k, bf16)
+        assert (bf16, t.bm, t.bn) in KNOWN_TILES
+        k_tiles = -(-t.K // ct.BK)
+        per_split = -(-k_tiles // t.splits)
+        assert (t.splits - 1) * per_split < k_tiles <= t.splits * per_split
+        assert t.splits == 1 or (per_split >= 2 and k_tiles >= 8)
+        # at most four blocks per SM, unless the tiles alone are more
+        assert t.tiles * t.splits <= max(t.tiles, 2 * pl._ROOM + t.tiles)
+        assert t.partial_elems == t.parities * t.splits * t.M * cout
+        # the batch-1 chain cuts the same conv at one chain's rows
+        w = torch.empty(0, cout, dtype=torch.bfloat16 if bf16 else torch.float32)
+        c = ch._ProgramBuilder("cpu", 264).tiling_for(rows // 8, cin, w, mode, k)
+        assert (bf16, c.bm, c.bn) in KNOWN_TILES
+        assert c.splits <= ch.MAX_FAN_IN and c.tiles * c.splits <= max(c.tiles, 264)
+
+
+# ---------------------------------------------------------------------------
+# The fixed-buffer wave runner (the CUDA graph's host side)
+# ---------------------------------------------------------------------------
+
+def _plain_launchers(monkeypatch):
+    """Stand-ins for the three launchers where there is no card: the plain
+    version written into ``out``, counted as a launch."""
+
+    def conv(xa, xb, w, bias, out, mode, k, seg_in, stream=None, scratch=None,
+             t=None):
+        out.copy_(pl.rows_conv_plain(xa, xb, w, bias, mode, k, seg_in))
+        pl.rows_conv.launches += 1
+
+    def gn(x, out, scale, bias, te, te_stride, res, n_groups, eps, seg,
+           stream=None):
+        R, C = x.shape
+        out.copy_(gn_mish_plain(
+            x.reshape(R // seg, seg, C), scale, bias, n_groups, eps, te=te,
+            res=None if res is None else res.reshape(R // seg, seg, C)
+        ).reshape(R, C))
+        gn_mish.launches += 1
+
+    def step(x, eps, noise, scal_t, cond, M, b, cfg, stream=None):
+        x.copy_(pl.ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b,
+                                           cfg))
+        pl.ddpm_project_step.launches += 1
+
+    monkeypatch.setattr(pl, "launch_rows_conv", conv)
+    monkeypatch.setattr(pl, "launch_gn_mish", gn)
+    monkeypatch.setattr(pl, "launch_ddpm_project_step", step)
+
+
+def _recording_capture(self, wave):
+    """Stands in for the CUDA graph: capture runs the wave's host side (its
+    launches are counted, as under capture), replay runs it again without
+    the wrappers counting, as a graph launch does."""
+    wave()
+
+    def replay():
+        counts = pl._launch_counts()
+        wave()
+        pl._set_launch_counts(counts)
+
+    return replay
+
+
+@pytest.mark.parametrize("projection", [False, True])
+def test_wave_runner_staged_buffers_equal_fresh_chains(monkeypatch, models,
+                                                       proj_setup, projection):
+    """Plans with different observations and noise through the same staged
+    buffers equal fresh calls of the chain, the first wave host-driven and
+    the later ones replayed; the launch counters add up per wave."""
+    _, _, diff = models
+    P, _, stats = proj_setup
+    _plain_launchers(monkeypatch)
+    monkeypatch.setattr(pl._WaveRunner, "_capture", _recording_capture)
+    C = 2
+    unet, schedule = diff.model, diff.schedule
+    cfg = pl.StepConfig(H)
+    ts = default_timesteps(T_STEPS)
+    M = b = None
+    if projection:
+        M, b = build_interleaved_projection(
+            P, stats, observation_dim=OBS, action_dim=ACT, state_dim=STATE,
+            horizon=H)
+
+    def prepared():
+        fw, me, sc = prepare_chain_operands(unet, schedule, ts, torch.float32)
+        sc[:, 5] = 0.6
+        return fw, me, sc
+
+    def inputs(seed):
+        x0, noise, obs = _inputs(C, seed)
+        cond = conditions_for_initial_obs(torch.from_numpy(obs), OBS, H, D)
+        return (torch.from_numpy(x0).reshape(C * H, D),
+                torch.from_numpy(noise).reshape(T_STEPS, C * H, D),
+                cond.values.reshape(C * H, D))
+
+    def fresh(prep, x0, noise, cond):
+        fw, me, sc = prep
+        return pl.run_chain(pl._PlainOps(), unet, fw, x0, me, noise, sc, cond,
+                            M, b, cfg)
+
+    ops = pl._CudaOps("cpu")
+    runner = pl._WaveRunner(unet, cfg, ops, (C * H, D), T_STEPS, "cpu")
+    prep = prepared()
+    n_res = sum(op[0] == "res" for op in pl._program(unet, prep[0]))
+    pl._set_launch_counts((0, 0, 0))
+    per_wave = None
+    for wave, seed in enumerate((31, 32, 31)):
+        x0, noise, cond = inputs(seed)
+        fw, me, sc = prep
+        got = runner.run(fw, x0, me, noise, sc, cond, M, b).clone()
+        assert torch.equal(got, fresh(prep, x0, noise, cond)), wave
+        counts = pl._launch_counts()
+        if per_wave is None:
+            per_wave = counts
+            pool = {k: v.data_ptr() for k, v in ops.pool.items()}
+            # time-dense rows once, then T steps of convs, norms and one step
+            assert counts[2] == T_STEPS and (counts[0] - n_res) % T_STEPS == 0
+            assert counts[1] % T_STEPS == 0 and counts[1] > 0
+        assert counts == tuple((wave + 1) * n for n in per_wave)
+        assert {k: v.data_ptr() for k, v in ops.pool.items()} == pool
+    assert len(runner.graphs) == 1
+    (_, launches, _), = runner.graphs.values()
+    assert launches == per_wave
+    # graph=False drives the same buffers from the host and counts the same
+    x0, noise, cond = inputs(33)
+    got = runner.run(*prep[:1], x0, prep[1], noise, prep[2], cond, M, b,
+                     graph=False).clone()
+    assert torch.equal(got, fresh(prep, x0, noise, cond))
+    assert pl._launch_counts() == tuple(4 * n for n in per_wave)
+    # other prepared operands: another capture, whose first wave is host-driven
+    prep2 = prepared()
+    got = runner.run(prep2[0], x0, prep2[1], noise, prep2[2], cond, M, b)
+    assert torch.equal(got, fresh(prep2, x0, noise, cond))
+    assert len(runner.graphs) == 2
+    assert pl._launch_counts() == tuple(5 * n for n in per_wave)
+    # only the graphs of the last few operand sets are kept
+    first_key = next(iter(runner.graphs))
+    for _ in range(runner.MAX_GRAPHS - 1):
+        p = prepared()
+        runner.run(p[0], x0, p[1], noise, p[2], cond, M, b)
+    assert len(runner.graphs) == runner.MAX_GRAPHS
+    assert first_key not in runner.graphs
+
+
+def test_planner_chain_takes_graph_flag_on_cpu(models):
+    """On CPU tensors the chain is the plain host loop, with or without the
+    flag; the result does not alias a buffer of the chain."""
+    _, _, diff = models
+    x0, noise, obs = _inputs(2, 41)
+    cond = conditions_for_initial_obs(torch.from_numpy(obs), OBS, H, D).values
+    chain = make_planner_chain(diff.model, diff.schedule, H, 2, 1)
+    fw, me, sc = prepare_chain_operands(diff.model, diff.schedule,
+                                        chain.timesteps, torch.float32)
+    args = (fw, torch.from_numpy(x0).reshape(2 * H, D), me,
+            torch.from_numpy(noise).reshape(T_STEPS, 2 * H, D), sc,
+            cond.reshape(2 * H, D))
+    a, b = chain(*args), chain(*args, graph=False)
+    assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        # the wrapper's check for CUDA tensors, reached here on meta tensors
+        pl.rows_conv(torch.zeros(8, 8, device="meta"), None,
+                     torch.zeros(8, 12, device="meta"),
+                     torch.zeros(1, 12, device="meta"), ct.SAME, 1, 8)
+
+
+def test_step_launches_of_the_flagship_architecture():
+    """What a denoise step launches, recorded from the chain's own host loop
+    (the shapes the card is measured at): 35 convs, 25 norms and 12 residual
+    blocks at three levels, whatever the width."""
+    from dadiff_tpu_torch.sweep_kernels import step_launches
+
+    unet = TemporalUnet(transition_dim=D, dim=32, dim_mults=(1, 2, 4))
+    calls, prog, n_res = step_launches(unet, 8 * 32, D, 32)
+    convs = [c for c in calls if c[0] == "conv"]
+    norms = [c for c in calls if c[0] == "gn"]
+    assert (len(convs), len(norms), n_res) == (35, 25, 12)
+    assert 100 * (len(calls) + 1) + n_res == 6112   # launches per T=100 wave
+    assert {c[1] for c in convs} == {256, 128, 64}  # rows per level, 8 chains
+    assert sum(c[5] == ct.DOWN for c in convs) == 2
+    assert sum(c[5] == ct.UP for c in convs) == 2
+    assert all(c[4] % 8 == 0 for c in convs)        # 16-byte weight chunks
