@@ -14,8 +14,10 @@
    U-Net (K4 per residual block, K1 in its final block), the one-launch
    chain (K3).
 3. Holds every kernel against its plain PyTorch version on the card at the
-   flagship shapes, and times kernel, plain version, a library call where
-   one exists, and the least time the card could take.
+   flagship shapes (the fused conv + GroupNorm + Mish at every pair of a
+   denoise step, f32 and bf16 weights, with and without its adds), and
+   times kernel, plain version, a library call where one exists, and the
+   least time the card could take.
 4. Drives the serving path: starts ``dadiff_tpu_torch.serve``'s ``main`` on
    the trained ``.pt`` with ``--policy-type dynamics-aware --n-candidates 8
    --megakernel`` in a thread, sends ping, plan requests and reset over TCP,
@@ -54,6 +56,10 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 TOL_GN = 1e-5       # f32 sums in another order: ~1e-6 observed
 TOL_CONV = 1e-4     # K up to 5120 f32 products summed in another order
+# rows_conv_gn against rows_conv_plain -> gn_mish_plain: TOL_CONV carried
+# through the norm (times its gain, max |scale| * rstd, and Mish's slope,
+# <= 1.1, computed per case from the plain conv), then TOL_GN
+MISH_SLOPE = 1.1
 TOL_STEP = 1e-5
 TOL_CHAIN_F32 = 2e-3  # tests/test_pallas_planner.py's tolerance for the chain
 # bf16 chain vs the plain chain at the same bf16 rounding points: the two sum
@@ -143,10 +149,13 @@ def _counters():
     """Every kernel wrapper's launch count, by the kernel's name."""
     from dadiff_tpu_torch.ops.chain import launch_chain
     from dadiff_tpu_torch.ops.gn_mish import gn_mish
-    from dadiff_tpu_torch.ops.planner import ddpm_project_step, rows_conv
+    from dadiff_tpu_torch.ops.planner import (
+        ddpm_project_step, rows_conv, rows_conv_gn,
+    )
     from dadiff_tpu_torch.ops.resblock import fused_residual_block
 
     return {"gn_mish": gn_mish, "rows_conv": rows_conv,
+            "rows_conv_gn": rows_conv_gn,
             "ddpm_project_step": ddpm_project_step,
             "resblock": fused_residual_block, "chain": launch_chain}
 
@@ -430,7 +439,7 @@ def one_chain_phase(diff) -> dict:
     # bounds from the shapes: products of T U-Net forwards at batch 1 (and
     # the hoisted time-dense rows), each weight read once
     calls, _, _ = step_launches(unet, H, D)
-    flops = sum(conv_cost(*c[1:7], 2)[0] for c in calls if c[0] == "conv")
+    flops = sum(conv_cost(*c[1:7], 2)[0] for c in calls)  # every conv
     flops_step = flops
     from dadiff_tpu_torch.ops.planner import _program
 
@@ -461,18 +470,20 @@ def kernel_phase(unet, rows, D):
     import torch.nn.functional as F
     from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain
     from dadiff_tpu_torch.ops.planner import (
-        DOWN, UP, StepConfig, ddpm_project_step, ddpm_project_step_plain,
-        rows_conv, rows_conv_plain,
+        DOWN, SAME, UP, StepConfig, ddpm_project_step, ddpm_project_step_plain,
+        rows_conv, rows_conv_gn, rows_conv_gn_plain, rows_conv_plain,
     )
     from dadiff_tpu_torch.cli import maze_grid_for_env
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED)
     calls, _, _ = step_launches(unet, rows, D)
+    fused = [c for c in calls if c[0] == "conv_gn"]
     results = {}
 
-    # -- K1 at the flagship shapes, with and without its epilogue adds
-    gn_calls = [c for c in calls if c[0] == "gn"]
+    # -- K1 at the shapes of the 25 norms a served step ran before they were
+    # fused into their convs, with and without its epilogue adds
+    gn_calls = [("gn", c[1], c[4], c[7], c[8], c[9]) for c in fused]
     err = 0.0
     for _, R, C, seg, has_te, has_res in sorted(set(gn_calls)):
         x = torch.randn(R // seg, seg, C, device=dev, generator=g) * 2 + 0.3
@@ -550,14 +561,16 @@ def kernel_phase(unet, rows, D):
                                    for x, s, b, te, res, _ in gn_bufs], 50),
         library_ms=graph_ms(lambda: [F.mish(F.group_norm(xc, 8, s, b, 1e-5))
                                      for _, s, b, _, _, xc in gn_bufs], 50),
-        bound_ms=bnd, bound_by="bytes", per="denoise step",
+        bound_ms=bnd, bound_by="bytes",
+        per="the 25 norms of a served denoise step, unfused",
         launches_per_step=len(gn_calls))
 
-    # -- rows_conv: every distinct conv of a step, f32 and bf16 weights
-    conv_calls = [c for c in calls if c[0] == "conv"]
+    # -- rows_conv: every distinct conv of a step (the fused ones without
+    # their epilogue), f32 and bf16 weights
+    conv_calls = [c[1:8] for c in calls]
     err = 0.0
     for wd in (torch.float32, torch.bfloat16):
-        for _, R, ca, cb, cout, mode, k, seg in sorted(set(conv_calls)):
+        for R, ca, cb, cout, mode, k, seg in sorted(set(conv_calls)):
             xa = torch.randn(R, ca, device=dev, generator=g)
             xb = torch.randn(R, cb, device=dev, generator=g) if cb else None
             taps = 4 if mode == UP else k
@@ -577,7 +590,7 @@ def kernel_phase(unet, rows, D):
 
     conv_bufs = []
     bnd = 0.0
-    for _, R, ca, cb, cout, mode, k, seg in conv_calls:
+    for R, ca, cb, cout, mode, k, seg in conv_calls:
         xa = torch.randn(R, ca, device=dev, generator=g)
         xb = torch.randn(R, cb, device=dev, generator=g) if cb else None
         taps = 4 if mode == UP else k
@@ -624,8 +637,12 @@ def kernel_phase(unet, rows, D):
     log("K2 rows_conv per launch (bf16, weights warm in L2), in forward "
         "order: " + json.dumps(per_launch))
     ms = graph_ms(k2, 20)
+    served = [c for c, call in zip(conv_bufs, calls) if call[0] == "conv"]
     results["rows_conv"] = dict(
         max_abs_err=err, ms=ms, host_ms=cuda_ms(k2, 20),
+        # the 10 convs a served step launches alone (no GroupNorm after them)
+        ms_served=graph_ms(lambda: [rows_conv(*c[:7]) for c in served], 20),
+        launches_served_per_step=len(served),
         # the variants of the bf16 product that were built and timed
         variants={"mma.sync m16n8k16, cp.async ring": ms},
         plain_ms=graph_ms(lambda: [rows_conv_plain(*c[:7]) for c in conv_bufs],
@@ -634,6 +651,144 @@ def kernel_phase(unet, rows, D):
                                      for c in conv_bufs], 20),
         bound_ms=bnd, bound_by="operations", per="denoise step",
         launches_per_step=len(conv_calls))
+
+    # -- rows_conv_gn: every (conv, GroupNorm) pair of a step, f32 and bf16
+    # weights, without adds, with the time row (one for all chains, or one
+    # per chain), the residual, or both
+    def gn_case(R, ca, cb, cout, k, seg, wd):
+        xa = torch.randn(R, ca, device=dev, generator=g)
+        xb = torch.randn(R, cb, device=dev, generator=g) if cb else None
+        w = (torch.randn(k * (ca + cb), cout, device=dev, generator=g)
+             / (ca + cb) ** 0.5).to(wd)
+        bias = torch.randn(1, cout, device=dev, generator=g)
+        scale = 1 + 0.5 * torch.randn(cout, device=dev, generator=g)
+        gbias = torch.randn(cout, device=dev, generator=g)
+        return xa, xb, w, bias, k, seg, scale, gbias
+
+    err, worst = 0.0, 0.0
+    for wd in (torch.float32, torch.bfloat16):
+        for R, ca, cb, cout, _, k, seg in sorted(set(c[1:8] for c in fused)):
+            base = gn_case(R, ca, cb, cout, k, seg, wd)
+            pre = rows_conv_plain(*base[:4], SAME, k, seg).reshape(
+                R // seg, seg, 8, cout // 8)
+            rstd = torch.rsqrt(pre.var(dim=(1, 3), unbiased=False) + 1e-5)
+            gain = MISH_SLOPE * (rstd[:, :, None] * base[6].abs().reshape(
+                1, 8, -1)).max().item()
+            tol = TOL_GN + TOL_CONV * gain
+            for adds in ("none", "te", "te_per_chain", "res", "te_res"):
+                te = res = None
+                if adds.startswith("te"):
+                    te = torch.randn(R // seg if adds == "te_per_chain" else 1,
+                                     cout, device=dev, generator=g)
+                if adds.endswith("res"):
+                    res = torch.randn(R, cout, device=dev, generator=g)
+                args = (*base, te, res)
+                e = (rows_conv_gn(*args)
+                     - rows_conv_gn_plain(*args)).abs().max().item()
+                log(f"K2 rows_conv_gn {str(wd)[6:]} rows={R} cin={ca}+{cb} "
+                    f"cout={cout} seg={seg} {adds}: max|err| {e:.3e} "
+                    f"(tolerance {tol:.2e})")
+                require(e <= tol, f"rows_conv_gn vs plain {e} > {tol}")
+                err, worst = max(err, e), max(worst, e / tol)
+    # the group blocks add their tiles' sums in tile order, and split-K its
+    # partials in split order: repeated launches agree (the last case has
+    # two tiles per group block and 7 K splits)
+    require(all(torch.equal(rows_conv_gn(*args), rows_conv_gn(*args))
+                for _ in range(3)), "rows_conv_gn is deterministic")
+
+    from dadiff_tpu_torch.ops.planner import _CudaOps, _split_k_gn
+
+    # timed as the wave launches them: outputs, split-K scratch and group
+    # counters are the chain's own fixed buffers (the public wrapper would
+    # allocate and zero counters on every call)
+    ops = _CudaOps(dev)
+
+    def served_gn(a):
+        ops.begin("pair")
+        return ops.conv_gn(*a)
+
+    gn_bufs, per_pair, pair_bound_us = [], [], []
+    t_ops = t_bytes = 0.0
+    for _, R, ca, cb, cout, _, k, seg, has_te, has_res in fused:
+        base = gn_case(R, ca, cb, cout, k, seg, torch.bfloat16)
+        te = torch.randn(cout, device=dev, generator=g) if has_te else None
+        res = torch.randn(R, cout, device=dev, generator=g) if has_res else None
+        gn_bufs.append((*base, te, res))
+        fl, nb = conv_cost(R, ca, cb, cout, SAME, k, 2)
+        nb += 4 * cout * (2 + has_te) + 4 * R * cout * has_res
+        ops_ms = fl / BF16_FLOPS * 1e3 + 20.0 * R * cout / F32_FLOPS * 1e3
+        t_ops, t_bytes = t_ops + ops_ms, t_bytes + nb / HBM_BPS * 1e3
+        pair_bound_us.append(1e3 * max(ops_ms, nb / HBM_BPS * 1e3))
+    gn_bnd = max(t_ops, t_bytes)
+
+    def unfused(a):
+        """rows_conv then K1: the pair as two launches, unfused."""
+        y = rows_conv(*a[:4], SAME, a[4], a[5])
+        R, C = y.shape
+        return gn_mish(y.reshape(R // a[5], a[5], C), a[6], a[7], te=a[8],
+                       res=None if a[9] is None else a[9].reshape(
+                           R // a[5], a[5], C))
+
+    def lib_operands(a):
+        """The same pair channels-first in bf16 for cuDNN's conv."""
+        xa, xb, w, bias, k, seg, scale, gbias, te, res = a
+        x = xa if xb is None else torch.cat([xa, xb], 1)
+        R, cin = x.shape
+        cout = w.shape[1]
+        return (x.reshape(R // seg, seg, cin).permute(0, 2, 1).contiguous()
+                .to(torch.bfloat16),
+                w.float().reshape(k, cin, cout).permute(2, 1, 0).contiguous()
+                .to(torch.bfloat16), bias.reshape(-1).to(torch.bfloat16),
+                scale, gbias, None if te is None else te[:, None],
+                None if res is None else res.reshape(R // seg, seg, cout)
+                .permute(0, 2, 1).contiguous())
+
+    def lib_gn(xc, wc, bc, scale, gbias, te, res):
+        """cuDNN's bf16 conv, then F.group_norm and F.mish, channels-first."""
+        y = F.conv1d(xc, wc, bc, padding=wc.shape[2] // 2).float()
+        y = F.mish(F.group_norm(y, 8, scale, gbias, 1e-5))
+        if te is not None:
+            y = y + te
+        return y if res is None else y + res
+
+    lib_bufs = [lib_operands(a) for a in gn_bufs]
+    for a, bound_us in zip(gn_bufs, pair_bound_us):
+        R, cout = a[0].shape[0], a[2].shape[1]
+        t, gp = _split_k_gn(R, a[2].shape[0] // a[4], cout, a[4], a[5], True)
+        per_pair.append({
+            "M": t.M, "K": t.K, "N": cout, "seg": a[5],
+            "te": a[8] is not None, "res": a[9] is not None,
+            "tile": [t.bm, t.bn], "splits": t.splits,
+            "group_block_tiles": [gp.tiles_m, gp.tiles_n],
+            "bound_us": bound_us,
+            "us": 1e3 * graph_ms(lambda a=a: [served_gn(a)
+                                               for _ in range(10)], 5) / 10,
+            "rows_conv_us": 1e3 * graph_ms(
+                lambda a=a: [rows_conv(*a[:4], SAME, a[4], a[5])
+                             for _ in range(10)], 5) / 10,
+            "unfused_us": 1e3 * graph_ms(lambda a=a: [unfused(a)
+                                                       for _ in range(10)],
+                                         5) / 10})
+    log("K2 rows_conv_gn per launch (bf16, weights warm in L2), in forward "
+        "order, beside rows_conv alone and rows_conv + K1: "
+        + json.dumps(per_pair))
+
+    def k5():
+        ops.begin("step")
+        return [ops.conv_gn(*a) for a in gn_bufs]
+
+    results["rows_conv_gn"] = dict(
+        max_abs_err=err, worst_err_over_tolerance=worst,
+        ms=graph_ms(k5, 20), host_ms=cuda_ms(k5, 20),
+        unfused_ms=graph_ms(lambda: [unfused(a) for a in gn_bufs], 20),
+        plain_ms=graph_ms(lambda: [rows_conv_gn_plain(*a) for a in gn_bufs],
+                          20),
+        library_ms=None,
+        library_composition_ms=graph_ms(
+            lambda: [lib_gn(*b) for b in lib_bufs], 20),
+        bound_ms=gn_bnd, bound_by="operations" if t_ops > t_bytes else "bytes",
+        per="denoise step", launches_per_step=len(gn_bufs),
+        ms_per_launch=[q["us"] / 1e3 for q in per_pair])
 
     # -- ddpm_project_step, without walls, with the wall grid, with margin
     HD = HORIZON * D
@@ -665,6 +820,8 @@ def kernel_phase(unet, rows, D):
 
     results["ddpm_project_step"] = dict(
         max_abs_err=err, ms=graph_ms(k3, 200), host_ms=cuda_ms(k3, 200),
+        # ten launches in one graph: without the launch of a graph per call
+        ms_in_sequence=graph_ms(lambda: [k3() for _ in range(10)], 50) / 10,
         plain_ms=graph_ms(lambda: ddpm_project_step_plain(
             x, eps, noise, scal, cond, M, bvec, cfg), 200),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, per="launch",
@@ -767,16 +924,55 @@ def chain_phase(policy):
     require(not torch.equal(run(ops16, noise=noise2), got16),
             "other noise gives another plan")
     per_wave = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+    calls, _, n_res = step_launches(diff.model, rows, D)
+    launches_per_wave = T_STEPS * (len(calls) + 1) + n_res
     log(f"K2 chain: replayed wave == host-driven wave bit for bit on 3 "
-        f"waves; launches per wave {per_wave}")
+        f"waves; launches per wave {per_wave} "
+        f"({sum(per_wave.values())} in all)")
+    require(sum(per_wave.values()) == launches_per_wave
+            and per_wave.get("rows_conv_gn") == 25 * T_STEPS
+            and "gn_mish" not in per_wave,
+            f"a wave launches {launches_per_wave}, 25 fused convs a step and "
+            f"no K1: {per_wave}")
+
+    # the same wave with each fused pair unfused, rows_conv then K1
+    # (the standalone GroupNorm), replayed from its own graph: the fusion's
+    # share of the wave, timed in turns with the fused wave
+    from dadiff_tpu_torch.ops.gn_mish import launch_gn_mish
+    from dadiff_tpu_torch.ops.planner import SAME, _CudaOps, _WaveRunner
+
+    class UnfusedOps(_CudaOps):
+        def conv_gn(self, xa, xb, w, bias, k, seg, scale, gbias, te=None,
+                    res=None):
+            y = self.conv(xa, xb, w, bias, SAME, k, seg)
+            out = self._take(*y.shape)
+            launch_gn_mish(y, out, scale, gbias, te, 0, res, 8, 1e-5, seg,
+                           self.stream)
+            return out
+
+    unfused = _WaveRunner(diff.model, StepConfig(H), UnfusedOps(dev),
+                          (rows, D), T_STEPS, dev)
+    fw, me, sc = ops16
+
+    def run_unfused():
+        return unfused.run(fw, x0.reshape(rows, D), me,
+                           noise.reshape(T_STEPS, rows, D), sc,
+                           cond.values.reshape(rows, D), M, b)
+
+    e = (run_unfused() - got16).abs().max().item()
+    require(e <= TOL_CHAIN_BF16, f"unfused wave vs fused wave {e}")
+    turns = {"fused": [], "unfused": []}
+    for name in ("fused", "unfused", "unfused", "fused"):
+        turns[name].append(cuda_ms(run_unfused if name == "unfused"
+                                   else lambda: run(ops16), 5, warmup=1))
+    log(f"K2 chain: bo8 wave replayed, fused vs rows_conv + K1, in turns: "
+        f"{json.dumps(turns)} (max|diff| {e:.3e})")
 
     # wave times and the bound of one bo8 wave
-    calls, _, n_res = step_launches(diff.model, rows, D)
     flops = nbytes = 0.0
-    for c in calls:
-        if c[0] == "conv":
-            fl, _ = conv_cost(c[1], c[2], c[3], c[4], c[5], c[6], 2)
-            flops += fl
+    for c in calls:  # every conv, fused or not
+        fl, _ = conv_cost(c[1], c[2], c[3], c[4], c[5], c[6], 2)
+        flops += fl
     flops = flops * T_STEPS + 2.0 * T_STEPS * N_CAND * (H * D) ** 2
     te_flops = sum(2.0 * T_STEPS * op[2][0].shape[0] * op[2][0].shape[1]
                    for op in _program(diff.model, fw) if op[0] == "res")
@@ -796,7 +992,8 @@ def chain_phase(policy):
         library_ms=None, bound_ms=b_ms, bound_by=b_by, per="bo8 wave",
         flops_per_wave=flops, weight_bytes=w_bytes,
         bytes_per_wave=nbytes,
-        launches_per_wave=T_STEPS * (len(calls) + 1) + n_res,
+        launches_per_wave=launches_per_wave,
+        wave_ms_in_turns=turns,
     )
 
 
@@ -895,9 +1092,11 @@ def main_path(ckpt: Path, obs_rows):
                "driven from the host, then captured")
         log(f"main path: plan_ms {r['plan_ms']} device wave {wave_ms:.3f} ms "
             f"(CUDA events) row0 err {row_err:.1e}; {how}")
-    for name in ("gn_mish", "rows_conv", "ddpm_project_step"):
+    for name in ("rows_conv", "rows_conv_gn", "ddpm_project_step"):
         require(counts[name] > 0,
                 f"{name} was not launched on the serving path")
+    require(counts["gn_mish"] == 0, "K1 launched on the serving path: every "
+            "GroupNorm there is the epilogue of its conv")
     log(f"serving path launches: {counts}")
     return counts, plan_ms, [w for _, _, w in out]
 
@@ -976,9 +1175,11 @@ def main() -> int:
     ref = reference_package()
     table = {  # name: (source, TPU kernel replaced, launches on its path)
         "gn_mish": (f"{csrc}/gn_mish.cu", f"{ref}/ops/pallas_kernels.py:84",
-                    counts["gn_mish"]),
+                    train_counts["gn_mish"]),
         "rows_conv": (f"{csrc}/planner.cu", f"{ref}/ops/pallas_planner.py:95",
                       counts["rows_conv"]),
+        "rows_conv_gn": (f"{csrc}/planner.cu", f"{ref}/ops/pallas_unet.py:198",
+                         counts["rows_conv_gn"]),
         "ddpm_project_step": (f"{csrc}/planner.cu",
                               f"{ref}/ops/pallas_planner.py:95",
                               counts["ddpm_project_step"]),
@@ -1000,10 +1201,13 @@ def main() -> int:
             "host_ms": r.get("host_ms"),
         })
         for extra in ("variants", "ms_f32", "cycle_share", "grid_syncs",
-                      "ms_by_fan_in"):
+                      "ms_by_fan_in", "ms_served", "unfused_ms",
+                      "library_composition_ms", "ms_in_sequence"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
-    kernels[0]["launches_train_and_ladder"] = train_counts["gn_mish"]
+    # K1 runs on the train-and-ladder path; on the serving path every
+    # GroupNorm is the epilogue of its conv (rows_conv_gn)
+    kernels[0]["launches_serving"] = counts["gn_mish"]
     kernels.append({
         "name": "planner_chain", "route": "cuda",
         "source": "dadiff_tpu_torch/ops/planner.py",
@@ -1017,6 +1221,7 @@ def main() -> int:
         "launches_per_wave": chain["launches_per_wave"],
         "host_ms": chain["ms"], "plain_graph_ms": chain["plain_graph_ms"],
         "served_plan_ms": plan_ms, "served_wave_ms": wave_ms,
+        "wave_ms_in_turns": chain["wave_ms_in_turns"],
     })
     log(f"train step: {json.dumps(train)}")
     log(f"flagship: {n_params} parameters; total "

@@ -5,8 +5,9 @@
 // Replaces: the JAX package's ops/pallas_planner.py:95 make_pallas_planner_chain
 // (inner kernel :206, _project :156, _apply_cond :152) and the U-Net body it
 // runs, ops/pallas_unet.py:258 _unet_forward with _conv_stack
-// :184, _shift_rows :161, _even_rows :243 and _interleave_rows :248. The
-// GroupNorm+Mish stages go through K1 (gn_mish.cu).
+// :184, _shift_rows :161, _even_rows :243, _interleave_rows :248 and the
+// GroupNorm+Mish stage _group_norm_mish :198 with the adds res_block fuses
+// around it (:281-293).
 //
 //   rows_conv          one conv of the U-Net as an implicit shifted-stack
 //                      GEMM over row-stacked chains: k-tap SAME (k = 5 or 1),
@@ -14,25 +15,71 @@
 //                      transposed conv as even/odd two-tap products. Zero
 //                      padding applies per segment (chain), so N stacked
 //                      chains equal N separate forwards.
-//   ddpm_project_step  one block per chain: DDPM update from scal[t], the
-//                      interleaved projection alpha*(x@M+b)+(1-alpha)*x, the
-//                      wall revert and the row-0 conditioning, in place.
+//   rows_conv_gn       a SAME conv with GroupNorm(8) + affine + Mish (+ a
+//                      time row per segment, + a residual) in its epilogue:
+//                      every GroupNorm of the chain, in the launch of the
+//                      conv that feeds it (below).
+//   ddpm_project_step  one block per trajectory row, all chains at once: DDPM
+//                      update from scal[t], the interleaved projection
+//                      alpha*(x@M+b)+(1-alpha)*x, the wall revert and the
+//                      row-0 conditioning, from x into a second buffer.
 //
-// Bound on an H100 (flagship: 8 chains x 32 rows, dim 128, mults 1 2 4):
+// Bound on an H100 (flagship: 8 chains x 32 rows, dim 128, mults 1 2 4;
+// the times below are chip_smoke.py's on an NVIDIA H100 80GB HBM3, 700 W):
 // one denoise step is ~2.3 GFLOP of products over ~31.7 MB of bf16 weights,
 // i.e. ~74 operations per weight byte, well under the ~295 the card needs to
 // be compute-bound: the least time is ~2.4 us of tensor-core work and ~9.5 us
-// of weight streaming from HBM per step. What a step really costs is 35
-// dependent launches whose GEMMs are 64-256 rows by 8-512 columns: each is
-// bound by the latency of its K loop and by L2, not by the tensor cores.
-// rows_conv therefore takes the tile product of common.cuh (mma.sync on
-// bf16, cp.async ring, hoisted row arithmetic) with the smallest tile that
-// still leaves the card room for every block, 16 x 64 at these shapes, and
-// splits K over blocks (ops/planner.py _want_splits), so that some 200
-// blocks each walk 2-10 K tiles with their own loads in flight: on the card
-// that beat the 64-row tiles, which read the deep layers' weights once, by
-// 1.4-1.9x. Split-K stays deterministic: the last block of a tile to arrive
-// sums the partial tiles in split order (split_k_last of common.cuh).
+// of weight streaming from HBM per step. What a step really costs is its
+// dependent launches (36: 10 rows_conv, 25 rows_conv_gn, one step) whose
+// GEMMs are 64-256 rows by 8-512 columns: each is bound by the latency of
+// its K loop and by L2, not by the tensor cores, and none can go under the
+// ~3 us a dependent launch costs in a graph. rows_conv therefore takes the
+// tile product of common.cuh (mma.sync on bf16, cp.async ring, hoisted row
+// arithmetic) with the smallest tile that still leaves the card room for
+// every block, 16 x 64 at these shapes, and splits K over blocks
+// (ops/planner.py _want_splits), so that some 200 blocks each walk 2-10 K
+// tiles with their own loads in flight: on the card that beat the 64-row
+// tiles, which read the deep layers' weights once, by 1.4-1.9x. Split-K
+// stays deterministic: the last block of a tile to arrive sums the partial
+// tiles in split order (split_k_last of common.cuh).
+//
+// rows_conv_gn. A standalone GroupNorm+Mish (K1, gn_mish.cu) moves 128 KB
+// each way per call at these shapes, ~0.08 us at 3.35 TB/s, and takes
+// ~2.7 us: the launch, not the work. Its bound inside the conv is the conv's
+// operations plus K1's bytes (scale, bias, time row and residual read once),
+// so the only lever is the launch, and the GroupNorm goes where the TPU
+// kernel computes it, after the conv in the same kernel. Statistics are per
+// (segment, group) and a conv tile is smaller than that at the top level
+// (a 32-row segment over two 16 x 64 tiles) or holds several (two 8-row
+// segments), so the tiles that share a (segment, group) meet in a "group
+// block": the aligned rectangle of lcm(seg, bm) rows by lcm(C/8, bn)
+// columns, capped at the conv's size (at most 2 x 2 tiles at the flagship).
+// Every block of a group block (its tiles times the K splits) stores its
+// share of the conv into its K split's plane and counts its arrival on the
+// group block's counter; the last to arrive adds every tile's splits in
+// split order into shared memory (so the result does not depend on which
+// block that is, and a replayed wave equals a host-driven one bit for bit),
+// takes each pair's sum x and sum x^2 there in a fixed order, mean and
+// var = E[x^2] - mean^2 with eps as gn_mish.cu and the TPU do, and
+// normalises: affine, Mish, + te[segment], + res. A group block of one tile
+// and one split touches no other block's data. One arrival per group block
+// and not two (split_k_last per tile, then the tiles' sums per group
+// block): on the card the two dependent round trips cost more than the
+// separate K1 launch they replace. The plan of group blocks is written
+// once, ops/conv_tiling.py group_plan, which the CPU tests walk.
+//
+// ddpm_project_step. The step is ~0.5 MFLOP over a 256 KB M, a 0.09 us
+// bound; one block per chain (8 blocks, each walking a dependent 256-long
+// FMA chain per thread and reading all of M from L2) took 26 us. Here one
+// block owns trajectory row h, all D lanes of it, so the wall revert stays
+// inside the block, for every chain: it computes the DDPM-updated x of 8
+// chains at a time (8 x H*D floats) in shared memory, reads its H*D x D
+// slice of M once for all chains (all of a thread's loads started
+// together), and each warp computes one chain's D outputs of row h as
+// lane-split dot products (a lane loads each x once for 8 outputs) with a
+// shuffle reduce: 32 blocks at the flagship. Every block reads every chain's x while others
+// write theirs, so the step writes into a second buffer: the wave
+// ping-pongs between two fixed buffers (ops/planner.py _CudaOps.step).
 
 #include "common.cuh"
 
@@ -40,15 +87,292 @@ namespace {
 
 using namespace dadiff;
 
-// out[out_row(m)] = bias + sum_{j, ci} x[in_row(m, j), ci] * w[wtap(j)*cin + ci]
-// One block per (output tile, parity, K split); the tile product is
-// Tile::product of common.cuh.
+// The GroupNorm+Mish epilogue of rows_conv_gn and its group-block plan
+// (ops/conv_tiling.py group_plan).
+struct GnEpi {
+  const float* scale;  // (cout,)
+  const float* gbias;  // (cout,)
+  const float* te;     // a row of cout per segment at te_stride, or null
+  const float* res;    // (M, cout), or null
+  int te_stride;
+  int cg;              // channels per group: cout / 8
+  int gtm, gtn;        // tiles per group block along rows and columns
+  int ns, ng;          // segments and groups per group block
+  float eps;
+  unsigned int* counters;  // one per group block, zero, left zero
+};
+
+// a / b for 0 <= a < 2^22 and b >= 1 through the float reciprocal of b
+// (exact there: the error of (a + 0.5) * (1 / b) stays under 0.5 / b)
+__device__ __forceinline__ int div_small(int a, float inv_b) {
+  return (int)(((float)a + 0.5f) * inv_b);
+}
+
+// 4 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+// Column pairs a thread of the last block sums over the K splits per batch:
+// 4 x 8 float2 loads in flight.
+constexpr int kSumBatch = 4;
+
+// Mish as y * n / (n + 2) with n = e^y (e^y + 2), which is y * tanh(softplus
+// y) with one exponential; softplus's threshold of 20 as mish() has it
+// (tanh(y) rounds to 1 there).
+__device__ __forceinline__ float mish_epi(float y) {
+  if (y > 20.f) return y;
+  const float e = __expf(y);
+  const float n = e * (e + 2.f);
+  return __fdividef(y * n, n + 2.f);
+}
+
+// The tile's share of the conv is in acc. Every block of a group block (its
+// tiles times the K splits) stores its share and counts its arrival; the
+// last to arrive sums every tile's splits in split order into shared
+// memory, takes the statistics of each (segment, group) pair there and
+// normalises the group block: affine, Mish, + te[segment], + res. A group
+// block of one tile and one split needs no other block. The operands of the
+// normalisation (bias, scale, shift, time rows, residual) travel to shared
+// memory by cp.async while the sums are taken.
 template <class Tile>
+__device__ __forceinline__ void gn_epilogue(float (&acc)[Tile::ACC],
+                                            const ConvIn& c,
+                                            const float* __restrict__ bias,
+                                            float* __restrict__ out,
+                                            int splits,
+                                            float* __restrict__ partial,
+                                            const GnEpi& g,
+                                            unsigned char* smem) {
+  const int M = c.M, cout = c.cout, seg = c.seg_in;
+  const int split = blockIdx.z, tm = blockIdx.y, tn = blockIdx.x;
+  const int m0 = tm * Tile::BM, n0 = tn * Tile::BN;
+  const int gbm = tm / g.gtm, gbn = tn / g.gtn;
+  const int gb = gbm * ((gridDim.x + g.gtn - 1) / g.gtn) + gbn;
+  const int gm0 = gbm * g.gtm * Tile::BM, gn0 = gbn * g.gtn * Tile::BN;
+  const int gr = min(g.gtm * Tile::BM, M - gm0);   // rows of the group block
+  const int gc = min(g.gtn * Tile::BN, cout - gn0);  // and columns (% 8 == 0)
+  const int gc2 = gc / 2, total = gr * gc2;        // column pairs
+  const float inv_gc2 = 1.f / (float)gc2, inv_seg = 1.f / (float)seg;
+  const float inv_cg = 1.f / (float)g.cg;
+  const int arrivals = min(g.gtm, (int)gridDim.y - gbm * g.gtm) *
+                       min(g.gtn, (int)gridDim.x - gbn * g.gtn) * splits;
+  const int P = g.ns * g.ng;
+
+  // shared memory (gn_smem_bytes): the group block's values before the
+  // bias [rows][ld], the pairs' statistics, then the staged operands: bias,
+  // scale and shift [ld], the time rows [ns][ld], and the residual
+  // [rows][ld] where it fits
+  const int ld = g.gtn * Tile::BN, rows = g.gtm * Tile::BM;
+  float* gv = reinterpret_cast<float*>(smem);
+  float2* stat = reinterpret_cast<float2*>(gv + rows * ld);
+  float* b_s = reinterpret_cast<float*>(stat + (P + 1) / 2 * 2);  // 16 B
+  float* sc_s = b_s + ld;
+  float* sh_s = sc_s + ld;
+  float* te_s = sh_s + ld;
+  float* res_s = reinterpret_cast<float*>(
+      (reinterpret_cast<size_t>(te_s + (g.te != nullptr ? g.ns * ld : 0)) +
+       15) & ~(size_t)15);  // 16-byte copies
+  const bool res_staged =
+      g.res != nullptr &&
+      (unsigned char*)(res_s + rows * ld) <= smem + kConvSmemBytes;
+  auto stage = [&]() {
+    for (int i = threadIdx.x; i < gc; i += kThreads) {
+      cp_async4(b_s + i, bias + gn0 + i);
+      cp_async4(sc_s + i, g.scale + gn0 + i);
+      cp_async4(sh_s + i, g.gbias + gn0 + i);
+    }
+    if (g.te != nullptr) {
+      const float inv_gc = 1.f / (float)gc;
+      const int s_last = M / seg - 1;
+      for (int i = threadIdx.x; i < g.ns * gc; i += kThreads) {
+        const int sl = div_small(i, inv_gc), cc = i - sl * gc;
+        const int s = min(div_small(gm0, inv_seg) + sl, s_last);
+        cp_async4(te_s + sl * ld + cc, g.te + (size_t)s * g.te_stride + gn0 + cc);
+      }
+    }
+    if (res_staged) {
+      const int gc4 = gc / 4;
+      const float inv_gc4 = 1.f / (float)gc4;
+      for (int i = threadIdx.x; i < gr * gc4; i += kThreads) {
+        const int r = div_small(i, inv_gc4), c4 = 4 * (i - r * gc4);
+        cp_async16(res_s + r * ld + c4,
+                   g.res + (size_t)(gm0 + r) * cout + gn0 + c4);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (arrivals == 1) {
+    // the tile is the group block and its only block: into shared memory
+    stage();
+    Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+      const bool in = m < M && n < cout;
+      *reinterpret_cast<float2*>(gv + (m - m0) * ld + (n - n0)) =
+          in ? make_float2(v0, v1) : make_float2(0.f, 0.f);
+    });
+  } else {
+    // 1. this block's share into its plane (K split), then arrive
+    float* plane0 = splits > 1 ? partial : out;
+    const size_t plane = (size_t)M * cout;
+    float* mine = plane0 + (size_t)split * plane;
+    Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+      if (m < M && n < cout)
+        *reinterpret_cast<float2*>(mine + (size_t)m * cout + n) =
+            make_float2(v0, v1);
+    });
+    __threadfence();
+    __syncthreads();
+    __shared__ bool last;
+    if (threadIdx.x == 0)
+      last = atomicAdd(&g.counters[gb], 1u) == (unsigned)arrivals - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    stage();
+    // 2. the group block: every tile's K splits added in split order (as
+    // split_k_last adds them) into shared memory; the loads of kSumBatch
+    // column pairs times 8 splits started together
+    for (int base = threadIdx.x; base < total; base += kThreads * kSumBatch) {
+      float2 sum[kSumBatch];
+      size_t at[kSumBatch];
+#pragma unroll
+      for (int j = 0; j < kSumBatch; ++j) {
+        const int i = min(base + j * kThreads, total - 1);
+        const int r = div_small(i, inv_gc2);
+        at[j] = (size_t)(gm0 + r) * cout + gn0 + 2 * (i - r * gc2);
+        sum[j] = make_float2(0.f, 0.f);
+      }
+      for (int sp0 = 0; sp0 < splits; sp0 += 8) {
+        float2 v[kSumBatch][8];
+#pragma unroll
+        for (int j = 0; j < kSumBatch; ++j)
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            v[j][q] = base + j * kThreads < total && sp0 + q < splits
+                          ? __ldcg(reinterpret_cast<const float2*>(
+                                plane0 + (size_t)(sp0 + q) * plane + at[j]))
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < kSumBatch; ++j)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            sum[j].x += v[j][q].x;
+            sum[j].y += v[j][q].y;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < kSumBatch; ++j) {
+        const int i = base + j * kThreads;
+        if (i >= total) continue;
+        const int r = div_small(i, inv_gc2), cc = 2 * (i - r * gc2);
+        *reinterpret_cast<float2*>(gv + r * ld + cc) = sum[j];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread's sums and staged operands landed
+
+  // 3. sum x and sum x^2 of each (segment, group) pair, x the value plus
+  // its bias: a pair gets wpp of the 8 warps, whose lanes take its elements
+  // (four at a time where a group's channels allow) in a fixed order; a
+  // shuffle tree adds a warp's lanes, then the pair's warps are added in
+  // order
+  __shared__ float2 red[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpp = P < kThreads / 32 ? (kThreads / 32) / P : 1;
+  const int per_round = (kThreads / 32) / wpp;
+  const float n_el = (float)(seg * g.cg);
+  const bool quads = (g.cg & 3) == 0;
+  for (int p0 = 0; p0 < P; p0 += per_round) {
+    const int p = p0 + warp / wpp, part = warp % wpp;
+    float s1 = 0.f, s2 = 0.f;
+    if (warp / wpp < per_round && p < P) {
+      const int sl = p / g.ng, gl = p - sl * g.ng;
+      const int r0 = sl * seg, r1 = min(r0 + seg, gr);
+      const int c0 = gl * g.cg, c1 = min(c0 + g.cg, gc);
+      if (r1 > r0 && c1 > c0) {
+        const int wq = quads ? (c1 - c0) / 4 : c1 - c0;
+        const float inv_wq = 1.f / (float)wq;
+        for (int u = part * 32 + lane; u < (r1 - r0) * wq; u += 32 * wpp) {
+          const int r = div_small(u, inv_wq), q = u - r * wq;
+          const float* at = gv + (r0 + r) * ld + c0;
+          if (quads) {
+            float4 x = *reinterpret_cast<const float4*>(at + 4 * q);
+            const float4 b = *reinterpret_cast<const float4*>(b_s + c0 + 4 * q);
+            x = make_float4(x.x + b.x, x.y + b.y, x.z + b.z, x.w + b.w);
+            s1 += (x.x + x.y) + (x.z + x.w);
+            s2 = fmaf(x.x, x.x, fmaf(x.y, x.y, fmaf(x.z, x.z, fmaf(x.w, x.w, s2))));
+          } else {
+            const float x = at[q] + b_s[c0 + q];
+            s1 += x;
+            s2 = fmaf(x, x, s2);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_down_sync(0xffffffffu, s1, o);
+      s2 += __shfl_down_sync(0xffffffffu, s2, o);
+    }
+    if (lane == 0) red[warp] = make_float2(s1, s2);
+    __syncthreads();
+    if ((int)threadIdx.x < per_round && p0 + (int)threadIdx.x < P) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int k = 0; k < wpp; ++k) {
+        t1 += red[threadIdx.x * wpp + k].x;
+        t2 += red[threadIdx.x * wpp + k].y;
+      }
+      const float mean = t1 / n_el;
+      stat[p0 + threadIdx.x] =
+          make_float2(mean, rsqrtf(t2 / n_el - mean * mean + g.eps));
+    }
+    __syncthreads();
+  }
+  // 4. normalise: affine, Mish, + te, + res
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int r = div_small(i, inv_gc2), cc = 2 * (i - r * gc2);
+    const int sl = div_small(r, inv_seg);
+    float2 x = *reinterpret_cast<const float2*>(gv + r * ld + cc);
+    const float2 b = *reinterpret_cast<const float2*>(b_s + cc);
+    x.x += b.x;
+    x.y += b.y;
+    const float2 s0 = stat[sl * g.ng + div_small(cc, inv_cg)];
+    const float2 s1 =
+        (g.cg & 1) ? stat[sl * g.ng + div_small(cc + 1, inv_cg)] : s0;
+    const float2 sc = *reinterpret_cast<const float2*>(sc_s + cc);
+    const float2 sh = *reinterpret_cast<const float2*>(sh_s + cc);
+    float2 add = make_float2(0.f, 0.f);
+    if (g.te != nullptr)
+      add = *reinterpret_cast<const float2*>(te_s + sl * ld + cc);
+    if (g.res != nullptr) {
+      const float2 q =
+          res_staged ? *reinterpret_cast<const float2*>(res_s + r * ld + cc)
+                     : *reinterpret_cast<const float2*>(
+                           g.res + (size_t)(gm0 + r) * cout + gn0 + cc);
+      add.x += q.x;
+      add.y += q.y;
+    }
+    *reinterpret_cast<float2*>(out + (size_t)(gm0 + r) * cout + gn0 + cc) =
+        make_float2(mish_epi((x.x - s0.x) * s0.y * sc.x + sh.x) + add.x,
+                    mish_epi((x.y - s1.x) * s1.y * sc.y + sh.y) + add.y);
+  }
+  if (arrivals > 1 && threadIdx.x == 0) g.counters[gb] = 0u;  // next conv
+}
+
+// out[out_row(m)] = bias + sum_{j, ci} x[in_row(m, j), ci] * w[wtap(j)*cin + ci],
+// or with kGn the GroupNorm+Mish epilogue above. One block per (output
+// tile, parity, K split); the tile product is Tile::product of common.cuh.
+template <class Tile, bool kGn>
 __global__ void __launch_bounds__(kThreads, 2)
 rows_conv_kernel(ConvIn c, const typename Tile::W* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ out,
                  int splits, float* __restrict__ partial,
-                 unsigned int* __restrict__ counters) {
+                 unsigned int* __restrict__ counters, GnEpi gn) {
   const int cin = c.cin_a + c.cin_b;
   const int K = (c.mode == kUp ? 2 : c.k) * cin;
   const int split = blockIdx.z % splits;
@@ -67,6 +391,10 @@ rows_conv_kernel(ConvIn c, const typename Tile::W* __restrict__ w,
   for (int i = 0; i < Tile::ACC; ++i) acc[i] = 0.f;
   Tile::product(c, w, parity, m0, n0, k_begin, k_end, smem, acc);
 
+  if constexpr (kGn) {
+    gn_epilogue<Tile>(acc, c, bias, out, splits, partial, gn, smem);
+    return;
+  }
   const int M = c.M, cout = c.cout;
   if (splits > 1) {
     // every block stores its partial tile; the last of a tile to arrive
@@ -84,63 +412,139 @@ rows_conv_kernel(ConvIn c, const typename Tile::W* __restrict__ w,
   });
 }
 
-// One block per chain of H rows x D lanes (HD = H*D values).
-__global__ void ddpm_project_kernel(
-    float* __restrict__ x, const float* __restrict__ eps,
-    const float* __restrict__ noise, const float* __restrict__ scal,
-    const float* __restrict__ cond, const float* __restrict__ Mp,
-    const float* __restrict__ bp, int H, int D, int clip, int predict_eps,
-    const int* __restrict__ wall, int grid_h, int grid_w, float mx, float my,
-    float sx, float sy, float margin) {
+// Chains whose DDPM-updated x a block of ddpm_project_kernel holds at once:
+// one warp each for the dot products.
+constexpr int kStepChains = 8;
+// Elements a thread loads (its M slice and x, eps, noise) before it stores
+// any: one round trip to L2 for the flagship's 8 chains.
+constexpr int kStepBatch = 8;
+
+// Outputs of row h a warp's lanes take at once in the step's dot products:
+// each lane keeps one accumulator per output and loads each x once for all.
+constexpr int kStepOuts = 8;
+
+// One block per trajectory row h, for every chain; x (n_chains, H*D) is
+// read, out written.
+__global__ void __launch_bounds__(kThreads) ddpm_project_kernel(
+    const float* __restrict__ x, float* __restrict__ out,
+    const float* __restrict__ eps, const float* __restrict__ noise,
+    const float* __restrict__ scal, const float* __restrict__ cond,
+    const float* __restrict__ Mp, const float* __restrict__ bp, int n_chains,
+    int H, int D, int clip, int predict_eps, const int* __restrict__ wall,
+    int grid_h, int grid_w, float mx, float my, float sx, float sy,
+    float margin) {
   extern __shared__ float sh[];
-  const int HD = H * D;
-  float* xn = sh;       // x after the DDPM update
-  float* xp = sh + HD;  // after projection and wall revert
-  const size_t base = (size_t)blockIdx.x * HD;
+  const bool project = Mp != nullptr;
+  const int HD = H * D, h = blockIdx.x;
+  float* ms = sh;                           // M[:, hD..hD+D), output-major
+  float* xn = ms + (project ? D * HD : 0);  // kStepChains x HD
+  float* zs = xn + kStepChains * HD;        // kStepChains x D: row h
   const float alpha = scal[5];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  for (int i = threadIdx.x; i < HD; i += blockDim.x) {
-    xn[i] = ddpm_update(x[base + i], eps[base + i], noise[base + i], scal,
-                        clip, predict_eps);
-  }
-  __syncthreads();
-
-  if (Mp != nullptr) {
-    for (int j = threadIdx.x; j < HD; j += blockDim.x) {
-      float z = 0.f;
-      for (int i = 0; i < HD; ++i) z = fmaf(xn[i], Mp[(size_t)i * HD + j], z);
-      z += bp[j];
-      xp[j] = alpha * z + (1.f - alpha) * xn[j];
+  for (int c0 = 0; c0 < n_chains; c0 += kStepChains) {
+    const int nc = min(kStepChains, n_chains - c0);
+    // the DDPM update of every row of these chains when projecting, else of
+    // row h only; with the first chains, the block's slice of M
+    const int n_x = project ? nc * HD : nc * D;
+    const int n_m = project && c0 == 0 ? HD * D : 0;
+    auto x_at = [&](int i) {  // place in xn of the i-th updated value
+      if (project) return i;
+      const int cc = i / D;
+      return cc * HD + h * D + (i - cc * D);
+    };
+    for (int i0 = threadIdx.x; i0 < max(n_x, n_m);
+         i0 += kThreads * kStepBatch) {
+      float mv[kStepBatch], xv[kStepBatch], ev[kStepBatch], nv[kStepBatch];
+#pragma unroll
+      for (int j = 0; j < kStepBatch; ++j) {
+        const int i = i0 + j * kThreads;
+        if (i < n_m) {
+          const int r = i / D;
+          mv[j] = Mp[(size_t)r * HD + h * D + (i - r * D)];
+        }
+        if (i < n_x) {
+          const size_t o = (size_t)c0 * HD + x_at(i);
+          xv[j] = x[o];
+          ev[j] = eps[o];
+          nv[j] = noise[o];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStepBatch; ++j) {
+        const int i = i0 + j * kThreads;
+        if (i < n_m) {
+          const int r = i / D;
+          ms[(i - r * D) * HD + r] = mv[j];
+        }
+        if (i < n_x)
+          xn[x_at(i)] = ddpm_update(xv[j], ev[j], nv[j], scal, clip,
+                                    predict_eps);
+      }
     }
     __syncthreads();
-    if (wall != nullptr) {
-      for (int h = threadIdx.x; h < H; h += blockDim.x) {
-        // rounded as the reference computes them (no fused multiply-add)
-        const float px = __fadd_rn(__fmul_rn(xp[h * D], sx), mx);
-        const float py = __fadd_rn(__fmul_rn(xp[h * D + 1], sy), my);
+    if (project && warp < nc) {
+      // row h of chain c0 + warp: D dot products over HD, split over the
+      // lanes (lane l adds the terms l, l + 32, ..), kStepOuts at a time,
+      // each lane's partial sums added by a shuffle tree
+      const float* xc = xn + warp * HD;
+      for (int d0 = 0; d0 < D; d0 += kStepOuts) {
+        float z[kStepOuts];
+#pragma unroll
+        for (int q = 0; q < kStepOuts; ++q) z[q] = 0.f;
+        for (int i = lane; i < HD; i += 32) {
+          const float xi = xc[i];
+#pragma unroll
+          for (int q = 0; q < kStepOuts; ++q)
+            if (d0 + q < D) z[q] = fmaf(xi, ms[(d0 + q) * HD + i], z[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < kStepOuts; ++q) z[q] = warp_sum(z[q]);
+        if (lane == 0)
+#pragma unroll
+          for (int q = 0; q < kStepOuts; ++q) {
+            const int d = d0 + q;
+            if (d < D)
+              zs[warp * D + d] = alpha * (z[q] + bp[h * D + d]) +
+                                 (1.f - alpha) * xc[h * D + d];
+          }
+      }
+    }
+    __syncthreads();
+    // wall revert and row-0 conditioning, one thread per chain
+    if ((int)threadIdx.x < nc) {
+      const int cc = threadIdx.x;
+      const float* xr = xn + cc * HD + h * D;  // after the DDPM update
+      const float* pr = project ? zs + cc * D : xr;  // after projection
+      bool bad = false;
+      if (project && wall != nullptr) {
+        // rounded as the reference computes them (no fused multiply-add);
+        // the probes' cells are loaded together
+        const float px = __fadd_rn(__fmul_rn(pr[0], sx), mx);
+        const float py = __fadd_rn(__fmul_rn(pr[1], sy), my);
         const int n_probe = margin != 0.f ? 4 : 1;
-        bool bad = false;
-        for (int p = 0; p < n_probe; ++p) {
+        int cell[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          if (p >= n_probe) break;
           const float dx = n_probe == 1 ? 0.f : (p < 2 ? -margin : margin);
           const float dy = n_probe == 1 ? 0.f : ((p & 1) ? margin : -margin);
           int col = (int)floorf(__fadd_rn(__fadd_rn(px, dx), grid_w * 0.5f));
           int row = (int)floorf(__fsub_rn(grid_h * 0.5f, __fadd_rn(py, dy)));
           col = min(max(col, 0), grid_w - 1);
           row = min(max(row, 0), grid_h - 1);
-          bad = bad || wall[row * grid_w + col] == 1;
+          cell[p] = wall[row * grid_w + col];
         }
-        if (bad)
-          for (int d = 0; d < D; ++d) xp[h * D + d] = xn[h * D + d];
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          if (p < n_probe) bad = bad || cell[p] == 1;
       }
-      __syncthreads();
+      const size_t o = (size_t)(c0 + cc) * HD + h * D;
+      for (int d = 0; d < D; ++d)
+        out[o + d] = h == 0 ? cond[o + d] : (bad ? xr[d] : pr[d]);
     }
-  } else {
-    for (int i = threadIdx.x; i < HD; i += blockDim.x) xp[i] = xn[i];
-    __syncthreads();
+    __syncthreads();  // xn and zs serve the next chains
   }
-
-  for (int i = threadIdx.x; i < HD; i += blockDim.x)
-    x[base + i] = i < D ? cond[base + i] : xp[i];
 }
 
 }  // namespace
@@ -163,23 +567,78 @@ extern "C" int rows_conv(const float* xa, const float* xb, int cin_a, int cin_b,
   cudaStream_t st = (cudaStream_t)stream;
   bool ok;
   DADIFF_WITH_TILE(w_bf16, bm, bn, ok,
-                   rows_conv_kernel<Tile><<<grid, kThreads, 0, st>>>(
-                       c, (const Tile::W*)w, bias, out, splits,
-                       partial, counters));
+                   rows_conv_kernel<Tile, false><<<grid, kThreads, 0, st>>>(
+                       c, (const Tile::W*)w, bias, out, splits, partial,
+                       counters, GnEpi{}));
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-extern "C" int ddpm_project_step(float* x, const float* eps, const float* noise,
-                                 const float* scal, const float* cond,
-                                 const float* M, const float* b, int n_chains,
-                                 int H, int D, int clip, int predict_eps,
-                                 const int* wall, int grid_h, int grid_w,
-                                 float mx, float my, float sx, float sy,
-                                 float margin, void* stream) {
-  const size_t smem = 2 * (size_t)H * D * sizeof(float);
-  ddpm_project_kernel<<<n_chains, 256, smem, (cudaStream_t)stream>>>(
-      x, eps, noise, scal, cond, M, b, H, D, clip, predict_eps, wall, grid_h,
-      grid_w, mx, my, sx, sy, margin);
+// Shared memory the epilogue of rows_conv_gn needs at the least: the group
+// block, its pairs' statistics, bias, scale, shift and time rows
+// (ops/conv_tiling.py GroupPlan.smem_bytes).
+static int gn_smem_bytes(int gtm, int gtn, int bm, int bn, int ns, int ng) {
+  return 4 * gtm * bm * gtn * bn + 16 * ((ns * ng + 1) / 2) +
+         4 * gtn * bn * (3 + ns);
+}
+
+// rows_conv in SAME mode, then GroupNorm(8) + affine + Mish (+ te, + res)
+// over segments of seg_in rows, in the same launch. gtm, gtn, ns, ng: the
+// group-block plan of ops/conv_tiling.py group_plan for this tile, whose
+// gn_smem_bytes fit the conv's shared memory with ns * ng <= 256 pairs;
+// partial: splits * rows * cout floats if splits > 1; gcounters: one
+// zeroed unsigned per group block (left zeroed).
+extern "C" int rows_conv_gn(const float* xa, const float* xb, int cin_a,
+                            int cin_b, const void* w, int w_bf16,
+                            const float* bias, float* out, int rows, int seg_in,
+                            int cout, int k, int bm, int bn, int splits,
+                            float* partial, const float* scale,
+                            const float* gbias, const float* te, int te_stride,
+                            const float* res, float eps, int gtm, int gtn,
+                            int ns, int ng, unsigned int* gcounters,
+                            void* stream) {
+  if (cout % 8 != 0 || splits < 1 || bm < 1 || bn < 1 || gtm < 1 ||
+      gtn < 1 || ns * ng < 1 || ns * ng > kThreads ||
+      gn_smem_bytes(gtm, gtn, bm, bn, ns, ng) > kConvSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const ConvIn c{xa, xb, cin_a, cin_b, rows, seg_in, cout, kSame, k};
+  const GnEpi g{scale, gbias, te, res, te_stride, cout / 8, gtm, gtn, ns, ng,
+                eps, gcounters};
+  dim3 grid((cout + bn - 1) / bn, (rows + bm - 1) / bm, splits);
+  cudaStream_t st = (cudaStream_t)stream;
+  bool ok;
+  DADIFF_WITH_TILE(w_bf16, bm, bn, ok,
+                   rows_conv_kernel<Tile, true><<<grid, kThreads, 0, st>>>(
+                       c, (const Tile::W*)w, bias, out, splits, partial,
+                       nullptr, g));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// x and out (n_chains, H*D), distinct; eps, noise, cond like x; M (H*D,
+// H*D) and b (H*D,) or null (no projection); wall (grid_h, grid_w) or null.
+extern "C" int ddpm_project_step(const float* x, float* out, const float* eps,
+                                 const float* noise, const float* scal,
+                                 const float* cond, const float* M,
+                                 const float* b, int n_chains, int H, int D,
+                                 int clip, int predict_eps, const int* wall,
+                                 int grid_h, int grid_w, float mx, float my,
+                                 float sx, float sy, float margin,
+                                 void* stream) {
+  if (x == out) return (int)cudaErrorInvalidValue;
+  const int HD = H * D;
+  const size_t smem =
+      sizeof(float) *
+      ((M != nullptr ? (size_t)D * HD : 0) + (size_t)kStepChains * (HD + D));
+  if (smem > 48 * 1024) {
+    // above 48 KB only after this opt-in (long horizons or wide rows)
+    cudaError_t e = cudaFuncSetAttribute(
+        ddpm_project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ddpm_project_kernel<<<H, kThreads, smem, (cudaStream_t)stream>>>(
+      x, out, eps, noise, scal, cond, M, b, n_chains, H, D, clip, predict_eps,
+      wall, grid_h, grid_w, mx, my, sx, sy, margin);
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,17 @@ The launchers (``ops/planner.py``, ``ops/chain.py``) take tile shapes and
 splits from here and hand them to the kernels; :func:`rows_conv_tiled` walks
 the same tiles on the CPU, so the tests hold the tiling against
 ``rows_conv_plain`` where no kernel can run.
+
+A conv that feeds a GroupNorm (``rows_conv_gn`` of csrc/planner.cu) also
+normalises in its epilogue: the tiles that share a (segment, group) meet in a
+group block, :func:`group_plan`, and :func:`rows_conv_gn_tiled` repeats the
+kernel's order of sums on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import Iterator, List, NamedTuple, Tuple
 
 import torch
 
@@ -185,4 +191,119 @@ def rows_conv_tiled(xa, xb, w, bias, mode: int, k: int, seg_in: int, bm: int,
                 for i, m in enumerate(ms):
                     out[out_row(mode, m, parity, seg_in), n0:n1] = \
                         acc[i] + bias.reshape(-1)[n0:n1]
+    return out, cover
+
+
+# ---------------------------------------------------------------------------
+# The group blocks of rows_conv_gn (csrc/planner.cu gn_epilogue)
+# ---------------------------------------------------------------------------
+
+N_GROUPS = 8            # GroupNorm(8), as every norm of the U-Net
+CONV_SMEM_BYTES = 47104  # kConvSmemBytes of csrc/common.cuh
+MAX_GROUP_PAIRS = 256    # pairs a group block may hold: one thread each
+
+
+class GroupPlan(NamedTuple):
+    """How the output tiles of a SAME conv meet for GroupNorm statistics per
+    (segment, group). A group block is ``tiles_m x tiles_n`` tiles, the
+    aligned rectangle of lcm(seg, bm) rows by lcm(C/8, bn) columns, capped at
+    the conv's tiles: it holds ``segs x groups`` whole (segment, group)
+    pairs, and every pair lies in exactly one group block."""
+    tiles_m: int     # tiles per group block along the rows
+    tiles_n: int     # ... along the columns
+    segs: int        # segments per group block
+    groups: int      # groups per group block
+    blocks: int      # group blocks of the launch: one counter each
+    smem_bytes: int  # shared memory its epilogue needs at the least
+
+    @property
+    def pairs(self) -> int:
+        return self.segs * self.groups
+
+    @property
+    def fits(self) -> bool:
+        """The kernel holds the group block in the conv's shared memory."""
+        return (self.smem_bytes <= CONV_SMEM_BYTES
+                and self.pairs <= MAX_GROUP_PAIRS)
+
+
+def group_plan(M: int, cout: int, seg: int, bm: int, bn: int,
+               n_groups: int = N_GROUPS) -> GroupPlan:
+    """The group blocks of a SAME conv of M rows in segments of ``seg``, cut
+    into ``bm x bn`` tiles."""
+    cg = cout // n_groups
+    all_m, all_n = -(-M // bm), -(-cout // bn)
+    tm = min(math.lcm(seg, bm) // bm, all_m)
+    tn = min(math.lcm(cg, bn) // bn, all_n)
+    segs = -(-min(tm * bm, M) // seg)
+    groups = -(-min(tn * bn, cout) // cg)
+    blocks = -(-all_m // tm) * -(-all_n // tn)
+    # the group block, its pairs' statistics, bias, scale, shift and time
+    # rows (gn_smem_bytes of csrc/planner.cu); the residual is staged where
+    # the rest leaves room for it
+    return GroupPlan(tm, tn, segs, groups, blocks,
+                     4 * tm * bm * tn * bn + 16 * -(-segs * groups // 2)
+                     + 4 * tn * bn * (3 + segs))
+
+
+class GroupBlock(NamedTuple):
+    index: int                       # its counter
+    rows: Tuple[int, int]            # [m0, m1) of the conv's rows
+    cols: Tuple[int, int]            # [n0, n1) of its columns
+    tiles: List[Tuple[int, int]]     # (tile row, tile column)
+    pairs: List[Tuple[int, int, int]]  # (index p, segment, group) in it
+
+
+def group_blocks(M: int, cout: int, seg: int, bm: int, bn: int,
+                 n_groups: int = N_GROUPS) -> Iterator[GroupBlock]:
+    """Every group block of :func:`group_plan` with its tiles and its
+    (segment, group) pairs, as the kernel finds them from its block index."""
+    g = group_plan(M, cout, seg, bm, bn, n_groups)
+    cg = cout // n_groups
+    all_m, all_n = -(-M // bm), -(-cout // bn)
+    per_row = -(-all_n // g.tiles_n)
+    for gbm in range(-(-all_m // g.tiles_m)):
+        for gbn in range(per_row):
+            tms = range(gbm * g.tiles_m, min(all_m, (gbm + 1) * g.tiles_m))
+            tns = range(gbn * g.tiles_n, min(all_n, (gbn + 1) * g.tiles_n))
+            m0, n0 = tms[0] * bm, tns[0] * bn
+            pairs = [(sl * g.groups + gl, m0 // seg + sl, n0 // cg + gl)
+                     for sl in range(g.segs) for gl in range(g.groups)
+                     if m0 + sl * seg < M and n0 + gl * cg < cout]
+            yield GroupBlock(gbm * per_row + gbn,
+                             (m0, min(M, (tms[-1] + 1) * bm)),
+                             (n0, min(cout, (tns[-1] + 1) * bn)),
+                             [(tm, tn) for tm in tms for tn in tns], pairs)
+
+
+def rows_conv_gn_tiled(xa, xb, w, bias, k: int, seg: int, scale, gbias,
+                       te=None, res=None, *, bm: int, bn: int, splits: int,
+                       eps: float = 1e-5):
+    """The fused conv + GroupNorm + Mish (+ te per segment, + res) rebuilt
+    from the kernel's tiles and group blocks on the CPU: a group block's
+    tiles, each the sum of its K splits in split order, then per (segment,
+    group) pair mean and var = E[x^2] - mean^2. Returns (out, cover):
+    ``cover[segment, group]`` counts the group blocks that normalised the
+    pair."""
+    pre, _ = rows_conv_tiled(xa, xb, w, bias, SAME, k, seg, bm, bn, splits)
+    M, cout = pre.shape
+    cg = cout // N_GROUPS
+    out = torch.empty_like(pre)
+    cover = torch.zeros(M // seg, N_GROUPS, dtype=torch.int64)
+    te = None if te is None else te.reshape(-1, cout).expand(M // seg, cout)
+    for gb in group_blocks(M, cout, seg, bm, bn):
+        for _, s, g in gb.pairs:
+            rs, cs = slice(s * seg, (s + 1) * seg), slice(g * cg, (g + 1) * cg)
+            x = pre[rs, cs]
+            mean = x.sum() / (seg * cg)
+            rstd = torch.rsqrt((x * x).sum() / (seg * cg) - mean * mean + eps)
+            y = (x - mean) * rstd * scale.reshape(-1)[cs] \
+                + gbias.reshape(-1)[cs]
+            y = y * torch.tanh(torch.nn.functional.softplus(y))
+            if te is not None:
+                y = y + te[s, cs]
+            if res is not None:
+                y = y + res[rs, cs]
+            out[rs, cs] = y
+            cover[s, g] += 1
     return out, cover

@@ -41,9 +41,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # xa, xb, cin_a, cin_b, w, w_bf16, bias, out, rows_in, seg_in, cout,
         # mode, k, bm, bn, splits, partial, counters, stream
         "rows_conv": [P, P, I, I, P, I, P, P, I, I, I, I, I, I, I, I, P, P, P],
-        # x, eps, noise, scal, cond, M, b, n_chains, H, D, clip, predict_eps,
-        # wall, grid_h, grid_w, mx, my, sx, sy, margin, stream
-        "ddpm_project_step": [P, P, P, P, P, P, P, I, I, I, I, I,
+        # xa, xb, cin_a, cin_b, w, w_bf16, bias, out, rows, seg_in, cout, k,
+        # bm, bn, splits, partial, scale, gbias, te, te_stride, res, eps,
+        # gtm, gtn, ns, ng, gcounters, stream
+        "rows_conv_gn": [P, P, I, I, P, I, P, P, I, I, I, I, I, I, I, P,
+                         P, P, P, I, P, F, I, I, I, I, P, P],
+        # x, out, eps, noise, scal, cond, M, b, n_chains, H, D, clip,
+        # predict_eps, wall, grid_h, grid_w, mx, my, sx, sy, margin, stream
+        "ddpm_project_step": [P, P, P, P, P, P, P, P, I, I, I, I, I,
                               P, I, I, F, F, F, F, F, P],
     },
     "chain": {

@@ -1,22 +1,25 @@
 """K2: the batched best-of-N planning chain, as hand-written CUDA kernels
-(``csrc/planner.cu`` and K1 in ``csrc/gn_mish.cu``) driven by a host loop.
+(``csrc/planner.cu``) driven by a host loop.
 
 Counterpart of the JAX package's ops/pallas_planner.py: build_interleaved_projection
 :53, make_pallas_planner_chain :95 (its ``pallas_call`` at :287, inner kernel
 :206, ``_project`` :156, ``_apply_cond`` :152), make_pallas_bo_sampler :305
 and wire_policy_megakernel :449; and of the U-Net body it runs,
-ops/pallas_unet.py:258 ``_unet_forward``.
+ops/pallas_unet.py:258 ``_unet_forward`` with its ``_group_norm_mish`` :198.
 
 On the TPU the whole chain is one kernel with the weights resident in VMEM.
-Here each denoise step is a short sequence of launches, ~61 at the flagship:
+Here each denoise step is a short sequence of launches, 36 at the flagship:
 
-  rows_conv          every conv of the U-Net (k=5, k=1, the k=3 stride-2
-                     downsample, the k=4 stride-2 transposed conv), on all
-                     chains at once, zero-padded per chain; the bf16 product
-                     runs on the tensor cores (csrc/common.cuh);
-  gn_mish (K1)       every GroupNorm+Mish, statistics per chain, with the
+  rows_conv          the convs that feed no GroupNorm (the k=1 residual
+                     convs, the k=3 stride-2 downsample, the k=4 stride-2
+                     transposed conv, the final k=1 conv), on all chains at
+                     once, zero-padded per chain; the bf16 product runs on
+                     the tensor cores (csrc/common.cuh);
+  rows_conv_gn       every k=5 conv with the GroupNorm+Mish that follows it
+                     in its epilogue, statistics per chain, with the
                      time-embedding add or the residual add fused after it;
-  ddpm_project_step  DDPM update, projection, wall revert, row-0 conditioning.
+  ddpm_project_step  DDPM update, projection, wall revert, row-0 conditioning,
+                     into the other of two buffers.
 
 The per-step time-dense products are hoisted out of the loop: one k=1
 ``rows_conv`` per residual block over all T steps. Noise is drawn outside the
@@ -26,7 +29,7 @@ On the card a chain owns every buffer of its wave (:class:`_WaveRunner`): the
 caller's x_T, noise and conditioning are copied into fixed buffers, the first
 wave on a set of prepared operands is driven from the host and then captured
 in a CUDA graph, and every later wave replays that graph: one graph launch
-instead of ~6,100 kernel launches, the counterpart of the TPU's one jitted
+instead of ~3,600 kernel launches, the counterpart of the TPU's one jitted
 call. A capture or a replay that fails raises.
 
 The same host loop runs the plain PyTorch version of each kernel when the
@@ -44,8 +47,11 @@ import torch
 
 from dadiff_tpu_torch.ops import cuda_lib
 from dadiff_tpu_torch.ops.chain_operands import _layer_plan, prepare_chain_operands
-from dadiff_tpu_torch.ops.conv_tiling import DOWN, N_SM, SAME, UP, Tiling, tiling
-from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain, launch_gn_mish
+from dadiff_tpu_torch.ops.conv_tiling import (
+    DOWN, F32_TILE, MMA_TILES, N_GROUPS, N_SM, SAME, UP, BK, GroupPlan,
+    Tiling, even_splits, group_plan, tiling,
+)
+from dadiff_tpu_torch.ops.gn_mish import gn_mish_plain
 from dadiff_tpu_torch.ops.projection import (
     NormStats,
     apply_projection,
@@ -121,6 +127,21 @@ def _split_k(rows: int, cin: int, cout: int, mode: int, k: int,
     return tiling(rows, cin, cout, mode, k, bf16, _ROOM, _want_splits)
 
 
+def _partial(xa, t: Tiling, scratch):
+    """The split-K partial tiles of a launch: None for one split, else
+    ``scratch`` if it is large enough, else a new buffer."""
+    if t.splits == 1:
+        return None
+    if scratch is None or scratch.numel() < t.partial_elems:
+        scratch = torch.empty(t.partial_elems, dtype=torch.float32,
+                              device=xa.device)
+    return scratch
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def launch_rows_conv(xa, xb, w, bias, out, mode: int, k: int, seg_in: int,
                      stream=None, scratch=None, t: Optional[Tiling] = None):
     """Launch the kernel on contiguous CUDA tensors (unchecked). ``scratch``:
@@ -132,22 +153,39 @@ def launch_rows_conv(xa, xb, w, bias, out, mode: int, k: int, seg_in: int,
     bf16 = w.dtype == torch.bfloat16
     if t is None:
         t = _split_k(rows, xa.shape[1] + cin_b, cout, mode, k, bf16)
-    partial = counters = None
-    if t.splits > 1:
-        partial = scratch
-        if partial is None or partial.numel() < t.partial_elems:
-            partial = torch.empty(t.partial_elems, dtype=torch.float32,
-                                  device=xa.device)
-        counters = cuda_lib.counters(xa.device, t.tiles)
+    partial = _partial(xa, t, scratch)
+    counters = None if partial is None else cuda_lib.counters(xa.device,
+                                                               t.tiles)
     rc = cuda_lib.lib("planner").rows_conv(
-        xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[1],
-        cin_b, w.data_ptr(), int(bf16), bias.data_ptr(), out.data_ptr(), rows,
-        seg_in, cout, mode, k, t.bm, t.bn, t.splits,
-        None if partial is None else partial.data_ptr(),
-        None if counters is None else counters.data_ptr(),
+        xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(), int(bf16),
+        bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, mode, k, t.bm,
+        t.bn, t.splits, _ptr(partial), _ptr(counters),
         cuda_lib.stream_of(xa) if stream is None else stream)
     cuda_lib.check(rc, "rows_conv")
     rows_conv.launches += 1
+
+
+def _check_conv(xa, xb, w, bias, mode: int, k: int, seg_in: int,
+                what: str) -> None:
+    for t in (xa, xb, bias):
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+                              or t.device != xa.device):
+            raise ValueError(f"{what}: activations and bias must be "
+                             "contiguous float32 on one device")
+    if w.dtype not in (torch.float32, torch.bfloat16) or not w.is_contiguous() \
+            or w.device != xa.device:
+        raise ValueError(f"{what}: w must be contiguous f32 or bf16")
+    cin = xa.shape[1] + (0 if xb is None else xb.shape[1])
+    taps = 4 if mode == UP else k
+    if w.shape[0] != taps * cin or bias.numel() != w.shape[1] \
+            or xa.shape[0] % seg_in or (xb is not None
+                                        and xb.shape[0] != xa.shape[0]):
+        raise ValueError(f"{what}: shapes do not match")
+    if w.shape[1] % 8 or any(t is not None and t.data_ptr() % 16
+                             for t in (xa, xb, w)):
+        raise ValueError(f"{what}: the kernel moves 16 bytes at a time: "
+                         "cout must be a multiple of 8 and the operands "
+                         "16-byte aligned")
 
 
 def rows_conv(xa, xb, w, bias, mode: int, k: int, seg_in: int) -> torch.Tensor:
@@ -157,25 +195,7 @@ def rows_conv(xa, xb, w, bias, mode: int, k: int, seg_in: int) -> torch.Tensor:
     Plain version on the CPU, the kernel on CUDA tensors."""
     if xa.device.type == "cpu":
         return rows_conv_plain(xa, xb, w, bias, mode, k, seg_in)
-    for t in (xa, xb, bias):
-        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
-                              or t.device != xa.device):
-            raise ValueError("rows_conv: activations and bias must be "
-                             "contiguous float32 on one device")
-    if w.dtype not in (torch.float32, torch.bfloat16) or not w.is_contiguous() \
-            or w.device != xa.device:
-        raise ValueError("rows_conv: w must be contiguous f32 or bf16")
-    cin = xa.shape[1] + (0 if xb is None else xb.shape[1])
-    taps = 4 if mode == UP else k
-    if w.shape[0] != taps * cin or bias.numel() != w.shape[1] \
-            or xa.shape[0] % seg_in or (xb is not None
-                                        and xb.shape[0] != xa.shape[0]):
-        raise ValueError("rows_conv: shapes do not match")
-    if w.shape[1] % 8 or any(t is not None and t.data_ptr() % 16
-                             for t in (xa, xb, w)):
-        raise ValueError("rows_conv: the kernel moves 16 bytes at a time: "
-                         "cout must be a multiple of 8 and the operands "
-                         "16-byte aligned")
+    _check_conv(xa, xb, w, bias, mode, k, seg_in, "rows_conv")
     out = torch.empty(_conv_out_rows(xa.shape[0], mode), w.shape[1],
                       dtype=torch.float32, device=xa.device)
     launch_rows_conv(xa, xb, w, bias, out, mode, k, seg_in)
@@ -183,6 +203,102 @@ def rows_conv(xa, xb, w, bias, mode: int, k: int, seg_in: int) -> torch.Tensor:
 
 
 rows_conv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# rows_conv_gn: a SAME conv with GroupNorm + Mish (+ te, + res) in its epilogue
+# ---------------------------------------------------------------------------
+
+def rows_conv_gn_plain(xa, xb, w, bias, k: int, seg_in: int, scale, gbias,
+                       te=None, res=None, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version: rows_conv_plain (SAME), then gn_mish_plain per segment
+    of ``seg_in`` rows (pallas_unet.py:198 with the adds of :281-293)."""
+    y = rows_conv_plain(xa, xb, w, bias, SAME, k, seg_in)
+    R, C = y.shape
+    return gn_mish_plain(
+        y.reshape(R // seg_in, seg_in, C), scale, gbias, N_GROUPS, eps, te=te,
+        res=None if res is None else res.reshape(R // seg_in, seg_in, C)
+    ).reshape(R, C)
+
+
+def _split_k_gn(rows: int, cin: int, cout: int, k: int, seg: int,
+                bf16: bool) -> Tuple[Tiling, GroupPlan]:
+    """Tile, K splits and group blocks of a fused conv: :func:`_split_k`'s
+    tile, or the largest smaller one whose group block fits the kernel's
+    shared memory (only segments of more than 64 rows at 64-row tiles need
+    that)."""
+    t = _split_k(rows, cin, cout, SAME, k, bf16)
+    shapes = [s for s in (MMA_TILES if bf16 else (F32_TILE,))
+              if s[0] * s[1] <= t.bm * t.bn]
+    for bm, bn in sorted(shapes, key=lambda s: -s[0] * s[1]):
+        g = group_plan(rows, cout, seg, bm, bn)
+        if g.fits:
+            if (bm, bn) != (t.bm, t.bn):
+                tiles, k_tiles = -(-rows // bm) * -(-cout // bn), -(-t.K // BK)
+                t = Tiling(bm, bn, tiles, even_splits(
+                    k_tiles, _want_splits(tiles, k_tiles)), t.M, t.K, 1, cout)
+            return t, g
+    raise ValueError(f"rows_conv_gn: no tile holds a group block of {seg}-row "
+                     f"segments and {cout // N_GROUPS}-channel groups")
+
+
+def launch_rows_conv_gn(xa, xb, w, bias, out, k: int, seg_in: int, scale,
+                        gbias, te, te_stride: int, res, gcounters,
+                        stream=None, scratch=None, t: Optional[Tiling] = None,
+                        g: Optional[GroupPlan] = None,
+                        eps: float = 1e-5) -> None:
+    """Launch the fused kernel on contiguous CUDA tensors (unchecked).
+    ``gcounters``: zeroed int32, one per group block (``g.blocks``), left
+    zeroed; ``scratch`` as for :func:`launch_rows_conv`; ``te``: None or rows
+    of cout at stride ``te_stride`` per segment."""
+    cin_b = 0 if xb is None else xb.shape[1]
+    rows, cout = xa.shape[0], w.shape[1]
+    if t is None or g is None:
+        t, g = _split_k_gn(rows, xa.shape[1] + cin_b, cout, k, seg_in,
+                           w.dtype == torch.bfloat16)
+    partial = _partial(xa, t, scratch)
+    rc = cuda_lib.lib("planner").rows_conv_gn(
+        xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
+        int(w.dtype == torch.bfloat16), bias.data_ptr(), out.data_ptr(), rows,
+        seg_in, cout, k, t.bm, t.bn, t.splits, _ptr(partial),
+        scale.data_ptr(), gbias.data_ptr(), _ptr(te), te_stride, _ptr(res),
+        eps, g.tiles_m, g.tiles_n, g.segs, g.groups, gcounters.data_ptr(),
+        cuda_lib.stream_of(xa) if stream is None else stream)
+    cuda_lib.check(rc, "rows_conv_gn")
+    rows_conv_gn.launches += 1
+
+
+def rows_conv_gn(xa, xb, w, bias, k: int, seg_in: int, scale, gbias,
+                 te=None, res=None) -> torch.Tensor:
+    """SAME conv of [xa | xb] (as :func:`rows_conv`), then GroupNorm(8) +
+    affine + Mish per segment of ``seg_in`` rows, then + ``te`` ((C,) for
+    every segment, or (S, C)) and + ``res`` (like the output). Plain version
+    on the CPU, the fused kernel on CUDA tensors."""
+    if xa.device.type == "cpu":
+        return rows_conv_gn_plain(xa, xb, w, bias, k, seg_in, scale, gbias,
+                                  te, res)
+    _check_conv(xa, xb, w, bias, SAME, k, seg_in, "rows_conv_gn")
+    R, C = xa.shape[0], w.shape[1]
+    for name, v, n in (("scale", scale, (C,)), ("gbias", gbias, (C,)),
+                       ("te", te, (C, R // seg_in * C)), ("res", res, (R * C,))):
+        if v is None:
+            continue
+        if v.dtype != torch.float32 or not v.is_contiguous() \
+                or v.device != xa.device or v.numel() not in n:
+            raise ValueError(f"rows_conv_gn: {name} must be contiguous float32"
+                             f" on {xa.device} with {' or '.join(map(str, n))}"
+                             " elements")
+    t, g = _split_k_gn(R, xa.shape[1] + (0 if xb is None else xb.shape[1]), C,
+                       k, seg_in, w.dtype == torch.bfloat16)
+    out = torch.empty(R, C, dtype=torch.float32, device=xa.device)
+    gcounters = torch.zeros(g.blocks, dtype=torch.int32, device=xa.device)
+    te_stride = 0 if te is None or te.numel() == C else C
+    launch_rows_conv_gn(xa, xb, w, bias, out, k, seg_in, scale, gbias, te,
+                        te_stride, res, gcounters, t=t, g=g)
+    return out
+
+
+rows_conv_gn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +358,60 @@ def ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b,
     return torch.where(row0, cond, xp)
 
 
-def launch_ddpm_project_step(x, eps, noise, scal_t, cond, M, b,
+STEP_CHAINS = 8  # chains a block of the kernel updates at a time (kStepChains)
+
+
+def ddpm_project_step_blocks(x, eps, noise, scal_t, cond, M, b,
+                             cfg: StepConfig):
+    """The kernel's partition walked on the CPU: block h owns trajectory row
+    h of every chain; per group of STEP_CHAINS chains it takes the DDPM
+    update of all their rows, then row h's D outputs as dot products over
+    H*D split across 32 lanes (lane l adds terms l, l + 32, .. in order; a
+    shuffle tree adds the lanes), the wall revert of row h and its
+    conditioning. Reads ``x`` only and returns (out, cover), a new tensor
+    and how often each of its elements was written."""
+    H = cfg.horizon
+    R, D = x.shape
+    HD, C = H * D, R // H
+    recip, recipm1, c1, c2, sigma, alpha = scal_t[:6]
+    out = torch.full_like(x, float("nan")).reshape(C, H, D)
+    cover = torch.zeros(C, H, D, dtype=torch.int64)
+    xs, es, ns = (t.reshape(C, HD) for t in (x, eps, noise))
+    wall = cfg.wall_grid is not None and M is not None
+    for h in range(H):
+        for c0 in range(0, C, STEP_CHAINS):
+            cs = slice(c0, min(C, c0 + STEP_CHAINS))
+            xr = recip * xs[cs] - recipm1 * es[cs] if cfg.predict_epsilon \
+                else es[cs]
+            if cfg.clip_denoised:
+                xr = xr.clamp(-1.0, 1.0)
+            xn = c1 * xr + c2 * xs[cs] + sigma * ns[cs]     # (nc, HD)
+            row = xn[:, h * D:(h + 1) * D]
+            xp = row
+            if M is not None:
+                terms = xn[:, :, None] * M[:, h * D:(h + 1) * D][None]
+                lanes = torch.stack([terms[:, lane::32].sum(dim=1)
+                                     for lane in range(32)], dim=1)  # (nc, 32, D)
+                for width in (16, 8, 4, 2, 1):  # the shuffle-down tree
+                    lanes = lanes[:, :width] + lanes[:, width:2 * width]
+                z = lanes[:, 0] + b[h * D:(h + 1) * D]
+                xp = alpha * z + (1.0 - alpha) * row
+                if wall:
+                    (mx, my), (sx, sy) = cfg.pos_stats
+                    pos = torch.stack([xp[:, 0] * sx + mx, xp[:, 1] * sy + my],
+                                      dim=-1)
+                    bad = wall_violation_mask(pos, cfg.grid_on(x.device),
+                                              cfg.wall_margin)
+                    xp = torch.where(bad[:, None], row, xp)
+            out[cs, h] = cond.reshape(C, H, D)[cs, 0] if h == 0 else xp
+            cover[cs, h] += 1
+    return out.reshape(R, D), cover.reshape(R, D)
+
+
+def launch_ddpm_project_step(x, out, eps, noise, scal_t, cond, M, b,
                              cfg: StepConfig, stream=None) -> None:
-    """Launch the kernel on contiguous float32 CUDA tensors, updating x in
-    place (unchecked)."""
+    """Launch the kernel on contiguous float32 CUDA tensors, reading x and
+    writing out (another buffer: every block reads all of x) (unchecked)."""
     R, D = x.shape
     H = cfg.horizon
     wall = cfg.grid_on(x.device) if (M is not None and
@@ -253,11 +419,9 @@ def launch_ddpm_project_step(x, eps, noise, scal_t, cond, M, b,
     (mx, my), (sx, sy) = cfg.pos_stats or ((0.0, 0.0), (1.0, 1.0))
     gh, gw = cfg.wall_grid.shape if wall is not None else (0, 0)
     rc = cuda_lib.lib("planner").ddpm_project_step(
-        x.data_ptr(), eps.data_ptr(), noise.data_ptr(), scal_t.data_ptr(),
-        cond.data_ptr(), None if M is None else M.data_ptr(),
-        None if b is None else b.data_ptr(), R // H, H, D,
-        int(cfg.clip_denoised), int(cfg.predict_epsilon),
-        None if wall is None else wall.data_ptr(), gh, gw,
+        x.data_ptr(), out.data_ptr(), eps.data_ptr(), noise.data_ptr(),
+        scal_t.data_ptr(), cond.data_ptr(), _ptr(M), _ptr(b), R // H, H, D,
+        int(cfg.clip_denoised), int(cfg.predict_epsilon), _ptr(wall), gh, gw,
         mx, my, sx, sy, cfg.wall_margin,
         cuda_lib.stream_of(x) if stream is None else stream)
     cuda_lib.check(rc, "ddpm_project_step")
@@ -269,8 +433,8 @@ def ddpm_project_step(x, eps, noise, scal_t, cond, M, b,
     """One reverse step on (R, D) row-stacked chains of ``cfg.horizon`` rows:
     x' = cond at row 0, else [wall revert of] alpha*(xn@M+b)+(1-alpha)*xn with
     xn the DDPM update from scal_t = (recip, recipm1, c1, c2, sigma, alpha).
-    Returns a new tensor on the CPU (plain version); on CUDA it launches the
-    kernel, updates x in place and returns it."""
+    Returns a new tensor: the plain version on the CPU, the kernel's output
+    on CUDA."""
     if x.device.type == "cpu":
         return ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b, cfg)
     for t in (x, eps, noise, scal_t, cond, M, b):
@@ -284,8 +448,9 @@ def ddpm_project_step(x, eps, noise, scal_t, cond, M, b,
             or cond.shape != x.shape or scal_t.numel() < 6 or (
                 M is not None and (M.shape != (HD, HD) or b.numel() != HD)):
         raise ValueError("ddpm_project_step: shapes do not match")
-    launch_ddpm_project_step(x, eps, noise, scal_t, cond, M, b, cfg)
-    return x
+    out = torch.empty_like(x)
+    launch_ddpm_project_step(x, out, eps, noise, scal_t, cond, M, b, cfg)
+    return out
 
 
 ddpm_project_step.launches = 0
@@ -304,12 +469,10 @@ class _PlainOps:
     def conv(self, xa, xb, w, bias, mode, k, seg):
         return rows_conv_plain(xa, xb, w, bias, mode, k, seg)
 
-    def gn(self, x, scale, bias, seg, te=None, res=None):
-        R, C = x.shape
-        y = gn_mish_plain(x.reshape(R // seg, seg, C), scale, bias, te=te,
-                          res=None if res is None else res.reshape(
-                              R // seg, seg, C))
-        return y.reshape(R, C)
+    def conv_gn(self, xa, xb, w, bias, k, seg, scale, gbias, te=None,
+                res=None):
+        return rows_conv_gn_plain(xa, xb, w, bias, k, seg, scale, gbias, te,
+                                  res)
 
     def step(self, x, eps, noise, scal_t, cond, M, b, cfg):
         return ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b, cfg)
@@ -319,14 +482,18 @@ class _CudaOps:
     """The kernels, launched on buffers the chain owns, so the per-launch
     checks of the public wrappers are skipped. Outputs come from a pool in
     launch order: the prologue's, and one denoise step's, which every step
-    reuses. Once a first wave has warmed the pool a wave allocates nothing,
-    which capture in a CUDA graph needs. The split-K partial tiles of every
-    conv share one scratch buffer (launches run in stream order)."""
+    reuses; the step writes into the partner of its input, so a wave
+    ping-pongs between two fixed buffers. Once a first wave has warmed the
+    pool a wave allocates nothing, which capture in a CUDA graph needs. The
+    split-K partial tiles of every conv share one scratch buffer, and the
+    group blocks of every fused conv one set of counters (launches run in
+    stream order)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.pool, self.section, self.cursor = {}, "", 0
-        self.scratch = None
+        self.scratch = self.gcounters = None
+        self.partner = {}  # data_ptr of a step's input -> its output buffer
 
     @property
     def stream(self):
@@ -347,28 +514,44 @@ class _CudaOps:
                 rows, cols, dtype=torch.float32, device=self.device)
         return buf
 
+    def _grow_scratch(self, t: Tiling) -> None:
+        if self.scratch is None or self.scratch.numel() < t.partial_elems:
+            self.scratch = torch.empty(t.partial_elems, dtype=torch.float32,
+                                       device=self.device)
+
     def conv(self, xa, xb, w, bias, mode, k, seg):
         out = self._take(_conv_out_rows(xa.shape[0], mode), w.shape[1])
         t = _split_k(xa.shape[0],
                      xa.shape[1] + (0 if xb is None else xb.shape[1]),
                      w.shape[1], mode, k, w.dtype == torch.bfloat16)
-        if self.scratch is None or self.scratch.numel() < t.partial_elems:
-            self.scratch = torch.empty(t.partial_elems, dtype=torch.float32,
-                                       device=self.device)
+        self._grow_scratch(t)
         launch_rows_conv(xa, xb, w, bias, out, mode, k, seg, self.stream,
                          self.scratch, t)
         return out
 
-    def gn(self, x, scale, bias, seg, te=None, res=None):
-        out = self._take(*x.shape)
-        launch_gn_mish(x, out, scale, bias, te, 0, res, 8, 1e-5, seg,
-                       self.stream)
+    def conv_gn(self, xa, xb, w, bias, k, seg, scale, gbias, te=None,
+                res=None):
+        out = self._take(xa.shape[0], w.shape[1])
+        t, g = _split_k_gn(xa.shape[0],
+                           xa.shape[1] + (0 if xb is None else xb.shape[1]),
+                           w.shape[1], k, seg, w.dtype == torch.bfloat16)
+        self._grow_scratch(t)
+        if self.gcounters is None or self.gcounters.numel() < g.blocks:
+            self.gcounters = torch.zeros(g.blocks, dtype=torch.int32,
+                                         device=self.device)
+        launch_rows_conv_gn(xa, xb, w, bias, out, k, seg, scale, gbias, te, 0,
+                            res, self.gcounters, self.stream, self.scratch, t,
+                            g)
         return out
 
     def step(self, x, eps, noise, scal_t, cond, M, b, cfg):
-        launch_ddpm_project_step(x, eps, noise, scal_t, cond, M, b, cfg,
+        out = self.partner.get(x.data_ptr())
+        if out is None:
+            out = self.partner[x.data_ptr()] = torch.empty_like(x)
+            self.partner[out.data_ptr()] = x
+        launch_ddpm_project_step(x, out, eps, noise, scal_t, cond, M, b, cfg,
                                  self.stream)
-        return x
+        return out
 
 
 def _program(unet, flat_w):
@@ -406,13 +589,11 @@ def _unet_eps(ops, prog, x, tes, H: int, k: int):
         kind = op[0]
         if kind == "res":
             _, (w1, b1, s1, g1), _, (w2, b2, s2, g2), rconv = op
-            h = ops.gn(ops.conv(x, pending, w1, b1, SAME, k, seg), s1, g1, seg,
-                       te=tes[r])
+            h = ops.conv_gn(x, pending, w1, b1, k, seg, s1, g1, te=tes[r])
             r += 1
             res = x if rconv is None else ops.conv(x, pending, rconv[0],
                                                    rconv[1], SAME, 1, seg)
-            x = ops.gn(ops.conv(h, None, w2, b2, SAME, k, seg), s2, g2, seg,
-                       res=res)
+            x = ops.conv_gn(h, None, w2, b2, k, seg, s2, g2, res=res)
             pending = None
         elif kind == "push_skip":
             skips.append(x)
@@ -426,7 +607,7 @@ def _unet_eps(ops, prog, x, tes, H: int, k: int):
             seg *= 2
         elif kind == "res_plain":
             w, b, s, g = op[1]
-            x = ops.gn(ops.conv(x, None, w, b, SAME, k, seg), s, g, seg)
+            x = ops.conv_gn(x, None, w, b, k, seg, s, g)
         elif kind == "final_conv":
             x = ops.conv(x, None, op[1], op[2], SAME, 1, seg)
     return x
@@ -452,17 +633,19 @@ def run_chain(ops, unet, flat_w, x0, m_embs, step_noise, scal, cond, M, b,
         ops.begin("step")
         eps = _unet_eps(ops, prog, x, [te[i] for te in tes], H, unet.kernel_size)
         x = ops.step(x, eps, step_noise[i], scal[i], cond, M, b, cfg)
-    if out is not None and x is not out:  # the plain step returns new tensors
+    if out is not None and x is not out:  # a new tensor, or the partner
         x = out.copy_(x)
     return x
 
 
 def _launch_counts():
-    return (rows_conv.launches, gn_mish.launches, ddpm_project_step.launches)
+    return (rows_conv.launches, rows_conv_gn.launches,
+            ddpm_project_step.launches)
 
 
 def _set_launch_counts(counts) -> None:
-    rows_conv.launches, gn_mish.launches, ddpm_project_step.launches = counts
+    rows_conv.launches, rows_conv_gn.launches, ddpm_project_step.launches = \
+        counts
 
 
 class _WaveRunner:

@@ -4,8 +4,8 @@ shapes (horizon 32, dim 128, mults 1 2 4, random weights):
     python -m dadiff_tpu_torch.sweep_kernels conv  [--chains 8]
     python -m dadiff_tpu_torch.sweep_kernels chain
 
-``conv``: every distinct conv of one denoise step through ``rows_conv``
-(bf16 weights) with each tile of ``conv_tiling.MMA_TILES`` and 1-32 K splits,
+``conv``: every distinct conv of one denoise step (the fused ones without
+their GroupNorm epilogue) through ``rows_conv`` (bf16 weights) with each tile of ``conv_tiling.MMA_TILES`` and 1-32 K splits,
 timed as ten launches replayed from a CUDA graph (weights warm in L2), beside
 the tile and split that ``ops/planner.py`` takes itself; the sums over a step
 of the best choices and of the rule's. This is where ``tile_shape`` and
@@ -72,17 +72,19 @@ class _Recorder:
         return torch.empty(pl._conv_out_rows(xa.shape[0], mode), w.shape[1],
                            device="meta")
 
-    def gn(self, x, scale, bias, seg, te=None, res=None):
-        self.calls.append(("gn", x.shape[0], x.shape[1], seg, te is not None,
-                           res is not None))
-        return torch.empty_like(x, device="meta")
+    def conv_gn(self, xa, xb, w, bias, k, seg, scale, gbias, te=None,
+                res=None):
+        self.calls.append(("conv_gn", xa.shape[0], xa.shape[1],
+                           0 if xb is None else xb.shape[1], w.shape[1],
+                           ct.SAME, k, seg, te is not None, res is not None))
+        return torch.empty(xa.shape[0], w.shape[1], device="meta")
 
 
 def step_launches(unet, rows: int, D: int, horizon: int):
     """The launches of one denoise step on ``rows`` stacked rows, recorded
     from the chain's own host loop: (calls, layer program, residual blocks),
     a call being ("conv", rows, cin_a, cin_b, cout, mode, k, seg) or
-    ("gn", rows, C, seg, has_te, has_res)."""
+    ("conv_gn", rows, cin_a, cin_b, cout, SAME, k, seg, has_te, has_res)."""
     rec = _Recorder()
     prog = pl._program(unet, [w.to("meta") for w in flatten_unet_params(unet)])
     tes = [torch.empty(op[2][0].shape[1], device="meta") for op in prog
@@ -96,8 +98,9 @@ def sweep_conv(unet, n_chains: int) -> None:
     g = torch.Generator(device="cuda").manual_seed(0)
     total = {"best": 0.0, "rule": 0.0}
     calls, _, _ = step_launches(unet, n_chains * HORIZON, D, HORIZON)
-    for (_, R, ca, cb, cout, mode, k, seg), n in Counter(
-            c for c in calls if c[0] == "conv").items():
+    # every conv of the step, with or without the GroupNorm epilogue
+    for (R, ca, cb, cout, mode, k, seg), n in Counter(
+            c[1:8] for c in calls).items():
         cin = ca + cb
         xa = torch.randn(R, ca, device="cuda", generator=g)
         xb = torch.randn(R, cb, device="cuda", generator=g) if cb else None

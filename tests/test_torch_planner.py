@@ -328,7 +328,6 @@ def test_wire_policy_megakernel_cpu(models, proj_setup):
 from dadiff_tpu_torch.ops import chain as ch  # noqa: E402
 from dadiff_tpu_torch.ops import conv_tiling as ct  # noqa: E402
 from dadiff_tpu_torch.ops import planner as pl  # noqa: E402
-from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain  # noqa: E402
 
 KNOWN_TILES = ({(True, *t) for t in ct.MMA_TILES} | {(False, *ct.F32_TILE)})
 assert len(KNOWN_TILES) == 5  # DADIFF_WITH_TILE of csrc/common.cuh has five
@@ -446,22 +445,22 @@ def _plain_launchers(monkeypatch):
         out.copy_(pl.rows_conv_plain(xa, xb, w, bias, mode, k, seg_in))
         pl.rows_conv.launches += 1
 
-    def gn(x, out, scale, bias, te, te_stride, res, n_groups, eps, seg,
-           stream=None):
-        R, C = x.shape
-        out.copy_(gn_mish_plain(
-            x.reshape(R // seg, seg, C), scale, bias, n_groups, eps, te=te,
-            res=None if res is None else res.reshape(R // seg, seg, C)
-        ).reshape(R, C))
-        gn_mish.launches += 1
+    def conv_gn(xa, xb, w, bias, out, k, seg_in, scale, gbias, te, te_stride,
+                res, gcounters, stream=None, scratch=None, t=None, g=None,
+                eps=1e-5):
+        assert te is None or te_stride == 0
+        out.copy_(pl.rows_conv_gn_plain(xa, xb, w, bias, k, seg_in, scale,
+                                        gbias, te, res, eps))
+        pl.rows_conv_gn.launches += 1
 
-    def step(x, eps, noise, scal_t, cond, M, b, cfg, stream=None):
-        x.copy_(pl.ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b,
-                                           cfg))
+    def step(x, out, eps, noise, scal_t, cond, M, b, cfg, stream=None):
+        assert out.data_ptr() != x.data_ptr()
+        out.copy_(pl.ddpm_project_step_plain(x, eps, noise, scal_t, cond, M, b,
+                                             cfg))
         pl.ddpm_project_step.launches += 1
 
     monkeypatch.setattr(pl, "launch_rows_conv", conv)
-    monkeypatch.setattr(pl, "launch_gn_mish", gn)
+    monkeypatch.setattr(pl, "launch_rows_conv_gn", conv_gn)
     monkeypatch.setattr(pl, "launch_ddpm_project_step", step)
 
 
@@ -531,11 +530,15 @@ def test_wave_runner_staged_buffers_equal_fresh_chains(monkeypatch, models,
         if per_wave is None:
             per_wave = counts
             pool = {k: v.data_ptr() for k, v in ops.pool.items()}
-            # time-dense rows once, then T steps of convs, norms and one step
+            partner = {k: v.data_ptr() for k, v in ops.partner.items()}
+            # time-dense rows once, then T steps of convs, fused convs and
+            # one step, which ping-pongs between the iterate and one partner
             assert counts[2] == T_STEPS and (counts[0] - n_res) % T_STEPS == 0
             assert counts[1] % T_STEPS == 0 and counts[1] > 0
+            assert len(partner) == 2 and runner.x.data_ptr() in partner
         assert counts == tuple((wave + 1) * n for n in per_wave)
         assert {k: v.data_ptr() for k, v in ops.pool.items()} == pool
+        assert {k: v.data_ptr() for k, v in ops.partner.items()} == partner
     assert len(runner.graphs) == 1
     (_, launches, _), = runner.graphs.values()
     assert launches == per_wave
@@ -583,16 +586,20 @@ def test_planner_chain_takes_graph_flag_on_cpu(models):
 
 def test_step_launches_of_the_flagship_architecture():
     """What a denoise step launches, recorded from the chain's own host loop
-    (the shapes the card is measured at): 35 convs, 25 norms and 12 residual
-    blocks at three levels, whatever the width."""
+    (the shapes the card is measured at): 35 convs, 25 of them with their
+    GroupNorm fused, and 12 residual blocks at three levels, whatever the
+    width."""
     from dadiff_tpu_torch.sweep_kernels import step_launches
 
     unet = TemporalUnet(transition_dim=D, dim=32, dim_mults=(1, 2, 4))
     calls, prog, n_res = step_launches(unet, 8 * 32, D, 32)
-    convs = [c for c in calls if c[0] == "conv"]
-    norms = [c for c in calls if c[0] == "gn"]
-    assert (len(convs), len(norms), n_res) == (35, 25, 12)
-    assert 100 * (len(calls) + 1) + n_res == 6112   # launches per T=100 wave
+    convs = [c for c in calls if c[0] in ("conv", "conv_gn")]
+    fused = [c for c in calls if c[0] == "conv_gn"]
+    assert (len(convs), len(fused), n_res) == (35, 25, 12)
+    assert len(calls) == len(convs)
+    assert all(c[5] == ct.SAME and c[6] == 5 for c in fused)
+    assert sum(c[8] for c in fused) == n_res         # a time row per block
+    assert 100 * (len(calls) + 1) + n_res == 3612   # launches per T=100 wave
     assert {c[1] for c in convs} == {256, 128, 64}  # rows per level, 8 chains
     assert sum(c[5] == ct.DOWN for c in convs) == 2
     assert sum(c[5] == ct.UP for c in convs) == 2
