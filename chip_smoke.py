@@ -253,14 +253,19 @@ def ladder_phase(ckpt: Path) -> dict:
 
 def resblock_phase(unet) -> dict:
     """K4 against its plain version at the 12 residual blocks of the
-    flagship, B=1 and B=8, on the trained weights; its gradient; then times
-    of the 12 launches of one batch-1 denoise step."""
+    flagship, B=1 and B=8, on the trained weights, and two launches on the
+    same inputs bit for bit; its gradient; the grid and grid barriers of a
+    launch; the 12 launches of one batch-1 denoise step timed one by one
+    (weights warm in L2) beside each block's bound, and together (58.5 MB of
+    weights, more than L2); where the widest block's launch spends its
+    cycles."""
     import torch.nn.functional as F
     from dadiff_tpu_torch.models.fused_unet import fused_block_params
-    from dadiff_tpu_torch.ops.resblock import (
-        fused_residual_block, residual_block_plain,
-    )
+    from dadiff_tpu_torch.ops import chain as ch
+    from dadiff_tpu_torch.ops import resblock as rb
 
+    fused_residual_block = rb.fused_residual_block
+    residual_block_plain = rb.residual_block_plain
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     blocks = [{k: v.detach() for k, v in bp.items()}
@@ -270,26 +275,39 @@ def resblock_phase(unet) -> dict:
     rows = ([HORIZON >> i for i in range(L) for _ in range(2)]
             + [HORIZON >> (L - 1)] * 2
             + [HORIZON >> (L - 1 - j) for j in range(L - 1) for _ in range(2)])
-    err, bufs, flops, nbytes = 0.0, [], 0.0, 0.0
+    err, bufs, flops, nbytes, bounds = 0.0, [], 0.0, 0.0, []
     for B in (1, 8):
         for H, bp in zip(rows, blocks):
             k, cin, cout = bp["w1"].shape
             x = torch.randn(B, H, cin, device=dev, generator=g)
             te = torch.randn(B, cout, device=dev, generator=g)
-            e = (fused_residual_block(x, te, bp)
-                 - residual_block_plain(x, te, bp)).abs().max().item()
+            got = fused_residual_block(x, te, bp)
+            require(torch.equal(got, fused_residual_block(x, te, bp)),
+                    f"K4 B={B} H={H} {cin}->{cout} repeats bit for bit")
+            e = (got - residual_block_plain(x, te, bp)).abs().max().item()
             log(f"K4 resblock B={B} H={H} {cin}->{cout} "
-                f"res={'wr' in bp}: max|err| {e:.3e}")
+                f"res={'wr' in bp}: max|err| {e:.3e}, two launches equal")
             err = max(err, e)
             if B == 1:
                 n_w = sum(v.numel() for v in bp.values())
-                flops += 2.0 * B * H * (n_w - (6 + ("wr" in bp)) * cout)
-                nbytes += 4 * (B * H * cin + B * cout + n_w + B * H * cout)
+                f = 2.0 * B * H * (n_w - (6 + ("wr" in bp)) * cout)
+                nb = 4 * (B * H * cin + B * cout + n_w + B * H * cout)
+                flops += f
+                nbytes += nb
+                bounds.append(bound_ms(f, nb, F32_FLOPS))
                 bufs.append((x, te, bp))
     require(err <= TOL_RESBLOCK, f"resblock vs plain {err} > {TOL_RESBLOCK}")
     torch.cuda.synchronize()
     # the 12 launches of a step as one piece of work: products and bytes summed
     bnd, bnd_by = bound_ms(flops, nbytes, F32_FLOPS)
+
+    # one launch: the grid and the barriers of the block's program
+    ops, grid = rb._template(bufs[0][2], bufs[0][0], 8)
+    barriers = sum(op.sync_after for op in ops)
+    require(barriers == 3 and grid == ch.grid_size(dev, "resblock"),
+            f"K4: {barriers} grid barriers per launch, grid {grid}")
+    log(f"K4: one cooperative launch per block, grid {grid} blocks, "
+        f"{barriers} grid barriers, {len(ops)} ops (5 with the 1x1 conv)")
 
     # gradient: the plain version's, through the autograd.Function
     x, te, bp = bufs[2]
@@ -326,15 +344,49 @@ def resblock_phase(unet) -> dict:
     def k4():
         return [fused_residual_block(*b) for b in bufs]
 
-    per_launch = [cuda_ms(lambda b=b: fused_residual_block(*b), 20) for b in bufs]
-    log("K4 ms per launch, B=1, blocks in forward order: "
-        + " ".join(f"{t:.4f}" for t in per_launch))
+    # device time per launch: ten launches of one block in a CUDA graph
+    per_launch = [graph_ms(lambda b=b: [fused_residual_block(*b)
+                                        for _ in range(10)], 5) / 10
+                  for b in bufs]
+    for (x, te, bp), t, (b_ms, _) in zip(bufs, per_launch, bounds):
+        k, cin, cout = bp["w1"].shape
+        log(f"K4 B=1 H={x.shape[1]} {cin}->{cout}: {t:.4f} ms per launch "
+            f"(weights warm in L2), bound {b_ms:.4f} ms (bytes of the block), "
+            f"{t / b_ms:.1f}x")
+    # a step's 12 launches: a CUDA graph where capture takes the cooperative
+    # launches, else CUDA events around launches driven from Python
+    try:
+        ms, step_timing = graph_ms(k4, 10), "graph"
+    except RuntimeError as e:
+        log(f"K4: capturing the step in a CUDA graph failed ({e}); timed "
+            "with events")
+        ms, step_timing = cuda_ms(k4, 10), "events"
+    host_ms = cuda_ms(k4, 10)
+    log(f"K4 step (12 launches, B=1): {ms:.4f} ms ({step_timing}), "
+        f"{host_ms:.4f} ms driven from Python, bound {bnd:.4f} ms; per "
+        f"launch summed {sum(per_launch):.4f} ms")
+
+    # where the widest block's launch goes, as block 0 sees it
+    widest = max(range(len(bufs)),
+                 key=lambda i: sum(v.numel() for v in bufs[i][2].values()))
+    x, te, bp = bufs[widest]
+    prof = torch.zeros(len(ch.PROFILE_SLOTS), dtype=torch.int64, device=dev)
+    rb.launch_resblock(x, te, bp, torch.empty(1, x.shape[1], bp["w1"].shape[2],
+                                              device=dev), 8, rb.EPS, prof=prof)
+    cycles = dict(zip(ch.PROFILE_SLOTS, prof.tolist()))
+    share = {k: v / max(sum(cycles.values()), 1) for k, v in cycles.items()
+             if k in ("conv", "gn", "barrier")}
+    log(f"K4 widest block (H={x.shape[1]}, {bp['w1'].shape[1]}->"
+        f"{bp['w1'].shape[2]}), share of block 0's cycles: "
+        + " ".join(f"{k} {v:.3f}" for k, v in share.items()))
     return dict(
-        max_abs_err=err, ms=graph_ms(k4, 10), host_ms=cuda_ms(k4, 10),
+        max_abs_err=err, ms=ms, step_timing=step_timing, host_ms=host_ms,
         plain_ms=graph_ms(lambda: [residual_block_plain(*b) for b in bufs], 10),
         library_ms=graph_ms(lambda: [library(*b) for b in bufs], 10),
         bound_ms=bnd, bound_by=bnd_by, per="batch-1 denoise step",
-        launches_per_step=len(bufs), ms_per_launch=per_launch)
+        launches_per_step=len(bufs), ms_per_launch=per_launch,
+        bound_ms_per_launch=[b for b, _ in bounds], grid=grid,
+        barriers_per_launch=barriers, cycle_share=share)
 
 
 def one_chain_phase(diff) -> dict:
@@ -1202,7 +1254,9 @@ def main() -> int:
         })
         for extra in ("variants", "ms_f32", "cycle_share", "grid_syncs",
                       "ms_by_fan_in", "ms_served", "unfused_ms",
-                      "library_composition_ms", "ms_in_sequence"):
+                      "library_composition_ms", "ms_in_sequence", "grid",
+                      "barriers_per_launch", "step_timing", "ms_per_launch",
+                      "bound_ms_per_launch"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     # K1 runs on the train-and-ladder path; on the serving path every

@@ -359,7 +359,12 @@ struct MmaTile {
 // ---- f32 weights: CUDA cores, full f32 ------------------------------------
 //
 // The same sum with f32 activations and weights: a 32x32 tile, 2x2 outputs
-// per thread, fmaf over K ascending. Both operands travel with cp.async.
+// per thread (rows ty and ty + 16, columns 2tx and 2tx + 1), fmaf over K
+// ascending. Both operands travel with cp.async. At the batch-1 shapes
+// (8-32 rows) a block's K loop is bound by instruction latency, not bytes:
+// the loads find their addresses without a division (the next tile's tap
+// and weight row advance one tile at a time), and rows past M skip the
+// products, so at 8 rows four warps, one on each scheduler, do them.
 struct F32Tile {
   using W = float;
   static constexpr int BM = 32, BN = 32, ACC = 4;
@@ -369,11 +374,37 @@ struct F32Tile {
   static constexpr int STAGES = 4;
   static_assert(STAGES * STAGE <= kConvSmemBytes, "ring");
 
+  // acc += the K tile: A rows at `as` (and 16 rows on, if TWO) times the B
+  // columns at `bs`, k ascending
+  template <bool TWO>
+  static __device__ __forceinline__ void mac(const float* as, const float* bs,
+                                             float& a00, float& a01,
+                                             float& a10, float& a11) {
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk);
+      const float4 a1 =
+          TWO ? *reinterpret_cast<const float4*>(as + 16 * A_LD + kk) : a0;
+      const float a0v[4] = {a0.x, a0.y, a0.z, a0.w};
+      const float a1v[4] = {a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 b = *reinterpret_cast<const float2*>(bs + (kk + i) * BN);
+        a00 = fmaf(a0v[i], b.x, a00);
+        a01 = fmaf(a0v[i], b.y, a01);
+        if (TWO) {
+          a10 = fmaf(a1v[i], b.x, a10);
+          a11 = fmaf(a1v[i], b.y, a11);
+        }
+      }
+    }
+  }
+
   static __device__ __forceinline__ void product(
       const ConvIn& c, const W* __restrict__ w, int parity, int m0, int n0,
       int k_begin, int k_end, unsigned char* smem, float (&acc)[ACC]) {
     const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;  // outputs (2ty.., 2tx..)
+    const int tx = tid & 15, ty = tid >> 4;  // outputs (ty.., 2tx..)
     const int cin = c.cin_a + c.cin_b;
     const bool vec = aligned_k(c);
     const int nk = (k_end - k_begin + BK - 1) / BK;
@@ -387,38 +418,50 @@ struct F32Tile {
     const int seg_i = a_row ? m / seg_m : 0;
     const int l = m - seg_i * seg_m, seg_base = seg_i * c.seg_in;
     const int bk = tid >> 3, bn = (tid & 7) * 4;
+    const bool b_col = n0 + bn < c.cout;
 
     auto a_of = [&](int s) { return (float*)(smem + s * STAGE); };
     auto b_of = [&](int s) { return (float*)(smem + s * STAGE + A_BYTES); };
 
-    auto load = [&](int kt, int s) {
+    // aligned path: the tap, the channel within the tap and the first
+    // weight row of the next K tile to load (a K tile lies inside one tap)
+    int nj = k_begin / cin, nci = k_begin - nj * cin;
+    int nrow = weight_tap(c.mode, nj, parity) * cin + nci;
+    int nli = tap_row(c.mode, l, nj, parity, c.k);
+
+    auto load = [&](int kt, int s) {  // called for kt = 0, 1, 2, ... in turn
       const int kg = k_begin + kt * BK;
       float* da = a_of(s) + am * A_LD + ak;
-      const float* src = nullptr;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (a_row) {
-        if (vec) {
-          const int j = kg / cin;
-          const int li = tap_row(c.mode, l, j, parity, c.k);
-          if (li >= 0 && li < c.seg_in)
-            src = act_ptr(c, seg_base + li, kg - j * cin + ak);
-        } else {
-          float e[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            e[i] = kg + ak + i < k_end ? stack_elem(c, m, kg + ak + i, parity)
-                                       : 0.f;
-          v = make_float4(e[0], e[1], e[2], e[3]);
-        }
-      }
-      if (src != nullptr)
-        cp_async16(da, src);
-      else
-        *reinterpret_cast<float4*>(da) = v;
       float* db = b_of(s) + bk * BN + bn;
-      const int kgb = kg + bk, n = n0 + bn;
-      if (kgb < k_end && n < c.cout)
-        cp_async16(db, w + weight_row(c, kgb, parity) * c.cout + n);
+      if (vec) {
+        if (a_row && nli >= 0 && nli < c.seg_in)
+          cp_async16(da, act_ptr(c, seg_base + nli, nci + ak));
+        else
+          *reinterpret_cast<float4*>(da) = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (kg + bk < k_end && b_col)
+          cp_async16(db, w + (size_t)(nrow + bk) * c.cout + n0 + bn);
+        else
+          *reinterpret_cast<float4*>(db) = make_float4(0.f, 0.f, 0.f, 0.f);
+        nci += BK;
+        nrow += BK;
+        if (nci == cin) {
+          nci = 0;
+          ++nj;
+          nrow = weight_tap(c.mode, nj, parity) * cin;
+          nli = tap_row(c.mode, l, nj, parity, c.k);
+        }
+        return;
+      }
+      float e[4];  // ragged: element by element
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        e[i] = a_row && kg + ak + i < k_end
+                   ? stack_elem(c, m, kg + ak + i, parity)
+                   : 0.f;
+      *reinterpret_cast<float4*>(da) = make_float4(e[0], e[1], e[2], e[3]);
+      const int kgb = kg + bk;
+      if (kgb < k_end && b_col)
+        cp_async16(db, w + weight_row(c, kgb, parity) * c.cout + n0 + bn);
       else
         *reinterpret_cast<float4*>(db) = make_float4(0.f, 0.f, 0.f, 0.f);
     };
@@ -428,6 +471,8 @@ struct F32Tile {
       if (s < nk) load(s, s);
       cp_async_commit();
     }
+    // rows past M take part in the loads and barriers but not the products
+    const bool live = m0 + ty < c.M, two = m0 + ty + 16 < c.M;
     float acc00 = acc[0], acc01 = acc[1], acc10 = acc[2], acc11 = acc[3];
     for (int kt = 0; kt < nk; ++kt) {
       cp_async_wait<STAGES - 2>();
@@ -435,23 +480,12 @@ struct F32Tile {
       const int pf = kt + STAGES - 1;
       if (pf < nk) load(pf, pf % STAGES);
       cp_async_commit();
-      const float* as = a_of(kt % STAGES) + 2 * ty * A_LD;
+      const float* as = a_of(kt % STAGES) + ty * A_LD;
       const float* bs = b_of(kt % STAGES) + 2 * tx;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 4) {
-        const float4 a0 = *reinterpret_cast<const float4*>(as + kk);
-        const float4 a1 = *reinterpret_cast<const float4*>(as + A_LD + kk);
-        const float a0v[4] = {a0.x, a0.y, a0.z, a0.w};
-        const float a1v[4] = {a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 b = *reinterpret_cast<const float2*>(bs + (kk + i) * BN);
-          acc00 = fmaf(a0v[i], b.x, acc00);
-          acc01 = fmaf(a0v[i], b.y, acc01);
-          acc10 = fmaf(a1v[i], b.x, acc10);
-          acc11 = fmaf(a1v[i], b.y, acc11);
-        }
-      }
+      if (two)
+        mac<true>(as, bs, acc00, acc01, acc10, acc11);
+      else if (live)
+        mac<false>(as, bs, acc00, acc01, acc10, acc11);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -465,8 +499,8 @@ struct F32Tile {
   static __device__ __forceinline__ void pairs(float (&acc)[ACC], int m0,
                                                int n0, F f) {
     const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    f(m0 + 2 * ty, n0 + 2 * tx, acc[0], acc[1]);
-    f(m0 + 2 * ty + 1, n0 + 2 * tx, acc[2], acc[3]);
+    f(m0 + ty, n0 + 2 * tx, acc[0], acc[1]);
+    f(m0 + ty + 16, n0 + 2 * tx, acc[2], acc[3]);
   }
 };
 

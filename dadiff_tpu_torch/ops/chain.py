@@ -45,8 +45,8 @@ _PTRS = ("xa", "xb", "w", "bias", "partial", "scale", "gbias", "te", "res",
          "res_partial", "res_bias", "out", "noise", "scal", "cond", "counters")
 _INTS = ("kind", "sync_after", "rot", "cin_a", "cin_b", "rows_in", "seg_in",
          "cout", "mode", "k", "w_bf16", "splits", "res_splits", "te_stride",
-         "clip", "predict_eps", "groups", "bm", "bn", "pad_")
-CONV, GN, STEP, INIT = range(4)  # ChainOp.kind, as in csrc/chain.cu
+         "clip", "predict_eps", "groups", "bm", "bn", "te_seg_stride")
+CONV, GN, STEP, INIT = range(4)  # ChainOp.kind, as in csrc/program.cuh
 _GROUPS = 8
 # blocks of the persistent kernel per SM: a grid barrier costs less with fewer
 _BLOCKS_PER_SM = 1
@@ -57,7 +57,7 @@ MAX_FAN_IN = 16
 
 class ChainOp(ctypes.Structure):
     """One op of the layer program; the struct of the same name in
-    csrc/chain.cu."""
+    csrc/program.cuh."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
                 + [(n, ctypes.c_int) for n in _INTS])
@@ -72,20 +72,29 @@ def chain_plain(unet, flat_w, x0, m_embs, step_noise, scal, cond,
                          scal, cond, None, None, cfg)
 
 
-def device_limits(device) -> Tuple[int, int]:
-    """(co-resident blocks of the chain kernel per SM, SM count); raises if
-    the device cannot launch cooperatively."""
+def device_limits(device, name: str = "chain") -> Tuple[int, int]:
+    """(co-resident blocks per SM, SM count) of the persistent kernel of
+    library ``name`` (``chain``: K3, ``resblock``: K4); raises if the device
+    cannot launch it cooperatively."""
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        cuda_lib.check(cuda_lib.lib("chain").chain_limits(out), "chain_limits")
+        cuda_lib.check(getattr(cuda_lib.lib(name), f"{name}_limits")(out),
+                       f"{name}_limits")
     per_sm, n_sm, coop, size = out
     if not coop or per_sm < 1:
-        raise RuntimeError("the chain kernel needs a device that can launch "
+        raise RuntimeError(f"the {name} kernel needs a device that can launch "
                            "cooperatively with at least one block per SM")
     if size != ctypes.sizeof(ChainOp):
         raise RuntimeError(f"ChainOp is {ctypes.sizeof(ChainOp)} bytes here "
-                           f"and {size} in csrc/chain.cu")
+                           f"and {size} in csrc/{name}.cu")
     return per_sm, n_sm
+
+
+def grid_size(device, name: str = "chain") -> int:
+    """Blocks of a cooperative launch of library ``name``'s kernel:
+    ``_BLOCKS_PER_SM`` on every SM, as far as they are co-resident."""
+    per_sm, n_sm = device_limits(device, name)
+    return min(per_sm, _BLOCKS_PER_SM) * n_sm
 
 
 PROFILE_SLOTS = ("conv", "gn", "step", "init", "barrier")
@@ -110,10 +119,12 @@ launch_chain.launches = 0
 
 
 class _ProgramBuilder:
-    """Lays the U-Net's layer plan out as ChainOps over buffers it owns."""
+    """Lays the U-Net's layer plan out as ChainOps over buffers it owns.
+    An operand may be a tensor or anything with ``shape`` and ``data_ptr()``
+    (ops/resblock.py's placeholders, patched in at launch)."""
 
-    def __init__(self, device, grid: int):
-        self.device, self.grid = device, grid
+    def __init__(self, device, grid: int, groups: int = _GROUPS):
+        self.device, self.grid, self.groups = device, grid, groups
         self.ops, self.keep = [], []
         self.region_elems = [0, 0]    # partials of main convs, of 1x1 residuals
         self.patches = []             # (op, field, region) resolved by finish
@@ -130,9 +141,9 @@ class _ProgramBuilder:
              **fields) -> ChainOp:
         """Append an op; ``region``/``res_region`` name the partial region it
         writes or reads, whose address is known once all ops are laid out."""
-        op = ChainOp(kind=kind, sync_after=int(sync), groups=_GROUPS)
+        op = ChainOp(kind=kind, sync_after=int(sync), groups=self.groups)
         for name, v in fields.items():
-            setattr(op, name, v.data_ptr() if torch.is_tensor(v) else v)
+            setattr(op, name, v.data_ptr() if hasattr(v, "data_ptr") else v)
         if region is not None:
             self.patches.append((op, "partial", region))
         if res_region is not None:
@@ -172,12 +183,49 @@ class _ProgramBuilder:
         self.rot = 0 if sync else self.rot + t.tiles * t.splits
         return t.splits
 
+    def gn(self, splits: int, bias, scale, gbias, rows: int, seg: int, C: int,
+           sync: bool = True, out=None, **extra):
+        """GroupNorm + Mish of (bias + the partials in region 0) per
+        (segment, group), into ``out`` or a new buffer, which it returns."""
+        out = self.buf(rows, C) if out is None else out
+        self.emit(GN, sync, region=0, splits=splits, bias=bias, scale=scale,
+                  gbias=gbias, rows_in=rows, seg_in=seg, cout=C, out=out,
+                  **extra)
+        return out
+
+    def res_block(self, x, xb, w1, b1, s1, g1, w2, b2, s2, g2, rconv, k: int,
+                  seg: int, te, te_stride: int, te_seg_stride: int,
+                  h=None, out=None, sync: bool = True):
+        """One ResidualTemporalBlock on x (rows, cin) [| xb]: conv1 and the
+        1x1 residual conv ``rconv`` = (wr, br) or None in one phase, GN + te
+        (row ``step * te_stride + segment * te_seg_stride``) into ``h``,
+        conv2, GN + residual into ``out`` (``h``, ``out``: new buffers if
+        None); ``sync``: a barrier after the last op. Returns the output."""
+        rows, cout = x.shape[0], w1.shape[1]
+        if rconv is None and xb is not None:
+            raise ValueError("chain: an identity residual cannot follow "
+                             "a skip concat")
+        # conv1 and the 1x1 residual conv both read x: one phase
+        sp1 = self.conv(x, xb, w1, SAME, k, seg, sync=rconv is None)
+        if rconv is not None:
+            spr = self.conv(x, xb, rconv[0], SAME, 1, seg, region=1)
+        h = self.gn(sp1, b1, s1, g1, rows, seg, cout, out=h, te=te,
+                    te_stride=te_stride, te_seg_stride=te_seg_stride)
+        sp2 = self.conv(h, None, w2, SAME, k, seg)
+        if rconv is None:
+            return self.gn(sp2, b2, s2, g2, rows, seg, cout, sync, out, res=x)
+        return self.gn(sp2, b2, s2, g2, rows, seg, cout, sync, out,
+                       res_region=1, res_bias=rconv[1], res_splits=spr)
+
+    def place(self, regions) -> None:
+        """Patch the addresses of the partial regions into the ops."""
+        for op, field, region in self.patches:
+            setattr(op, field, regions[region])
+
     def finish(self) -> torch.Tensor:
         """Allocate the partial regions, patch their addresses in and return
         the program as a uint8 tensor on the device."""
-        regions = [self.buf(max(n, 1)) for n in self.region_elems]
-        for op, field, region in self.patches:
-            setattr(op, field, regions[region].data_ptr())
+        self.place([self.buf(max(n, 1)).data_ptr() for n in self.region_elems])
         counters = torch.zeros(max(self.n_counters, 1), dtype=torch.int32,
                                device=self.device)
         self.keep.append(counters)
@@ -210,33 +258,15 @@ def _build_program(unet, flat_w, x0, m_embs, step_noise, scal, cond,
     n_pre = len(b.ops)
 
     # -- one denoise step (the walk of planner._unet_eps)
-    def gn(splits, bias, scale, gbias, rows, C, **extra):
-        out = b.buf(rows, C)
-        b.emit(GN, True, region=0, splits=splits, bias=bias, scale=scale,
-               gbias=gbias, rows_in=rows, seg_in=rows, cout=C, out=out, **extra)
-        return out
-
     cur, seg, skips, pending, r = x, H, [], None, 0
     for op in prog:
         kind = op[0]
         if kind == "res":
             _, (w1, b1, s1, g1), _, (w2, b2, s2, g2), rconv = op
-            if rconv is None and pending is not None:
-                raise ValueError("chain: an identity residual cannot follow "
-                                 "a skip concat")
-            cout = w1.shape[1]
-            # conv1 and the 1x1 residual conv both read x: one phase
-            sp1 = b.conv(cur, pending, w1, SAME, k, seg, sync=rconv is None)
-            if rconv is not None:
-                spr = b.conv(cur, pending, rconv[0], SAME, 1, seg, region=1)
-            h = gn(sp1, b1, s1, g1, seg, cout, te=tables[r], te_stride=cout)
+            # one time row per step, the same for the chain's one segment
+            cur = b.res_block(cur, pending, w1, b1, s1, g1, w2, b2, s2, g2,
+                              rconv, k, seg, tables[r], w1.shape[1], 0)
             r += 1
-            sp2 = b.conv(h, None, w2, SAME, k, seg)
-            if rconv is None:
-                cur = gn(sp2, b2, s2, g2, seg, cout, res=cur)
-            else:
-                cur = gn(sp2, b2, s2, g2, seg, cout, res_region=1,
-                         res_bias=rconv[1], res_splits=spr)
             pending = None
         elif kind == "push_skip":
             skips.append(cur)
@@ -251,7 +281,7 @@ def _build_program(unet, flat_w, x0, m_embs, step_noise, scal, cond,
         elif kind == "res_plain":
             w, bias, s, g = op[1]
             sp = b.conv(cur, None, w, SAME, k, seg)
-            cur = gn(sp, bias, s, g, seg, w.shape[1])
+            cur = b.gn(sp, bias, s, g, seg, seg, w.shape[1])
         elif kind == "final_conv":
             sp = b.conv(cur, None, op[1], SAME, 1, seg)
             b.emit(STEP, True, region=0, splits=sp, bias=op[2], out=x,
@@ -309,8 +339,7 @@ def make_chain(unet, schedule, horizon: int, *,
         _check(flat_w, x0, m_embs, step_noise, scal, cond)
         if x0.device.type == "cpu":
             raise ValueError("chain.bind: the kernel needs CUDA tensors")
-        per_sm, n_sm = device_limits(x0.device)
-        grid = min(per_sm, _BLOCKS_PER_SM) * n_sm
+        grid = grid_size(x0.device)
         prog, n_pre, n_step, syncs, x, keep = _build_program(
             unet, flat_w, x0, m_embs, step_noise, scal, cond, cfg, grid)
         keep += [prog, x0, m_embs, step_noise, scal, cond, *flat_w]

@@ -60,10 +60,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "grid_sync_probe": [I, I, P],
     },
     "resblock": {
-        # x, te, w1, b1, s1, g1, w2, b2, s2, g2, wr, br, out, B, H, cin, cout,
-        # k, groups, eps, stream
-        "resblock": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                     F, P],
+        # out[4]: blocks per SM, SMs, cooperative launch, sizeof(ChainOp)
+        "resblock_limits": [P],
+        # ops (host), n_ops, x, te, out, grid, prof, stream
+        "resblock_run": [P, I, P, P, P, I, P, P],
     },
 }
 

@@ -14,9 +14,15 @@ post-Dense time embedding, ``params`` a dict ``w1`` (k, Cin, Cout), ``w2``
 (k, Cout, Cout), ``b1 s1 g1 b2 s2 g2`` (Cout,) and, when Cin != Cout, ``wr``
 (Cin, Cout) and ``br`` (Cout,). Float32 throughout.
 
-The kernel gives a batch row to one thread-block cluster of ``n_groups``
-blocks (at most 8, the portable cluster size), block g owning group g's
-channels; see the source for the design.
+The kernel is K3's layer program (``csrc/program.cuh``) run for one block:
+one cooperative launch, one block per SM, walks the block's 4 ops (5 with
+the 1x1 residual conv) with 3 grid barriers. :func:`block_program` lays
+them out with ``ops/chain.py``'s builder, once per block's weights and (B,
+H): the template is cached, with placeholders where x, te and out go, which
+the C entry patches at each launch. The split-K partials and h live in a
+scratch buffer of the device's, shared by every template, so launches of K4
+must stay on one stream (as ``rows_conv``'s counters); a buffer that is
+outgrown is kept, so a CUDA graph that captured launches stays valid.
 
 ``fused_residual_block`` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises. Its gradient is the
@@ -25,11 +31,14 @@ plain version's, as the JAX ``custom_vjp`` differentiates the XLA reference.
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from collections import OrderedDict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from dadiff_tpu_torch.ops import chain as ch
 from dadiff_tpu_torch.ops import cuda_lib
 from dadiff_tpu_torch.ops.gn_mish import gn_mish_plain
 
@@ -58,35 +67,134 @@ def residual_block_plain(x, te, params: Dict[str, torch.Tensor],
     return h + res
 
 
-def launch_resblock(x, te, params, out, n_groups: int, eps: float,
-                    stream=None) -> None:
-    """Launch the kernel on contiguous float32 CUDA tensors (unchecked)."""
+# Placeholders in a block's op template (csrc/resblock.cu kArgX, kArgTe,
+# kArgOut): resblock_run puts x, te and out where they stand. HIDDEN stands
+# for h until the template is placed in the scratch buffer.
+X, TE, OUT, HIDDEN = 1, 2, 3, 4
+EPS = 1e-5              # the kernel's (csrc/program.cuh kEps)
+_MAX_TEMPLATES = 64     # cached op templates, least recently used dropped
+
+
+class Operand(NamedTuple):
+    """An operand of a block's op template: ``code`` stands where its
+    address goes."""
+    code: int
+    shape: Tuple[int, ...]
+
+    def data_ptr(self) -> int:
+        return self.code
+
+
+def patch(ops, addrs: Dict[int, int]) -> None:
+    """Replace every pointer field of ``ops`` that holds a key of ``addrs``
+    by its value: what resblock_run does with X, TE and OUT."""
+    for op in ops:
+        for field in ch._PTRS:
+            addr = addrs.get(getattr(op, field))
+            if addr is not None:
+                setattr(op, field, addr)
+
+
+class _Scratch:
+    """The device's buffer for the split-K partials and h. It only grows;
+    an outgrown buffer is kept, since cached templates and captured CUDA
+    graphs still point into it."""
+
+    def __init__(self):
+        self.bufs: Dict[str, list] = {}
+
+    def at_least(self, device, n: int) -> int:
+        """Address of a float32 buffer of at least ``n`` elements."""
+        bufs = self.bufs.setdefault(str(device), [])
+        if not bufs or bufs[-1].numel() < n:
+            size = max(n, 2 * bufs[-1].numel() if bufs else 0)
+            bufs.append(torch.empty(size, dtype=torch.float32, device=device))
+        return bufs[-1].data_ptr()
+
+
+_scratch = _Scratch()
+_templates: "OrderedDict[tuple, Tuple[ctypes.Array, int]]" = OrderedDict()
+
+
+def block_program(params, x, te, out, B: int, H: int, n_groups: int,
+                  grid: int, device) -> ctypes.Array:
+    """The ops of one residual block for a launch of ``grid`` blocks, as a
+    ctypes array: conv1 [+ the 1x1 conv wr] | GN + te | conv2 | GN +
+    residual into out, three barriers. ``x`` (B*H, Cin), ``te`` (B, Cout)
+    and ``out`` (B*H, Cout) are tensors or :class:`Operand` placeholders.
+    Batch rows are the program's segments; tiles and K splits follow
+    ``ops/chain.py``'s builder. The partials and h are placed in the
+    device's scratch buffer."""
+    k, cin, cout = params["w1"].shape
+    b = ch._ProgramBuilder(device, grid, n_groups)
+    rconv = (params["wr"], params["br"]) if "wr" in params else None
+    b.res_block(x, None, params["w1"].reshape(k * cin, cout), params["b1"],
+                params["s1"], params["g1"],
+                params["w2"].reshape(k * cout, cout), params["b2"],
+                params["s2"], params["g2"], rconv, k, H, te, 0, cout,
+                h=Operand(HIDDEN, (B * H, cout)), out=out, sync=False)
+    r0, r1 = b.region_elems
+    base = _scratch.at_least(device, r0 + r1 + B * H * cout)
+    b.place([base, base + 4 * r0])
+    patch(b.ops, {HIDDEN: base + 4 * (r0 + r1)})
+    return (ch.ChainOp * len(b.ops))(*b.ops)
+
+
+def _template(params, x, n_groups: int):
+    """(ops with X, TE, OUT placeholders, grid) of a block on x, cached by
+    the weights' names and addresses, x's and w1's shapes and the group
+    count; the other shapes follow from these (``_check_cuda``)."""
+    key = (x.device, x.shape, n_groups, params["w1"].shape, *params,
+           *[t.data_ptr() for t in params.values()])
+    hit = _templates.get(key)
+    if hit is not None:
+        _templates.move_to_end(key)
+        return hit
     B, H, cin = x.shape
-    k, _, cout = params["w1"].shape
-    wr, br = params.get("wr"), params.get("br")
-    rc = cuda_lib.lib("resblock").resblock(
-        x.data_ptr(), te.data_ptr(),
-        *(params[n].data_ptr() for n in _KEYS[:8]),
-        None if wr is None else wr.data_ptr(),
-        None if br is None else br.data_ptr(), out.data_ptr(), B, H, cin,
-        cout, k, n_groups, eps,
+    cout = params["w1"].shape[2]
+    grid = ch.grid_size(x.device, "resblock")
+    ops = block_program(params, Operand(X, (B * H, cin)),
+                        Operand(TE, (B, cout)), Operand(OUT, (B * H, cout)),
+                        B, H, n_groups, grid, x.device)
+    _templates[key] = ops, grid
+    if len(_templates) > _MAX_TEMPLATES:
+        _templates.popitem(last=False)
+    return ops, grid
+
+
+def launch_resblock(x, te, params, out, n_groups: int, eps: float,
+                    stream=None, prof=None) -> None:
+    """Launch the kernel on contiguous float32 CUDA tensors (unchecked).
+    ``prof``: None, or zeroed int64 (5,) on the device that receives
+    chain.PROFILE_SLOTS' clock cycles of block 0."""
+    ops, grid = _template(params, x, n_groups)
+    rc = cuda_lib.lib("resblock").resblock_run(
+        ctypes.addressof(ops), len(ops), x.data_ptr(), te.data_ptr(),
+        out.data_ptr(), grid, None if prof is None else prof.data_ptr(),
         cuda_lib.stream_of(x) if stream is None else stream)
     cuda_lib.check(rc, "resblock")
     fused_residual_block.launches += 1
 
 
-def _check_cuda(x, te, params, n_groups):
+def _check_cuda(x, te, params, n_groups, eps=EPS):
     for name, t in (("x", x), ("te", te), *params.items()):
         if t.device != x.device or t.dtype != torch.float32 \
                 or not t.is_contiguous():
             raise ValueError(f"fused_residual_block: {name} must be a "
                              f"contiguous float32 tensor on {x.device}")
+        if name in ("x", "w1", "w2", "wr") and t.data_ptr() % 16:
+            # the conv items copy them in 16-byte pieces (cp.async)
+            raise ValueError(f"fused_residual_block: {name} must be 16-byte "
+                             "aligned")
     if unknown := set(params) - set(_KEYS):
         raise ValueError(f"fused_residual_block: unknown params {unknown}")
+    if eps != EPS:
+        raise ValueError(f"fused_residual_block: the kernel's eps is {EPS}")
     B, H, cin = x.shape
     k, w_cin, cout = params["w1"].shape
+    # cout % 4: F32Tile moves weights and stores outputs in 16-byte rows
     if w_cin != cin or params["w2"].shape != (k, cout, cout) \
-            or te.shape != (B, cout) or cout % n_groups or n_groups > 8 \
+            or te.shape != (B, cout) or cout % n_groups or cout % 4 \
             or k % 2 == 0 or any(params[n].numel() != cout
                                  for n in ("b1", "s1", "g1", "b2", "s2", "g2")):
         raise ValueError("fused_residual_block: shapes do not match")
@@ -132,7 +240,7 @@ def fused_residual_block(x, te, params: Dict[str, torch.Tensor],
     either way."""
     if x.device.type == "cpu":
         return residual_block_plain(x, te, params, n_groups, eps)
-    _check_cuda(x, te, params, n_groups)
+    _check_cuda(x, te, params, n_groups, eps)
     names = tuple(params)
     return _ResBlockCuda.apply(x, te, n_groups, eps, names,
                                *(params[n] for n in names))

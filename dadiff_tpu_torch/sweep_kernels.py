@@ -3,6 +3,7 @@ shapes (horizon 32, dim 128, mults 1 2 4, random weights):
 
     python -m dadiff_tpu_torch.sweep_kernels conv  [--chains 8]
     python -m dadiff_tpu_torch.sweep_kernels chain
+    python -m dadiff_tpu_torch.sweep_kernels resblock
 
 ``conv``: every distinct conv of one denoise step (the fused ones without
 their GroupNorm epilogue) through ``rows_conv`` (bf16 weights) with each tile of ``conv_tiling.MMA_TILES`` and 1-32 K splits,
@@ -14,6 +15,13 @@ of the best choices and of the rule's. This is where ``tile_shape`` and
 ``chain``: the one-launch chain (K3) with 1 or 2 blocks per SM and several
 caps on the K splits of a conv, ms per chain and block 0's cycle shares: where
 ``_BLOCKS_PER_SM`` and ``MAX_FAN_IN`` of ``ops/chain.py`` come from.
+
+``resblock``: the fused residual block (K4), which runs the same layer
+program for one block (one block per SM, all its registers can take), at
+the 12 blocks of a batch-1 step with several caps on the K splits: device
+time per launch (ten launches of one block replayed, weights warm in L2) and
+per step (the 12 replayed), and block 0's cycle shares at the widest and the
+narrowest block.
 
 It needs a CUDA device, prints the card's name and power limit first, and
 checks every variant against the plain version before it times it.
@@ -188,12 +196,65 @@ def sweep_chain(unet, schedule) -> None:
         ch._BLOCKS_PER_SM, ch.MAX_FAN_IN = defaults
 
 
+def sweep_resblock(unet) -> None:
+    from dadiff_tpu_torch.models.fused_unet import fused_block_params
+    from dadiff_tpu_torch.ops import resblock as rb
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    L = len(MULTS)
+    rows = ([HORIZON >> i for i in range(L) for _ in range(2)]
+            + [HORIZON >> (L - 1)] * 2
+            + [HORIZON >> (L - 1 - j) for j in range(L - 1) for _ in range(2)])
+    bufs = []
+    for H, bp in zip(rows, fused_block_params(unet)):
+        bp = {k: v.detach() for k, v in bp.items()}
+        x = torch.randn(1, H, bp["w1"].shape[1], device="cuda", generator=g)
+        te = torch.randn(1, bp["w1"].shape[2], device="cuda", generator=g)
+        bufs.append((x, te, bp, rb.residual_block_plain(x, te, bp)))
+    n_w = [sum(v.numel() for v in b[2].values()) for b in bufs]
+    ends = {"widest": n_w.index(max(n_w)), "narrowest": n_w.index(min(n_w))}
+
+    def cycles(i):
+        x, te, bp, want = bufs[i]
+        prof = torch.zeros(len(ch.PROFILE_SLOTS), dtype=torch.int64,
+                           device="cuda")
+        rb.launch_resblock(x, te, bp, torch.empty_like(want), 8, rb.EPS,
+                           prof=prof)
+        c = dict(zip(ch.PROFILE_SLOTS, prof.tolist()))
+        tot = max(sum(c.values()), 1)
+        return " ".join(f"{k} {c[k] / tot:.2f}" for k in ("conv", "gn",
+                                                            "barrier"))
+
+    default = ch.MAX_FAN_IN
+    try:
+        for cap in (4, 8, 16, 32):
+            ch.MAX_FAN_IN = cap
+            rb._templates.clear()
+            err = max((rb.fused_residual_block(x, te, bp) - want).abs().max()
+                      .item() for x, te, bp, want in bufs)
+            if err > 1e-4:
+                raise SystemExit(f"resblock disagrees: {err}")
+            per = [graph_ms(lambda b=b: [rb.fused_residual_block(*b[:3])
+                                         for _ in range(10)]) / 10
+                   for b in bufs]
+            step = graph_ms(lambda: [rb.fused_residual_block(*b[:3])
+                                     for b in bufs])
+            print(f"splits <= {cap}: {step * 1e3:.1f} us "
+                  "per step; us per launch " + " ".join(
+                      f"{t * 1e3:.1f}" for t in per) + "; cycles " + "; ".join(
+                      f"{name} {cycles(i)}" for name, i in ends.items())
+                  + f"; err {err:.1e}", flush=True)
+    finally:
+        ch.MAX_FAN_IN = default
+        rb._templates.clear()
+
+
 def main(argv=None) -> None:
     from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
     from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("what", choices=("conv", "chain"))
+    parser.add_argument("what", choices=("conv", "chain", "resblock"))
     parser.add_argument("--chains", type=int, default=8)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -206,6 +267,8 @@ def main(argv=None) -> None:
     with torch.no_grad():
         if args.what == "conv":
             sweep_conv(unet, args.chains)
+        elif args.what == "resblock":
+            sweep_resblock(unet)
         else:
             diff = GaussianDiffusion(unet, HORIZON, 6, 2,
                                      n_timesteps=T_STEPS).cuda().eval()

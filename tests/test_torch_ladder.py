@@ -48,8 +48,9 @@ from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
 from dadiff_tpu_torch.ops import chain as ch
 from dadiff_tpu_torch.ops import resblock as rb
 from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
-from dadiff_tpu_torch.ops.conv_tiling import rows_conv_tiled, tile_shape
-from dadiff_tpu_torch.ops.planner import DOWN, UP, StepConfig, rows_conv_plain
+from dadiff_tpu_torch.ops.conv_tiling import tile_shape
+from dadiff_tpu_torch.ops.planner import DOWN, UP, StepConfig
+from tests.torch_program import interpret
 
 # the models here are tiny: one thread per test process, so that several
 # processes side by side do not oversubscribe the cores
@@ -352,102 +353,6 @@ def test_chain_truncation_draws_and_checks(three_level):
         chain.bind(fw, x0, me, noise, sc)
 
 
-# -- the layer program, interpreted on the CPU as csrc/chain.cu reads it ------
-
-def _arr(ptr, n):
-    return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
-
-
-def _interpret(ops, n_pre, T, weights, walk_tiles=False):
-    """Run a layer program op by op. A conv puts its whole product into
-    split 0 and an offset that cancels over the splits into the others, so a
-    consumer that reads too few splits, or the wrong plane, shows. With
-    ``walk_tiles`` every conv of the prologue and of the first step is also
-    rebuilt from the tiles and K splits its op names, as the kernel's items
-    cut it."""
-
-    def partials(ptr, splits, plane):
-        return _arr(ptr, splits * plane).reshape(splits, plane).sum(0)
-
-    def run(op, step):
-        rows, cout = op.rows_in, op.cout
-        n = rows * cout
-        if op.kind == ch.INIT:
-            x = _arr(op.xa, n).reshape(rows, cout).copy()
-            if op.cond:
-                x[::op.seg_in] = _arr(op.cond, n).reshape(rows, cout)[::op.seg_in]
-            _arr(op.out, n)[:] = x.ravel()
-        elif op.kind == ch.CONV:
-            xa = torch.from_numpy(
-                _arr(op.xa, rows * op.cin_a).reshape(rows, op.cin_a).copy())
-            xb = None if not op.cin_b else torch.from_numpy(
-                _arr(op.xb, rows * op.cin_b).reshape(rows, op.cin_b).copy())
-            w = weights[op.w]
-            taps = 4 if op.mode == UP else op.k
-            assert w.shape == (taps * (op.cin_a + op.cin_b), cout)
-            assert op.w_bf16 == (w.dtype == torch.bfloat16)
-            full = rows_conv_plain(xa, xb, w, torch.zeros(1, cout), op.mode,
-                                   op.k, op.seg_in).numpy()
-            if walk_tiles and step == 0:
-                tiled, cover = rows_conv_tiled(
-                    xa, xb, w, torch.zeros(1, cout), op.mode, op.k, op.seg_in,
-                    op.bm, op.bn, op.splits)
-                np.testing.assert_allclose(tiled.numpy(), full, atol=1e-5)
-                assert bool((cover == 1).all())
-            M = rows // 2 if op.mode == DOWN else rows
-            full = (np.stack([full[0::2], full[1::2]]) if op.mode == UP
-                    else full[None])
-            out = _arr(op.partial, full.shape[0] * op.splits * M * cout
-                       ).reshape(full.shape[0], op.splits, M, cout)
-            out[:, 1:] = 0.25
-            out[:, 0] = full - 0.25 * (op.splits - 1)
-            if op.out:   # the last item of a tile sums it: no consumer op
-                assert op.counters and not _arr(op.counters, 1).view(np.int32)[0]
-                p = out.sum(1) + _arr(op.bias, cout)
-                p = (np.stack([p[0], p[1]], axis=1).reshape(2 * M, cout)
-                     if op.mode == UP else p[0])
-                _arr(op.out, p.size)[:] = p.ravel()
-        elif op.kind == ch.GN:
-            v = partials(op.partial, op.splits, n).reshape(rows, cout) \
-                + _arr(op.bias, cout)
-            g = v.reshape(rows // op.seg_in, op.seg_in, op.groups,
-                          cout // op.groups)
-            mean = g.mean(axis=(1, 3), keepdims=True)
-            var = (g * g).mean(axis=(1, 3), keepdims=True) - mean * mean
-            y = ((g - mean) / np.sqrt(var + 1e-5)).reshape(rows, cout)
-            y = y * _arr(op.scale, cout) + _arr(op.gbias, cout)
-            y = y * np.tanh(np.log1p(np.exp(y)))
-            if op.te:
-                y = y + _arr(op.te + 4 * step * op.te_stride, cout)
-            if op.res:
-                y = y + _arr(op.res, n).reshape(rows, cout)
-            if op.res_partial:
-                y = y + partials(op.res_partial, op.res_splits, n).reshape(
-                    rows, cout) + _arr(op.res_bias, cout)
-            _arr(op.out, n)[:] = y.ravel()
-        elif op.kind == ch.STEP:
-            eps = partials(op.partial, op.splits, n).reshape(rows, cout) \
-                + _arr(op.bias, cout)
-            x = _arr(op.out, n).reshape(rows, cout)
-            sc = _arr(op.scal + 32 * step, 8)
-            xr = sc[0] * x - sc[1] * eps if op.predict_eps else eps
-            if op.clip:
-                xr = np.clip(xr, -1, 1)
-            xn = sc[2] * xr + sc[3] * x + sc[4] * _arr(
-                op.noise + 4 * step * n, n).reshape(rows, cout)
-            if op.cond:
-                xn[::op.seg_in] = _arr(op.cond, n).reshape(rows, cout)[::op.seg_in]
-            x[:] = xn
-        else:
-            raise AssertionError(op.kind)
-
-    for op in ops[:n_pre]:
-        run(op, 0)
-    for step in range(T):
-        for op in ops[n_pre:]:
-            run(op, step)
-
-
 @pytest.mark.parametrize("mults,H", [((1, 2, 4), 16), ((1, 2), 8)])
 @pytest.mark.parametrize("conditioned", [False, True])
 @pytest.mark.parametrize("flags", [(True, True), (False, False)])
@@ -489,6 +394,7 @@ def test_chain_layer_program_equals_plain_chain(monkeypatch, mults, H,
     # reduce op stands between a conv and a GroupNorm or the DDPM step
     for op in ops:
         assert 0 <= op.rot < grid
+        assert op.te_seg_stride == 0  # one time row per step: K3's one chain
         if op.kind == ch.CONV:
             M = op.rows_in // 2 if op.mode == DOWN else op.rows_in
             assert (op.bm, op.bn) == tile_shape(
@@ -506,18 +412,21 @@ def test_chain_layer_program_equals_plain_chain(monkeypatch, mults, H,
     assert sum(op.sync_after for op in ops[n_pre:]) == \
         4 * n_blocks + 2 * n_cut + 2 + 2
 
-    _interpret(ops, n_pre, T, {w.data_ptr(): w for w in fw},
+    interpret(ops, n_pre, T, {w.data_ptr(): w for w in fw},
                walk_tiles=conditioned and flags[0])
     np.testing.assert_allclose(x.numpy(), want.numpy(), atol=1e-4)
 
 
 def test_chain_op_struct_layout():
-    """The struct the kernel reads: 16 pointers then 20 ints, no padding."""
+    """The struct the kernels read: 16 pointers then 20 ints, no padding;
+    the last int is a GroupNorm's time-row stride per segment."""
     assert ctypes.sizeof(ch.ChainOp) == 16 * 8 + 20 * 4 == 208
     assert ch.ChainOp.xa.offset == 0 and ch.ChainOp.cond.offset == 14 * 8
     assert ch.ChainOp.counters.offset == 15 * 8
     assert ch.ChainOp.kind.offset == 128 and ch.ChainOp.groups.offset == 192
     assert ch.ChainOp.bm.offset == 196 and ch.ChainOp.bn.offset == 200
+    assert ch.ChainOp.te_seg_stride.offset == 204
+    assert ch._INTS[-1] == "te_seg_stride" and ch._PTRS[7] == "te"
     assert (ch.CONV, ch.GN, ch.STEP, ch.INIT) == (0, 1, 2, 3)
     assert ch.PROFILE_SLOTS.index("barrier") == 4
 
