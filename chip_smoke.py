@@ -24,7 +24,18 @@
    checks the answers. The first plan is driven from the host and its wave
    captured in a CUDA graph; the later plans replay it. Each path runs with
    the kernels' launch counters set to 0 just before and read just after.
-5. Prints the card, the kernel table as one JSON line, and as the last line
+5. Drives the evaluation path: ``dadiff_tpu_torch.eval_ondevice``'s ``main``
+   on the trained ``.pt`` at the published protocol (128 envs, best of 8,
+   projection, 20 replans of 16 actions: one wave of 1,024 chains per
+   replan, the first host-driven and captured, the others replays), holds a
+   1,024-chain wave replayed against the same wave driven from the host bit
+   for bit and times it; the card's env against the same env on the CPU;
+   the planner chain at 64 chains with f32 weights against its plain
+   version; a served chain (8 chains) and an evaluator chain (64 chains),
+   and two K4 launches, on two streams at once against each alone; and,
+   where gymnasium imports, ``python -m dadiff_tpu_torch.evaluate
+   --batched --megakernel``.
+6. Prints the card, the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
@@ -50,6 +61,15 @@ DATASET = "npz:data/pointmaze_umaze_expert.npz"
 ENV = "PointMaze_UMaze-v3"
 N_PLANS = 4
 BATCH, N_TRAIN_STEPS, LOG_FREQ = 32, 150, 10
+# the on-device protocol (RESULTS.md, "Batched planning megakernel"): 128
+# envs x best of 8 = 1,024 chains per replan wave, 20 replans of 16 actions
+EVAL_ENVS, EVAL_REPLANS, EVAL_ACTIONS, EVAL_SEED = 128, 20, 16, 42
+EVAL_CHAINS, GROUP_CHAINS = EVAL_ENVS * N_CAND, 64
+# the card's env against the CPU's: the same float32 ops on both; positions
+# may part by rounding (observed: none), a contact may flip only where a
+# position sits on a wall's edge to the last bit
+TOL_ENV_POS = 1e-4
+ENV_MISMATCH_PER_STEP = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -134,6 +154,26 @@ def conv_cost(rows, cin_a, cin_b, cout, mode, k, wbytes):
     nbytes = 4 * rows * cin + wbytes * taps * cin * cout + 4 * cout \
         + 4 * out_rows * cout
     return flops, nbytes
+
+
+def wave_cost(unet, flat_w, m_embs, rows: int, D: int):
+    """(products, bytes, weight bytes) of one wave of the planner chain on
+    ``rows`` trajectory rows: every conv of T U-Net forwards, the projection
+    of every chain at every step and the hoisted time-dense rows; weights,
+    x_T, noise, conditioning, iterate, projection and per-step operands each
+    moved once."""
+    from dadiff_tpu_torch.ops.planner import _program
+
+    calls, _, _ = step_launches(unet, rows, D)
+    HD = HORIZON * D
+    flops = sum(conv_cost(*c[1:7], 2)[0] for c in calls) * T_STEPS
+    flops += 2.0 * T_STEPS * (rows // HORIZON) * HD ** 2
+    flops += sum(2.0 * T_STEPS * op[2][0].shape[0] * op[2][0].shape[1]
+                 for op in _program(unet, flat_w) if op[0] == "res")
+    w_bytes = sum(t.numel() * t.element_size() for t in flat_w)
+    nbytes = (w_bytes + 4 * rows * D * (T_STEPS + 3) + 4 * HD ** 2
+              + 4 * T_STEPS * (8 + m_embs.shape[1]))
+    return flops, nbytes, w_bytes
 
 
 def bound_ms(flops, nbytes, peak):
@@ -515,6 +555,97 @@ def one_chain_phase(diff) -> dict:
         k2_host_loop_ms=k2_ms, k2_graph_ms=k2_graph_ms)
 
 
+def hold_rows_conv(conv_calls, dtypes, g) -> float:
+    """``rows_conv`` against ``rows_conv_plain`` at every distinct conv of
+    ``conv_calls`` ((rows, cin_a, cin_b, cout, mode, k, seg) each), for each
+    weight dtype, within TOL_CONV; repeated launches agree bit for bit.
+    The tile and K splits each launch takes are logged beside its error."""
+    from dadiff_tpu_torch.ops.planner import (
+        UP, _split_k, rows_conv, rows_conv_plain,
+    )
+
+    err = 0.0
+    for wd in dtypes:
+        for R, ca, cb, cout, mode, k, seg in sorted(set(conv_calls)):
+            xa = torch.randn(R, ca, device="cuda", generator=g)
+            xb = torch.randn(R, cb, device="cuda", generator=g) if cb else None
+            taps = 4 if mode == UP else k
+            w = (torch.randn(taps * (ca + cb), cout, device="cuda",
+                             generator=g) / (ca + cb) ** 0.5).to(wd)
+            bias = torch.randn(1, cout, device="cuda", generator=g)
+            e = (rows_conv(xa, xb, w, bias, mode, k, seg)
+                 - rows_conv_plain(xa, xb, w, bias, mode, k, seg)).abs().max().item()
+            t = _split_k(R, ca + cb, cout, mode, k, wd == torch.bfloat16)
+            log(f"K2 rows_conv {str(wd)[6:]} mode={mode} k={k} rows={R} "
+                f"cin={ca}+{cb} cout={cout} tile {t.bm}x{t.bn} splits "
+                f"{t.splits}: max|err| {e:.3e}")
+            err = max(err, e)
+    require(err <= TOL_CONV, f"rows_conv vs plain {err} > {TOL_CONV}")
+    # split-K sums its partials in a fixed order: repeated launches agree
+    require(all(torch.equal(rows_conv(xa, xb, w, bias, mode, k, seg),
+                            rows_conv(xa, xb, w, bias, mode, k, seg))
+                for _ in range(3)), "rows_conv is deterministic")
+    return err
+
+
+def gn_case(R, ca, cb, cout, k, seg, wd, g):
+    """Operands of one fused (conv, GroupNorm) pair, without adds."""
+    xa = torch.randn(R, ca, device="cuda", generator=g)
+    xb = torch.randn(R, cb, device="cuda", generator=g) if cb else None
+    w = (torch.randn(k * (ca + cb), cout, device="cuda", generator=g)
+         / (ca + cb) ** 0.5).to(wd)
+    bias = torch.randn(1, cout, device="cuda", generator=g)
+    scale = 1 + 0.5 * torch.randn(cout, device="cuda", generator=g)
+    gbias = torch.randn(cout, device="cuda", generator=g)
+    return xa, xb, w, bias, k, seg, scale, gbias
+
+
+def hold_rows_conv_gn(fused, dtypes, g):
+    """``rows_conv_gn`` against ``rows_conv_gn_plain`` at every distinct
+    (conv, GroupNorm) pair of ``fused`` (step_launches' "conv_gn" entries),
+    for each weight dtype, without adds, with the time row (one for all
+    chains, or one per chain), the residual, or both: within TOL_GN plus
+    TOL_CONV carried through the norm. Repeated launches agree bit for bit.
+    Returns (max error, max error over its tolerance)."""
+    from dadiff_tpu_torch.ops.planner import (
+        SAME, _split_k_gn, rows_conv_gn, rows_conv_gn_plain, rows_conv_plain,
+    )
+
+    err, worst = 0.0, 0.0
+    for wd in dtypes:
+        for R, ca, cb, cout, _, k, seg in sorted(set(c[1:8] for c in fused)):
+            base = gn_case(R, ca, cb, cout, k, seg, wd, g)
+            pre = rows_conv_plain(*base[:4], SAME, k, seg).reshape(
+                R // seg, seg, 8, cout // 8)
+            rstd = torch.rsqrt(pre.var(dim=(1, 3), unbiased=False) + 1e-5)
+            gain = MISH_SLOPE * (rstd[:, :, None] * base[6].abs().reshape(
+                1, 8, -1)).max().item()
+            tol = TOL_GN + TOL_CONV * gain
+            t, gp = _split_k_gn(R, ca + cb, cout, k, seg, wd == torch.bfloat16)
+            for adds in ("none", "te", "te_per_chain", "res", "te_res"):
+                te = res = None
+                if adds.startswith("te"):
+                    te = torch.randn(R // seg if adds == "te_per_chain" else 1,
+                                     cout, device="cuda", generator=g)
+                if adds.endswith("res"):
+                    res = torch.randn(R, cout, device="cuda", generator=g)
+                args = (*base, te, res)
+                e = (rows_conv_gn(*args)
+                     - rows_conv_gn_plain(*args)).abs().max().item()
+                log(f"K2 rows_conv_gn {str(wd)[6:]} rows={R} cin={ca}+{cb} "
+                    f"cout={cout} seg={seg} tile {t.bm}x{t.bn} splits "
+                    f"{t.splits} group block {gp.tiles_m}x{gp.tiles_n} "
+                    f"{adds}: max|err| {e:.3e} (tolerance {tol:.2e})")
+                require(e <= tol, f"rows_conv_gn vs plain {e} > {tol}")
+                err, worst = max(err, e), max(worst, e / tol)
+    # the group blocks add their tiles' sums in tile order, and split-K its
+    # partials in split order: repeated launches agree (the last case has
+    # two tiles per group block and several K splits)
+    require(all(torch.equal(rows_conv_gn(*args), rows_conv_gn(*args))
+                for _ in range(3)), "rows_conv_gn is deterministic")
+    return err, worst
+
+
 def kernel_phase(unet, rows, D):
     """K1 and the K2 kernels against their plain versions, and their times
     over the launches of one denoise step."""
@@ -523,7 +654,7 @@ def kernel_phase(unet, rows, D):
     from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain
     from dadiff_tpu_torch.ops.planner import (
         DOWN, SAME, UP, StepConfig, ddpm_project_step, ddpm_project_step_plain,
-        rows_conv, rows_conv_gn, rows_conv_gn_plain, rows_conv_plain,
+        rows_conv, rows_conv_gn_plain, rows_conv_plain,
     )
     from dadiff_tpu_torch.cli import maze_grid_for_env
 
@@ -620,25 +751,7 @@ def kernel_phase(unet, rows, D):
     # -- rows_conv: every distinct conv of a step (the fused ones without
     # their epilogue), f32 and bf16 weights
     conv_calls = [c[1:8] for c in calls]
-    err = 0.0
-    for wd in (torch.float32, torch.bfloat16):
-        for R, ca, cb, cout, mode, k, seg in sorted(set(conv_calls)):
-            xa = torch.randn(R, ca, device=dev, generator=g)
-            xb = torch.randn(R, cb, device=dev, generator=g) if cb else None
-            taps = 4 if mode == UP else k
-            w = (torch.randn(taps * (ca + cb), cout, device=dev, generator=g)
-                 / (ca + cb) ** 0.5).to(wd)
-            bias = torch.randn(1, cout, device=dev, generator=g)
-            e = (rows_conv(xa, xb, w, bias, mode, k, seg)
-                 - rows_conv_plain(xa, xb, w, bias, mode, k, seg)).abs().max().item()
-            log(f"K2 rows_conv {str(wd)[6:]} mode={mode} k={k} rows={R} "
-                f"cin={ca}+{cb} cout={cout}: max|err| {e:.3e}")
-            err = max(err, e)
-    require(err <= TOL_CONV, f"rows_conv vs plain {err} > {TOL_CONV}")
-    # split-K sums its partials in a fixed order: repeated launches agree
-    require(all(torch.equal(rows_conv(xa, xb, w, bias, mode, k, seg),
-                            rows_conv(xa, xb, w, bias, mode, k, seg))
-                for _ in range(3)), "rows_conv is deterministic")
+    err = hold_rows_conv(conv_calls, (torch.float32, torch.bfloat16), g)
 
     conv_bufs = []
     bnd = 0.0
@@ -707,46 +820,7 @@ def kernel_phase(unet, rows, D):
     # -- rows_conv_gn: every (conv, GroupNorm) pair of a step, f32 and bf16
     # weights, without adds, with the time row (one for all chains, or one
     # per chain), the residual, or both
-    def gn_case(R, ca, cb, cout, k, seg, wd):
-        xa = torch.randn(R, ca, device=dev, generator=g)
-        xb = torch.randn(R, cb, device=dev, generator=g) if cb else None
-        w = (torch.randn(k * (ca + cb), cout, device=dev, generator=g)
-             / (ca + cb) ** 0.5).to(wd)
-        bias = torch.randn(1, cout, device=dev, generator=g)
-        scale = 1 + 0.5 * torch.randn(cout, device=dev, generator=g)
-        gbias = torch.randn(cout, device=dev, generator=g)
-        return xa, xb, w, bias, k, seg, scale, gbias
-
-    err, worst = 0.0, 0.0
-    for wd in (torch.float32, torch.bfloat16):
-        for R, ca, cb, cout, _, k, seg in sorted(set(c[1:8] for c in fused)):
-            base = gn_case(R, ca, cb, cout, k, seg, wd)
-            pre = rows_conv_plain(*base[:4], SAME, k, seg).reshape(
-                R // seg, seg, 8, cout // 8)
-            rstd = torch.rsqrt(pre.var(dim=(1, 3), unbiased=False) + 1e-5)
-            gain = MISH_SLOPE * (rstd[:, :, None] * base[6].abs().reshape(
-                1, 8, -1)).max().item()
-            tol = TOL_GN + TOL_CONV * gain
-            for adds in ("none", "te", "te_per_chain", "res", "te_res"):
-                te = res = None
-                if adds.startswith("te"):
-                    te = torch.randn(R // seg if adds == "te_per_chain" else 1,
-                                     cout, device=dev, generator=g)
-                if adds.endswith("res"):
-                    res = torch.randn(R, cout, device=dev, generator=g)
-                args = (*base, te, res)
-                e = (rows_conv_gn(*args)
-                     - rows_conv_gn_plain(*args)).abs().max().item()
-                log(f"K2 rows_conv_gn {str(wd)[6:]} rows={R} cin={ca}+{cb} "
-                    f"cout={cout} seg={seg} {adds}: max|err| {e:.3e} "
-                    f"(tolerance {tol:.2e})")
-                require(e <= tol, f"rows_conv_gn vs plain {e} > {tol}")
-                err, worst = max(err, e), max(worst, e / tol)
-    # the group blocks add their tiles' sums in tile order, and split-K its
-    # partials in split order: repeated launches agree (the last case has
-    # two tiles per group block and 7 K splits)
-    require(all(torch.equal(rows_conv_gn(*args), rows_conv_gn(*args))
-                for _ in range(3)), "rows_conv_gn is deterministic")
+    err, worst = hold_rows_conv_gn(fused, (torch.float32, torch.bfloat16), g)
 
     from dadiff_tpu_torch.ops.planner import _CudaOps, _split_k_gn
 
@@ -762,7 +836,7 @@ def kernel_phase(unet, rows, D):
     gn_bufs, per_pair, pair_bound_us = [], [], []
     t_ops = t_bytes = 0.0
     for _, R, ca, cb, cout, _, k, seg, has_te, has_res in fused:
-        base = gn_case(R, ca, cb, cout, k, seg, torch.bfloat16)
+        base = gn_case(R, ca, cb, cout, k, seg, torch.bfloat16, g)
         te = torch.randn(cout, device=dev, generator=g) if has_te else None
         res = torch.randn(R, cout, device=dev, generator=g) if has_res else None
         gn_bufs.append((*base, te, res))
@@ -890,7 +964,7 @@ def chain_phase(policy):
     )
     from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
     from dadiff_tpu_torch.ops.planner import (
-        StepConfig, _PlainOps, _program, build_interleaved_projection,
+        StepConfig, _PlainOps, build_interleaved_projection,
         make_planner_chain, run_chain,
     )
     from dadiff_tpu_torch.ops.projection import projection_alpha
@@ -1021,17 +1095,7 @@ def chain_phase(policy):
         f"{json.dumps(turns)} (max|diff| {e:.3e})")
 
     # wave times and the bound of one bo8 wave
-    flops = nbytes = 0.0
-    for c in calls:  # every conv, fused or not
-        fl, _ = conv_cost(c[1], c[2], c[3], c[4], c[5], c[6], 2)
-        flops += fl
-    flops = flops * T_STEPS + 2.0 * T_STEPS * N_CAND * (H * D) ** 2
-    te_flops = sum(2.0 * T_STEPS * op[2][0].shape[0] * op[2][0].shape[1]
-                   for op in _program(diff.model, fw) if op[0] == "res")
-    flops += te_flops
-    w_bytes = sum(t.numel() * t.element_size() for t in ops16[0])
-    nbytes = (w_bytes + 4 * rows * D * (T_STEPS + 3) + 4 * (H * D) ** 2
-              + 4 * T_STEPS * (8 + me.shape[1]))
+    flops, nbytes, w_bytes = wave_cost(diff.model, ops16[0], me, rows, D)
     b_ms, b_by = bound_ms(flops, nbytes, BF16_FLOPS)
     return dict(
         max_abs_err=err32, bf16_max_abs_err=err16,
@@ -1047,6 +1111,371 @@ def chain_phase(policy):
         launches_per_wave=launches_per_wave,
         wave_ms_in_turns=turns,
     )
+
+
+def _chain_operands(diff, spec, chain, weight_dtype):
+    """Flattened weights, time rows and step scalars of a projected chain."""
+    from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
+    from dadiff_tpu_torch.ops.projection import projection_alpha
+
+    ts = chain.timesteps.to(diff.device)
+    fw, me, sc = prepare_chain_operands(diff.model, diff.schedule, ts,
+                                        weight_dtype)
+    sc[:, 5] = projection_alpha(ts, diff.n_timesteps, spec.schedule,
+                                spec.strength, diff.schedule.betas)
+    return fw, me, sc
+
+
+def _wave_inputs(diff, n_chains, seed):
+    """x_T, step noise and row-0 conditioning of ``n_chains`` chains."""
+    from dadiff_tpu_torch.guides.sampling import conditions_for_initial_obs
+
+    H, D, dev = diff.horizon, diff.transition_dim, diff.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    obs = torch.randn(n_chains, diff.observation_dim, device=dev,
+                      generator=g) * 0.5
+    cond = conditions_for_initial_obs(obs, diff.observation_dim, H, D)
+    x0 = torch.randn(n_chains * H, D, device=dev, generator=g)
+    noise = torch.randn(T_STEPS, n_chains * H, D, device=dev, generator=g)
+    return x0, noise, cond, cond.values.reshape(n_chains * H, D)
+
+
+def chain64_phase(policy) -> dict:
+    """The planner chain at 64 chains in one group (an evaluator chain) with
+    f32 weights against its plain version, the DDPM sampler with the
+    projection, on the card."""
+    from dadiff_tpu_torch.guides.sampling import make_sampler
+    from dadiff_tpu_torch.ops.planner import (
+        build_interleaved_projection, make_planner_chain,
+    )
+
+    diff, spec = policy.diffusion, policy._sampler_config["projection"]
+    H, D, n = diff.horizon, diff.transition_dim, GROUP_CHAINS
+    M, b = (t.to(diff.device) for t in build_interleaved_projection(
+        policy._P, policy._stats, observation_dim=diff.observation_dim,
+        action_dim=diff.action_dim, state_dim=spec.state_dim, horizon=H))
+    chain = make_planner_chain(diff.model, diff.schedule, H, n, 1,
+                               projection=True)
+    x0, noise, cond, cond_rows = _wave_inputs(diff, n, SEED + 5)
+    fw, me, sc = _chain_operands(diff, spec, chain, torch.float32)
+    got = chain(fw, x0, me, noise, sc, cond_rows, M, b).reshape(n, H, D)
+    want = make_sampler(diff, projection=spec)(
+        None, cond, policy._P, policy._stats, init_noise=x0.reshape(n, H, D),
+        step_noise=noise.reshape(T_STEPS, n, H, D))
+    err = (got - want).abs().max().item()
+    log(f"K2 chain f32 weights, {n} chains, vs plain DDPM sampler: max|err| "
+        f"{err:.3e} (tolerance {TOL_CHAIN_F32})")
+    require(err <= TOL_CHAIN_F32 and bool(torch.isfinite(got).all()),
+            f"the {n}-chain f32 wave vs the plain sampler: {err}")
+    return {"chains": n, "max_abs_err": err}
+
+
+def two_stream_phase(policy) -> dict:
+    """Work on two streams at once gives what each gives alone, bit for bit:
+    a served chain (8 chains) and an evaluator chain (64 chains), each owning
+    its buffers and split-K and group counters, replayed from their CUDA
+    graphs on two streams and driven from the host by two threads; two K4
+    launches, whose partials and h live in a scratch per stream."""
+    from dadiff_tpu_torch.models.fused_unet import fused_block_params
+    from dadiff_tpu_torch.ops.planner import (
+        build_interleaved_projection, make_planner_chain,
+    )
+    from dadiff_tpu_torch.ops.resblock import fused_residual_block
+
+    diff, spec = policy.diffusion, policy._sampler_config["projection"]
+    H, dev = diff.horizon, diff.device
+    M, b = (t.to(dev) for t in build_interleaved_projection(
+        policy._P, policy._stats, observation_dim=diff.observation_dim,
+        action_dim=diff.action_dim, state_dim=spec.state_dim, horizon=H))
+    waves = []
+    for n, seed in ((N_CAND, SEED + 6), (GROUP_CHAINS, SEED + 7)):
+        chain = make_planner_chain(diff.model, diff.schedule, H, n, 1,
+                                   projection=True)
+        fw, me, sc = _chain_operands(diff, spec, chain, torch.bfloat16)
+        x0, noise, _, cond_rows = _wave_inputs(diff, n, seed)
+        args = (fw, x0, me, noise, sc, cond_rows, M, b)
+        alone = chain(*args)          # host-driven, then captured
+        require(torch.equal(chain(*args), alone), "a replay repeats its wave")
+        waves.append((chain, args, alone))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for rep in range(3):
+        outs = [None, None]
+        for i, ((chain, args, _), st) in enumerate(zip(waves, streams)):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs[i] = chain(*args)   # a replay, enqueued at once
+        torch.cuda.synchronize()
+        require(all(torch.equal(o, w[2]) for o, w in zip(outs, waves)),
+                f"replays on two streams equal each alone (round {rep})")
+
+    def host_driven(i):
+        chain, args, _ = waves[i]
+        with torch.cuda.stream(streams[i]):
+            outs[i] = chain(*args, graph=False)
+
+    outs = [None, None]
+    threads = [threading.Thread(target=host_driven, args=(i,))
+               for i in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    require(all(torch.equal(o, w[2]) for o, w in zip(outs, waves)),
+            "host-driven waves from two threads on two streams equal each "
+            "alone")
+    log(f"two streams: the {N_CAND}- and {GROUP_CHAINS}-chain waves, "
+        "replayed (3 rounds) and host-driven from two threads, equal each "
+        "alone bit for bit")
+
+    # K4: the widest block and a 128 -> 256 block, on two streams at once
+    blocks = [{k: v.detach() for k, v in bp.items()}
+              for bp in fused_block_params(diff.model)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    cases = []
+    for bp, rows in ((blocks[4], H // 4), (blocks[2], H // 2)):
+        x = torch.randn(8, rows, bp["w1"].shape[1], device=dev, generator=g)
+        te = torch.randn(8, bp["w1"].shape[2], device=dev, generator=g)
+        cases.append((x, te, bp, fused_residual_block(x, te, bp)))
+    torch.cuda.synchronize()
+    for rep in range(3):
+        outs = [None, None]
+        for i, ((x, te, bp, _), st) in enumerate(zip(cases, streams)):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs[i] = [fused_residual_block(x, te, bp) for _ in range(4)]
+        torch.cuda.synchronize()
+        require(all(torch.equal(o, c[3]) for os_, c in zip(outs, cases)
+                    for o in os_),
+                f"K4 on two streams equals K4 alone (round {rep})")
+    log("two streams: K4 launches of two blocks, 4 each per stream, equal "
+        "their one-stream results bit for bit")
+    return {"waves": [N_CAND, GROUP_CHAINS], "rounds": 3, "k4_blocks": 2}
+
+
+def env_phase() -> dict:
+    """The batched PointMaze on the card against the same env on the CPU:
+    EVAL_ENVS envs x 320 random actions from the same states, for both
+    contact models; the largest position difference over all steps and the
+    contact events that disagree (a contact: the contact model changed the
+    integrated velocity by more than 1e-5)."""
+    from dadiff_tpu_torch.envs.pointmaze_jax import PointMazeJax
+
+    out = {}
+    n_steps = EVAL_REPLANS * EVAL_ACTIONS
+    for collision in ("disc", "axis"):
+        env = PointMazeJax(collision=collision)
+        g = torch.Generator().manual_seed(SEED + 9)
+        cpu, _ = env.reset(g, EVAL_ENVS)
+        actions = torch.randn(n_steps, EVAL_ENVS, 2, generator=g) * 2
+        card = type(cpu)(*(t.cuda() for t in cpu))
+        acts_card = actions.cuda()
+        diff_max, mismatch, contacts = 0.0, 0, 0
+
+        def step(state, a):
+            """The env's step, and which envs the contact model touched."""
+            free = (env.damping * state.vel
+                    + a.clamp(-1, 1) * env.vel_gain).clamp(-5.0, 5.0)
+            new = env.step(state, a)[0]
+            return new, ((new.vel - free).abs() > 1e-5).any(-1)
+
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            card, h_card = step(card, acts_card[i])
+            cpu, h_cpu = step(cpu, actions[i])
+            mismatch += int((h_card.cpu() != h_cpu).sum())
+            contacts += int(h_cpu.sum())
+            diff_max = max(diff_max, (card.pos.cpu() - cpu.pos).abs().max()
+                           .item())
+        took = time.perf_counter() - t0
+        log(f"env ({collision}): {EVAL_ENVS} envs x {n_steps} steps on the "
+            f"card vs the CPU: max|pos diff| {diff_max:.3e}, contact events "
+            f"{contacts}, mismatches {mismatch} ({took:.1f} s for both)")
+        require(diff_max <= TOL_ENV_POS, f"env {collision}: positions part "
+                f"by {diff_max} > {TOL_ENV_POS}")
+        require(mismatch <= ENV_MISMATCH_PER_STEP * EVAL_ENVS * n_steps,
+                f"env {collision}: {mismatch} contact events disagree")
+        require(contacts > 0, f"env {collision}: no wall was touched")
+        out[collision] = {"max_pos_diff": diff_max, "contacts": contacts,
+                          "mismatches": mismatch}
+    return out
+
+
+# the keys of the JAX package's eval_ondevice results file
+# (scripts/eval_ondevice.py:168-204)
+ONDEVICE_KEYS = (
+    "policy_type", "environment", "checkpoint", "dataset", "n_episodes",
+    "sampling_timesteps", "seed", "timestamp", "metrics", "mode",
+    "megakernel", "projection", "wall_aware", "n_candidates", "warm_start_t",
+    "batch", "env_steps_per_episode", "success_rate", "mean_reward",
+    "mean_final_distance", "wallclock_s", "episodes_per_hour", "compile_s",
+    "action_horizon", "n_replans", "sampler", "collision", "wall_slack",
+    "per_env_success")
+
+
+def ondevice_eval_phase(ckpt: Path, policy, results_dir: Path) -> dict:
+    """The on-device evaluation entry point at the published protocol on the
+    trained checkpoint (150 steps of training: the success rate is logged,
+    not gated), with the counters set to 0 before and read after: two runs
+    (untimed, timed) of EVAL_REPLANS waves of 1,024 chains, 3,612 K2
+    launches each and no K1. Then a 1,024-chain wave on the chain's own
+    buffers: replayed from its graph equal to host-driven bit for bit, both
+    timed, with its bound; ``ddpm_project_step`` at 1,024 chains; peak
+    memory."""
+    from dadiff_tpu_torch import eval_ondevice
+    from dadiff_tpu_torch.ops.planner import (
+        StepConfig, _PlainOps, build_interleaved_projection,
+        ddpm_project_step, make_planner_chain, run_chain,
+    )
+
+    diff, spec = policy.diffusion, policy._sampler_config["projection"]
+    H, D, dev = diff.horizon, diff.transition_dim, diff.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eval_ondevice.main([
+        "--checkpoint", str(ckpt), "--dataset", DATASET, "--megakernel",
+        "--projection", "--n-candidates", str(N_CAND), "--batch",
+        str(EVAL_ENVS), "--n-replans", str(EVAL_REPLANS), "--action-horizon",
+        str(EVAL_ACTIONS), "--seed", str(EVAL_SEED), "--results-dir",
+        str(results_dir)])
+    took = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    calls, _, n_res = step_launches(diff.model, EVAL_CHAINS * H, D)
+    per_wave = T_STEPS * (len(calls) + 1) + n_res
+    want_waves = 2 * EVAL_REPLANS
+    k2 = {k: counts[k] for k in ("rows_conv", "rows_conv_gn",
+                                 "ddpm_project_step")}
+    log(f"on-device eval launches: {counts} (expected {want_waves} waves of "
+        f"{per_wave})")
+    require(sum(k2.values()) == want_waves * per_wave
+            and k2["rows_conv_gn"] == want_waves * 25 * T_STEPS
+            and k2["ddpm_project_step"] == want_waves * T_STEPS,
+            f"the on-device run launches {want_waves} waves of {per_wave}: "
+            f"{k2}")
+    require(counts["gn_mish"] == 0, "K1 launched on the on-device path")
+    waves = sum(k2.values()) / per_wave
+    with open(out["results_path"]) as f:
+        saved = json.load(f)
+    missing = [k for k in ONDEVICE_KEYS if k not in saved]
+    require(not missing, f"results file lacks the JAX keys {missing}")
+    require(0.0 <= out["success_rate"] <= 1.0
+            and len(saved["per_env_success"]) == EVAL_ENVS,
+            "on-device metrics")
+    log(f"on-device eval: success {out['success_rate']} over {EVAL_ENVS} "
+        f"episodes (150 training steps: not gated), timed run "
+        f"{out['wallclock_s']:.3f} s, {out['episodes_per_hour']:.0f} "
+        f"episodes/hour, first run {out['compile_s']:.3f} s, peak memory "
+        f"{peak / 2**20:.1f} MiB, {took:.1f} s for the entry point")
+
+    # K2's kernels at the shapes of the 32,768-row wave (other tiles, K
+    # splits and group blocks than at the served 256 rows): every conv and
+    # every fused pair of its denoise step, with bf16 weights as the wave
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    conv_err = hold_rows_conv([c[1:8] for c in calls], (torch.bfloat16,), g)
+    gn_err, gn_worst = hold_rows_conv_gn(
+        [c for c in calls if c[0] == "conv_gn"], (torch.bfloat16,), g)
+
+    # one wave of the evaluator's shape: 16 groups of 64 chains
+    M, b = (t.to(dev) for t in build_interleaved_projection(
+        policy._P, policy._stats, observation_dim=diff.observation_dim,
+        action_dim=diff.action_dim, state_dim=spec.state_dim, horizon=H))
+    chain = make_planner_chain(diff.model, diff.schedule, H, GROUP_CHAINS,
+                               EVAL_CHAINS // GROUP_CHAINS, projection=True)
+    fw, me, sc = _chain_operands(diff, spec, chain, torch.bfloat16)
+    x0, noise, _, cond_rows = _wave_inputs(diff, EVAL_CHAINS, SEED + 10)
+    args = (fw, x0, me, noise, sc, cond_rows, M, b)
+    first = chain(*args)                  # host-driven, then captured
+    replayed = chain(*args)
+    hosted = chain(*args, graph=False)
+    require(torch.equal(replayed, hosted) and torch.equal(first, replayed),
+            "the 1,024-chain wave replayed equals the host-driven wave bit "
+            "for bit")
+    require(bool(torch.isfinite(replayed).all()), "1,024-chain wave finite")
+    # the plain chain at the same bf16 rounding points, on the card
+    box = {}
+
+    def plain():
+        box["x"] = run_chain(_PlainOps(), diff.model, fw, x0, me, noise, sc,
+                             cond_rows, M, b, StepConfig(H))
+
+    with torch.no_grad():
+        plain_ms = cuda_ms(plain, 1, warmup=0)
+    wave_err = (replayed - box.pop("x")).abs().max().item()
+    log(f"K2 chain bf16 weights, {EVAL_CHAINS} chains, vs plain chain at "
+        f"bf16: max|err| {wave_err:.3e} (tolerance {TOL_CHAIN_BF16})")
+    require(wave_err <= TOL_CHAIN_BF16,
+            f"the {EVAL_CHAINS}-chain bf16 wave vs the plain chain: "
+            f"{wave_err}")
+    wave_ms = cuda_ms(lambda: chain(*args), 3, warmup=1)
+    host_ms = cuda_ms(lambda: chain(*args, graph=False), 2, warmup=0)
+    flops, nbytes, _ = wave_cost(diff.model, fw, me, EVAL_CHAINS * H, D)
+    b_ms, b_by = bound_ms(flops, nbytes, BF16_FLOPS)
+    # ddpm_project_step alone at 1,024 chains, projection on
+    cfg = StepConfig(H)
+    g.manual_seed(SEED + 11)
+    xs, eps, nz = (torch.randn(EVAL_CHAINS * H, D, device=dev, generator=g)
+                   for _ in range(3))
+    scal = sc[50].contiguous()
+    step_ms = graph_ms(lambda: [ddpm_project_step(xs, eps, nz, scal,
+                                                  cond_rows, M, b, cfg)
+                                for _ in range(10)], 5) / 10
+    HD = H * D
+    step_bound, step_by = bound_ms(2.0 * EVAL_CHAINS * HD * HD,
+                                   4 * EVAL_CHAINS * H * D * 5
+                                   + 4 * HD * (HD + 1) + 32, F32_FLOPS)
+    waves_s = EVAL_REPLANS * wave_ms * 1e-3
+    log(f"1,024-chain wave: {wave_ms:.3f} ms replayed, {host_ms:.3f} ms "
+        f"host-driven, bound {b_ms:.4f} ms ({b_by}, {flops / 1e12:.2f} "
+        f"TFLOP); ddpm_project_step {step_ms * 1e3:.2f} us per launch "
+        f"({100 * T_STEPS * step_ms / wave_ms:.1f}% of a wave; bound "
+        f"{step_bound * 1e3:.3f} us, {step_by}); the timed evaluator run "
+        f"{out['wallclock_s']:.3f} s against {waves_s:.3f} s of "
+        f"{EVAL_REPLANS} replayed waves; the plain wave {plain_ms:.3f} ms")
+    return dict(
+        success_rate=out["success_rate"], mean_reward=out["mean_reward"],
+        wallclock_s=out["wallclock_s"], first_run_s=out["compile_s"],
+        episodes_per_hour=out["episodes_per_hour"], peak_memory_bytes=peak,
+        launches_by_kernel={**k2, "gn_mish": counts["gn_mish"]},
+        launches_per_wave=per_wave, waves=waves,
+        conv_max_abs_err=conv_err, conv_gn_max_abs_err=gn_err,
+        conv_gn_worst_err_over_tolerance=gn_worst,
+        wave_max_abs_err=wave_err, wave_plain_ms=plain_ms,
+        chains=EVAL_CHAINS, wave_ms=wave_ms, wave_host_ms=host_ms,
+        wave_bound_ms=b_ms, wave_bound_by=b_by, wave_flops=flops,
+        waves_s=waves_s, step_us=step_ms * 1e3,
+        step_share_of_wave=T_STEPS * step_ms / wave_ms,
+        step_bound_us=step_bound * 1e3)
+
+
+def host_eval_phase(ckpt: Path, results_dir: Path) -> dict:
+    """The host evaluator (``python -m dadiff_tpu_torch.evaluate``) in
+    lockstep through the planner chain, where gymnasium and
+    gymnasium-robotics import."""
+    try:
+        import gymnasium  # noqa: F401
+        import gymnasium_robotics  # noqa: F401
+    except ImportError as e:
+        log(f"host evaluator: not run, gymnasium does not import here ({e})")
+        return {"ran": False, "why": str(e)}
+    proc = subprocess.run(
+        [sys.executable, "-m", "dadiff_tpu_torch.evaluate", "--checkpoint",
+         str(ckpt), "--dataset", DATASET, "--env", ENV, "--policy-type",
+         "dynamics-aware", "--n-candidates", str(N_CAND), "--megakernel",
+         "--batched", "--n-episodes", "8", "--max-steps", "50",
+         "--results-dir", str(results_dir)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    require(proc.returncode == 0, f"host evaluator failed:\n{proc.stderr}")
+    tail = [ln for ln in proc.stdout.splitlines() if ln.startswith(
+        ("Mean", "Results"))]
+    log(f"host evaluator: ran (8 episodes, 50 steps, batched, bo8 waves "
+        f"of 64 chains): {' | '.join(tail)}")
+    return {"ran": True, "summary": tail}
 
 
 def reference_package() -> str:
@@ -1223,6 +1652,15 @@ def main() -> int:
         require(counts[name] == N_PLANS * n,
                 f"{name}: {counts[name]} launches for {N_PLANS} waves of {n}")
 
+    # -- the evaluation path: the on-device loop at the published protocol
+    results_dir = ROOT / "build" / "dadiff_tpu_torch" / "smoke" / "results"
+    ondevice = ondevice_eval_phase(ckpt, policy, results_dir)
+    log(f"on-device evaluation: {json.dumps(ondevice)}")
+    env = env_phase()
+    chain64 = chain64_phase(policy)
+    streams = two_stream_phase(policy)
+    host_eval = host_eval_phase(ckpt, results_dir)
+
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
     table = {  # name: (source, TPU kernel replaced, launches on its path)
@@ -1240,6 +1678,7 @@ def main() -> int:
         "resblock": (f"{csrc}/resblock.cu", f"{ref}/ops/pallas_resblock.py:132",
                      train_counts["resblock"]),
     }
+    evaluation = ondevice["launches_by_kernel"]
     kernels = []
     for name, (source, replaces, launches) in table.items():
         r = kern[name]
@@ -1252,6 +1691,9 @@ def main() -> int:
             "per": r["per"], "launches_per_step": r.get("launches_per_step"),
             "host_ms": r.get("host_ms"),
         })
+        if name in evaluation:
+            # the evaluation path's count (its untimed and timed runs)
+            kernels[-1]["launches_evaluation"] = evaluation[name]
         for extra in ("variants", "ms_f32", "cycle_share", "grid_syncs",
                       "ms_by_fan_in", "ms_served", "unfused_ms",
                       "library_composition_ms", "ms_in_sequence", "grid",
@@ -1276,7 +1718,25 @@ def main() -> int:
         "host_ms": chain["ms"], "plain_graph_ms": chain["plain_graph_ms"],
         "served_plan_ms": plan_ms, "served_wave_ms": wave_ms,
         "wave_ms_in_turns": chain["wave_ms_in_turns"],
+        # the on-device evaluator's wave: 1,024 chains, replayed
+        "ondevice_chains": ondevice["chains"],
+        "ondevice_wave_ms": ondevice["wave_ms"],
+        "ondevice_wave_host_ms": ondevice["wave_host_ms"],
+        "ondevice_bound_ms": ondevice["wave_bound_ms"],
+        "ondevice_bound_by": ondevice["wave_bound_by"],
+        "ondevice_plain_ms": ondevice["wave_plain_ms"],
+        "ondevice_max_abs_err": ondevice["wave_max_abs_err"],
+        "ondevice_conv_max_abs_err": ondevice["conv_max_abs_err"],
+        "ondevice_conv_gn_max_abs_err": ondevice["conv_gn_max_abs_err"],
+        # measured: the counters read after the on-device runs
+        "ondevice_launches_by_kernel": ondevice["launches_by_kernel"],
+        "ondevice_launches_per_wave": ondevice["launches_per_wave"],
+        "ondevice_waves": ondevice["waves"],
+        "ondevice_step_us": ondevice["step_us"],
+        "chain64_f32_max_abs_err": chain64["max_abs_err"],
     })
+    log(f"evaluation: env {json.dumps(env)}; two streams "
+        f"{json.dumps(streams)}; host evaluator {json.dumps(host_eval)}")
     log(f"train step: {json.dumps(train)}")
     log(f"flagship: {n_params} parameters; total "
         f"{time.perf_counter() - t_start:.1f} s")

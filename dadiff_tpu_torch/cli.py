@@ -4,11 +4,14 @@ loading and policy construction.
 Counterpart of the JAX package's cli.py: build_train_parser :57 and train_main
 :147 (the U-Net family and the flagship flags, fine-tune and resume
 included; ``--model-type transformer``, ``--mesh-dp``, ``--config`` and
-``--dtype`` are not ported), build_eval_parser :695 (the flags the planning
-path uses), maze_grid_for_env :810, _apply_stored_normalizer :821,
-load_model :854 (the ``.pt`` branch; orbax is JAX-only) and
-build_policy_from_args :992 (the dynamics-aware branch and ``--megakernel``).
-Everything runs on the card unless ``--device cpu`` is given.
+``--dtype`` are not ported), build_eval_parser :695 (the flags of what is
+ported: a flag of a feature the port lacks, such as ``--sampler``,
+``--value-checkpoint``, ``--replan-deviation`` or ``--warm-start-t``, is
+refused by argparse), maze_grid_for_env :810, _apply_stored_normalizer :821,
+load_model :854 (the ``.pt`` branch, EMA weights included; orbax is
+JAX-only), build_policy_from_args :992 (the dynamics-aware branch and
+``--megakernel``) and evaluate_main :1162. Everything runs on the card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -267,6 +270,19 @@ def build_eval_parser() -> argparse.ArgumentParser:
                    help="run each replan wave (all candidates, conditioning, "
                         "per-step projection) through the planner chain's "
                         "CUDA kernels (ops/planner.py)")
+    p.add_argument("--use-ema", action="store_true",
+                   help="plan with the EMA weights if the checkpoint has them")
+    # the evaluation protocol (evaluate_main)
+    p.add_argument("--n-episodes", type=int, default=10)
+    p.add_argument("--max-steps", type=int, default=1000)
+    p.add_argument("--render", type=str, default="none", choices=["none"])
+    p.add_argument("--results-dir", type=str, default="./results")
+    p.add_argument("--batched", action="store_true",
+                   help="run all episodes in lockstep with batched replans "
+                        "(per-env seeding, not the sequential protocol)")
+    p.add_argument("--save-episodes", type=str, default=None,
+                   help="save the executed episodes as an npz dataset "
+                        "(requires --batched)")
     return p
 
 
@@ -302,9 +318,10 @@ def _apply_stored_normalizer(dataset, config: dict) -> None:
 
 
 def load_model(checkpoint_path: str, dataset_spec: str, horizon_hint=None,
-               device="cuda"):
+               device="cuda", use_ema: bool = False):
     """Load a reference-schema ``.pt`` and the dataset normalizer, rebuild
-    the model from the weight shapes and load it with ``strict=True``
+    the model from the weight shapes and load it with ``strict=True``: the
+    EMA weights if ``use_ema`` and the checkpoint has them, else the model's
     (cli.py:854-920). Returns (diffusion on ``device``, dataset)."""
     from dadiff_tpu_torch.datasets.sequence import SequenceDataset
     from dadiff_tpu_torch.io.torch_compat import (
@@ -320,15 +337,18 @@ def load_model(checkpoint_path: str, dataset_spec: str, horizon_hint=None,
                               max_path_length=1000, use_padding=True)
     _apply_stored_normalizer(dataset, checkpoint.get("config", {}) or {})
     diffusion = diffusion_from_checkpoint(
-        checkpoint, dataset.observation_dim, dataset.action_dim, horizon)
+        checkpoint, dataset.observation_dim, dataset.action_dim, horizon,
+        use_ema=use_ema)
     return diffusion.to(device).eval(), dataset
 
 
 def diffusion_from_checkpoint(checkpoint: dict, observation_dim: int,
-                              action_dim: int, horizon: int):
+                              action_dim: int, horizon: int,
+                              use_ema: bool = False):
     """Rebuild the GaussianDiffusion of a loaded reference-schema checkpoint
     from its weight shapes and stored flags, and load it with
-    ``strict=True`` (on the CPU)."""
+    ``strict=True`` (on the CPU): ``ema_state_dict`` if ``use_ema`` and the
+    checkpoint has one, else ``model_state_dict`` (cli.py:912)."""
     from dadiff_tpu_torch.io.torch_compat import (
         infer_model_config_from_checkpoint,
     )
@@ -350,7 +370,9 @@ def diffusion_from_checkpoint(checkpoint: dict, observation_dim: int,
         clip_denoised=bool(cfg.get("clip_denoised", True)),
         prediction=cfg.get("prediction"),
     )
-    diffusion.load_state_dict(checkpoint["model_state_dict"], strict=True)
+    state_key = "ema_state_dict" if (use_ema and checkpoint.get(
+        "ema_state_dict")) else "model_state_dict"
+    diffusion.load_state_dict(checkpoint[state_key], strict=True)
     return diffusion
 
 
@@ -396,3 +418,85 @@ def resolve_device(name: str) -> torch.device:
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain versions)")
     return torch.device(name)
+
+
+def evaluate_main(argv=None) -> dict:
+    """Evaluate a planner on a gymnasium env (cli.py:1162-1286): load the
+    checkpoint (``--use-ema``: its EMA weights), build the dynamics-aware
+    policy, run the sequential protocol or, with ``--batched``, all episodes
+    in lockstep, and write the timestamped results JSON with the JAX
+    package's keys. Returns the metrics."""
+    args = build_eval_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    from dadiff_tpu_torch.envs.host import evaluate_policy, make_env, save_results
+
+    dataset_spec = args.dataset or ENV_TO_DATASET.get(args.env)
+    if dataset_spec is None:
+        raise SystemExit(f"No default dataset for {args.env}; pass --dataset")
+    if args.save_episodes and not args.batched:
+        raise SystemExit("--save-episodes requires --batched")
+    print(f"=== Evaluating {args.policy_type} on {args.env} "
+          f"(checkpoint {args.checkpoint}) ===")
+    diffusion, dataset = load_model(args.checkpoint, dataset_spec,
+                                    device=device, use_ema=args.use_ema)
+    requested = 200 if args.sampling_timesteps is None else args.sampling_timesteps
+    sampling_timesteps = min(requested, diffusion.n_timesteps)
+    if sampling_timesteps != requested:
+        print(f"clamping sampling timesteps {requested} -> "
+              f"{sampling_timesteps} (trained {diffusion.n_timesteps})")
+    policy = build_policy_from_args(args, diffusion, dataset, dataset_spec,
+                                    sampling_timesteps)
+    if args.batched:
+        from dadiff_tpu_torch.envs.vector_eval import evaluate_policy_batched
+
+        metrics = evaluate_policy_batched(
+            policy, args.env, n_episodes=args.n_episodes,
+            max_steps=args.max_steps, seed=args.seed,
+            record_episodes=bool(args.save_episodes))
+        recorded = metrics.pop("recorded_episodes", None)
+        if args.save_episodes and recorded is not None:
+            from dadiff_tpu_torch.datasets.sources import save_episodes_npz
+
+            save_episodes_npz(args.save_episodes, recorded)
+            print(f"saved {len(recorded)} executed episodes -> "
+                  f"{args.save_episodes}")
+    else:
+        env = make_env(args.env, render=args.render)
+        env.reset(seed=args.seed)
+        try:
+            metrics = evaluate_policy(policy, env, n_episodes=args.n_episodes,
+                                      max_steps=args.max_steps)
+        finally:
+            env.close()
+    path = save_results(
+        metrics, policy_type=args.policy_type, env_name=args.env,
+        results_dir=args.results_dir, checkpoint=args.checkpoint,
+        dataset=dataset_spec, n_episodes=args.n_episodes,
+        sampling_timesteps=sampling_timesteps, seed=args.seed,
+        extra={
+            # the JAX package's provenance keys; the port plans with the
+            # DDPM sampler, the goal scorer and the plan's own actions
+            "sampler": "ddpm",
+            "n_candidates": args.n_candidates,
+            "candidate_scorer": "goal",
+            "wall_penalty_weight": None,
+            "action_source": "plan",
+            "batched": args.batched,
+            "wall_aware": args.wall_aware,
+            "wall_margin": args.wall_margin,
+            "parity_mode": False,
+            "projection_schedule": args.projection_schedule,
+            "projection_strength": args.projection_strength,
+            "action_horizon": args.action_horizon,
+            "warm_start_t": None,
+            "replan_deviation": None,
+            "guide_weight": None,
+            "value_checkpoint": None,
+            "use_ema": args.use_ema,
+        })
+    print(f"Mean reward: {metrics['mean_reward']:.2f} ± "
+          f"{metrics['std_reward']:.2f}")
+    print(f"Mean length: {metrics['mean_length']:.2f} "
+          f"success rate: {metrics['success_rate']:.2f}")
+    print(f"Results: {path}")
+    return metrics

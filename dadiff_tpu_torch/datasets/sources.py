@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's datasets/sources.py: flatten_observation :27,
 generate_synthetic_episodes :157, load_episodes_npz :217 and load_episodes
-:229 for the ``npz:`` and ``synthetic:`` specs (joined with ``+``). The
-minari, gym, expert and mppi sources are not ported yet.
+:229 for the ``npz:`` and ``synthetic:`` specs (joined with ``+``), and
+save_episodes_npz :205. The minari, gym, expert and mppi sources are not
+ported yet.
 
 Episodes are dicts ``{'observations': (T+1, obs_dim), 'actions': (T, m)}``
 of float32 arrays; dict observations flatten to
@@ -12,7 +13,7 @@ of float32 arrays; dict observations flatten to
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
@@ -66,6 +67,19 @@ def generate_synthetic_episodes(kind: str = "pointmaze", n_episodes: int = 64,
             "rewards": np.asarray(rew_list, dtype=np.float32),
         })
     return episodes
+
+
+def save_episodes_npz(path: str, episodes: Sequence[Episode]) -> None:
+    """Save episodes as one .npz of obs_i / act_i / rew_i arrays, the schema
+    :func:`load_episodes_npz` reads (sources.py:205-214)."""
+    arrays = {}
+    for i, ep in enumerate(episodes):
+        arrays[f"obs_{i}"] = ep["observations"]
+        arrays[f"act_{i}"] = ep["actions"]
+        if "rewards" in ep:
+            arrays[f"rew_{i}"] = ep["rewards"]
+    arrays["n_episodes"] = np.asarray(len(episodes))
+    np.savez_compressed(path, **arrays)
 
 
 def load_episodes_npz(path: str) -> List[Episode]:

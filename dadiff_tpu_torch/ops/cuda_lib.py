@@ -138,13 +138,14 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
 
 
-def counters(device, n: int):
-    """A zeroed uint32 array of at least ``n`` entries on ``device`` for the
-    split-K tile counters; kernels leave it zeroed. One per device, so
-    launches that use it must not run concurrently on two streams."""
+def counters(device, n: int, stream: int):
+    """A zeroed int32 array of at least ``n`` entries on ``device`` for the
+    split-K tile counters of launches on ``stream`` (a pointer, as
+    :func:`stream_of` gives it); kernels leave it zeroed. One per (device,
+    stream): launches on two streams at once never share one."""
     import torch
 
-    key = str(device)
+    key = (str(device), int(stream or 0))
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1 << 14), dtype=torch.int32, device=device)

@@ -143,24 +143,28 @@ def _ptr(t):
 
 
 def launch_rows_conv(xa, xb, w, bias, out, mode: int, k: int, seg_in: int,
-                     stream=None, scratch=None, t: Optional[Tiling] = None):
+                     stream=None, scratch=None, t: Optional[Tiling] = None,
+                     counters=None):
     """Launch the kernel on contiguous CUDA tensors (unchecked). ``scratch``:
     a float32 tensor that holds the split-K partial tiles if it is large
     enough; else one is allocated. ``t``: another tile and split than
-    :func:`_split_k`'s (measurements)."""
+    :func:`_split_k`'s (measurements). ``counters``: zeroed int32, one per
+    output tile, left zeroed; by default the set of (device, stream)."""
     cin_b = 0 if xb is None else xb.shape[1]
     rows, cout = xa.shape[0], w.shape[1]
     bf16 = w.dtype == torch.bfloat16
     if t is None:
         t = _split_k(rows, xa.shape[1] + cin_b, cout, mode, k, bf16)
     partial = _partial(xa, t, scratch)
-    counters = None if partial is None else cuda_lib.counters(xa.device,
-                                                               t.tiles)
+    stream = cuda_lib.stream_of(xa) if stream is None else stream
+    if partial is None:
+        counters = None
+    elif counters is None:
+        counters = cuda_lib.counters(xa.device, t.tiles, stream)
     rc = cuda_lib.lib("planner").rows_conv(
         xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(), int(bf16),
         bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, mode, k, t.bm,
-        t.bn, t.splits, _ptr(partial), _ptr(counters),
-        cuda_lib.stream_of(xa) if stream is None else stream)
+        t.bn, t.splits, _ptr(partial), _ptr(counters), stream)
     cuda_lib.check(rc, "rows_conv")
     rows_conv.launches += 1
 
@@ -485,14 +489,16 @@ class _CudaOps:
     reuses; the step writes into the partner of its input, so a wave
     ping-pongs between two fixed buffers. Once a first wave has warmed the
     pool a wave allocates nothing, which capture in a CUDA graph needs. The
-    split-K partial tiles of every conv share one scratch buffer, and the
-    group blocks of every fused conv one set of counters (launches run in
-    stream order)."""
+    split-K partial tiles of every conv share one scratch buffer, the output
+    tiles of every conv one set of split-K counters, and the group blocks of
+    every fused conv one set of group counters: the wave's launches run in
+    stream order, and another wave (another chain) owns other buffers, so
+    two waves may run on two streams at once."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.pool, self.section, self.cursor = {}, "", 0
-        self.scratch = self.gcounters = None
+        self.scratch = self.counters = self.gcounters = None
         self.partner = {}  # data_ptr of a step's input -> its output buffer
 
     @property
@@ -525,8 +531,12 @@ class _CudaOps:
                      xa.shape[1] + (0 if xb is None else xb.shape[1]),
                      w.shape[1], mode, k, w.dtype == torch.bfloat16)
         self._grow_scratch(t)
+        if t.splits > 1 and (self.counters is None
+                             or self.counters.numel() < t.tiles):
+            self.counters = torch.zeros(t.tiles, dtype=torch.int32,
+                                        device=self.device)
         launch_rows_conv(xa, xb, w, bias, out, mode, k, seg, self.stream,
-                         self.scratch, t)
+                         self.scratch, t, self.counters)
         return out
 
     def conv_gn(self, xa, xb, w, bias, k, seg, scale, gbias, te=None,
@@ -881,8 +891,11 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
         return flat_w, m_embs, scal
 
     def plan(generator, conditions, prepared=None, *, x0=None, step_noise=None):
-        values = torch.as_tensor(np.asarray(conditions[0]), dtype=torch.float32,
-                                 device=device)
+        values = conditions[0]
+        if not torch.is_tensor(values):
+            values = torch.as_tensor(np.asarray(values))
+        # a tensor on the device stays there: no transfer, no host sync
+        values = values.to(device=device, dtype=torch.float32)
         if values.dim() == 2:
             values = values[None]
         B = values.shape[0]

@@ -18,11 +18,12 @@ The kernel is K3's layer program (``csrc/program.cuh``) run for one block:
 one cooperative launch, one block per SM, walks the block's 4 ops (5 with
 the 1x1 residual conv) with 3 grid barriers. :func:`block_program` lays
 them out with ``ops/chain.py``'s builder, once per block's weights and (B,
-H): the template is cached, with placeholders where x, te and out go, which
-the C entry patches at each launch. The split-K partials and h live in a
-scratch buffer of the device's, shared by every template, so launches of K4
-must stay on one stream (as ``rows_conv``'s counters); a buffer that is
-outgrown is kept, so a CUDA graph that captured launches stays valid.
+H) and stream: the template is cached, with placeholders where x, te and
+out go, which the C entry patches at each launch. The split-K partials and h
+live in a scratch buffer of the (device, stream), shared by the templates of
+that stream, so launches on two streams at once never share one; a buffer
+that is outgrown is kept, so a CUDA graph that captured launches stays
+valid.
 
 ``fused_residual_block`` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises. Its gradient is the
@@ -96,16 +97,17 @@ def patch(ops, addrs: Dict[int, int]) -> None:
 
 
 class _Scratch:
-    """The device's buffer for the split-K partials and h. It only grows;
-    an outgrown buffer is kept, since cached templates and captured CUDA
-    graphs still point into it."""
+    """The buffers for the split-K partials and h, one per (device,
+    stream). Each only grows; an outgrown buffer is kept, since cached
+    templates and captured CUDA graphs still point into it."""
 
     def __init__(self):
-        self.bufs: Dict[str, list] = {}
+        self.bufs: Dict[Tuple[str, int], list] = {}
 
-    def at_least(self, device, n: int) -> int:
-        """Address of a float32 buffer of at least ``n`` elements."""
-        bufs = self.bufs.setdefault(str(device), [])
+    def at_least(self, device, n: int, stream: int = 0) -> int:
+        """Address of a float32 buffer of at least ``n`` elements for the
+        launches on ``stream`` (a pointer)."""
+        bufs = self.bufs.setdefault((str(device), int(stream or 0)), [])
         if not bufs or bufs[-1].numel() < n:
             size = max(n, 2 * bufs[-1].numel() if bufs else 0)
             bufs.append(torch.empty(size, dtype=torch.float32, device=device))
@@ -117,14 +119,14 @@ _templates: "OrderedDict[tuple, Tuple[ctypes.Array, int]]" = OrderedDict()
 
 
 def block_program(params, x, te, out, B: int, H: int, n_groups: int,
-                  grid: int, device) -> ctypes.Array:
+                  grid: int, device, stream: int = 0) -> ctypes.Array:
     """The ops of one residual block for a launch of ``grid`` blocks, as a
     ctypes array: conv1 [+ the 1x1 conv wr] | GN + te | conv2 | GN +
     residual into out, three barriers. ``x`` (B*H, Cin), ``te`` (B, Cout)
     and ``out`` (B*H, Cout) are tensors or :class:`Operand` placeholders.
     Batch rows are the program's segments; tiles and K splits follow
     ``ops/chain.py``'s builder. The partials and h are placed in the
-    device's scratch buffer."""
+    scratch buffer of (``device``, ``stream``)."""
     k, cin, cout = params["w1"].shape
     b = ch._ProgramBuilder(device, grid, n_groups)
     rconv = (params["wr"], params["br"]) if "wr" in params else None
@@ -134,18 +136,19 @@ def block_program(params, x, te, out, B: int, H: int, n_groups: int,
                 params["s2"], params["g2"], rconv, k, H, te, 0, cout,
                 h=Operand(HIDDEN, (B * H, cout)), out=out, sync=False)
     r0, r1 = b.region_elems
-    base = _scratch.at_least(device, r0 + r1 + B * H * cout)
+    base = _scratch.at_least(device, r0 + r1 + B * H * cout, stream)
     b.place([base, base + 4 * r0])
     patch(b.ops, {HIDDEN: base + 4 * (r0 + r1)})
     return (ch.ChainOp * len(b.ops))(*b.ops)
 
 
-def _template(params, x, n_groups: int):
-    """(ops with X, TE, OUT placeholders, grid) of a block on x, cached by
-    the weights' names and addresses, x's and w1's shapes and the group
-    count; the other shapes follow from these (``_check_cuda``)."""
+def _template(params, x, n_groups: int, stream: int = 0):
+    """(ops with X, TE, OUT placeholders, grid) of a block on x launched on
+    ``stream``, cached by the weights' names and addresses, x's and w1's
+    shapes, the group count and the stream; the other shapes follow from
+    these (``_check_cuda``)."""
     key = (x.device, x.shape, n_groups, params["w1"].shape, *params,
-           *[t.data_ptr() for t in params.values()])
+           *[t.data_ptr() for t in params.values()], stream)
     hit = _templates.get(key)
     if hit is not None:
         _templates.move_to_end(key)
@@ -155,7 +158,7 @@ def _template(params, x, n_groups: int):
     grid = ch.grid_size(x.device, "resblock")
     ops = block_program(params, Operand(X, (B * H, cin)),
                         Operand(TE, (B, cout)), Operand(OUT, (B * H, cout)),
-                        B, H, n_groups, grid, x.device)
+                        B, H, n_groups, grid, x.device, stream)
     _templates[key] = ops, grid
     if len(_templates) > _MAX_TEMPLATES:
         _templates.popitem(last=False)
@@ -167,11 +170,12 @@ def launch_resblock(x, te, params, out, n_groups: int, eps: float,
     """Launch the kernel on contiguous float32 CUDA tensors (unchecked).
     ``prof``: None, or zeroed int64 (5,) on the device that receives
     chain.PROFILE_SLOTS' clock cycles of block 0."""
-    ops, grid = _template(params, x, n_groups)
+    stream = cuda_lib.stream_of(x) if stream is None else stream
+    ops, grid = _template(params, x, n_groups, stream)
     rc = cuda_lib.lib("resblock").resblock_run(
         ctypes.addressof(ops), len(ops), x.data_ptr(), te.data_ptr(),
         out.data_ptr(), grid, None if prof is None else prof.data_ptr(),
-        cuda_lib.stream_of(x) if stream is None else stream)
+        stream)
     cuda_lib.check(rc, "resblock")
     fused_residual_block.launches += 1
 

@@ -1,0 +1,111 @@
+"""Plan quality of a port-trained flagship, on the card: train with the
+README recipe, then evaluate on the on-device protocol and its ablation.
+
+    python -m dadiff_tpu_torch.quality_run [--out build/quality/results]
+
+1. ``train_main`` at the flagship flags (horizon 32, dim 128, mults 1 2 4,
+   T = 100, 100 epochs of batch 256, lr 2e-4, seed 42) on
+   data/pointmaze_umaze_expert.npz; the checkpoint goes under
+   ``--train-dir`` (by default build/quality, outside what git commits).
+2. ``eval_ondevice.main`` at the published protocol (128 envs, 20 replans of
+   16 actions, planner chain) in three cells, each at seeds 42, 1042, 2042
+   and 3042: dynamics-aware best of 8 (projection, 8 candidates), best of
+   8 without the projection, and the projection with one candidate; and
+   the first cell on the EMA weights at seed 42.
+
+Prints one JSON line per cell and a summary line with the card's name and
+power limit; writes the results files under ``--out``. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import re
+import subprocess
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+DATASET = "npz:data/pointmaze_umaze_expert.npz"
+RECIPE = ["--dataset", DATASET, "--horizon", "32", "--dim", "128",
+          "--dim-mults", "1", "2", "4", "--n-timesteps", "100",
+          "--n-epochs", "100", "--batch-size", "256", "--lr", "2e-4"]
+PROTOCOL = ["--dataset", DATASET, "--batch", "128", "--n-replans", "20",
+            "--action-horizon", "16", "--megakernel"]
+# name: extra flags of eval_ondevice, run at each seed
+CELLS = {
+    "projection_bo8": ["--projection", "--n-candidates", "8"],
+    "no_projection_bo8": ["--n-candidates", "8"],
+    "projection_bo1": ["--projection", "--n-candidates", "1"],
+}
+SEEDS = (42, 1042, 2042, 3042)
+RUNS = [(f"{name}_seed{seed}", flags + ["--seed", str(seed)])
+        for seed in SEEDS for name, flags in CELLS.items()]
+RUNS.append(("projection_bo8_ema_seed42",
+             CELLS["projection_bo8"] + ["--seed", "42", "--use-ema"]))
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def latest_pt(log_dir: str) -> str:
+    pts = [p for p in glob.glob(os.path.join(log_dir, "checkpoint_step_*.pt"))
+           if not p.endswith(".train.pt")]
+    if not pts:
+        raise SystemExit(f"no checkpoint in {log_dir}")
+    return max(pts, key=lambda p: int(re.search(r"_(\d+)\.pt$", p).group(1)))
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--out", type=str, default="build/quality/results")
+    p.add_argument("--train-dir", type=str, default="build/quality")
+    args = p.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("quality_run needs a CUDA device")
+    from dadiff_tpu_torch import eval_ondevice
+    from dadiff_tpu_torch.cli import train_main
+
+    os.chdir(ROOT)
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    log_dir = train_main(RECIPE + ["--log-dir", args.train_dir,
+                                   "--run-name", "flagship", "--seed", "42",
+                                   "--save-freq", "0", "--eval-freq", "0"])
+    train_s = time.perf_counter() - t0
+    ckpt = latest_pt(log_dir)
+    records = [json.loads(line) for line in
+               open(os.path.join(log_dir, "metrics.jsonl"))]
+    summary = {"card": card, "checkpoint": ckpt, "train_s": train_s,
+               "train_steps": records[-1]["step"],
+               "loss_first_epoch": records[0].get("total"),
+               "loss_last_epoch": records[-1].get("total"), "cells": {}}
+    print(json.dumps({"training": summary}), flush=True)
+    for name, flags in RUNS:
+        out = eval_ondevice.main(["--checkpoint", ckpt, *PROTOCOL, *flags,
+                                  "--results-dir",
+                                  os.path.join(args.out, name)])
+        summary["cells"][name] = {k: out[k] for k in (
+            "success_rate", "mean_reward", "mean_final_distance",
+            "wallclock_s", "episodes_per_hour", "compile_s")}
+        print(json.dumps({name: summary["cells"][name]}), flush=True)
+    summary["card_after"] = card_line()
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -127,7 +127,7 @@ def main(argv=None):
     if dataset_spec is None:
         raise SystemExit(f"No default dataset for {args.env}; pass --dataset")
     diffusion, dataset = load_model(args.checkpoint, dataset_spec,
-                                    device=device)
+                                    device=device, use_ema=args.use_ema)
     requested = 200 if args.sampling_timesteps is None else args.sampling_timesteps
     sampling_timesteps = min(requested, diffusion.n_timesteps)
     policy = build_policy_from_args(args, diffusion, dataset, dataset_spec,

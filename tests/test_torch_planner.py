@@ -441,7 +441,8 @@ def _plain_launchers(monkeypatch):
     version written into ``out``, counted as a launch."""
 
     def conv(xa, xb, w, bias, out, mode, k, seg_in, stream=None, scratch=None,
-             t=None):
+             t=None, counters=None):
+        assert t.splits == 1 or counters.numel() >= t.tiles
         out.copy_(pl.rows_conv_plain(xa, xb, w, bias, mode, k, seg_in))
         pl.rows_conv.launches += 1
 

@@ -137,13 +137,19 @@ def test_port_imports_no_jax():
             "dadiff_tpu_torch.utils.training", "dadiff_tpu_torch.train",
             "dadiff_tpu_torch.models.fused_unet",
             "dadiff_tpu_torch.models.fast_sampler",
-            "dadiff_tpu_torch.probe_megakernel"} <= set(names)
+            "dadiff_tpu_torch.probe_megakernel",
+            "dadiff_tpu_torch.envs.pointmaze_jax",
+            "dadiff_tpu_torch.envs.rollout", "dadiff_tpu_torch.envs.host",
+            "dadiff_tpu_torch.envs.vector_eval",
+            "dadiff_tpu_torch.eval_ondevice",
+            "dadiff_tpu_torch.evaluate"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dadiff_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dadiff_tpu', "
+        "'gymnasium')]\n"
         "assert not bad, bad\n"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
