@@ -34,8 +34,16 @@
    version; a served chain (8 chains) and an evaluator chain (64 chains),
    and two K4 launches, on two streams at once against each alone; and,
    where gymnasium imports, ``python -m dadiff_tpu_torch.evaluate
-   --batched --megakernel``.
-6. Prints the card, the kernel table as one JSON line, and as the last line
+   --batched --megakernel``. At the 1,024-chain wave's shapes it times K2's
+   ``rows_conv`` and ``rows_conv_gn`` beside cuDNN's conv and the library
+   composition.
+6. Drives the few-call planners (``fewcall_phase``): distills a consistency
+   student from the trained checkpoint through
+   ``dadiff_tpu_torch.cli.distill_main``, plans bo8 through DDIM, DPM++,
+   warm start and the student (each held against the CPU) and at 1,024
+   chains, runs ``eval_ondevice`` with the student and with warm start, and
+   checks that ``--megakernel`` refuses them.
+7. Prints the card, the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
@@ -87,6 +95,17 @@ TOL_CHAIN_F32 = 2e-3  # tests/test_pallas_planner.py's tolerance for the chain
 # the other way (2^-8 relative) and 100 steps carry it on
 TOL_CHAIN_BF16 = 5e-2
 TOL_RESBLOCK = 1e-4   # tests/test_pallas_resblock.py's own, f32 throughout
+# the few-call phase: distillation steps and batch, and the warm depth
+FEW_STEPS, FEW_BATCH, FEW_K = 60, 64, 40
+# the few-call plans on the card against the same function on the CPU (f32,
+# TF32 off, the same draws) are held to TOL_CHAIN_F32; a consistency plan's
+# first call, at t = T-1, reads x0 off the model's eps times
+# sqrt((1 - abar)/abar), 6,417 at T-1 of the flagship's schedule, so the f32
+# model's rounding on two devices (up to ~5e-6: the f32 K2 chain is 4.3e-6
+# from its plain version on the card) becomes up to ~3e-2 there, and each
+# later call re-noises that estimate (times sqrt(abar_t)) and reads it back
+# (over sqrt(abar_t)): the error carries through every call of the plan
+TOL_FEW_TOP = 5e-2
 
 
 def log(msg: str) -> None:
@@ -646,6 +665,106 @@ def hold_rows_conv_gn(fused, dtypes, g):
     return err, worst
 
 
+def conv_buffers(conv_calls, g):
+    """Operands of each conv of ``conv_calls`` ((rows, cin_a, cin_b, cout,
+    mode, k, seg) each) with bf16 weights, for ``rows_conv`` (the first
+    seven) and, channels-first in bf16, for cuDNN (the last three)."""
+    from dadiff_tpu_torch.ops.planner import UP
+
+    bufs = []
+    for R, ca, cb, cout, mode, k, seg in conv_calls:
+        xa = torch.randn(R, ca, device="cuda", generator=g)
+        xb = torch.randn(R, cb, device="cuda", generator=g) if cb else None
+        taps = 4 if mode == UP else k
+        w = (torch.randn(taps * (ca + cb), cout, device="cuda", generator=g)
+             / (ca + cb) ** 0.5).to(torch.bfloat16)
+        bias = torch.randn(1, cout, device="cuda", generator=g)
+        xcat = xa if xb is None else torch.cat([xa, xb], 1)
+        x_lib = xcat.reshape(R // seg, seg, ca + cb).permute(0, 2, 1) \
+            .contiguous().to(torch.bfloat16)
+        wf = w.float()
+        if mode == UP:
+            w_lib = torch.stack([wf[t * (ca + cb):(t + 1) * (ca + cb)]
+                                 for t in range(4)], dim=2)
+        else:
+            w_lib = wf.reshape(k, ca + cb, cout).permute(2, 1, 0)
+        bufs.append((xa, xb, w, bias, mode, k, seg,
+                     x_lib, w_lib.contiguous().to(torch.bfloat16),
+                     bias.reshape(-1).to(torch.bfloat16)))
+    return bufs
+
+
+def lib_conv(x, w, b, mode, k):
+    """cuDNN's conv of the same function as ``rows_conv``, channels-first."""
+    import torch.nn.functional as F
+    from dadiff_tpu_torch.ops.planner import DOWN, UP
+
+    if mode == UP:
+        return F.conv_transpose1d(x, w, b, stride=2, padding=1)
+    return F.conv1d(x, w, b, stride=2 if mode == DOWN else 1, padding=k // 2)
+
+
+def lib_operands(a):
+    """A (conv, GroupNorm) pair's operands channels-first in bf16 for
+    cuDNN's conv."""
+    xa, xb, w, bias, k, seg, scale, gbias, te, res = a
+    x = xa if xb is None else torch.cat([xa, xb], 1)
+    R, cin = x.shape
+    cout = w.shape[1]
+    return (x.reshape(R // seg, seg, cin).permute(0, 2, 1).contiguous()
+            .to(torch.bfloat16),
+            w.float().reshape(k, cin, cout).permute(2, 1, 0).contiguous()
+            .to(torch.bfloat16), bias.reshape(-1).to(torch.bfloat16),
+            scale, gbias, None if te is None else te[:, None],
+            None if res is None else res.reshape(R // seg, seg, cout)
+            .permute(0, 2, 1).contiguous())
+
+
+def lib_gn(xc, wc, bc, scale, gbias, te, res):
+    """cuDNN's bf16 conv, then F.group_norm and F.mish, channels-first: the
+    library composition of ``rows_conv_gn``."""
+    import torch.nn.functional as F
+
+    y = F.conv1d(xc, wc, bc, padding=wc.shape[2] // 2).float()
+    y = F.mish(F.group_norm(y, 8, scale, gbias, 1e-5))
+    if te is not None:
+        y = y + te
+    return y if res is None else y + res
+
+
+def gn_buffers(fused, g):
+    """Operands of each fused pair of ``fused`` (step_launches' "conv_gn"
+    entries) with bf16 weights and its adds, as the wave launches them."""
+    bufs = []
+    for _, R, ca, cb, cout, _, k, seg, has_te, has_res in fused:
+        base = gn_case(R, ca, cb, cout, k, seg, torch.bfloat16, g)
+        te = torch.randn(cout, device="cuda", generator=g) if has_te else None
+        res = (torch.randn(R, cout, device="cuda", generator=g) if has_res
+               else None)
+        bufs.append((*base, te, res))
+    return bufs
+
+
+def gn_pair_times(call):
+    """(ms of operations, ms of bytes) at the peaks for one fused pair
+    (a step_launches "conv_gn" entry): bf16 products and the norm's f32
+    operations; the bytes the pair moves."""
+    from dadiff_tpu_torch.ops.planner import SAME
+
+    _, R, ca, cb, cout, _, k, seg, has_te, has_res = call
+    fl, nb = conv_cost(R, ca, cb, cout, SAME, k, 2)
+    nb += 4 * cout * (2 + has_te) + 4 * R * cout * has_res
+    return (fl / BF16_FLOPS * 1e3 + 20.0 * R * cout / F32_FLOPS * 1e3,
+            nb / HBM_BPS * 1e3)
+
+
+def gn_pair_bound(fused):
+    """(bound ms, by) of a step's fused pairs."""
+    t_ops = sum(gn_pair_times(c)[0] for c in fused)
+    t_bytes = sum(gn_pair_times(c)[1] for c in fused)
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
 def kernel_phase(unet, rows, D):
     """K1 and the K2 kernels against their plain versions, and their times
     over the launches of one denoise step."""
@@ -653,7 +772,7 @@ def kernel_phase(unet, rows, D):
     import torch.nn.functional as F
     from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain
     from dadiff_tpu_torch.ops.planner import (
-        DOWN, SAME, UP, StepConfig, ddpm_project_step, ddpm_project_step_plain,
+        SAME, UP, StepConfig, ddpm_project_step, ddpm_project_step_plain,
         rows_conv, rows_conv_gn_plain, rows_conv_plain,
     )
     from dadiff_tpu_torch.cli import maze_grid_for_env
@@ -753,34 +872,9 @@ def kernel_phase(unet, rows, D):
     conv_calls = [c[1:8] for c in calls]
     err = hold_rows_conv(conv_calls, (torch.float32, torch.bfloat16), g)
 
-    conv_bufs = []
-    bnd = 0.0
-    for R, ca, cb, cout, mode, k, seg in conv_calls:
-        xa = torch.randn(R, ca, device=dev, generator=g)
-        xb = torch.randn(R, cb, device=dev, generator=g) if cb else None
-        taps = 4 if mode == UP else k
-        w = (torch.randn(taps * (ca + cb), cout, device=dev, generator=g)
-             / (ca + cb) ** 0.5).to(torch.bfloat16)
-        bias = torch.randn(1, cout, device=dev, generator=g)
-        xcat = xa if xb is None else torch.cat([xa, xb], 1)
-        x_lib = xcat.reshape(R // seg, seg, ca + cb).permute(0, 2, 1) \
-            .contiguous().to(torch.bfloat16)
-        wf = w.float()
-        if mode == UP:
-            w_lib = torch.stack([wf[t * (ca + cb):(t + 1) * (ca + cb)]
-                                 for t in range(4)], dim=2)
-        else:
-            w_lib = wf.reshape(k, ca + cb, cout).permute(2, 1, 0)
-        conv_bufs.append((xa, xb, w, bias, mode, k, seg,
-                          x_lib, w_lib.contiguous().to(torch.bfloat16),
-                          bias.reshape(-1).to(torch.bfloat16)))
-        bnd += bound_ms(*conv_cost(R, ca, cb, cout, mode, k, 2), BF16_FLOPS)[0]
-
-    def lib_conv(x, w, b, mode, k):
-        if mode == UP:
-            return F.conv_transpose1d(x, w, b, stride=2, padding=1)
-        return F.conv1d(x, w, b, stride=2 if mode == DOWN else 1,
-                        padding=k // 2)
+    conv_bufs = conv_buffers(conv_calls, g)
+    bnd = sum(bound_ms(*conv_cost(R, ca, cb, cout, mode, k, 2), BF16_FLOPS)[0]
+              for R, ca, cb, cout, mode, k, seg in conv_calls)
 
     def k2():
         return [rows_conv(*c[:7]) for c in conv_bufs]
@@ -833,19 +927,10 @@ def kernel_phase(unet, rows, D):
         ops.begin("pair")
         return ops.conv_gn(*a)
 
-    gn_bufs, per_pair, pair_bound_us = [], [], []
-    t_ops = t_bytes = 0.0
-    for _, R, ca, cb, cout, _, k, seg, has_te, has_res in fused:
-        base = gn_case(R, ca, cb, cout, k, seg, torch.bfloat16, g)
-        te = torch.randn(cout, device=dev, generator=g) if has_te else None
-        res = torch.randn(R, cout, device=dev, generator=g) if has_res else None
-        gn_bufs.append((*base, te, res))
-        fl, nb = conv_cost(R, ca, cb, cout, SAME, k, 2)
-        nb += 4 * cout * (2 + has_te) + 4 * R * cout * has_res
-        ops_ms = fl / BF16_FLOPS * 1e3 + 20.0 * R * cout / F32_FLOPS * 1e3
-        t_ops, t_bytes = t_ops + ops_ms, t_bytes + nb / HBM_BPS * 1e3
-        pair_bound_us.append(1e3 * max(ops_ms, nb / HBM_BPS * 1e3))
-    gn_bnd = max(t_ops, t_bytes)
+    gn_bufs = gn_buffers(fused, g)
+    per_pair = []
+    pair_bound_us = [1e3 * max(gn_pair_times(c)) for c in fused]
+    gn_bnd, gn_by = gn_pair_bound(fused)
 
     def unfused(a):
         """rows_conv then K1: the pair as two launches, unfused."""
@@ -854,28 +939,6 @@ def kernel_phase(unet, rows, D):
         return gn_mish(y.reshape(R // a[5], a[5], C), a[6], a[7], te=a[8],
                        res=None if a[9] is None else a[9].reshape(
                            R // a[5], a[5], C))
-
-    def lib_operands(a):
-        """The same pair channels-first in bf16 for cuDNN's conv."""
-        xa, xb, w, bias, k, seg, scale, gbias, te, res = a
-        x = xa if xb is None else torch.cat([xa, xb], 1)
-        R, cin = x.shape
-        cout = w.shape[1]
-        return (x.reshape(R // seg, seg, cin).permute(0, 2, 1).contiguous()
-                .to(torch.bfloat16),
-                w.float().reshape(k, cin, cout).permute(2, 1, 0).contiguous()
-                .to(torch.bfloat16), bias.reshape(-1).to(torch.bfloat16),
-                scale, gbias, None if te is None else te[:, None],
-                None if res is None else res.reshape(R // seg, seg, cout)
-                .permute(0, 2, 1).contiguous())
-
-    def lib_gn(xc, wc, bc, scale, gbias, te, res):
-        """cuDNN's bf16 conv, then F.group_norm and F.mish, channels-first."""
-        y = F.conv1d(xc, wc, bc, padding=wc.shape[2] // 2).float()
-        y = F.mish(F.group_norm(y, 8, scale, gbias, 1e-5))
-        if te is not None:
-            y = y + te
-        return y if res is None else y + res
 
     lib_bufs = [lib_operands(a) for a in gn_bufs]
     for a, bound_us in zip(gn_bufs, pair_bound_us):
@@ -912,7 +975,7 @@ def kernel_phase(unet, rows, D):
         library_ms=None,
         library_composition_ms=graph_ms(
             lambda: [lib_gn(*b) for b in lib_bufs], 20),
-        bound_ms=gn_bnd, bound_by="operations" if t_ops > t_bytes else "bytes",
+        bound_ms=gn_bnd, bound_by=gn_by,
         per="denoise step", launches_per_step=len(gn_bufs),
         ms_per_launch=[q["us"] / 1e3 for q in per_pair])
 
@@ -1316,6 +1379,49 @@ ONDEVICE_KEYS = (
     "per_env_success")
 
 
+def step_library_times(calls, g) -> dict:
+    """``rows_conv`` over every conv of a denoise step's ``calls`` (bf16
+    weights, the fused ones without their epilogue) and ``rows_conv_gn``
+    over its fused pairs (as the wave launches them, on its own buffers),
+    each replayed from a CUDA graph, beside the library's time for the same
+    function on the same inputs (one cuDNN bf16 conv per conv; cuDNN's conv,
+    F.group_norm, F.mish and the adds per pair), timed and never used by
+    the port, and the bound."""
+    from dadiff_tpu_torch.ops.planner import _CudaOps, rows_conv
+
+    conv_calls = [c[1:8] for c in calls]
+    conv_bufs = conv_buffers(conv_calls, g)
+    costs = [conv_cost(R, ca, cb, cout, mode, k, 2)
+             for R, ca, cb, cout, mode, k, _ in conv_calls]
+    t_ops = sum(fl for fl, _ in costs) / BF16_FLOPS * 1e3
+    t_bytes = sum(nb for _, nb in costs) / HBM_BPS * 1e3
+    out = {"rows_conv": dict(
+        ms=graph_ms(lambda: [rows_conv(*c[:7]) for c in conv_bufs], 5),
+        library_ms=graph_ms(lambda: [lib_conv(c[7], c[8], c[9], c[4], c[5])
+                                     for c in conv_bufs], 5),
+        bound_ms=sum(bound_ms(fl, nb, BF16_FLOPS)[0] for fl, nb in costs),
+        bound_by="operations" if t_ops > t_bytes else "bytes",
+        launches_per_step=len(conv_bufs))}
+    del conv_bufs
+    fused = [c for c in calls if c[0] == "conv_gn"]
+    gn_bufs = gn_buffers(fused, g)
+    lib_bufs = [lib_operands(a) for a in gn_bufs]
+    ops = _CudaOps("cuda")
+
+    def k5():
+        ops.begin("step")
+        return [ops.conv_gn(*a) for a in gn_bufs]
+
+    b_ms, b_by = gn_pair_bound(fused)
+    out["rows_conv_gn"] = dict(
+        ms=graph_ms(k5, 5),
+        library_ms=graph_ms(lambda: [lib_gn(*b) for b in lib_bufs], 5),
+        bound_ms=b_ms, bound_by=b_by, launches_per_step=len(gn_bufs))
+    for name, r in out.items():
+        r["kernel_over_library"] = r["ms"] / r["library_ms"]
+    return out
+
+
 def ondevice_eval_phase(ckpt: Path, policy, results_dir: Path) -> dict:
     """The on-device evaluation entry point at the published protocol on the
     trained checkpoint (150 steps of training: the success rate is logged,
@@ -1323,8 +1429,8 @@ def ondevice_eval_phase(ckpt: Path, policy, results_dir: Path) -> dict:
     (untimed, timed) of EVAL_REPLANS waves of 1,024 chains, 3,612 K2
     launches each and no K1. Then a 1,024-chain wave on the chain's own
     buffers: replayed from its graph equal to host-driven bit for bit, both
-    timed, with its bound; ``ddpm_project_step`` at 1,024 chains; peak
-    memory."""
+    timed, with its bound; ``ddpm_project_step`` at 1,024 chains; K2's
+    kernels at the wave's shapes beside the library's time; peak memory."""
     from dadiff_tpu_torch import eval_ondevice
     from dadiff_tpu_torch.ops.planner import (
         StepConfig, _PlainOps, build_interleaved_projection,
@@ -1380,6 +1486,9 @@ def ondevice_eval_phase(ckpt: Path, policy, results_dir: Path) -> dict:
     conv_err = hold_rows_conv([c[1:8] for c in calls], (torch.bfloat16,), g)
     gn_err, gn_worst = hold_rows_conv_gn(
         [c for c in calls if c[0] == "conv_gn"], (torch.bfloat16,), g)
+    library = step_library_times(calls, g)
+    log(f"K2 at {EVAL_CHAINS * H} rows, per denoise step against the "
+        f"library: {json.dumps(library)}")
 
     # one wave of the evaluator's shape: 16 groups of 64 chains
     M, b = (t.to(dev) for t in build_interleaved_projection(
@@ -1450,7 +1559,258 @@ def ondevice_eval_phase(ckpt: Path, policy, results_dir: Path) -> dict:
         wave_bound_ms=b_ms, wave_bound_by=b_by, wave_flops=flops,
         waves_s=waves_s, step_us=step_ms * 1e3,
         step_share_of_wave=T_STEPS * step_ms / wave_ms,
-        step_bound_us=step_bound * 1e3)
+        step_bound_us=step_bound * 1e3, library=library)
+
+
+def refused(fn, exc, match: str) -> bool:
+    """True when ``fn()`` raises ``exc`` with ``match`` in its message."""
+    try:
+        fn()
+    except exc as e:
+        return match in str(e)
+    return False
+
+
+def _timed_samplers(rollout, spans):
+    """``rollout.make_sampler`` whose plans record a pair of CUDA events
+    around each call into ``spans``; returns the original."""
+    original = rollout.make_sampler
+
+    def make(*args, **kw):
+        plan = original(*args, **kw)
+
+        def timed(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = plan(*a, **k)
+            ev[1].record()
+            spans.append(ev)
+            return out
+
+        timed.timesteps, timed.stochastic = plan.timesteps, plan.stochastic
+        return timed
+
+    rollout.make_sampler = make
+    return original
+
+
+def fewcall_phase(ckpt: Path, policy, root: Path, results_dir: Path,
+                  card: str) -> dict:
+    """The few-call planners through their entry points at the flagship
+    width, with the counters set to 0 before and read after (the module
+    path, as the JAX package runs them through XLA: no port kernel):
+    ``distill_main`` for FEW_STEPS steps of batch FEW_BATCH from the trained
+    checkpoint, its train step timed with CUDA events; the student reloaded
+    and its marker checked; bo8 plans through DDIM-10 (eta 0 and 0.5),
+    DPM++-10, DDPM warm K=FEW_K from a previous plan and the student at 1
+    and 4 calls, each held against the same function on the CPU on the same
+    draws and timed; DDIM-10 and the student at 1 call at 1,024 chains;
+    ``eval_ondevice`` at the published protocol with the student at 1 call
+    and with warm start K=FEW_K, the planner's calls bracketed by CUDA
+    events; and the refusals."""
+    from dadiff_tpu_torch import eval_ondevice
+    from dadiff_tpu_torch.cli import (
+        build_policy_from_args, distill_main, load_model,
+    )
+    from dadiff_tpu_torch.datasets.sequence import create_dataloader
+    from dadiff_tpu_torch.envs import rollout
+    from dadiff_tpu_torch.guides.sampling import (
+        conditions_for_initial_obs, make_sampler,
+    )
+    from dadiff_tpu_torch.losses import make_generators
+    from dadiff_tpu_torch.models.consistency import make_cd_loss
+    from dadiff_tpu_torch.serve import build_server_parser
+    from dadiff_tpu_torch.utils import training as tt
+
+    reset_counts()
+    t0 = time.perf_counter()
+    log_dir = Path(distill_main([
+        "--checkpoint", str(ckpt), "--dataset", DATASET, "--n-epochs", "1",
+        "--max-steps", str(FEW_STEPS), "--batch-size", str(FEW_BATCH),
+        "--warmup-steps", "10", "--log-freq", str(LOG_FREQ), "--save-freq",
+        "0", "--seed", str(SEED), "--log-dir", str(root / "distill")]))
+    distill_s = time.perf_counter() - t0
+    record = json.loads((log_dir / "metrics.jsonl").read_text()
+                        .splitlines()[-1])
+    series = record["total_series"]
+    require(record["step"] == FEW_STEPS and len(series) > 1
+            and all(v == v and abs(v) < 1e6 for v in series),
+            f"distillation ran {record['step']} steps, loss finite: {series}")
+    student_pt = log_dir / f"checkpoint_step_{FEW_STEPS}.pt"
+    student, sdata = load_model(str(student_pt), DATASET, device="cuda")
+    require(sdata.checkpoint_config.get("consistency") is True,
+            "the student's checkpoint is marked consistency: true")
+    require(refused(lambda: eval_ondevice.main([
+        "--checkpoint", str(student_pt), "--dataset", DATASET,
+        "--results-dir", ""]), SystemExit, "--sampler consistency"),
+        "evaluating the student without --sampler consistency exits")
+
+    # the distill step alone: CD loss (teacher DDIM step, student, EMA
+    # target), grad, clip, Adam, EMA, at batch FEW_BATCH, CUDA events
+    teacher, tdata = load_model(str(ckpt), DATASET, device="cuda")
+    frozen = {n: p.detach().clone() for n, p in teacher.named_parameters()}
+    teacher.train()
+    state = tt.TrainState(teacher, tt.make_optimizer(teacher.parameters()),
+                          tt.EMA(teacher, 0.95).shadow)
+    step = tt.make_train_step(
+        make_cd_loss(teacher, frozen),
+        lr_schedule=tt.warmup_cosine_schedule(1e-4, 10, 10000),
+        gradient_clip=1.0, ema_decay=0.95, loss_takes_ema=True)
+    gens = make_generators(1, SEED, "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
+        create_dataloader(tdata, FEW_BATCH, seed=SEED))).items()}
+    step_ms = cuda_ms(lambda: step(state, batch, gens), 20, warmup=3)
+    del state, step, frozen
+    log(f"distill: {FEW_STEPS} steps of batch {FEW_BATCH} in "
+        f"{distill_s:.1f} s (set-up included); loss {series[0]:.4f} (first "
+        f"logged) -> {series[-1]:.4f} (last); a step {step_ms:.3f} ms (CUDA "
+        f"events, 20 steps); card {card}")
+
+    # bo8 plans through every new sampler, on the card and on the CPU
+    teacher, _ = load_model(str(ckpt), DATASET, device="cuda")
+    cpu = {"teacher": load_model(str(ckpt), DATASET, device="cpu")[0],
+           "student": load_model(str(student_pt), DATASET, device="cpu")[0]}
+    card_models = {"teacher": teacher, "student": student}
+    spec, P, stats = (policy._sampler_config["projection"], policy._P,
+                      policy._stats)
+    P_cpu, stats_cpu = P.cpu(), type(stats)(*(v.cpu() for v in stats))
+    H, D = teacher.horizon, teacher.transition_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    obs = (torch.randn(1, teacher.observation_dim, device="cuda",
+                       generator=g) * 0.5).repeat(N_CAND, 1)
+    cond = conditions_for_initial_obs(obs, teacher.observation_dim, H, D)
+    cond_cpu = type(cond)(cond.values.cpu(), cond.mask.cpu())
+    cases = [
+        ("ddim10", "teacher", dict(sampler="ddim", sampling_timesteps=10),
+         TOL_CHAIN_F32),
+        ("ddim10_eta0.5", "teacher", dict(sampler="ddim",
+                                          sampling_timesteps=10,
+                                          ddim_eta=0.5), TOL_CHAIN_F32),
+        ("dpmpp10", "teacher", dict(sampler="dpmpp", sampling_timesteps=10),
+         TOL_CHAIN_F32),
+        (f"ddpm_warm{FEW_K}", "teacher", dict(warm_start_from=FEW_K),
+         TOL_CHAIN_F32),
+        ("consistency1", "student", dict(sampler="consistency",
+                                         sampling_timesteps=1), TOL_FEW_TOP),
+        ("consistency4", "student", dict(sampler="consistency",
+                                         sampling_timesteps=4), TOL_FEW_TOP),
+    ]
+    plans8, prev = {}, None
+    for name, who, kw, tol in cases:
+        plan = make_sampler(card_models[who], projection=spec, **kw)
+        n = len(plan.timesteps)
+        draws = dict(init_noise=torch.randn(N_CAND, H, D, device="cuda",
+                                            generator=g))
+        if plan.stochastic:
+            n_draws = n - 1 if kw.get("sampler") == "consistency" else n
+            draws["step_noise"] = torch.randn(n_draws, N_CAND, H, D,
+                                              device="cuda", generator=g)
+        if "warm_start_from" in kw:  # the previous plan, 16 actions on
+            draws["x_init"] = torch.cat(
+                [prev[:, EVAL_ACTIONS:],
+                 prev[:, -1:].expand(-1, EVAL_ACTIONS, -1)], dim=1)[:1]
+        got = plan(None, cond, P, stats, **draws)
+        ms = cuda_ms(lambda: plan(None, cond, P, stats, **draws), 3,
+                     warmup=1)
+        want = make_sampler(cpu[who], projection=spec, **kw)(
+            None, cond_cpu, P_cpu, stats_cpu,
+            **{k: v.cpu() for k, v in draws.items()})
+        err = (got.cpu() - want).abs().max().item()
+        log(f"few-call bo8 {name}: {n} model calls, {ms:.3f} ms (CUDA "
+            f"events, module path), card vs CPU max|err| {err:.3e} "
+            f"(tolerance {tol}); card {card}")
+        require(err <= tol and bool(torch.isfinite(got).all()),
+                f"few-call plan {name} on the card vs the CPU: {err}")
+        plans8[name] = {"model_calls": n, "ms": ms, "max_abs_err": err,
+                        "tolerance": tol}
+        prev = got if name == "ddim10" else prev
+
+    # the on-device evaluator's wave size: 128 envs x 8 candidates
+    x0, _, cond1024, _ = _wave_inputs(teacher, EVAL_CHAINS, SEED + 21)
+    plans1024 = {}
+    for name, who, kw in (("ddim10", "teacher", dict(
+            sampler="ddim", sampling_timesteps=10)),
+            ("consistency1", "student", dict(sampler="consistency",
+                                             sampling_timesteps=1))):
+        plan = make_sampler(card_models[who], projection=spec, **kw)
+        init = x0.reshape(EVAL_CHAINS, H, D)
+        got = plan(None, cond1024, P, stats, init_noise=init)
+        require(got.shape == (EVAL_CHAINS, H, D)
+                and bool(torch.isfinite(got).all()),
+                f"{name} at {EVAL_CHAINS} chains finite")
+        ms = cuda_ms(lambda: plan(None, cond1024, P, stats,
+                                  init_noise=init), 3, warmup=1)
+        plans1024[name] = {"model_calls": len(plan.timesteps), "ms": ms}
+        log(f"few-call {name} at {EVAL_CHAINS} chains: "
+            f"{len(plan.timesteps)} model calls, {ms:.3f} ms (CUDA events, "
+            f"module path); card {card}")
+
+    # the on-device protocol through the entry point; TF32 convs on, the
+    # library's default, as a user of the CLI runs it
+    runs = {}
+    for name, pt, flags in (
+            ("consistency1", student_pt, ["--sampler", "consistency",
+                                          "--sampling-timesteps", "1"]),
+            (f"ddpm_warm{FEW_K}", ckpt, ["--warm-start-t", str(FEW_K)])):
+        spans = []
+        original = _timed_samplers(rollout, spans)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            out = eval_ondevice.main([
+                "--checkpoint", str(pt), "--dataset", DATASET,
+                "--projection", "--n-candidates", str(N_CAND), "--batch",
+                str(EVAL_ENVS), "--n-replans", str(EVAL_REPLANS),
+                "--action-horizon", str(EVAL_ACTIONS), "--seed",
+                str(EVAL_SEED), "--results-dir", str(results_dir), *flags])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            rollout.make_sampler = original
+        torch.cuda.synchronize()
+        require(len(spans) == 2 * EVAL_REPLANS,
+                f"{name}: {len(spans)} planner calls over two runs")
+        planner_s = sum(a.elapsed_time(b) for a, b in
+                        spans[EVAL_REPLANS:]) / 1e3
+        require(0.0 <= out["success_rate"] <= 1.0, f"{name} metrics")
+        runs[name] = {
+            "success_rate": out["success_rate"],
+            "wallclock_s": out["wallclock_s"], "planner_s": planner_s,
+            "share_outside_planner": 1.0 - planner_s / out["wallclock_s"],
+            "episodes_per_hour": out["episodes_per_hour"],
+            "first_run_s": out["compile_s"],
+            "model_calls_per_replan": out["model_calls_per_replan"]}
+        log(f"eval_ondevice {name}: success {out['success_rate']} over "
+            f"{EVAL_ENVS} episodes (not gated), timed run "
+            f"{out['wallclock_s']:.3f} s of which the planner "
+            f"{planner_s:.3f} s ({100 * (1 - planner_s / out['wallclock_s']):.1f}"
+            f"% outside it), {out['episodes_per_hour']:.0f} episodes/hour, "
+            f"model calls per replan {out['model_calls_per_replan']}; card "
+            f"{card}")
+    require(runs["consistency1"]["model_calls_per_replan"] == [1, 1]
+            and runs[f"ddpm_warm{FEW_K}"]["model_calls_per_replan"]
+            == [T_STEPS, FEW_K], f"model calls per replan: {runs}")
+
+    # the planner chain is the DDPM sampler: it refuses the rest
+    for flags in (["--sampler", "ddim"], ["--warm-start-t", str(FEW_K)]):
+        require(refused(lambda: eval_ondevice.main([
+            "--checkpoint", str(ckpt), "--dataset", DATASET, "--megakernel",
+            "--results-dir", "", *flags]), ValueError, "--megakernel"),
+            f"eval_ondevice --megakernel {flags} raises")
+        args = build_server_parser().parse_args(
+            ["--checkpoint", str(ckpt), "--dataset", DATASET,
+             "--megakernel", *flags])
+        require(refused(lambda: build_policy_from_args(
+            args, teacher, tdata, DATASET, T_STEPS), ValueError,
+            "--megakernel"), f"a served --megakernel {flags} raises")
+    counts = read_counts()
+    log(f"few-call path launches: {counts}")
+    require(not any(counts.values()),
+            "the few-call path runs the module path: no port kernel")
+    return {"distill": {"steps": FEW_STEPS, "batch": FEW_BATCH,
+                        "wall_s": distill_s, "loss_first": series[0],
+                        "loss_last": series[-1], "step_ms": step_ms},
+            "plans_8_chains": plans8, "plans_1024_chains": plans1024,
+            "eval_ondevice": runs, "card": card}
 
 
 def host_eval_phase(ckpt: Path, results_dir: Path) -> dict:
@@ -1660,6 +2020,9 @@ def main() -> int:
     chain64 = chain64_phase(policy)
     streams = two_stream_phase(policy)
     host_eval = host_eval_phase(ckpt, results_dir)
+    fewcall = fewcall_phase(ckpt, policy, ROOT / "build" / "dadiff_tpu_torch"
+                            / "smoke", results_dir, card)
+    log(f"fewcall_phase: {json.dumps(fewcall)}")
 
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
@@ -1679,6 +2042,11 @@ def main() -> int:
                      train_counts["resblock"]),
     }
     evaluation = ondevice["launches_by_kernel"]
+    for name in ("rows_conv", "rows_conv_gn"):
+        # the same kernels at the on-device evaluator's 32,768-row shapes
+        lib = ondevice["library"][name]
+        kern[name]["at_32768_rows"] = {k: lib[k] for k in (
+            "ms", "library_ms", "bound_ms", "bound_by", "kernel_over_library")}
     kernels = []
     for name, (source, replaces, launches) in table.items():
         r = kern[name]
@@ -1698,7 +2066,7 @@ def main() -> int:
                       "ms_by_fan_in", "ms_served", "unfused_ms",
                       "library_composition_ms", "ms_in_sequence", "grid",
                       "barriers_per_launch", "step_timing", "ms_per_launch",
-                      "bound_ms_per_launch"):
+                      "bound_ms_per_launch", "at_32768_rows"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     # K1 runs on the train-and-ladder path; on the serving path every

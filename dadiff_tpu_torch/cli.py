@@ -1,14 +1,16 @@
-"""Command-line pieces: training, and the planning path's flags, model
-loading and policy construction.
+"""Command-line pieces: training, consistency distillation, and the
+planning path's flags, model loading and policy construction.
 
 Counterpart of the JAX package's cli.py: build_train_parser :57 and train_main
 :147 (the U-Net family and the flagship flags, fine-tune and resume
 included; ``--model-type transformer``, ``--mesh-dp``, ``--config`` and
-``--dtype`` are not ported), build_eval_parser :695 (the flags of what is
-ported: a flag of a feature the port lacks, such as ``--sampler``,
-``--value-checkpoint``, ``--replan-deviation`` or ``--warm-start-t``, is
-refused by argparse), maze_grid_for_env :810, _apply_stored_normalizer :821,
-load_model :854 (the ``.pt`` branch, EMA weights included; orbax is
+``--dtype`` are not ported), distill_main :509 (the consistency method;
+``--method progressive`` is not ported), build_eval_parser :695 (the flags
+of what is ported, the samplers, warm start and ``--parity-mode``
+included: a flag of a feature the port lacks, such as
+``--value-checkpoint`` or ``--replan-deviation``, is refused by argparse),
+maze_grid_for_env :810, _apply_stored_normalizer :821, load_model :854 (the
+``.pt`` branch, EMA weights and the checkpoint's config included; orbax is
 JAX-only), build_policy_from_args :992 (the dynamics-aware branch and
 ``--megakernel``) and evaluate_main :1162. Everything runs on the card
 unless ``--device cpu`` is given.
@@ -239,6 +241,125 @@ def train_main(argv=None) -> str:
     return str(log_dir)
 
 
+def build_distill_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Consistency-distill a trained diffusion planner",
+        allow_abbrev=False)
+    p.add_argument("--checkpoint", type=str, required=True,
+                   help="teacher checkpoint (.pt)")
+    p.add_argument("--dataset", type=str, required=True,
+                   help="training dataset spec (same data the teacher saw)")
+    p.add_argument("--n-epochs", type=int, default=40)
+    p.add_argument("--max-steps", type=int, default=None,
+                   help="stop after this many steps, whatever the epoch")
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup-steps", type=int, default=200)
+    p.add_argument("--gradient-clip", type=float, default=1.0)
+    p.add_argument("--target-ema-decay", type=float, default=0.95,
+                   help="decay of the CD target network theta^- (the "
+                        "trainer's EMA shadow)")
+    p.add_argument("--sigma-data", type=float, default=0.5)
+    p.add_argument("--huber-c", type=float, default=None,
+                   help="pseudo-Huber c (default: iCT's 0.00054*sqrt(H*D))")
+    p.add_argument("--skip-steps", type=int, default=1,
+                   help="teacher DDIM gap k per consistency pair (t, t-k) — "
+                        "LCM's skipping-step; larger k = stronger signal per "
+                        "pair, coarser ODE discretization")
+    p.add_argument("--teacher-ema", action="store_true",
+                   help="distill from the teacher's EMA weights")
+    p.add_argument("--log-dir", type=str, default="./logs")
+    p.add_argument("--run-name", type=str, default=None)
+    p.add_argument("--save-freq", type=int, default=10000)
+    p.add_argument("--log-freq", type=int, default=50)
+    p.add_argument("--num-workers", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--resume", action="store_true",
+                   help="auto-resume the student from the run dir's latest "
+                        "checkpoint (runs --n-epochs MORE epochs)")
+    p.add_argument("--method", type=str, default="consistency",
+                   choices=["consistency", "progressive"],
+                   help="consistency = 1-4-call CM student "
+                        "(models/consistency.py); progressive is not "
+                        "ported")
+    return p
+
+
+def distill_main(argv=None) -> str:
+    """Distill a trained DDPM planner into a consistency student that plans
+    in 1-4 model calls (cli.py:509-690, the consistency method). The
+    student starts from the teacher's weights; the trainer's EMA shadow is
+    the CD target network; the checkpoints are the reference ``.pt`` schema
+    with ``consistency: true`` in their config. Returns the log directory."""
+    from dadiff_tpu_torch.datasets.sequence import create_dataloader
+    from dadiff_tpu_torch.models.consistency import make_cd_loss
+    from dadiff_tpu_torch.utils.training import (
+        Trainer,
+        count_parameters,
+        save_config,
+    )
+
+    args = build_distill_parser().parse_args(argv)
+    if args.method == "progressive":
+        raise NotImplementedError(
+            "progressive distillation is not ported yet (ROADMAP.md, Queue 1 "
+            "item 6: models/progressive.py)")
+    device = resolve_device(args.device)
+    torch.manual_seed(args.seed)
+    np.random.seed(args.seed)
+    diffusion, dataset = load_model(args.checkpoint, args.dataset,
+                                    device=device, use_ema=args.teacher_ema)
+    if dataset.checkpoint_config.get("consistency"):
+        # a teacher DDIM step through a consistency network would train on
+        # garbage targets
+        raise SystemExit(
+            "checkpoint is already a consistency-distilled student "
+            "(config consistency=true); distill from the DDPM teacher "
+            "checkpoint instead")
+    print(f"teacher: horizon={diffusion.horizon} T={diffusion.n_timesteps} "
+          f"params={count_parameters(diffusion.model):,} device={device}")
+    loader = create_dataloader(dataset, batch_size=args.batch_size,
+                               shuffle=True, num_workers=args.num_workers,
+                               seed=args.seed)
+    safe_ds = args.dataset.replace("/", "_").replace(":", "_")
+    log_dir = Path(args.log_dir) / safe_ds / (args.run_name or args.method)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    save_config(vars(args), str(log_dir / "config.json"))
+
+    # the student trains the loaded module in place: it starts as the
+    # teacher, whose weights stay frozen in this copy
+    teacher = {n: p.detach().clone() for n, p in diffusion.named_parameters()}
+    loss_fn = make_cd_loss(diffusion, teacher, sigma_data=args.sigma_data,
+                           huber_c=args.huber_c, skip_steps=args.skip_steps)
+    trainer = Trainer(
+        diffusion, loader, loss_fn, lr=args.lr,
+        warmup_steps=args.warmup_steps,
+        total_steps=args.n_epochs * len(loader),
+        gradient_clip=args.gradient_clip, use_ema=True,
+        ema_decay=args.target_ema_decay, log_dir=str(log_dir),
+        save_freq=args.save_freq, eval_freq=0, log_freq=args.log_freq,
+        loss_names=["consistency"], seed=args.seed,
+        normalizer=dataset.normalizer, loss_takes_ema=True,
+        extra_config={"consistency": True, "sigma_data": args.sigma_data,
+                      "teacher_checkpoint": args.checkpoint,
+                      "skip_steps": args.skip_steps})
+    start_epoch = 0
+    if args.resume:
+        resumed_epoch = trainer.load_latest()
+        if resumed_epoch is not None:
+            start_epoch = resumed_epoch
+            print(f"auto-resumed at step {trainer.global_step} "
+                  f"(epoch {start_epoch})")
+    try:
+        trainer.train(args.n_epochs, start_epoch=start_epoch,
+                      max_steps=args.max_steps)
+    finally:
+        trainer.close()
+    print(f"Distillation complete. Logs: {log_dir}")
+    return str(log_dir)
+
+
 def build_eval_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Plan with a diffusion planner", allow_abbrev=False)
@@ -253,23 +374,45 @@ def build_eval_parser() -> argparse.ArgumentParser:
                         "(defaults by env)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--sampling-timesteps", type=int, default=None,
-                   help="reverse-chain step budget (default 200, clamped to "
-                        "the trained chain)")
+                   help="reverse-chain step budget (default: 200, or 4 "
+                        "model calls for --sampler consistency)")
     p.add_argument("--projection-schedule", type=str, default="noise_schedule",
                    choices=["constant", "linear", "quadratic", "noise_schedule"])
     p.add_argument("--projection-strength", type=float, default=1.0)
+    p.add_argument("--parity-mode", action="store_true",
+                   help="reproduce the reference's as-implemented sampling "
+                        "(projection NOT applied during denoising)")
     p.add_argument("--wall-aware", action="store_true",
                    help="revert plan rows the projection drags into maze "
                         "wall cells (PointMaze envs only)")
     p.add_argument("--wall-margin", type=float, default=None,
                    help="wall probe margin for --wall-aware (default: "
                         "center cell only)")
+    p.add_argument("--sampler", type=str, default="ddpm",
+                   choices=["ddpm", "ddim", "dpmpp", "consistency"],
+                   help="ddim/dpmpp = strided fast sampling (with conditioning/"
+                        "projection composed); consistency = few-step "
+                        "multistep sampling with a distilled student checkpoint "
+                        "(python -m dadiff_tpu_torch.distill) — "
+                        "--sampling-timesteps is the model-call budget "
+                        "(default 4)")
     p.add_argument("--n-candidates", type=int, default=1,
                    help="best-of-N candidate plans per replan")
+    p.add_argument("--warm-start-t", type=int, default=None,
+                   help="receding-horizon warm start: replans re-noise the "
+                        "previous plan (shifted by the executed steps) to "
+                        "this timestep and denoise only t<K — ~T/K fewer "
+                        "model calls per replan after the first")
+    p.add_argument("--warm-start-auto", action="store_true",
+                   help="adaptive warm-start depth: pick each replan's "
+                        "re-noise depth from the measured drift between the "
+                        "executed observation and the previous plan (full "
+                        "chain when the drift is too large to re-noise "
+                        "over) — no per-task K tuning")
     p.add_argument("--megakernel", action="store_true",
                    help="run each replan wave (all candidates, conditioning, "
                         "per-step projection) through the planner chain's "
-                        "CUDA kernels (ops/planner.py)")
+                        "CUDA kernels (ops/planner.py); ddpm only")
     p.add_argument("--use-ema", action="store_true",
                    help="plan with the EMA weights if the checkpoint has them")
     # the evaluation protocol (evaluate_main)
@@ -322,7 +465,8 @@ def load_model(checkpoint_path: str, dataset_spec: str, horizon_hint=None,
     """Load a reference-schema ``.pt`` and the dataset normalizer, rebuild
     the model from the weight shapes and load it with ``strict=True``: the
     EMA weights if ``use_ema`` and the checkpoint has them, else the model's
-    (cli.py:854-920). Returns (diffusion on ``device``, dataset)."""
+    (cli.py:854-920). Returns (diffusion on ``device``, dataset); the
+    dataset's ``checkpoint_config`` is the checkpoint's stored config."""
     from dadiff_tpu_torch.datasets.sequence import SequenceDataset
     from dadiff_tpu_torch.io.torch_compat import (
         infer_model_config_from_checkpoint,
@@ -336,6 +480,8 @@ def load_model(checkpoint_path: str, dataset_spec: str, horizon_hint=None,
                               normalizer="LimitsNormalizer",
                               max_path_length=1000, use_padding=True)
     _apply_stored_normalizer(dataset, checkpoint.get("config", {}) or {})
+    # the checkpoint's provenance, e.g. the consistency student's marker
+    dataset.checkpoint_config = dict(checkpoint.get("config", {}) or {})
     diffusion = diffusion_from_checkpoint(
         checkpoint, dataset.observation_dim, dataset.action_dim, horizon,
         use_ema=use_ema)
@@ -379,7 +525,8 @@ def diffusion_from_checkpoint(checkpoint: dict, observation_dim: int,
 def build_policy_from_args(args, diffusion, dataset, dataset_spec: str,
                            sampling_timesteps: int):
     """The dynamics-aware policy an eval-parser namespace describes, wired
-    to the planner chain with ``--megakernel`` (cli.py:1086-1158)."""
+    to the planner chain with ``--megakernel`` (cli.py:1086-1158), which
+    raises for a sampler other than ddpm and for warm start."""
     from dadiff_tpu_torch.datasets.sources import load_episodes
     from dadiff_tpu_torch.dynamics.projection import ProjectionMatrixBuilder
     from dadiff_tpu_torch.dynamics.registry import get_dynamics_for_env
@@ -399,9 +546,11 @@ def build_policy_from_args(args, diffusion, dataset, dataset_spec: str,
         state_dim=state_dim, projection_schedule=args.projection_schedule,
         projection_strength=args.projection_strength,
         action_horizon=args.action_horizon,
-        sampling_timesteps=sampling_timesteps, wall_grid=wall_grid,
-        wall_margin=args.wall_margin, seed=args.seed,
-        n_candidates=args.n_candidates,
+        sampling_timesteps=sampling_timesteps, parity_mode=args.parity_mode,
+        wall_grid=wall_grid, wall_margin=args.wall_margin, seed=args.seed,
+        n_candidates=args.n_candidates, sampler=args.sampler,
+        warm_start_t=args.warm_start_t,
+        warm_start_auto=args.warm_start_auto,
     )
     if args.megakernel:
         from dadiff_tpu_torch.ops.planner import wire_policy_megakernel
@@ -420,12 +569,42 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def planning_timesteps(args, diffusion, dataset) -> int:
+    """The guards of a checkpoint against ``--sampler`` and the step budget
+    (cli.py:1184-1210): a consistency student must plan with ``--sampler
+    consistency`` (the reverse warns); ``--sampling-timesteps`` defaults to
+    4 model calls for consistency (at most 16) and 200 otherwise, clamped to
+    the trained chain."""
+    is_cm = bool(dataset.checkpoint_config.get("consistency"))
+    if is_cm and args.sampler != "consistency":
+        raise SystemExit(
+            "checkpoint is a consistency-distilled student (config "
+            "consistency=true); evaluate it with --sampler consistency")
+    if args.sampler == "consistency" and not is_cm:
+        print("WARNING: --sampler consistency with a checkpoint not marked "
+              "as distilled — expect garbage unless this really is a "
+              "consistency model")
+    if args.sampling_timesteps is None:
+        args.sampling_timesteps = 4 if args.sampler == "consistency" else 200
+    elif args.sampler == "consistency" and args.sampling_timesteps > 16:
+        raise SystemExit(
+            f"--sampler consistency interprets --sampling-timesteps as the "
+            f"model-call budget (<= 16); got {args.sampling_timesteps}. "
+            f"Omit the flag for the default budget of 4.")
+    steps = min(args.sampling_timesteps, diffusion.n_timesteps)
+    if steps != args.sampling_timesteps:
+        print(f"clamping sampling timesteps {args.sampling_timesteps} -> "
+              f"{steps} (trained {diffusion.n_timesteps})")
+    return steps
+
+
 def evaluate_main(argv=None) -> dict:
     """Evaluate a planner on a gymnasium env (cli.py:1162-1286): load the
-    checkpoint (``--use-ema``: its EMA weights), build the dynamics-aware
-    policy, run the sequential protocol or, with ``--batched``, all episodes
-    in lockstep, and write the timestamped results JSON with the JAX
-    package's keys. Returns the metrics."""
+    checkpoint (``--use-ema``: its EMA weights), check it against
+    ``--sampler``, build the dynamics-aware policy, run the sequential
+    protocol or, with ``--batched``, all episodes in lockstep, and write the
+    timestamped results JSON with the JAX package's keys. Returns the
+    metrics."""
     args = build_eval_parser().parse_args(argv)
     device = resolve_device(args.device)
     from dadiff_tpu_torch.envs.host import evaluate_policy, make_env, save_results
@@ -439,11 +618,7 @@ def evaluate_main(argv=None) -> dict:
           f"(checkpoint {args.checkpoint}) ===")
     diffusion, dataset = load_model(args.checkpoint, dataset_spec,
                                     device=device, use_ema=args.use_ema)
-    requested = 200 if args.sampling_timesteps is None else args.sampling_timesteps
-    sampling_timesteps = min(requested, diffusion.n_timesteps)
-    if sampling_timesteps != requested:
-        print(f"clamping sampling timesteps {requested} -> "
-              f"{sampling_timesteps} (trained {diffusion.n_timesteps})")
+    sampling_timesteps = planning_timesteps(args, diffusion, dataset)
     policy = build_policy_from_args(args, diffusion, dataset, dataset_spec,
                                     sampling_timesteps)
     if args.batched:
@@ -475,8 +650,8 @@ def evaluate_main(argv=None) -> dict:
         sampling_timesteps=sampling_timesteps, seed=args.seed,
         extra={
             # the JAX package's provenance keys; the port plans with the
-            # DDPM sampler, the goal scorer and the plan's own actions
-            "sampler": "ddpm",
+            # goal scorer and the plan's own actions
+            "sampler": args.sampler,
             "n_candidates": args.n_candidates,
             "candidate_scorer": "goal",
             "wall_penalty_weight": None,
@@ -484,11 +659,11 @@ def evaluate_main(argv=None) -> dict:
             "batched": args.batched,
             "wall_aware": args.wall_aware,
             "wall_margin": args.wall_margin,
-            "parity_mode": False,
+            "parity_mode": args.parity_mode,
             "projection_schedule": args.projection_schedule,
             "projection_strength": args.projection_strength,
             "action_horizon": args.action_horizon,
-            "warm_start_t": None,
+            "warm_start_t": args.warm_start_t,
             "replan_deviation": None,
             "guide_weight": None,
             "value_checkpoint": None,

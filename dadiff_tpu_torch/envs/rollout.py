@@ -11,8 +11,9 @@ With ``use_megakernel`` a replan is one wave of the planner chain
 (``ops/planner.py`` ``make_bo_sampler``, K2) over all envs and candidates:
 its operands are prepared once per ``evaluate`` call, so the first wave is
 driven from the host and captured in a CUDA graph and every later wave is a
-replay. Otherwise a replan is the DDPM sampler of guides/sampling.py (the
-module path), best of ``n_candidates`` by physical-space goal distance.
+replay. Otherwise a replan is a sampler of guides/sampling.py (the module
+path: ddpm, ddim, dpmpp or consistency, with or without warm start), best
+of ``n_candidates`` by physical-space goal distance.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from dadiff_tpu_torch.guides.sampling import (
 )
 from dadiff_tpu_torch.ops.projection import NormStats
 
-NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1 item 4: the remaining "
-              "samplers)")
+NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: parallelism, which "
+              "brings the mesh)")
 
 
 class RolloutMetrics(NamedTuple):
@@ -73,19 +74,24 @@ def make_ondevice_evaluator(
     model's normalized space. ``use_megakernel`` runs each replan through
     the planner chain, which bakes the projection from ``P`` and ``stats``
     at build time; its weights are bf16 on the card and f32 on the CPU, as
-    the TPU path takes bf16 and its interpret mode f32.
+    the TPU path takes bf16 and its interpret mode f32. The chain is the
+    DDPM sampler: with another ``sampler`` or with warm start it raises, as
+    the JAX evaluator does (rollout.py:84-87).
+
+    ``warm_start_t=K``: the first replan runs the full chain; every later
+    one re-noises the previous selected plan, shifted by ``action_horizon``
+    and its last row repeated, and denoises only the chain's steps below K.
 
     Hooks for tests: ``state`` replaces the reset; ``noise`` gives replan k
-    its randomness, ``noise[k]`` = (x0 (C*H, D), step_noise (T, C*H, D))
-    for C >= batch_size * n_candidates chains (the planner
-    chain takes all C, padding included; the module path the first
-    batch_size * n_candidates), as the JAX plan draws them from
-    ``init_key, noise_key = split(key)`` (pallas_planner.py:414-416).
+    its randomness, ``noise[k]`` = (x0 (C*H, D), step_noise (S, C*H, D) or
+    None). For the planner chain, C >= batch_size * n_candidates chains
+    (padding included) and S = T, as the JAX wave draws them from
+    ``init_key, noise_key = split(key)`` (pallas_planner.py:414-416). For
+    the module path the first batch_size * n_candidates chains are taken:
+    x0 is the sampler's ``init_noise`` and step_noise its ``step_noise``
+    (S steps; None for a deterministic sampler; for consistency the
+    re-noising draws), as guides/sampling.py draws them.
     """
-    if warm_start_t is not None:
-        raise NotImplementedError(f"warm start {NOT_PORTED}")
-    if sampler != "ddpm":
-        raise NotImplementedError(f"the {sampler} sampler {NOT_PORTED}")
     if mesh is not None:
         raise NotImplementedError(f"a device mesh {NOT_PORTED}")
     device = diffusion.device
@@ -93,12 +99,17 @@ def make_ondevice_evaluator(
     act_dim = diffusion.action_dim
     horizon = diffusion.horizon
     trans_dim = diffusion.transition_dim
+    if use_megakernel and sampler != "ddpm":
+        raise ValueError("--megakernel supports the ddpm sampler only")
+    if use_megakernel and warm_start_t is not None:
+        raise ValueError("--megakernel does not compose with warm start")
     if action_horizon > horizon:
         raise ValueError("action_horizon must be <= planning horizon")
 
-    mega_plan = plan = None
+    mega_plan = plan = plan_warm = None
     if use_megakernel:
-        if projection is not None and (P is None or stats is None):
+        if projection is not None and not projection.parity_mode and (
+                P is None or stats is None):
             raise ValueError("megakernel projection needs P and stats at "
                              "build time")
         from dadiff_tpu_torch.ops.planner import make_bo_sampler
@@ -111,9 +122,15 @@ def make_ondevice_evaluator(
                           else torch.bfloat16))
     else:
         plan = make_sampler(diffusion, projection=projection,
-                            sampling_timesteps=sampling_timesteps)
+                            sampling_timesteps=sampling_timesteps,
+                            sampler=sampler)
+        if warm_start_t is not None:
+            plan_warm = make_sampler(diffusion, projection=projection,
+                                     sampling_timesteps=sampling_timesteps,
+                                     sampler=sampler,
+                                     warm_start_from=warm_start_t)
 
-    def replan(generator, state, obs, stats, P, prepared, noise_k):
+    def replan(generator, state, obs, stats, P, prepared, noise_k, x_init):
         normed_obs = (obs - stats.obs_mean) / stats.obs_std
         x0, step_noise = noise_k if noise_k is not None else (None, None)
         if mega_plan is not None:
@@ -126,14 +143,20 @@ def make_ondevice_evaluator(
         cond = conditions_for_initial_obs(tiled, obs_dim, horizon, trans_dim)
         if x0 is not None:
             x0 = x0.reshape(-1, horizon, trans_dim)[:B * N]
+        if step_noise is not None:
             step_noise = step_noise.reshape(
                 step_noise.shape[0], -1, horizon, trans_dim)[:, :B * N]
-        trajs = plan(generator, cond, P, stats, init_noise=x0,
-                     step_noise=step_noise)
+        if x_init is None:
+            trajs = plan(generator, cond, P, stats, init_noise=x0,
+                         step_noise=step_noise)
+        else:
+            trajs = plan_warm(generator, cond, P, stats,
+                              x_init=x_init.repeat_interleave(N, dim=0),
+                              init_noise=x0, step_noise=step_noise)
         if N == 1:
             return trajs
         # final predicted position against the goal in physical space: the
-        # env state holds the physical goal exactly (rollout.py:170-183)
+        # env state holds the physical goal exactly (rollout.py:195-208)
         trajs = trajs.reshape(B, N, horizon, trans_dim)
         final_pos = trajs[:, :, -1, 0:2] * stats.obs_std[0:2] \
             + stats.obs_mean[0:2]
@@ -146,7 +169,7 @@ def make_ondevice_evaluator(
                  batch_size: int, P=None, *,
                  state: Optional[PointMazeState] = None,
                  noise: Optional[Sequence[Tuple[torch.Tensor,
-                                                torch.Tensor]]] = None):
+                                                Optional[torch.Tensor]]]] = None):
         prepared = mega_plan.prepare() if mega_plan is not None else None
         if state is None:
             state, obs = env.reset(generator, batch_size, device)
@@ -154,9 +177,17 @@ def make_ondevice_evaluator(
             obs = env.observation(state)
         total_reward = torch.zeros(batch_size, device=device)
         succeeded = torch.zeros(batch_size, dtype=torch.bool, device=device)
+        traj = None
         for k in range(n_replans):
+            x_init = None
+            if plan_warm is not None and traj is not None:
+                # the previous selected plan shifted by the executed steps,
+                # its last row repeated (rollout.py:160-172)
+                x_init = torch.cat(
+                    [traj[:, action_horizon:],
+                     traj[:, -1:].expand(-1, action_horizon, -1)], dim=1)
             traj = replan(generator, state, obs, stats, P, prepared,
-                          None if noise is None else noise[k])
+                          None if noise is None else noise[k], x_init)
             # the next action_horizon actions in physical space, row 0's
             # (zeroed by the conditioning) included (rollout.py:217-220)
             acts = traj[:, :action_horizon, obs_dim:obs_dim + act_dim] \
@@ -176,4 +207,9 @@ def make_ondevice_evaluator(
         )
         return metrics, state
 
+    # model calls of a replan: the first, and each later one
+    first = (len(plan.timesteps) if plan is not None
+             else sampling_timesteps or diffusion.n_timesteps)
+    evaluate.model_calls = (first, len(plan_warm.timesteps)
+                            if plan_warm is not None else first)
     return evaluate

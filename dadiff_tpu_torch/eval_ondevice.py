@@ -10,8 +10,16 @@ package's scripts/eval_ondevice.py :21-206.
 One untimed run (seed), then the timed run (seed + 1) whose metrics are
 reported: success rate, mean reward and episodes/hour, printed as JSON and
 saved through envs/host.py ``save_results`` with the JAX file's keys.
-``--device cpu`` runs the plain versions. The ddim, dpmpp and consistency
-samplers, warm start and the device mesh are not ported.
+``--sampler ddim|dpmpp|consistency`` and ``--warm-start-t K`` plan through
+the module path (a distilled student needs ``--sampler consistency``, where
+``--sampling-timesteps`` is the model-call budget); ``--megakernel`` is the
+DDPM chain and refuses both. ``--device cpu`` runs the plain versions. The
+device mesh is not ported.
+
+    python -m dadiff_tpu_torch.eval_ondevice --checkpoint student.pt \
+        --dataset npz:data/pointmaze_umaze_expert.npz --batch 128 \
+        --n-replans 20 --action-horizon 16 --projection --n-candidates 8 \
+        --sampler consistency --sampling-timesteps 1
 """
 
 from __future__ import annotations
@@ -33,10 +41,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-replans", type=int, default=16)
     p.add_argument("--action-horizon", type=int, default=16)
     p.add_argument("--sampling-timesteps", type=int, default=None)
+    p.add_argument("--sampler", type=str, default="ddpm",
+                   choices=["ddpm", "ddim", "dpmpp", "consistency"],
+                   help="consistency = few-step distilled student checkpoint "
+                        "(--sampling-timesteps is the model-call budget)")
     p.add_argument("--projection", action="store_true",
                    help="dynamics-aware projection after every denoise step")
     p.add_argument("--n-candidates", type=int, default=1,
                    help="best-of-N candidate plans per replan wave")
+    p.add_argument("--warm-start-t", type=int, default=None,
+                   help="warm-start replans after the first from the shifted "
+                        "previous plan re-noised to this timestep")
     p.add_argument("--projection-schedule", type=str, default="noise_schedule",
                    choices=["constant", "linear", "quadratic", "noise_schedule"])
     p.add_argument("--wall-aware", action="store_true",
@@ -80,6 +95,10 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     diffusion, dataset = load_model(args.checkpoint, args.dataset,
                                     device=device, use_ema=args.use_ema)
+    if dataset.checkpoint_config.get("consistency") and \
+            args.sampler != "consistency":
+        raise SystemExit("checkpoint is a consistency-distilled student; "
+                         "pass --sampler consistency")
     env = PointMazeJax(map_name=args.map, collision=args.collision,
                        wall_slack=args.wall_slack)
     stats = NormStats.from_normalizer(dataset.normalizer, device)
@@ -107,6 +126,7 @@ def main(argv=None) -> dict:
         diffusion, env, action_horizon=args.action_horizon,
         n_replans=args.n_replans, sampling_timesteps=args.sampling_timesteps,
         projection=projection, n_candidates=args.n_candidates,
+        warm_start_t=args.warm_start_t, sampler=args.sampler,
         use_megakernel=args.megakernel, P=P, stats=stats,
         mega_group_chains=args.mega_group_chains)
 
@@ -127,7 +147,10 @@ def main(argv=None) -> dict:
         "projection": bool(args.projection),
         "wall_aware": bool(args.wall_aware),
         "n_candidates": args.n_candidates,
-        "warm_start_t": None,
+        "warm_start_t": args.warm_start_t,
+        "sampler": args.sampler,
+        # model calls of a replan: the first, and each later one
+        "model_calls_per_replan": list(evaluator.model_calls),
         "batch": args.batch,
         "env_steps_per_episode": args.n_replans * args.action_horizon,
         "success_rate": float(metrics.success_rate),
@@ -164,7 +187,6 @@ def main(argv=None) -> dict:
             extra=out | {
                 "action_horizon": args.action_horizon,
                 "n_replans": args.n_replans,
-                "sampler": "ddpm",
                 "collision": args.collision,
                 "wall_slack": args.wall_slack,
                 "per_env_success": [bool(s) for s in per_succ],

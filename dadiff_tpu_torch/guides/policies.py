@@ -2,17 +2,20 @@
 
 Counterpart of the JAX package's guides/policies.py: goal_distance_scorer :36,
 make_goal_distance_scorer :52, the core of GuidedPolicy :131
-(``_process_observation`` :285, ``plan`` :301, ``_fill_action_buffer`` :381,
-``get_action`` :436, ``reset`` :457) and DynamicsAwarePolicy :514. The
+(the samplers, guidance and warm start of ``__init__`` :135-282,
+``_process_observation`` :285, ``plan`` :301, the warm-start depth
+``_k_from_drift`` / ``_auto_warm_k`` / ``_auto_warm_sampler`` :341-362,
+``_warm_init`` :364, ``_fill_action_buffer`` :381, ``get_action`` :436,
+``reset`` :457) and DynamicsAwarePolicy :514 with ``parity_mode``. The
 executed action of every replan starts at row 0, whose action the
-conditioning zeroed (policies.py:381-421), as in the reference. Warm start,
-inverse dynamics, deviation replanning and value guidance are not ported
-yet.
+conditioning zeroed (policies.py:381-421), as in the reference. Inverse
+dynamics, deviation replanning, value guidance and the other scorers are
+not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -55,12 +58,26 @@ def make_goal_distance_scorer(obs_mean, obs_std):
 class GuidedPolicy:
     """Conditioned sampling with action buffering (policies.py:131-461), on
     the diffusion module's device; ``seed`` seeds the policy's own
-    ``torch.Generator`` there."""
+    ``torch.Generator`` there.
+
+    ``sampler``, ``ddim_eta``, ``guide_fn`` / ``guide_weight`` configure
+    guides/sampling.py's ``make_sampler``. ``warm_start_t=K``: every replan
+    after an episode's first re-noises the previous plan, shifted by the
+    actions executed since, to the chain's steps below K.
+    ``warm_start_auto`` picks K at each replan from the drift between the
+    observation and the plan row it should be on: the smallest K of a grid
+    of 10 with sqrt(1 - abar_{K-1}) >= warm_auto_scale * drift /
+    sqrt(obs_dim), else the full chain (policies.py:238-257)."""
 
     def __init__(self, diffusion, normalizer, action_horizon: Optional[int] = None,
                  sampling_timesteps: Optional[int] = None, seed: int = 0,
                  projection: Optional[ProjectionSpec] = None,
-                 n_candidates: int = 1):
+                 n_candidates: int = 1, guide_fn: Optional[Callable] = None,
+                 guide_weight: float = 1.0, sampler: str = "ddpm",
+                 ddim_eta: float = 0.0, warm_start_t: Optional[int] = None,
+                 warm_start_auto: bool = False, warm_auto_scale: float = 4.0):
+        if warm_start_auto and warm_start_t is not None:
+            raise ValueError("pass either warm_start_t or warm_start_auto")
         self.diffusion = diffusion
         self.normalizer = normalizer
         self.device = diffusion.device
@@ -70,12 +87,27 @@ class GuidedPolicy:
         self.transition_dim = diffusion.transition_dim
         self.action_horizon = action_horizon if action_horizon is not None else 1
         self.action_buffer: List[np.ndarray] = []
-        self._actions_taken = 0
+        self._actions_taken = 0  # env steps executed since _last_plan
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._sampler_config = dict(projection=projection,
-                                    sampling_timesteps=sampling_timesteps)
-        self._plan = make_sampler(diffusion, projection=projection,
-                                  sampling_timesteps=sampling_timesteps)
+        # the whole build config: the planner chain and the warm samplers
+        # (and a micro-batching server) rebuild the same sampler from it
+        self._sampler_config = dict(
+            diffusion=diffusion, guide_fn=guide_fn, guide_weight=guide_weight,
+            projection=projection, sampling_timesteps=sampling_timesteps,
+            sampler=sampler, ddim_eta=ddim_eta, warm_start_from=warm_start_t)
+        cold = dict(self._sampler_config, warm_start_from=None)
+        self._plan = make_sampler(**cold)
+        self.warm_start_t = warm_start_t
+        self._plan_warm = (make_sampler(**self._sampler_config)
+                           if warm_start_t is not None else None)
+        self.warm_start_auto = warm_start_auto
+        self.warm_auto_scale = float(warm_auto_scale)
+        self._warm_sigmas = np.sqrt(
+            1.0 - diffusion.schedule.alphas_cumprod.cpu().numpy())
+        self._warm_cache: dict = {}
+        self._warm_enabled = warm_start_t is not None or warm_start_auto
+        self.last_warm_k: Optional[int] = None
+        self._last_plan: Optional[np.ndarray] = None  # normalized (1, H, D)
         self.n_candidates = max(1, n_candidates)
         if normalizer is not None:
             self.candidate_scorer = make_goal_distance_scorer(
@@ -102,19 +134,77 @@ class GuidedPolicy:
 
     def plan(self, observation) -> np.ndarray:
         """One plan from the current observation, best of ``n_candidates``;
-        the normalized trajectory (1, H, D) (policies.py:301-339)."""
+        the normalized trajectory (1, H, D) (policies.py:301-339). A warm
+        replan's candidates all re-noise the same shifted plan."""
         normed_obs = self.normalizer.normalize_observations(
             self._process_observation(observation))
         n = self.n_candidates
         tiled = np.repeat(normed_obs, n, axis=0) if n > 1 else normed_obs
         conditions = conditions_for_initial_obs_np(
             tiled, self.observation_dim, self.horizon, self.transition_dim)
-        trajs = self._plan(self._generator, conditions, self._P, self._stats)
+        x_init = self._warm_init()
+        warm_fn = self._plan_warm
+        self.last_warm_k = self.warm_start_t if x_init is not None else None
+        if x_init is not None and self.warm_start_auto:
+            k = self._auto_warm_k(normed_obs)
+            self.last_warm_k = k
+            if k is None:
+                x_init = None  # the drift is too large: full chain
+            else:
+                warm_fn = self._auto_warm_sampler(k)
+        if x_init is not None:
+            trajs = warm_fn(self._generator, conditions, self._P, self._stats,
+                            x_init=x_init)
+        else:
+            trajs = self._plan(self._generator, conditions, self._P,
+                               self._stats)
         if n > 1:
             scores = self.candidate_scorer(
                 trajs, torch.as_tensor(normed_obs[0], device=trajs.device))
             trajs = trajs[torch.argmin(scores)][None]
-        return trajs.detach().cpu().numpy()
+        trajs = trajs.detach().cpu().numpy()
+        if self._warm_enabled:
+            self._last_plan = trajs
+            self._actions_taken = 0
+        return trajs
+
+    def _k_from_drift(self, drift: float) -> Optional[int]:
+        """The drift-matched warm depth (grid of 10), or None for the full
+        chain (policies.py:341-349)."""
+        target = self.warm_auto_scale * drift / np.sqrt(self.observation_dim)
+        T = len(self._warm_sigmas)
+        for k in range(10, T, 10):
+            if self._warm_sigmas[k - 1] >= target:
+                return k
+        return None
+
+    def _auto_warm_k(self, normed_obs) -> Optional[int]:
+        shift = min(self._actions_taken, self.horizon - 1)
+        row = self._last_plan[0][shift, : self.observation_dim]
+        drift = float(np.linalg.norm(np.ravel(normed_obs) - row))
+        return self._k_from_drift(drift)
+
+    def _auto_warm_sampler(self, k: int):
+        if k not in self._warm_cache:
+            self._warm_cache[k] = make_sampler(
+                **dict(self._sampler_config, warm_start_from=k))
+        return self._warm_cache[k]
+
+    def _warm_init(self) -> Optional[np.ndarray]:
+        """The previous plan shifted by the executed steps, its last row
+        repeated at the end; None when warm start is off, at an episode's
+        first plan, or when nothing of the old plan remains
+        (policies.py:364-379)."""
+        if not self._warm_enabled or self._last_plan is None:
+            return None
+        shift = self._actions_taken
+        if shift >= self.horizon:
+            return None
+        prev = self._last_plan[0]
+        if shift == 0:
+            return prev[None]
+        return np.concatenate([prev[shift:], np.repeat(prev[-1:], shift, axis=0)],
+                              axis=0)[None]
 
     def _fill_action_buffer(self, trajectory: np.ndarray) -> None:
         """Buffer the plan's actions from row 0, whose action the
@@ -133,34 +223,42 @@ class GuidedPolicy:
         return self.action_buffer.pop(0)
 
     def reset(self) -> None:
+        """A new episode: the action buffer and the warm state go."""
         self.action_buffer.clear()
+        self._last_plan = None
         self._actions_taken = 0
 
 
 class DynamicsAwarePolicy(GuidedPolicy):
     """Trajectories projected onto the dynamics-consistent subspace at every
-    denoise step (policies.py:514-609)."""
+    denoise step (policies.py:514-609); ``parity_mode`` samples without the
+    projection, as the reference does. Other keywords go to GuidedPolicy
+    (the sampler, warm start); guidance defaults to off."""
 
     def __init__(self, diffusion, projection_matrix, normalizer,
                  state_dim: int = 4, projection_schedule: str = "constant",
                  projection_strength: float = 1.0,
                  action_horizon: Optional[int] = None,
-                 sampling_timesteps: Optional[int] = None, wall_grid=None,
+                 sampling_timesteps: Optional[int] = None,
+                 parity_mode: bool = False, wall_grid=None,
                  wall_margin: Optional[float] = None, seed: int = 0,
-                 n_candidates: int = 1):
+                 n_candidates: int = 1, guide_fn: Optional[Callable] = None,
+                 guide_weight: float = 0.0, **kwargs):
         if action_horizon is None:
             action_horizon = diffusion.horizon
         if wall_grid is not None:
             wall_grid = tuple(tuple(int(v) for v in row) for row in wall_grid)
         spec = ProjectionSpec(
             state_dim=state_dim, schedule=projection_schedule,
-            strength=projection_strength, wall_grid=wall_grid,
-            wall_margin=wall_margin,
+            strength=projection_strength, parity_mode=parity_mode,
+            wall_grid=wall_grid, wall_margin=wall_margin,
         )
         super().__init__(diffusion, normalizer, action_horizon=action_horizon,
                          sampling_timesteps=sampling_timesteps, seed=seed,
-                         projection=spec, n_candidates=n_candidates)
+                         projection=spec, n_candidates=n_candidates,
+                         guide_fn=guide_fn, guide_weight=guide_weight, **kwargs)
         self.state_dim = state_dim
+        self.parity_mode = parity_mode
         self.projection_matrix = projection_matrix
         self._P = torch.as_tensor(np.asarray(projection_matrix),
                                   dtype=torch.float32, device=self.device)

@@ -165,7 +165,8 @@ def infer_model_config_from_checkpoint(checkpoint: Dict[str, Any]) -> Dict[str, 
 
 
 _CONFIG_EXTRAS = ("normalizer_name", "normalizer_stats", "predict_epsilon",
-                  "clip_denoised", "prediction")
+                  "clip_denoised", "prediction", "consistency", "sigma_data",
+                  "teacher_checkpoint")
 
 
 def save_pt_checkpoint(path: str, diffusion, config: Dict[str, Any], *,

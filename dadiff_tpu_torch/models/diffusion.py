@@ -4,16 +4,17 @@ that holds the denoiser and the schedule.
 Counterpart of the JAX package's models/diffusion.py: q_sample :38,
 predict_start_from_noise :50, v_from_x0_eps :60, epsilon_from_v :71,
 p_mean_variance :95, p_sample :116, default_timesteps :129, p_sample_loop
-:152, diffusion_loss :274 and the GaussianDiffusion container :323. The
-module's state dict is the reference schema: the denoiser's weights under
-``model.`` and the 12 schedule buffers at the top level. DDIM is not ported
-yet.
+:152, ddim_sample_loop :199, diffusion_loss :274 and the GaussianDiffusion
+container :323. The module's state dict is the reference schema: the
+denoiser's weights under ``model.`` and the 12 schedule buffers at the top
+level.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -148,6 +149,82 @@ def default_timesteps(n_timesteps: int, sampling_timesteps: Optional[int] = None
     return torch.arange(s - 1, -1, -1, dtype=torch.long, device=device)
 
 
+def ddim_timesteps(n_timesteps: int, sampling_timesteps: int,
+                   device=None) -> torch.Tensor:
+    """The strided DDIM subsequence, descending: the unique rounded
+    linspace over 0 .. T-1 (diffusion.py:244-248, sampling.py:200-201)."""
+    s = int(sampling_timesteps)
+    if s > n_timesteps:
+        raise ValueError(f"sampling_timesteps ({s}) must be <= {n_timesteps}")
+    taus = np.unique(np.linspace(0, n_timesteps - 1, s).round().astype(np.int64))
+    return torch.as_tensor(taus[::-1].copy(), device=device)
+
+
+def eps_and_x0(model_out: torch.Tensor, schedule: DiffusionSchedule,
+               x: torch.Tensor, t: torch.Tensor, *, clip_denoised: bool,
+               predict_epsilon: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(eps, x0) from the denoiser's output; with ``clip_denoised`` x0 is
+    clipped and eps recomputed from it (diffusion.py:236-248)."""
+    c1 = _extract(schedule.sqrt_recip_alphas_cumprod, t, x.dim())
+    c2 = _extract(schedule.sqrt_recipm1_alphas_cumprod, t, x.dim())
+    if predict_epsilon:
+        eps, x0 = model_out, c1 * x - c2 * model_out
+    else:
+        x0 = model_out
+        eps = (c1 * x - x0) / c2
+    if clip_denoised:
+        x0 = x0.clamp(-1.0, 1.0)
+        eps = (c1 * x - x0) / c2
+    return eps, x0
+
+
+def ddim_update(eps: torch.Tensor, x0: torch.Tensor, a_t: torch.Tensor,
+                a_prev: torch.Tensor, last: bool, eta: float,
+                noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """x_{t_prev} = sqrt(abar_prev) x0 + sqrt(1 - abar_prev - sigma^2) eps
+    + sigma noise, with sigma = eta sqrt((1-abar_prev)/(1-abar_t))
+    sqrt(1 - abar_t/abar_prev) and no noise on the last step
+    (diffusion.py:250-266)."""
+    sigma = eta * torch.sqrt((1 - a_prev) / (1 - a_t)) \
+        * torch.sqrt(1 - a_t / a_prev)
+    x = torch.sqrt(a_prev) * x0 \
+        + torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)) * eps
+    if noise is not None and not last:
+        x = x + sigma * noise
+    return x
+
+
+def ddim_sample_loop(apply_fn: Callable, schedule: DiffusionSchedule,
+                     shape: Tuple[int, ...], *, sampling_timesteps: int,
+                     eta: float = 0.0, clip_denoised: bool = True,
+                     predict_epsilon: bool = True,
+                     generator: Optional[torch.Generator] = None,
+                     init_noise: Optional[torch.Tensor] = None,
+                     step_noise: Optional[torch.Tensor] = None,
+                     device=None) -> torch.Tensor:
+    """DDIM over the strided subsequence (diffusion.py:199-271): eta 0 is
+    deterministic, eta 1 DDPM-like on the subsequence. ``init_noise``
+    (shape) and ``step_noise`` (n_steps, *shape) fix the randomness; the
+    step noise is drawn, as the JAX loop draws it, whatever ``eta``."""
+    ts = ddim_timesteps(schedule.n_timesteps, sampling_timesteps, device)
+    x = (torch.randn(shape, generator=generator, device=device)
+         if init_noise is None else init_noise.to(device))
+    if step_noise is None:
+        step_noise = torch.randn((len(ts),) + tuple(shape),
+                                 generator=generator, device=device)
+    acp = schedule.alphas_cumprod
+    for i, t in enumerate(ts):
+        t_b = t.expand(shape[0])
+        eps, x0 = eps_and_x0(apply_fn(x, t_b), schedule, x, t_b,
+                             clip_denoised=clip_denoised,
+                             predict_epsilon=predict_epsilon)
+        last = i == len(ts) - 1
+        a_prev = acp.new_ones(()) if last else acp[ts[i + 1]]
+        x = ddim_update(eps, x0, acp[t], a_prev, last, eta,
+                        step_noise[i].to(x.device))
+    return x
+
+
 class GaussianDiffusion(nn.Module):
     """Denoiser + schedule + trajectory dims (diffusion.py:323-453)."""
 
@@ -244,3 +321,18 @@ class GaussianDiffusion(nn.Module):
             mean, log_var = self.p_mean_variance(x, t_b)
             x = p_sample(mean, log_var, t_b, step_noise[i])
         return x
+
+    @torch.no_grad()
+    def ddim_sample_loop(self, shape: Tuple[int, ...], *,
+                         sampling_timesteps: int, eta: float = 0.0,
+                         generator: Optional[torch.Generator] = None,
+                         init_noise: Optional[torch.Tensor] = None,
+                         step_noise: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """DDIM with this module's denoiser and flags (diffusion.py:415)."""
+        return ddim_sample_loop(
+            self, self.schedule, shape,
+            sampling_timesteps=sampling_timesteps, eta=eta,
+            clip_denoised=self.clip_denoised,
+            predict_epsilon=self.predict_epsilon, generator=generator,
+            init_noise=init_noise, step_noise=step_noise, device=self.device)

@@ -843,7 +843,8 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
     device = diffusion.device
     H, D = diffusion.horizon, diffusion.transition_dim
     obs_dim = diffusion.observation_dim
-    use_projection = projection_spec is not None
+    use_projection = (projection_spec is not None
+                      and not projection_spec.parity_mode)
 
     M = b = None
     pos_stats = wall_grid = None
@@ -942,8 +943,16 @@ def wire_policy_megakernel(policy, *, n_candidates: int):
     replan wave (all candidates, conditioning, per-step projection), then
     best-of-N selection; ``policy.n_candidates`` becomes 1
     (pallas_planner.py:449-494). Weights are bf16 on the card and f32 on the
-    CPU, as the TPU path takes bf16 and its interpret mode f32."""
+    CPU, as the TPU path takes bf16 and its interpret mode f32. The chain is
+    the DDPM sampler alone: another sampler, guidance or warm start raises
+    (pallas_planner.py:465-470), never routed quietly to the module path."""
     cfg = policy._sampler_config
+    if cfg["sampler"] != "ddpm":
+        raise ValueError("--megakernel supports the ddpm sampler only")
+    if cfg["guide_fn"] is not None and cfg["guide_weight"]:
+        raise ValueError("--megakernel does not support gradient guidance")
+    if cfg["warm_start_from"] or getattr(policy, "warm_start_auto", False):
+        raise ValueError("--megakernel does not compose with warm start")
     cpu = policy.diffusion.device.type == "cpu"
     mega = make_bo_sampler(
         policy.diffusion,

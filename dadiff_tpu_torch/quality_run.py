@@ -12,6 +12,11 @@ README recipe, then evaluate on the on-device protocol and its ablation.
    and 3042: dynamics-aware best of 8 (projection, 8 candidates), best of
    8 without the projection, and the projection with one candidate; and
    the first cell on the EMA weights at seed 42.
+3. ``distill_main`` by the JAX recipe (150 epochs of batch 256, lr 1e-4,
+   target EMA 0.95, sigma_data 0.5, skip 1; RESULTS.md:687-692) from that
+   checkpoint, then the few-call cells of dynamics-aware best of 8 through
+   the module path, each at the four seeds: the student at 1 and 2 calls,
+   DDIM-10, DDIM-20 and DDPM warm start K=40.
 
 Prints one JSON line per cell and a summary line with the card's name and
 power limit; writes the results files under ``--out``. Needs a CUDA device.
@@ -46,6 +51,25 @@ RUNS = [(f"{name}_seed{seed}", flags + ["--seed", str(seed)])
         for seed in SEEDS for name, flags in CELLS.items()]
 RUNS.append(("projection_bo8_ema_seed42",
              CELLS["projection_bo8"] + ["--seed", "42", "--use-ema"]))
+# the student's recipe (RESULTS.md:687-692)
+DISTILL = ["--dataset", DATASET, "--n-epochs", "150", "--batch-size", "256",
+           "--lr", "1e-4", "--target-ema-decay", "0.95", "--sigma-data",
+           "0.5", "--skip-steps", "1"]
+# name: (the student's checkpoint?, flags) of the few-call cells, through
+# the module path (the planner chain is the DDPM sampler alone)
+FEW_PROTOCOL = [f for f in PROTOCOL if f != "--megakernel"] + [
+    "--projection", "--n-candidates", "8"]
+FEW_CELLS = {
+    "student_1call": (True, ["--sampler", "consistency",
+                             "--sampling-timesteps", "1"]),
+    "student_2calls": (True, ["--sampler", "consistency",
+                              "--sampling-timesteps", "2"]),
+    "ddim10": (False, ["--sampler", "ddim", "--sampling-timesteps", "10"]),
+    "ddim20": (False, ["--sampler", "ddim", "--sampling-timesteps", "20"]),
+    "ddpm_warm40": (False, ["--warm-start-t", "40"]),
+}
+CELL_KEYS = ("success_rate", "mean_reward", "mean_final_distance",
+             "wallclock_s", "episodes_per_hour", "compile_s")
 
 
 def card_line() -> str:
@@ -73,7 +97,7 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("quality_run needs a CUDA device")
     from dadiff_tpu_torch import eval_ondevice
-    from dadiff_tpu_torch.cli import train_main
+    from dadiff_tpu_torch.cli import distill_main, train_main
 
     os.chdir(ROOT)
     card = card_line()
@@ -95,10 +119,31 @@ def main(argv=None) -> dict:
         out = eval_ondevice.main(["--checkpoint", ckpt, *PROTOCOL, *flags,
                                   "--results-dir",
                                   os.path.join(args.out, name)])
-        summary["cells"][name] = {k: out[k] for k in (
-            "success_rate", "mean_reward", "mean_final_distance",
-            "wallclock_s", "episodes_per_hour", "compile_s")}
+        summary["cells"][name] = {k: out[k] for k in CELL_KEYS}
         print(json.dumps({name: summary["cells"][name]}), flush=True)
+    t0 = time.perf_counter()
+    student_dir = distill_main(DISTILL + [
+        "--checkpoint", ckpt, "--log-dir", args.train_dir, "--run-name",
+        "student", "--seed", "42", "--save-freq", "0"])
+    student = latest_pt(student_dir)
+    records = [json.loads(line) for line in
+               open(os.path.join(student_dir, "metrics.jsonl"))]
+    summary["distill"] = {"checkpoint": student,
+                          "distill_s": time.perf_counter() - t0,
+                          "steps": records[-1]["step"],
+                          "loss_first_epoch": records[0].get("consistency"),
+                          "loss_last_epoch": records[-1].get("consistency")}
+    print(json.dumps({"distill": summary["distill"]}), flush=True)
+    for seed in SEEDS:
+        for cell, (on_student, flags) in FEW_CELLS.items():
+            name = f"{cell}_seed{seed}"
+            out = eval_ondevice.main([
+                "--checkpoint", student if on_student else ckpt,
+                *FEW_PROTOCOL, *flags, "--seed", str(seed), "--results-dir",
+                os.path.join(args.out, name)])
+            summary["cells"][name] = {k: out[k] for k in CELL_KEYS} | {
+                "model_calls_per_replan": out["model_calls_per_replan"]}
+            print(json.dumps({name: summary["cells"][name]}), flush=True)
     summary["card_after"] = card_line()
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "summary.json"), "w") as f:

@@ -8,10 +8,15 @@ concurrency 1, main :203). Micro-batching of concurrent clients
         --dataset npz:data/pointmaze_umaze_expert.npz \\
         --policy-type dynamics-aware --n-candidates 8 --megakernel --port 7033
 
+Every flag of the evaluate CLI applies (cli.build_eval_parser): the
+samplers, warm start (``--warm-start-t``, ``--warm-start-auto``), a
+consistency student with ``--sampler consistency``.
+
 Protocol (one JSON object per line, one response per request):
     {"obs": [..flat obs..]}          -> {"action": [...], "plan_ms": t}
     {"obs": [...], "plan": true}     -> adds "plan": the normalized (H, D) plan
-    {"reset": true}                  -> {"ok": true}
+    {"reset": true}                  -> {"ok": true}  (a new episode: clears
+                                        the action buffer and warm state)
     {"ping": true}                   -> {"ok": true, "policy": "...", ...}
 Malformed requests get {"error": "..."} and the connection stays up.
 """
@@ -119,6 +124,7 @@ def main(argv=None):
         ENV_TO_DATASET,
         build_policy_from_args,
         load_model,
+        planning_timesteps,
         resolve_device,
     )
 
@@ -128,8 +134,7 @@ def main(argv=None):
         raise SystemExit(f"No default dataset for {args.env}; pass --dataset")
     diffusion, dataset = load_model(args.checkpoint, dataset_spec,
                                     device=device, use_ema=args.use_ema)
-    requested = 200 if args.sampling_timesteps is None else args.sampling_timesteps
-    sampling_timesteps = min(requested, diffusion.n_timesteps)
+    sampling_timesteps = planning_timesteps(args, diffusion, dataset)
     policy = build_policy_from_args(args, diffusion, dataset, dataset_spec,
                                     sampling_timesteps)
     serve(policy, args.host, args.port, max_requests=args.max_requests)

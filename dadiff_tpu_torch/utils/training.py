@@ -12,8 +12,10 @@ The optimizer is optax's chain: clip by global norm, then Adam with optax's
 defaults (b1 0.9, b2 0.999, eps 1e-8 added to the root, no weight decay), the
 learning rate read from the schedule at the count of updates applied so far.
 
-Not ported: the mesh argument (data parallelism is not ported yet) and
-``loss_takes_ema`` (only consistency distillation needs it).
+With ``loss_takes_ema`` the loss also receives the EMA shadow, which then
+serves as the stop-gradient target network of consistency distillation
+(models/consistency.py). Not ported: the mesh argument (data parallelism is
+not ported yet).
 """
 
 from __future__ import annotations
@@ -107,21 +109,30 @@ def make_optimizer(params, lr: float = 3e-4) -> torch.optim.Adam:
 
 def make_train_step(loss_fn: Callable, *, lr_schedule: Callable[[int], float],
                     gradient_clip: float = 1.0, use_ema: bool = True,
-                    ema_decay: float = 0.995, skip_nonfinite: bool = False):
+                    ema_decay: float = 0.995, skip_nonfinite: bool = False,
+                    loss_takes_ema: bool = False):
     """Build ``step(state, batch, generators) -> metrics``: loss, grad, clip,
     Adam, EMA (training.py:97-164). Metrics are 0-dim tensors on the device
     (no host sync), with ``grad_norm`` the global norm before clipping.
+    With ``loss_takes_ema`` the loss is called as ``loss_fn(batch,
+    generators, state.ema_params)``, the EMA shadow before this step's
+    update (training.py:115-125); it needs ``use_ema``.
 
     With ``skip_nonfinite``, a batch whose gradients are not all finite
     leaves the parameters AND Adam's moments and step count untouched and
     reports ``nonfinite=1``; the EMA and ``state.step`` still advance, as in
     the JAX step. Deciding that costs one host sync per step.
     """
+    if loss_takes_ema and not use_ema:
+        raise ValueError("loss_takes_ema requires use_ema=True")
 
     def step(state: TrainState, batch, generators=None):
         params = [p for p in state.module.parameters() if p.requires_grad]
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, generators)
+        if loss_takes_ema:
+            loss, metrics = loss_fn(batch, generators, state.ema_params)
+        else:
+            loss, metrics = loss_fn(batch, generators)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         grads = [p.grad for p in params]
@@ -168,7 +179,10 @@ class Trainer:
         train_loader: sized, re-iterable loader of ``{'conditions':
             (B, H, D)}`` numpy batches (datasets.create_dataloader).
         loss_fn: ``(batch, generators) -> (loss, metrics)``, e.g. the
-            objective of losses.build_loss over ``diffusion``.
+            objective of losses.build_loss over ``diffusion``; with
+            ``loss_takes_ema``, ``(batch, generators, ema_params)``.
+        extra_config: written into the checkpoints' config (e.g. the
+            consistency student's ``consistency: true``).
     """
 
     def __init__(self, diffusion, train_loader, loss_fn: Callable, *,
@@ -180,6 +194,7 @@ class Trainer:
                  loss_names: Optional[List[str]] = None, seed: int = 0,
                  export_pt: bool = True, skip_nonfinite: bool = False,
                  val_batch=None, normalizer=None,
+                 loss_takes_ema: bool = False,
                  extra_config: Optional[Dict[str, Any]] = None):
         if not hasattr(train_loader, "__len__"):
             raise TypeError(
@@ -215,7 +230,8 @@ class Trainer:
             ema_params=EMA(diffusion, ema_decay).shadow if use_ema else None)
         self._train_step = make_train_step(
             loss_fn, lr_schedule=self.lr_schedule, gradient_clip=gradient_clip,
-            use_ema=use_ema, ema_decay=ema_decay, skip_nonfinite=skip_nonfinite)
+            use_ema=use_ema, ema_decay=ema_decay, skip_nonfinite=skip_nonfinite,
+            loss_takes_ema=loss_takes_ema)
         self.global_step = 0
         self._val_batch = None
         if val_batch is not None:
@@ -295,9 +311,10 @@ class Trainer:
                 "epoch": epoch + 1, "step": self.state.step,
                 "steps_per_sec": round(sps, 3),
                 **{k: round(v, 6) for k, v in summary.items()},
-                # the logged values behind the epoch's mean, first to last
-                "total_series": [round(v, 6)
-                                 for v in epoch_metrics.get("total", [])],
+                # the logged values of the objective behind the epoch's
+                # mean, first to last ("total", or the one loss's own name)
+                "total_series": [round(v, 6) for v in epoch_metrics.get(
+                    "total", epoch_metrics.get(self.loss_names[0], []))],
             }) + "\n")
             self._metrics_file.flush()
             for k, v in summary.items():

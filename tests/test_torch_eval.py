@@ -268,9 +268,18 @@ def test_ondevice_evaluator_draws_from_its_generator(models, dynamics):
                          ids=["warm_start", "ddim", "dpmpp", "consistency",
                               "mesh"])
 def test_ondevice_evaluator_refuses_what_is_not_ported(models, kw):
+    """The device mesh is not ported; the planner chain is the DDPM sampler
+    and refuses another sampler or warm start, as the JAX evaluator does
+    (rollout.py:84-87), where the module path takes them."""
     _, _, diff = models
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_ondevice_evaluator(diff, PointMazeJax(), **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="mesh"):
+            make_ondevice_evaluator(diff, PointMazeJax(), **kw)
+        return
+    with pytest.raises(ValueError, match="--megakernel"):
+        make_ondevice_evaluator(diff, PointMazeJax(), use_megakernel=True,
+                                **kw)
+    make_ondevice_evaluator(diff, PointMazeJax(), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +327,16 @@ def test_load_model_use_ema_matches_jax(checkpoint):
     ["--render", "video"], ["--mega-group-chains", "8"],
 ], ids=lambda a: a[0])
 def test_eval_parser_refuses_unported_flags(argv, capsys):
+    """The flags of what is not ported are refused; those of the few-call
+    planners (``--sampler``, ``--warm-start-t``, ``--warm-start-auto``) are
+    ported and parse as the JAX CLI parses them."""
     base = ["--checkpoint", "x.pt"]
-    jcli.build_eval_parser().parse_args(base + argv)  # the JAX CLI takes it
+    want = jcli.build_eval_parser().parse_args(base + argv)  # JAX takes it
+    if argv[0] in ("--sampler", "--warm-start-t", "--warm-start-auto"):
+        got = cli.build_eval_parser().parse_args(base + argv)
+        for key in ("sampler", "warm_start_t", "warm_start_auto"):
+            assert getattr(got, key) == getattr(want, key), key
+        return
     with pytest.raises(SystemExit):
         cli.build_eval_parser().parse_args(base + argv)
     assert "error" in capsys.readouterr().err
@@ -329,14 +346,18 @@ def test_eval_parser_refuses_unported_flags(argv, capsys):
                                   ["--warm-start-t", "20"]],
                          ids=lambda a: a[0])
 def test_eval_ondevice_parser_refuses_unported_flags(argv):
+    """Both flags are ported now, with the JAX script's defaults (ddpm, no
+    warm start)."""
     base = ["--checkpoint", "x.pt", "--dataset", DATASET]
-    eval_ondevice.build_parser().parse_args(base)
-    with pytest.raises(SystemExit):
-        eval_ondevice.build_parser().parse_args(base + argv)
+    default = eval_ondevice.build_parser().parse_args(base)
+    assert (default.sampler, default.warm_start_t) == ("ddpm", None)
+    got = eval_ondevice.build_parser().parse_args(base + argv)
+    assert (got.sampler, got.warm_start_t) in (("ddim", None), ("ddpm", 20))
 
 
 # the keys of the JAX eval_ondevice results file (scripts/eval_ondevice.py
-# :168-204), and the two the port adds
+# :168-204); the port adds the device, use_ema and the model calls per
+# replan
 ONDEVICE_KEYS = {
     "policy_type", "environment", "checkpoint", "dataset", "n_episodes",
     "sampling_timesteps", "seed", "timestamp", "metrics", "mode",
@@ -355,7 +376,9 @@ def test_eval_ondevice_main_on_cpu(checkpoint, tmp_path):
         "cpu", "--results-dir", str(tmp_path), "--use-ema"])
     with open(out["results_path"]) as f:
         saved = json.load(f)
-    assert set(saved) == ONDEVICE_KEYS | {"device", "use_ema"}
+    assert set(saved) == ONDEVICE_KEYS | {"device", "use_ema",
+                                          "model_calls_per_replan"}
+    assert saved["model_calls_per_replan"] == [T_STEPS, T_STEPS]
     assert saved["device"] == "cpu" and saved["use_ema"] is True
     assert saved["env_steps_per_episode"] == 8 and saved["batch"] == 3
     assert len(saved["per_env_success"]) == 3

@@ -142,7 +142,8 @@ def test_port_imports_no_jax():
             "dadiff_tpu_torch.envs.rollout", "dadiff_tpu_torch.envs.host",
             "dadiff_tpu_torch.envs.vector_eval",
             "dadiff_tpu_torch.eval_ondevice",
-            "dadiff_tpu_torch.evaluate"} <= set(names)
+            "dadiff_tpu_torch.evaluate", "dadiff_tpu_torch.distill",
+            "dadiff_tpu_torch.models.consistency"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
