@@ -34,9 +34,12 @@
    version; a served chain (8 chains) and an evaluator chain (64 chains),
    and two K4 launches, on two streams at once against each alone; and,
    where gymnasium imports, ``python -m dadiff_tpu_torch.evaluate
-   --batched --megakernel``. At the 1,024-chain wave's shapes it times K2's
-   ``rows_conv`` and ``rows_conv_gn`` beside cuDNN's conv and the library
-   composition.
+   --batched --megakernel``. At the 1,024-chain wave's shapes (the wgmma
+   tile of csrc/wgmma.cuh) it holds every conv and fused pair of a step
+   against its plain version, two launches of each bit for bit, and times
+   K2's ``rows_conv`` and ``rows_conv_gn`` per launch and per step beside
+   cuDNN's conv and the library composition, the bound, and the same
+   launches on the mma.sync tiles they took before (in turns).
 6. Drives the few-call planners (``fewcall_phase``): distills a consistency
    student from the trained checkpoint through
    ``dadiff_tpu_torch.cli.distill_main``, plans bo8 through DDIM, DPM++,
@@ -577,8 +580,9 @@ def one_chain_phase(diff) -> dict:
 def hold_rows_conv(conv_calls, dtypes, g) -> float:
     """``rows_conv`` against ``rows_conv_plain`` at every distinct conv of
     ``conv_calls`` ((rows, cin_a, cin_b, cout, mode, k, seg) each), for each
-    weight dtype, within TOL_CONV; repeated launches agree bit for bit.
-    The tile and K splits each launch takes are logged beside its error."""
+    weight dtype, within TOL_CONV; two launches of each conv agree bit for
+    bit. The tile, its ring (wgmma tiles) and K splits each launch takes
+    are logged beside its error."""
     from dadiff_tpu_torch.ops.planner import (
         UP, _split_k, rows_conv, rows_conv_plain,
     )
@@ -592,13 +596,18 @@ def hold_rows_conv(conv_calls, dtypes, g) -> float:
             w = (torch.randn(taps * (ca + cb), cout, device="cuda",
                              generator=g) / (ca + cb) ** 0.5).to(wd)
             bias = torch.randn(1, cout, device="cuda", generator=g)
-            e = (rows_conv(xa, xb, w, bias, mode, k, seg)
-                 - rows_conv_plain(xa, xb, w, bias, mode, k, seg)).abs().max().item()
+            got = rows_conv(xa, xb, w, bias, mode, k, seg)
+            e = (got - rows_conv_plain(xa, xb, w, bias, mode, k, seg)
+                 ).abs().max().item()
             t = _split_k(R, ca + cb, cout, mode, k, wd == torch.bfloat16)
             log(f"K2 rows_conv {str(wd)[6:]} mode={mode} k={k} rows={R} "
-                f"cin={ca}+{cb} cout={cout} tile {t.bm}x{t.bn} splits "
+                f"cin={ca}+{cb} cout={cout} tile {t.bm}x{t.bn}"
+                f"{f' ring {t.ring}' if t.ring else ''} splits "
                 f"{t.splits}: max|err| {e:.3e}")
             err = max(err, e)
+            require(torch.equal(got, rows_conv(xa, xb, w, bias, mode, k, seg)),
+                    f"two launches of rows_conv at rows={R} cin={ca}+{cb} "
+                    f"cout={cout} mode={mode} agree bit for bit")
     require(err <= TOL_CONV, f"rows_conv vs plain {err} > {TOL_CONV}")
     # split-K sums its partials in a fixed order: repeated launches agree
     require(all(torch.equal(rows_conv(xa, xb, w, bias, mode, k, seg),
@@ -649,8 +658,12 @@ def hold_rows_conv_gn(fused, dtypes, g):
                 if adds.endswith("res"):
                     res = torch.randn(R, cout, device="cuda", generator=g)
                 args = (*base, te, res)
-                e = (rows_conv_gn(*args)
-                     - rows_conv_gn_plain(*args)).abs().max().item()
+                got = rows_conv_gn(*args)
+                e = (got - rows_conv_gn_plain(*args)).abs().max().item()
+                if adds == "te_res":  # two launches of each pair agree
+                    require(torch.equal(got, rows_conv_gn(*args)),
+                            f"two launches of rows_conv_gn at rows={R} "
+                            f"cin={ca}+{cb} cout={cout} agree bit for bit")
                 log(f"K2 rows_conv_gn {str(wd)[6:]} rows={R} cin={ca}+{cb} "
                     f"cout={cout} seg={seg} tile {t.bm}x{t.bn} splits "
                     f"{t.splits} group block {gp.tiles_m}x{gp.tiles_n} "
@@ -1386,8 +1399,19 @@ def step_library_times(calls, g) -> dict:
     each replayed from a CUDA graph, beside the library's time for the same
     function on the same inputs (one cuDNN bf16 conv per conv; cuDNN's conv,
     F.group_norm, F.mish and the adds per pair), timed and never used by
-    the port, and the bound."""
-    from dadiff_tpu_torch.ops.planner import _CudaOps, rows_conv
+    the port, and the bound; per launch, tile, splits, kernel, library and
+    bound in microseconds; the 10 convs the wave launches through
+    ``rows_conv`` alone (``wave_convs``); and the same launches on the
+    mma.sync tiles that these shapes took before the wgmma tile
+    (``mma_sync_ms``), in turns with the wgmma tiles."""
+    from dadiff_tpu_torch.ops.planner import (
+        _CudaOps, _conv_out_rows, _split_k, _split_k_gn, _split_k_gn_mma,
+        _split_k_mma, launch_rows_conv, launch_rows_conv_gn, rows_conv,
+    )
+
+    def tile_of(t):
+        return (f"wgmma 128x{t.bn}, {t.ring} stages" if t.ring
+                else f"mma.sync {t.bm}x{t.bn}")
 
     conv_calls = [c[1:8] for c in calls]
     conv_bufs = conv_buffers(conv_calls, g)
@@ -1395,14 +1419,61 @@ def step_library_times(calls, g) -> dict:
              for R, ca, cb, cout, mode, k, _ in conv_calls]
     t_ops = sum(fl for fl, _ in costs) / BF16_FLOPS * 1e3
     t_bytes = sum(nb for _, nb in costs) / HBM_BPS * 1e3
+    per_launch = []
+    for (R, ca, cb, cout, mode, k, _), c, (fl, nb) in zip(conv_calls,
+                                                          conv_bufs, costs):
+        t = _split_k(R, ca + cb, cout, mode, k, True)
+        per_launch.append({
+            "M": t.M, "K": t.K, "N": cout, "mode": mode, "tile": tile_of(t),
+            "splits": t.splits,
+            "us": 1e3 * graph_ms(lambda c=c: [rows_conv(*c[:7])
+                                               for _ in range(5)], 3) / 5,
+            "library_us": 1e3 * graph_ms(
+                lambda c=c: [lib_conv(c[7], c[8], c[9], c[4], c[5])
+                             for _ in range(5)], 3) / 5,
+            "bound_us": 1e3 * bound_ms(fl, nb, BF16_FLOPS)[0]})
+    log(f"K2 rows_conv at {calls[0][1]} rows, per launch (weights warm in "
+        f"L2): " + json.dumps(per_launch))
+
+    # the same launches on the mma.sync tiles (the tile rule of before)
+    mma = []
+    for (R, ca, cb, cout, mode, k, _), c in zip(conv_calls, conv_bufs):
+        t = _split_k_mma(R, ca + cb, cout, mode, k, True)
+        out = torch.empty(_conv_out_rows(R, mode), cout, device="cuda")
+        scratch = torch.empty(max(t.partial_elems, 1), device="cuda")
+        mma.append((c, out, scratch, t))
+
+    def on_mma():
+        for c, out, scratch, t in mma:
+            launch_rows_conv(*c[:4], out, *c[4:7], None, scratch, t)
+
+    def on_rule():
+        return [rows_conv(*c[:7]) for c in conv_bufs]
+
+    wave = [c for c, call in zip(conv_bufs, calls) if call[0] == "conv"]
+    turns = [graph_ms(on_mma, 5), graph_ms(on_rule, 5), graph_ms(on_rule, 5),
+             graph_ms(on_mma, 5)]
     out = {"rows_conv": dict(
-        ms=graph_ms(lambda: [rows_conv(*c[:7]) for c in conv_bufs], 5),
-        library_ms=graph_ms(lambda: [lib_conv(c[7], c[8], c[9], c[4], c[5])
-                                     for c in conv_bufs], 5),
+        ms=turns[1], library_ms=graph_ms(
+            lambda: [lib_conv(c[7], c[8], c[9], c[4], c[5])
+                     for c in conv_bufs], 5),
         bound_ms=sum(bound_ms(fl, nb, BF16_FLOPS)[0] for fl, nb in costs),
         bound_by="operations" if t_ops > t_bytes else "bytes",
-        launches_per_step=len(conv_bufs))}
-    del conv_bufs
+        launches_per_step=len(conv_bufs),
+        ms_in_turns={"mma_sync": [turns[0], turns[3]],
+                     "rule": [turns[1], turns[2]]},
+        mma_sync_ms=turns[0],
+        wave_convs=dict(
+            launches=len(wave),
+            ms=graph_ms(lambda: [rows_conv(*c[:7]) for c in wave], 5),
+            library_ms=graph_ms(
+                lambda: [lib_conv(c[7], c[8], c[9], c[4], c[5])
+                         for c in wave], 5),
+            bound_ms=sum(bound_ms(fl, nb, BF16_FLOPS)[0]
+                         for (fl, nb), call in zip(costs, calls)
+                         if call[0] == "conv")),
+        tiles=sorted({q["tile"] for q in per_launch}))}
+    del conv_bufs, mma, wave
     fused = [c for c in calls if c[0] == "conv_gn"]
     gn_bufs = gn_buffers(fused, g)
     lib_bufs = [lib_operands(a) for a in gn_bufs]
@@ -1412,11 +1483,48 @@ def step_library_times(calls, g) -> dict:
         ops.begin("step")
         return [ops.conv_gn(*a) for a in gn_bufs]
 
+    # the fused pairs on the mma.sync tiles, with their group counters
+    gcount = torch.zeros(1 << 14, dtype=torch.int32, device="cuda")
+    mma_gn = []
+    for a in gn_bufs:
+        R, cin, cout = a[0].shape[0], a[2].shape[0] // a[4], a[2].shape[1]
+        t, gp = _split_k_gn_mma(R, cin, cout, a[4], a[5], True)
+        mma_gn.append((a, torch.empty(R, cout, device="cuda"),
+                       torch.empty(max(t.partial_elems, 1), device="cuda"),
+                       t, gp))
+
+    def k5_mma():
+        for a, o, scratch, t, gp in mma_gn:
+            launch_rows_conv_gn(*a[:4], o, *a[4:8], a[8], 0, a[9], gcount,
+                                None, scratch, t, gp)
+
+    per_pair = []
+    for call, a in zip(fused, gn_bufs):
+        R, cin, cout = a[0].shape[0], a[2].shape[0] // a[4], a[2].shape[1]
+        t, _ = _split_k_gn(R, cin, cout, a[4], a[5], True)
+
+        def one(a=a):
+            ops.begin("pair")
+            return ops.conv_gn(*a)
+
+        per_pair.append({
+            "M": R, "K": t.K, "N": cout, "seg": a[5], "tile": tile_of(t),
+            "splits": t.splits,
+            "us": 1e3 * graph_ms(lambda one=one: [one() for _ in range(5)],
+                                 3) / 5,
+            "bound_us": 1e3 * max(gn_pair_times(call))})
+    log(f"K2 rows_conv_gn at {fused[0][1]} rows, per launch (weights warm "
+        f"in L2): " + json.dumps(per_pair))
     b_ms, b_by = gn_pair_bound(fused)
+    turns = [graph_ms(k5_mma, 5), graph_ms(k5, 5), graph_ms(k5, 5),
+             graph_ms(k5_mma, 5)]
     out["rows_conv_gn"] = dict(
-        ms=graph_ms(k5, 5),
+        ms=turns[1],
         library_ms=graph_ms(lambda: [lib_gn(*b) for b in lib_bufs], 5),
-        bound_ms=b_ms, bound_by=b_by, launches_per_step=len(gn_bufs))
+        bound_ms=b_ms, bound_by=b_by, launches_per_step=len(gn_bufs),
+        ms_in_turns={"mma_sync": [turns[0], turns[3]],
+                     "rule": [turns[1], turns[2]]},
+        mma_sync_ms=turns[0], tiles=sorted({q["tile"] for q in per_pair}))
     for name, r in out.items():
         r["kernel_over_library"] = r["ms"] / r["library_ms"]
     return out
@@ -2046,7 +2154,9 @@ def main() -> int:
         # the same kernels at the on-device evaluator's 32,768-row shapes
         lib = ondevice["library"][name]
         kern[name]["at_32768_rows"] = {k: lib[k] for k in (
-            "ms", "library_ms", "bound_ms", "bound_by", "kernel_over_library")}
+            "ms", "library_ms", "bound_ms", "bound_by", "kernel_over_library",
+            "tiles", "mma_sync_ms", "ms_in_turns") + (
+                ("wave_convs",) if name == "rows_conv" else ())}
     kernels = []
     for name, (source, replaces, launches) in table.items():
         r = kern[name]

@@ -20,10 +20,13 @@
 // stack is never built: K = tap * cin + ci indexes it, and a tile's loads
 // gather it from the activations.
 //
-// What bounds it on an H100: at the U-Net's shapes (8-256 rows by 128-512
-// channels, K up to 5120) a conv is a few MFLOP against up to 5 MB of bf16
-// weights that stay in the 50 MB L2, so it is bound by the latency and the
-// bandwidth of L2, far under the tensor cores' peak. The design therefore
+// What bounds it on an H100: at the shapes these tiles serve (8-2,048 rows
+// of the served 8-chain wave, the 64-chain chain and the batch-1 chain, by
+// 128-512 channels, K up to 5120) a conv is a few MFLOP to a few GFLOP
+// against up to 5 MB of bf16 weights that stay in the 50 MB L2, so it is
+// bound by the latency and the bandwidth of L2, far under the tensor cores'
+// peak. (From 8,192 rows on, the 1,024-chain wave's convs, the planner
+// takes WgTile of wgmma.cuh instead: see there.) The design therefore
 // - keeps loads in flight: a ring of 2-5 shared-memory stages; both
 //   operands of tiles k+1.. travel global -> shared with cp.async (16 bytes
 //   a thread) while tile k is multiplied; one __syncthreads per K tile. The
@@ -40,15 +43,19 @@
 //   product; the plain version rounds the same values) and the product runs
 //   on the tensor cores, mma.sync.m16n8k16 bf16 x bf16 -> f32, the weights
 //   fed by ldmatrix.trans; rows are padded (160 and 2*BN+16 bytes) so that
-//   neither operand's reads conflict. mma.sync and not wgmma, because the
-//   batch-1 chain has 32, 16 and 8 rows and a wgmma tile has 64;
+//   neither operand's reads conflict. mma.sync and not wgmma at these
+//   shapes: the batch-1 chain has 32, 16 and 8 rows and a wgmma tile has
+//   64, and at 8 chains 16-row tiles beat 64-row ones (more blocks, each
+//   with its own loads in flight);
 // - f32 weights: the same pipeline and the product in full f32 on the CUDA
 //   cores (fmaf, K ascending; no TF32).
 // Tile shapes (rows x columns) are chosen by the host, ops/conv_tiling.py
 // tile_shape: the smallest of 16x64, 32x64, 64x64, 64x128 that leaves no
 // more output tiles than the card has room for blocks (at these sizes more,
 // smaller blocks beat fewer re-reads: a sweep on the card put 16x64 first at
-// every conv of the flagship); 32x32 for f32 weights.
+// every conv of the flagship at 8 chains); 32x32 for f32 weights.
+// ops/planner.py _split_k takes these while 64x128 leaves no more blocks
+// than the card has SMs, and the wgmma tile past that.
 //
 // Every library's build is keyed by the hash of its .cu and of every .cuh
 // (ops/cuda_lib.py), so an edit here rebuilds all of them.
@@ -556,13 +563,20 @@ __device__ __forceinline__ float sum_partials(const float* partial, int splits,
 // with acc = the sum of the tile's partials in split order, so the result
 // does not depend on which block that is. Eight splits are loaded at a time
 // for all of a thread's pairs: independent loads, one round trip to L2. The
-// counter (zero before the first arrival) is left at zero.
-template <class Tile>
+// counter (zero before the first arrival) is left at zero. `sync` joins the
+// threads that hold the tile (the whole block, or wgmma's consumers), thread
+// 0 among them.
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+template <class Tile, class Sync = BlockSync>
 __device__ __forceinline__ bool split_k_last(float (&acc)[Tile::ACC],
                                              float* partial, int parity,
                                              int split, int splits, int M,
                                              int cout, int m0, int n0,
-                                             unsigned int* counter) {
+                                             unsigned int* counter,
+                                             Sync sync = Sync()) {
   const size_t plane = (size_t)M * cout;
   float* mine = partial + (size_t)(parity * splits + split) * plane;
   Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
@@ -571,11 +585,11 @@ __device__ __forceinline__ bool split_k_last(float (&acc)[Tile::ACC],
           make_float2(v0, v1);
   });
   __threadfence();
-  __syncthreads();
+  sync();
   __shared__ bool last;
   if (threadIdx.x == 0)
     last = atomicAdd(counter, 1u) == (unsigned)splits - 1;
-  __syncthreads();
+  sync();
   if (!last) return false;
   __threadfence();
   const float* first = partial + (size_t)parity * splits * plane;

@@ -43,6 +43,19 @@
 // stays deterministic: the last block of a tile to arrive sums the partial
 // tiles in split order (split_k_last of common.cuh).
 //
+// At the on-device evaluator's 1,024-chain wave (8,192-32,768 rows) those
+// reasons turn over: a step is 0.298 TFLOP, whose least time is set by the
+// bytes (~0.40 ms: f32 activations in and out) and the tensor cores (0.30
+// ms), and the mma.sync tiles, whose every thread gathers A by cp.async,
+// ran at 7-8% of the bf16 peak. There rows_conv and rows_conv_gn run on
+// WgTile of wgmma.cuh (rows_conv_wg, rows_conv_gn_wg below): 128-row
+// tiles, one producer warpgroup issuing TMA for both operands, two
+// consumer warpgroups on wgmma, no split-K (one split won at every conv of
+// that wave in sweep_kernels conv --chains 1024). ops/planner.py _split_k
+// takes the mma.sync tiles while their largest, 64 x 128, leaves no more
+// blocks than the card has SMs (the served wave, the 64-chain chain), and
+// the wgmma tile past that.
+//
 // rows_conv_gn. A standalone GroupNorm+Mish (K1, gn_mish.cu) moves 128 KB
 // each way per call at these shapes, ~0.08 us at 3.35 TB/s, and takes
 // ~2.7 us: the launch, not the work. Its bound inside the conv is the conv's
@@ -66,7 +79,11 @@
 // and not two (split_k_last per tile, then the tiles' sums per group
 // block): on the card the two dependent round trips cost more than the
 // separate K1 launch they replace. The plan of group blocks is written
-// once, ops/conv_tiling.py group_plan, which the CPU tests walk.
+// once, ops/conv_tiling.py group_plan, which the CPU tests walk. On a
+// wgmma tile (128 rows, a multiple of every segment; 128 columns, a
+// multiple of every group) the group block is the tile and its only block:
+// no partial planes, no counters, no arrival; the statistics come from the
+// accumulators in registers (wg_gn_epilogue).
 //
 // ddpm_project_step. The step is ~0.5 MFLOP over a 256 KB M, a 0.09 us
 // bound; one block per chain (8 blocks, each walking a dependent 256-long
@@ -81,7 +98,7 @@
 // write theirs, so the step writes into a second buffer: the wave
 // ping-pongs between two fixed buffers (ops/planner.py _CudaOps.step).
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -122,12 +139,28 @@ constexpr int kSumBatch = 4;
 
 // Mish as y * n / (n + 2) with n = e^y (e^y + 2), which is y * tanh(softplus
 // y) with one exponential; softplus's threshold of 20 as mish() has it
-// (tanh(y) rounds to 1 there).
+// (tanh(y) rounds to 1 there). Without a branch: above the threshold the
+// exponential of 20 is taken and its quotient dropped, so every value is
+// the one a branch would give, and the epilogues' many values interleave.
 __device__ __forceinline__ float mish_epi(float y) {
-  if (y > 20.f) return y;
-  const float e = __expf(y);
+  const float e = __expf(fminf(y, 20.f));
   const float n = e * (e + 2.f);
-  return __fdividef(y * n, n + 2.f);
+  const float m = __fdividef(y * n, n + 2.f);
+  return y > 20.f ? y : m;
+}
+
+// The normalisation of one (segment, group) pair, written once for both
+// GroupNorm epilogues: mean and rstd from the pair's sum x and sum x^2 over
+// n_el values (var = E[x^2] - mean^2, eps inside the root, as gn_mish.cu and
+// the TPU take them), then one value: affine, Mish, + add.
+__device__ __forceinline__ float2 gn_stat(float t1, float t2, float n_el,
+                                          float eps) {
+  const float mean = t1 / n_el;
+  return make_float2(mean, rsqrtf(t2 / n_el - mean * mean + eps));
+}
+__device__ __forceinline__ float gn_apply(float x, float2 st, float sc,
+                                          float sh, float add) {
+  return mish_epi((x - st.x) * st.y * sc + sh) + add;
 }
 
 // The tile's share of the conv is in acc. Every block of a group block (its
@@ -327,9 +360,7 @@ __device__ __forceinline__ void gn_epilogue(float (&acc)[Tile::ACC],
         t1 += red[threadIdx.x * wpp + k].x;
         t2 += red[threadIdx.x * wpp + k].y;
       }
-      const float mean = t1 / n_el;
-      stat[p0 + threadIdx.x] =
-          make_float2(mean, rsqrtf(t2 / n_el - mean * mean + g.eps));
+      stat[p0 + threadIdx.x] = gn_stat(t1, t2, n_el, g.eps);
     }
     __syncthreads();
   }
@@ -358,8 +389,8 @@ __device__ __forceinline__ void gn_epilogue(float (&acc)[Tile::ACC],
       add.y += q.y;
     }
     *reinterpret_cast<float2*>(out + (size_t)(gm0 + r) * cout + gn0 + cc) =
-        make_float2(mish_epi((x.x - s0.x) * s0.y * sc.x + sh.x) + add.x,
-                    mish_epi((x.y - s1.x) * s1.y * sc.y + sh.y) + add.y);
+        make_float2(gn_apply(x.x, s0, sc.x, sh.x, add.x),
+                    gn_apply(x.y, s1, sc.y, sh.y, add.y));
   }
   if (arrivals > 1 && threadIdx.x == 0) g.counters[gb] = 0u;  // next conv
 }
@@ -402,6 +433,199 @@ rows_conv_kernel(ConvIn c, const typename Tile::W* __restrict__ w,
     const int tile = (parity * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
     if (!split_k_last<Tile>(acc, partial, parity, split, splits, M, cout, m0,
                             n0, &counters[tile]))
+      return;
+  }
+  Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+    if (m >= M || n >= cout) return;
+    const size_t o = (size_t)out_row(c.mode, m, parity, c.seg_in) * cout + n;
+    *reinterpret_cast<float2*>(out + o) =
+        make_float2(v0 + bias[n], v1 + bias[n + 1]);
+  });
+}
+
+// The per-column operands of rows_conv_gn's epilogue on a wgmma tile
+// (bias, scale, shift) and its time rows, staged into shared memory by the
+// consumers before the K loop, so that the epilogue reads no global memory
+// but the residual tile, which TMA brings meanwhile.
+template <class Tile>
+__device__ __forceinline__ void wg_gn_stage(const ConvIn& c,
+                                            const float* __restrict__ bias,
+                                            const GnEpi& g,
+                                            const typename Tile::Smem& s,
+                                            int m0, int n0) {
+  constexpr int BN = Tile::BN;
+  const int n_seg = min(Tile::BM, c.M - m0) / c.seg_in;
+  const int te_rows = g.te == nullptr ? 0 : (g.te_stride == 0 ? 1 : n_seg);
+  for (int i = threadIdx.x; i < (3 + te_rows) * BN; i += Tile::kConsumers) {
+    const int r = i / BN, j = i - r * BN, n = n0 + j;
+    float v = 0.f;
+    if (n < c.cout) {
+      if (r == 0)
+        v = bias[n];
+      else if (r == 1)
+        v = g.scale[n];
+      else if (r == 2)
+        v = g.gbias[n];
+      else
+        v = g.te[(size_t)(m0 / c.seg_in + r - 3) * g.te_stride + n];
+    }
+    s.par[i] = v;  // par, then te: one array
+  }
+  ConsumerSync()();
+}
+
+// The GroupNorm+Mish epilogue of rows_conv_gn on a wgmma tile. The tile
+// holds whole (segment, group) pairs (segments of 8-128 rows that divide
+// 128, groups of a multiple of 8 channels that divide 128 or span all of
+// cout: ops/conv_tiling.py wg_gn_fits), so it needs no other block: no
+// partial planes, no counter, no arrival. x = acc + bias in registers;
+// each warp sums x and x^2 of each (8-row piece, group) it holds, its lanes
+// in column order and a shuffle tree over the lanes; the consumers meet once
+// (named barrier) and a pair adds its pieces in row order; then each thread
+// normalises its own values: affine, Mish, + te[segment], + res (from the
+// residual tile in shared memory). Every sum is taken in a fixed order.
+template <class Tile>
+__device__ __forceinline__ void wg_gn_epilogue(float (&acc)[Tile::ACC],
+                                               const ConvIn& c,
+                                               float* __restrict__ out,
+                                               const GnEpi& g,
+                                               const typename Tile::Smem& s) {
+  constexpr int BN = Tile::BN, G = Tile::kMaxGroups;
+  const int M = c.M, cout = c.cout, seg = c.seg_in;
+  const int m0 = blockIdx.y * Tile::BM, n0 = blockIdx.x * BN;
+  const int ct = threadIdx.x, lane = ct & 31, t = lane & 3;
+  const int r_lo = (ct >> 7) * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
+  const int piece = r_lo >> 3;  // row r_lo + 8 lies in piece + 1
+  const int cgc = g.cg / 8;     // 8-column chunks per group
+  const int ng = min(BN, cout - n0) / g.cg;  // groups of the tile
+  const bool in_row[2] = {m0 + r_lo < M, m0 + r_lo + 8 < M};
+  const float* sc = s.par + BN;
+  const float* sh = s.par + 2 * BN;
+  ConsumerSync sync;
+
+  // 1. x = acc + bias; sums per (8-row piece, group)
+  float q[4] = {0.f, 0.f, 0.f, 0.f};  // rows r_lo: x, x^2; r_lo + 8: x, x^2
+#pragma unroll
+  for (int i = 0; i < Tile::NI; ++i) {
+    const float2 b = *reinterpret_cast<const float2*>(s.par + 8 * i + 2 * t);
+    float* v = acc + 4 * i;
+    v[0] += b.x;
+    v[1] += b.y;
+    v[2] += b.x;
+    v[3] += b.y;
+    if (in_row[0]) {
+      q[0] += v[0] + v[1];
+      q[1] = fmaf(v[0], v[0], fmaf(v[1], v[1], q[1]));
+    }
+    if (in_row[1]) {
+      q[2] += v[2] + v[3];
+      q[3] = fmaf(v[2], v[2], fmaf(v[3], v[3], q[3]));
+    }
+    if ((i + 1) % cgc == 0) {  // the last chunk of group i / cgc
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          q[u] += __shfl_xor_sync(0xffffffffu, q[u], o);
+      const int gl = i / cgc;
+      if (lane == 0 && gl < ng) {
+        s.red[piece * G + gl] = make_float2(q[0], q[1]);
+        s.red[(piece + 1) * G + gl] = make_float2(q[2], q[3]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) q[u] = 0.f;
+    }
+  }
+  sync();
+  // 2. each pair's statistics: its pieces added in row order
+  const int n_seg = (min(Tile::BM, M - m0) + seg - 1) / seg;
+  const float n_el = (float)(seg * g.cg);
+  for (int p = ct; p < n_seg * ng; p += Tile::kConsumers) {
+    const int sl = p / ng, gl = p - sl * ng;
+    float t1 = 0.f, t2 = 0.f;
+    for (int u = sl * seg / 8; u < (sl + 1) * seg / 8; ++u) {
+      t1 += s.red[u * G + gl].x;
+      t2 += s.red[u * G + gl].y;
+    }
+    s.stat[p] = gn_stat(t1, t2, n_el, g.eps);
+  }
+  sync();
+  // 3. normalise this thread's values
+  if (g.res != nullptr) mbar_wait(s.resbar, 0);
+  const int te_seg = g.te_stride == 0 ? 0 : 1;  // time row per segment?
+#pragma unroll
+  for (int i = 0; i < Tile::NI; ++i) {
+    const int j = 8 * i + 2 * t, n = n0 + j;
+    if (n >= cout) continue;
+    const int gl = i / cgc;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_lo + 8 * h, m = m0 + r;
+      if (!in_row[h]) continue;
+      const int sl = r / seg;
+      const float2 st = s.stat[sl * ng + gl];
+      float2 add = make_float2(0.f, 0.f);
+      if (g.te != nullptr)
+        add = *reinterpret_cast<const float2*>(s.te + te_seg * sl * BN + j);
+      if (g.res != nullptr) {
+        const float2 rv =
+            *reinterpret_cast<const float2*>(s.res + Tile::res_at(r, j));
+        add.x += rv.x;
+        add.y += rv.y;
+      }
+      *reinterpret_cast<float2*>(out + (size_t)m * cout + n) = make_float2(
+          gn_apply(acc[4 * i + 2 * h], st, sc[j], sh[j], add.x),
+          gn_apply(acc[4 * i + 2 * h + 1], st, sc[j + 1], sh[j + 1], add.y));
+    }
+  }
+}
+
+// rows_conv_kernel on a wgmma tile (wgmma.cuh): warpgroup 2 loads, 0 and 1
+// multiply and run the epilogue. One block per (output tile, parity, K
+// split); the weights come through the tensor map `wmap`.
+template <class Tile, bool kGn>
+__global__ void __launch_bounds__(Tile::kThreads, 1)
+rows_conv_wg_kernel(ConvIn c, const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ ActMaps amaps,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int splits, float* __restrict__ partial,
+                    unsigned int* __restrict__ counters, GnEpi gn) {
+  extern __shared__ unsigned char wg_smem[];
+  const typename Tile::Smem s = Tile::carve(wg_smem);
+  const int cin = c.cin_a + c.cin_b;
+  const int K = (c.mode == kUp ? 2 : c.k) * cin;
+  const int split = blockIdx.z % splits;
+  const int parity = blockIdx.z / splits;
+  const int m0 = blockIdx.y * Tile::BM, n0 = blockIdx.x * Tile::BN;
+  const int k_tiles = (K + Tile::BK - 1) / Tile::BK;
+  const int per_split = (k_tiles + splits - 1) / splits;
+  const int k_begin = split * per_split * Tile::BK;
+  const int k_end = min(K, k_begin + per_split * Tile::BK);
+
+  Tile::setup(c, m0, amaps.tma, s);
+  if (threadIdx.x >= Tile::kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Tile::kProducerRegs));
+    Tile::produce(c, &wmap, amaps, parity, m0, n0, k_begin, k_end, s);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      Tile::kConsumerRegs));
+  if constexpr (kGn) wg_gn_stage<Tile>(c, bias, gn, s, m0, n0);
+  float acc[Tile::ACC];
+#pragma unroll
+  for (int i = 0; i < Tile::ACC; ++i) acc[i] = 0.f;
+  Tile::consume((k_end - k_begin + Tile::BK - 1) / Tile::BK, s, acc);
+
+  if constexpr (kGn) {
+    wg_gn_epilogue<Tile>(acc, c, out, gn, s);
+    return;
+  }
+  const int M = c.M, cout = c.cout;
+  if (splits > 1) {
+    const int tile = (parity * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    if (!split_k_last<Tile>(acc, partial, parity, split, splits, M, cout, m0,
+                            n0, &counters[tile], ConsumerSync()))
       return;
   }
   Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
@@ -641,4 +865,185 @@ extern "C" int ddpm_project_step(const float* x, float* out, const float* eps,
       x, out, eps, noise, scal, cond, M, b, n_chains, H, D, clip, predict_eps,
       wall, grid_h, grid_w, mx, my, sx, sy, margin);
   return (int)cudaGetLastError();
+}
+
+// ---- wgmma tiles -----------------------------------------------------------
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime (no
+// driver library at link time)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The tensor map of a (rows, cout) row-major bf16 weight, in boxes of 64
+// rows x 64 columns with the 128-byte swizzle, zeros past its edges; encoded
+// from the pointer it serves, at each launch (a graph keeps the map it
+// captured with the launch, and the graph keeps its weights alive).
+static int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* base, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      const cuuint32_t* elem) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return (int)e;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const CUresult r = encode(
+      map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
+      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+static int weight_map(CUtensorMap* map, const void* w, int rows, int cout) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cout, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cout * 2};
+  const cuuint32_t box[2] = {64, 64}, elem[2] = {1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dims,
+                    strides, box, elem);
+}
+
+// The tensor map of one activation source x (rows_in, cin_x) f32 over
+// segments of seg_in rows, in boxes of 32 channels x the tile's 128 GEMM
+// rows with the 128-byte swizzle, zeros outside a segment: (cin_x, seg_in,
+// segments), or for the stride-2 conv (cin_x, 2, seg_in / 2, segments) so
+// that a box takes every other row.
+static int act_map(CUtensorMap* map, const float* x, int cin_x, int rows_in,
+                   int seg_in, int mode) {
+  const bool down = mode == kDown;
+  const int seg_m = down ? seg_in / 2 : seg_in;
+  const int rows_box = seg_m < 128 ? seg_m : 128;
+  const cuuint64_t row = (cuuint64_t)cin_x * 4;
+  const cuuint64_t dims[4] = {
+      (cuuint64_t)cin_x, down ? 2u : (cuuint64_t)seg_in,
+      down ? (cuuint64_t)seg_m : (cuuint64_t)(rows_in / seg_in),
+      (cuuint64_t)(rows_in / seg_in)};
+  const cuuint64_t strides[3] = {row, down ? 2 * row : row * seg_in,
+                                 row * seg_in};
+  const cuuint32_t box[4] = {32, down ? 1u : (cuuint32_t)rows_box,
+                             down ? (cuuint32_t)rows_box
+                                  : (cuuint32_t)(128 / rows_box),
+                             (cuuint32_t)(128 / rows_box)};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, down ? 4 : 3,
+                    x, dims, strides, box, elem);
+}
+
+// The activations' maps of a launch: A travels by TMA where every K tile
+// lies in one tap and one of xa / xb (cin_a, cin_b multiples of 64) and a
+// tile's 128 rows are whole segments or lie in one; else tma = 0 and the
+// producer gathers A.
+static int act_maps(ActMaps* am, const ConvIn& c, int rows_in) {
+  const int seg_m = c.mode == kDown ? c.seg_in / 2 : c.seg_in;
+  am->has_res = 0;
+  am->tma = c.cin_a % 64 == 0 && c.cin_b % 64 == 0 && seg_m > 0 &&
+            (128 % seg_m == 0 || seg_m % 128 == 0) &&
+            (c.mode != kDown || c.seg_in % 2 == 0);
+  if (!am->tma) return 0;
+  int rc = act_map(&am->xa, c.xa, c.cin_a, rows_in, c.seg_in, c.mode);
+  if (rc == 0 && c.xb != nullptr)
+    rc = act_map(&am->xb, c.xb, c.cin_b, rows_in, c.seg_in, c.mode);
+  return rc;
+}
+
+// A wgmma launch of Tile: opts in to its shared memory, then launches.
+template <class Tile, bool kGn>
+static int launch_wg(dim3 grid, cudaStream_t st, const ConvIn& c,
+                     const CUtensorMap& map, const ActMaps& am,
+                     const float* bias, float* out, int splits,
+                     float* partial, unsigned int* counters, const GnEpi& g) {
+  constexpr int smem = kGn ? Tile::SMEM_GN : Tile::SMEM;
+  static_assert(smem <= 232448, "shared memory of a block");
+  cudaError_t e = cudaFuncSetAttribute(
+      rows_conv_wg_kernel<Tile, kGn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  rows_conv_wg_kernel<Tile, kGn><<<grid, Tile::kThreads, smem, st>>>(
+      c, map, am, bias, out, splits, partial, counters, g);
+  return (int)cudaGetLastError();
+}
+
+// rows_conv on a 128 x bn wgmma tile with `stages` stages (one of those
+// DADIFF_WITH_WG_TILE knows, else cudaErrorInvalidValue); bf16 weights.
+// cout a multiple of 8, the transposed conv (UP) needs cin_a % 64 == 0 and
+// no xb; splits > 1 needs partial (parities * splits * M * cout floats) and
+// counters (one zeroed unsigned per output tile, left zeroed).
+extern "C" int rows_conv_wg(const float* xa, const float* xb, int cin_a,
+                            int cin_b, const void* w, const float* bias,
+                            float* out, int rows_in, int seg_in, int cout,
+                            int mode, int k, int bn, int stages, int splits,
+                            float* partial, unsigned int* counters,
+                            void* stream) {
+  const int M = mode == kDown ? rows_in / 2 : rows_in;
+  if (cout % 8 != 0 || splits < 1 ||
+      (mode == kUp && (cin_a % 64 != 0 || xb != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const ConvIn c{xa, xb, cin_a, cin_b, M, seg_in, cout, mode, k};
+  CUtensorMap map;
+  ActMaps am;
+  int rc = weight_map(&map, w, (mode == kUp ? 4 : k) * (cin_a + cin_b), cout);
+  if (rc == 0) rc = act_maps(&am, c, rows_in);
+  if (rc != 0) return rc;
+  dim3 grid((cout + bn - 1) / bn, (M + 127) / 128,
+            (mode == kUp ? 2 : 1) * splits);
+  cudaStream_t st = (cudaStream_t)stream;
+  bool ok;
+  int e = 0;
+  DADIFF_WITH_WG_TILE(bn, stages, ok,
+                      e = (launch_wg<Tile, false>(grid, st, c, map, am, bias,
+                                                  out,
+                                                  splits, partial, counters,
+                                                  GnEpi{})));
+  return ok ? e : (int)cudaErrorInvalidValue;
+}
+
+// rows_conv_gn on the 128 x 128 wgmma tile with 3 stages (the ring leaves
+// room for the epilogue's residual tile), one K split: every (segment,
+// group) pair lies in one tile (seg_in a multiple of 8 that divides 128;
+// cout / 8 a multiple of 8 that divides 128, or cout <= 128).
+extern "C" int rows_conv_gn_wg(const float* xa, const float* xb, int cin_a,
+                               int cin_b, const void* w, const float* bias,
+                               float* out, int rows, int seg_in, int cout,
+                               int k, int bn, int stages, const float* scale,
+                               const float* gbias, const float* te,
+                               int te_stride, const float* res, float eps,
+                               void* stream) {
+  const int cg = cout / 8;
+  if (cout % 64 != 0 || seg_in % 8 != 0 || 128 % seg_in != 0 ||
+      rows % seg_in != 0 || (128 % cg != 0 && 128 < cout) || bn != 128 ||
+      stages != 3)
+    return (int)cudaErrorInvalidValue;
+  const ConvIn c{xa, xb, cin_a, cin_b, rows, seg_in, cout, kSame, k};
+  const GnEpi g{scale, gbias, te, res, te_stride, cg, 1, 1,
+                128 / seg_in, min(bn, cout) / cg, eps, nullptr};
+  CUtensorMap map;
+  ActMaps am;
+  int rc = weight_map(&map, w, k * (cin_a + cin_b), cout);
+  if (rc == 0) rc = act_maps(&am, c, rows);
+  if (rc == 0 && res != nullptr) {
+    const cuuint64_t dims[2] = {(cuuint64_t)cout, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cout * 4};
+    const cuuint32_t box[2] = {32, 128}, elem[2] = {1, 1};
+    am.has_res = 1;
+    rc = encode_map(&am.res, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, res, dims,
+                    strides, box, elem);
+  }
+  if (rc != 0) return rc;
+  return launch_wg<WgTile<128, 3>, true>(
+      dim3((cout + 127) / 128, (rows + 127) / 128, 1), (cudaStream_t)stream,
+      c, map, am, bias, out, 1, nullptr, nullptr, g);
 }

@@ -12,7 +12,10 @@ transposed conv runs as two parities of two virtual taps each.
 The launchers (``ops/planner.py``, ``ops/chain.py``) take tile shapes and
 splits from here and hand them to the kernels; :func:`rows_conv_tiled` walks
 the same tiles on the CPU, so the tests hold the tiling against
-``rows_conv_plain`` where no kernel can run.
+``rows_conv_plain`` where no kernel can run. Two families of tiles: the
+mma.sync tiles of csrc/common.cuh (``MMA_TILES``, ``F32_TILE``; K tiles of
+32) and the wgmma tiles of csrc/wgmma.cuh (``WG_TILES``: 128 rows, K tiles
+of 64), which only the planner's launcher takes, at large row counts.
 
 A conv that feeds a GroupNorm (``rows_conv_gn`` of csrc/planner.cu) also
 normalises in its epilogue: the tiles that share a (segment, group) meet in a
@@ -34,6 +37,20 @@ N_SM = 132                # streaming multiprocessors of an H100
 
 MMA_TILES = ((16, 64), (32, 64), (64, 64), (64, 128))  # bf16, smallest first
 F32_TILE = (32, 32)
+# the wgmma tiles of csrc/wgmma.cuh (DADIFF_WITH_WG_TILE): 128 rows, BK = 64,
+# the stages each width takes by default and the (width, stages) built
+WG_BM, WG_BK = 128, 64
+WG_TILES = ((WG_BM, 128), (WG_BM, 256))
+WG_STAGES = {128: 4, 256: 3}
+WG_BUILT = ((128, 4), (128, 3), (256, 3))
+# rows_conv_gn's wgmma tile: 128 columns, 3 stages (the ring leaves room for
+# the residual tile of its epilogue)
+WG_GN = (128, 3)
+
+
+def tile_bk(bm: int) -> int:
+    """K tile of the tile with ``bm`` rows: 64 for a wgmma tile, else 32."""
+    return WG_BK if bm == WG_BM else BK
 
 
 def tile_shape(M: int, bf16: bool, cout: int, parities: int = 1,
@@ -41,10 +58,13 @@ def tile_shape(M: int, bf16: bool, cout: int, parities: int = 1,
     """(rows, columns) of the output tile of a conv with M GEMM rows; one of
     the tiles ``DADIFF_WITH_TILE`` of csrc/common.cuh instantiates. bf16
     weights: the smallest tile that leaves no more than ``room`` output
-    tiles. At the U-Net's sizes a conv is bound by latency, and many small
-    blocks, each with its own loads in flight, beat the fewer re-reads of a
-    large tile: on the card 16 x 64 came first at every conv of the flagship
-    at 8 chains. f32 weights: 32 x 32."""
+    tiles. At the U-Net's sizes up to the 64-chain chain a conv is bound by
+    latency, and many small blocks, each with its own loads in flight, beat
+    the fewer re-reads of a large tile: on the card 16 x 64 came first at
+    every conv of the flagship at 8 chains. f32 weights: 32 x 32. (The K3
+    and K4 programs cut their convs here too; the planner's launcher takes
+    the wgmma tiles of ``WG_TILES`` past the point where 64 x 128 leaves
+    more blocks than the card has SMs: ops/planner.py ``_split_k``.)"""
     if not bf16:
         return F32_TILE
     for bm, bn in MMA_TILES:
@@ -94,12 +114,13 @@ def gemm_dims(rows: int, cin: int, mode: int, k: int) -> Tuple[int, int, int]:
             (2 if mode == UP else k) * cin, 2 if mode == UP else 1)
 
 
-def k_range(split: int, splits: int, K: int) -> Tuple[int, int]:
-    """[k_begin, k_end) of one K split: whole K tiles, equal shares."""
-    k_tiles = -(-K // BK)
+def k_range(split: int, splits: int, K: int, bk: int = BK) -> Tuple[int, int]:
+    """[k_begin, k_end) of one K split: whole K tiles of ``bk``, equal
+    shares."""
+    k_tiles = -(-K // bk)
     per_split = -(-k_tiles // splits)
-    k_begin = split * per_split * BK
-    return k_begin, max(k_begin, min(K, k_begin + per_split * BK))
+    k_begin = split * per_split * bk
+    return k_begin, max(k_begin, min(K, k_begin + per_split * bk))
 
 
 def even_splits(k_tiles: int, want: int) -> int:
@@ -117,6 +138,22 @@ class Tiling(NamedTuple):
     K: int
     parities: int
     cout: int
+    stages: int = 0  # a wgmma tile's ring; 0: WG_STAGES[bn]
+
+    @property
+    def bk(self) -> int:
+        return tile_bk(self.bm)
+
+    @property
+    def k_tiles(self) -> int:
+        return -(-self.K // self.bk)
+
+    @property
+    def ring(self) -> int:
+        """Stages of a wgmma tile's ring (0 for the other tiles)."""
+        if self.bm != WG_BM:
+            return 0
+        return self.stages or WG_STAGES[self.bn]
 
     @property
     def partial_elems(self) -> int:
@@ -138,11 +175,21 @@ def tiling(rows: int, cin: int, cout: int, mode: int, k: int, bf16: bool,
                   M, K, parities, cout)
 
 
+def wg_tiling(M: int, K: int, parities: int, cout: int, bn: int,
+              splits: int, stages: int = 0) -> Tiling:
+    """A conv's GEMM on the 128 x ``bn`` wgmma tile."""
+    tiles = -(-cout // bn) * -(-M // WG_BM) * parities
+    return Tiling(WG_BM, bn, tiles, even_splits(-(-K // WG_BK), splits), M, K,
+                  parities, cout, stages)
+
+
 def rows_conv_tiled(xa, xb, w, bias, mode: int, k: int, seg_in: int, bm: int,
                     bn: int, splits: int):
     """The conv rebuilt from its kernel tiles on the CPU: every (tile,
-    parity, K split) sums its K tiles into a partial tile, through the index
-    functions above, and the partials are added in split order. Returns
+    parity, K split) sums its K tiles (of the tile's BK) into a partial
+    tile, through the index functions above, and the partials are added in
+    split order. A wgmma tile reads the weight rows of a ragged K tile as
+    one box of consecutive rows (its TMA load; SAME and DOWN only). Returns
     (out, cover): ``cover[parity, tile_m, tile_n, K index]`` counts how often
     a tile's walk multiplied that index."""
     x = xa if xb is None else torch.cat([xa, xb], dim=1)
@@ -152,7 +199,10 @@ def rows_conv_tiled(xa, xb, w, bias, mode: int, k: int, seg_in: int, bm: int,
     rows, cin = x.shape
     cout = wf.shape[1]
     M, K, parities = gemm_dims(rows, cin, mode, k)
-    aligned = xa.shape[1] % BK == 0 and (xb is None or xb.shape[1] % BK == 0)
+    bk, wg = tile_bk(bm), bm == WG_BM
+    aligned = xa.shape[1] % bk == 0 and (xb is None or xb.shape[1] % bk == 0)
+    if wg and not aligned and mode == UP:
+        raise ValueError("a wgmma tile's transposed conv needs cin % 64 == 0")
     tiles_m, tiles_n = -(-M // bm), -(-cout // bn)
     out = torch.zeros(parities * M if mode == UP else M, cout)
     cover = torch.zeros(parities, tiles_m, tiles_n, K, dtype=torch.int64)
@@ -165,9 +215,9 @@ def rows_conv_tiled(xa, xb, w, bias, mode: int, k: int, seg_in: int, bm: int,
                 acc = torch.zeros(len(ms), n1 - n0)
                 for split in range(splits):
                     part = torch.zeros_like(acc)
-                    k_begin, k_end = k_range(split, splits, K)
-                    for k0 in range(k_begin, k_end, BK):
-                        k1 = min(k_end, k0 + BK)
+                    k_begin, k_end = k_range(split, splits, K, bk)
+                    for k0 in range(k_begin, k_end, bk):
+                        k1 = min(k_end, k0 + bk)
                         a = torch.zeros(len(ms), k1 - k0)
                         if aligned:  # one tap per K tile, found once per row
                             j, ci = divmod(k0, cin)
@@ -183,7 +233,8 @@ def rows_conv_tiled(xa, xb, w, bias, mode: int, k: int, seg_in: int, bm: int,
                                 for i, m in enumerate(ms):
                                     r = in_row(mode, m, j, parity, seg_in, k)
                                     a[i, kk] = 0.0 if r < 0 else x[r, ci]
-                                b[kk] = wf[weight_tap(mode, j, parity) * cin
+                                b[kk] = wf[kg if wg else
+                                           weight_tap(mode, j, parity) * cin
                                            + ci, n0:n1]
                         part += a @ b
                         cover[parity, tm, tn, k0:k1] += 1
@@ -246,6 +297,18 @@ def group_plan(M: int, cout: int, seg: int, bm: int, bn: int,
                      + 4 * tn * bn * (3 + segs))
 
 
+def wg_gn_fits(seg: int, cout: int, bn: int, n_groups: int = N_GROUPS
+               ) -> bool:
+    """The GroupNorm epilogue of a wgmma tile ``bn`` wide (csrc/planner.cu
+    wg_gn_epilogue, built for ``WG_GN``) holds every (segment, group) pair
+    inside one tile: a segment is whole 8-row pieces and divides 128 rows, a
+    group is whole 8-column chunks and divides the tile's width (or the
+    tile spans cout)."""
+    cg = cout // n_groups
+    return (cout % n_groups == 0 and seg % 8 == 0 and WG_BM % seg == 0
+            and cg % 8 == 0 and (bn % cg == 0 or bn >= cout))
+
+
 class GroupBlock(NamedTuple):
     index: int                       # its counter
     rows: Tuple[int, int]            # [m0, m1) of the conv's rows
@@ -291,12 +354,23 @@ def rows_conv_gn_tiled(xa, xb, w, bias, k: int, seg: int, scale, gbias,
     out = torch.empty_like(pre)
     cover = torch.zeros(M // seg, N_GROUPS, dtype=torch.int64)
     te = None if te is None else te.reshape(-1, cout).expand(M // seg, cout)
+    wg = bm == WG_BM
+    if wg and not wg_gn_fits(seg, cout, bn):
+        raise ValueError("the wgmma tile does not hold these pairs")
     for gb in group_blocks(M, cout, seg, bm, bn):
         for _, s, g in gb.pairs:
             rs, cs = slice(s * seg, (s + 1) * seg), slice(g * cg, (g + 1) * cg)
             x = pre[rs, cs]
-            mean = x.sum() / (seg * cg)
-            rstd = torch.rsqrt((x * x).sum() / (seg * cg) - mean * mean + eps)
+            if wg:  # sums per 8-row piece, the pieces added in row order
+                pieces = x.reshape(seg // 8, 8 * cg)
+                s1 = torch.zeros(())
+                s2 = torch.zeros(())
+                for p in pieces:
+                    s1, s2 = s1 + p.sum(), s2 + (p * p).sum()
+            else:
+                s1, s2 = x.sum(), (x * x).sum()
+            mean = s1 / (seg * cg)
+            rstd = torch.rsqrt(s2 / (seg * cg) - mean * mean + eps)
             y = (x - mean) * rstd * scale.reshape(-1)[cs] \
                 + gbias.reshape(-1)[cs]
             y = y * torch.tanh(torch.nn.functional.softplus(y))

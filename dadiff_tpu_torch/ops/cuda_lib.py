@@ -46,6 +46,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # gtm, gtn, ns, ng, gcounters, stream
         "rows_conv_gn": [P, P, I, I, P, I, P, P, I, I, I, I, I, I, I, P,
                          P, P, P, I, P, F, I, I, I, I, P, P],
+        # xa, xb, cin_a, cin_b, w, bias, out, rows_in, seg_in, cout, mode,
+        # k, bn, stages, splits, partial, counters, stream
+        "rows_conv_wg": [P, P, I, I, P, P, P, I, I, I, I, I, I, I, I, P, P,
+                         P],
+        # xa, xb, cin_a, cin_b, w, bias, out, rows, seg_in, cout, k, bn,
+        # stages, scale, gbias, te, te_stride, res, eps, stream
+        "rows_conv_gn_wg": [P, P, I, I, P, P, P, I, I, I, I, I, I, P, P, P,
+                            I, P, F, P],
         # x, out, eps, noise, scal, cond, M, b, n_chains, H, D, clip,
         # predict_eps, wall, grid_h, grid_w, mx, my, sx, sy, margin, stream
         "ddpm_project_step": [P, P, P, P, P, P, P, P, I, I, I, I, I,

@@ -48,8 +48,9 @@ import torch
 from dadiff_tpu_torch.ops import cuda_lib
 from dadiff_tpu_torch.ops.chain_operands import _layer_plan, prepare_chain_operands
 from dadiff_tpu_torch.ops.conv_tiling import (
-    DOWN, F32_TILE, MMA_TILES, N_GROUPS, N_SM, SAME, UP, BK, GroupPlan,
-    Tiling, even_splits, group_plan, tiling,
+    DOWN, F32_TILE, MMA_TILES, N_GROUPS, N_SM, SAME, UP, BK, WG_BK, WG_BM,
+    WG_GN, GroupPlan, Tiling, even_splits, gemm_dims, group_plan, tiling,
+    wg_gn_fits, wg_tiling,
 )
 from dadiff_tpu_torch.ops.gn_mish import gn_mish_plain
 from dadiff_tpu_torch.ops.projection import (
@@ -121,10 +122,39 @@ def _want_splits(tiles: int, k_tiles: int) -> int:
     return min(k_tiles // 2, max(8, k_tiles // 10), -(-2 * _ROOM // tiles))
 
 
+def _wg_width(M: int, cout: int, parities: int) -> int:
+    """Columns of the wgmma tile of a conv (``sweep_kernels conv --chains
+    1024`` on the card): 256 where that still leaves three output tiles for
+    every four SMs (each A tile then feeds twice the columns), else 128.
+    No K splits: one launch on one split beat two splits at every conv of
+    the 1,024-chain wave, the 128 tiles of a 8,192-row 256-channel conv
+    too."""
+    tiles = -(-M // WG_BM) * -(-cout // 256) * parities
+    return 256 if cout >= 256 and 4 * tiles >= 3 * N_SM else 128
+
+
+def _split_k_mma(rows: int, cin: int, cout: int, mode: int, k: int,
+                 bf16: bool) -> Tiling:
+    """The mma.sync (f32: CUDA-core) tile and K splits of a launch."""
+    return tiling(rows, cin, cout, mode, k, bf16, _ROOM, _want_splits)
+
+
 def _split_k(rows: int, cin: int, cout: int, mode: int, k: int,
              bf16: bool) -> Tiling:
-    """Tile shape, output tiles and K splits of one launch."""
-    return tiling(rows, cin, cout, mode, k, bf16, _ROOM, _want_splits)
+    """Tile shape, output tiles and K splits of one launch. bf16 weights
+    take the mma.sync tiles of ``tile_shape`` while the largest of them
+    leaves no more blocks than the card has SMs (every conv of the served
+    8-chain wave and of the 64-chain chain; K3 and K4 cut their own), and
+    past that the 128-row wgmma tile: every conv of the 1,024-chain wave
+    (8,192-32,768 rows; a transposed conv only where its cin is whole K
+    tiles of 64, the rows its TMA box reads)."""
+    t = _split_k_mma(rows, cin, cout, mode, k, bf16)
+    M, _, parities = gemm_dims(rows, cin, mode, k)
+    largest = -(-M // MMA_TILES[-1][0]) * -(-cout // MMA_TILES[-1][1])
+    if not bf16 or largest * parities <= N_SM or (mode == UP and cin % WG_BK):
+        return t
+    return wg_tiling(t.M, t.K, t.parities, cout,
+                     _wg_width(t.M, cout, t.parities), 1)
 
 
 def _partial(xa, t: Tiling, scratch):
@@ -161,10 +191,17 @@ def launch_rows_conv(xa, xb, w, bias, out, mode: int, k: int, seg_in: int,
         counters = None
     elif counters is None:
         counters = cuda_lib.counters(xa.device, t.tiles, stream)
-    rc = cuda_lib.lib("planner").rows_conv(
-        xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(), int(bf16),
-        bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, mode, k, t.bm,
-        t.bn, t.splits, _ptr(partial), _ptr(counters), stream)
+    if t.bm == WG_BM:  # csrc/wgmma.cuh, bf16 weights
+        rc = cuda_lib.lib("planner").rows_conv_wg(
+            xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, mode, k,
+            t.bn, t.ring, t.splits, _ptr(partial), _ptr(counters), stream)
+    else:
+        rc = cuda_lib.lib("planner").rows_conv(
+            xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
+            int(bf16), bias.data_ptr(), out.data_ptr(), rows, seg_in, cout,
+            mode, k, t.bm, t.bn, t.splits, _ptr(partial), _ptr(counters),
+            stream)
     cuda_lib.check(rc, "rows_conv")
     rows_conv.launches += 1
 
@@ -230,8 +267,24 @@ def _split_k_gn(rows: int, cin: int, cout: int, k: int, seg: int,
     """Tile, K splits and group blocks of a fused conv: :func:`_split_k`'s
     tile, or the largest smaller one whose group block fits the kernel's
     shared memory (only segments of more than 64 rows at 64-row tiles need
-    that)."""
+    that). Where :func:`_split_k` takes the wgmma tile, a fused conv takes
+    ``WG_GN``, 128 columns and 3 stages (on the card the 256-wide tile lost
+    at every fused pair of the 1,024-chain wave, and 3 stages matched 4),
+    with one K split, and holds its pairs itself (a group block of one tile,
+    :func:`conv_tiling.wg_gn_fits`); where it cannot, the conv takes the
+    mma.sync tiles."""
     t = _split_k(rows, cin, cout, SAME, k, bf16)
+    bn, stages = WG_GN
+    if t.bm == WG_BM and wg_gn_fits(seg, cout, bn):
+        t = wg_tiling(t.M, t.K, 1, cout, bn, 1, stages)
+        return t, group_plan(rows, cout, seg, t.bm, t.bn)
+    return _split_k_gn_mma(rows, cin, cout, k, seg, bf16)
+
+
+def _split_k_gn_mma(rows: int, cin: int, cout: int, k: int, seg: int,
+                    bf16: bool) -> Tuple[Tiling, GroupPlan]:
+    """The mma.sync tile, K splits and group blocks of a fused conv."""
+    t = _split_k_mma(rows, cin, cout, SAME, k, bf16)
     shapes = [s for s in (MMA_TILES if bf16 else (F32_TILE,))
               if s[0] * s[1] <= t.bm * t.bn]
     for bm, bn in sorted(shapes, key=lambda s: -s[0] * s[1]):
@@ -253,21 +306,29 @@ def launch_rows_conv_gn(xa, xb, w, bias, out, k: int, seg_in: int, scale,
                         eps: float = 1e-5) -> None:
     """Launch the fused kernel on contiguous CUDA tensors (unchecked).
     ``gcounters``: zeroed int32, one per group block (``g.blocks``), left
-    zeroed; ``scratch`` as for :func:`launch_rows_conv`; ``te``: None or rows
-    of cout at stride ``te_stride`` per segment."""
+    zeroed (None on a wgmma tile, which needs none); ``scratch`` as for
+    :func:`launch_rows_conv`; ``te``: None or rows of cout at stride
+    ``te_stride`` per segment."""
     cin_b = 0 if xb is None else xb.shape[1]
     rows, cout = xa.shape[0], w.shape[1]
     if t is None or g is None:
         t, g = _split_k_gn(rows, xa.shape[1] + cin_b, cout, k, seg_in,
                            w.dtype == torch.bfloat16)
-    partial = _partial(xa, t, scratch)
-    rc = cuda_lib.lib("planner").rows_conv_gn(
-        xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
-        int(w.dtype == torch.bfloat16), bias.data_ptr(), out.data_ptr(), rows,
-        seg_in, cout, k, t.bm, t.bn, t.splits, _ptr(partial),
-        scale.data_ptr(), gbias.data_ptr(), _ptr(te), te_stride, _ptr(res),
-        eps, g.tiles_m, g.tiles_n, g.segs, g.groups, gcounters.data_ptr(),
-        cuda_lib.stream_of(xa) if stream is None else stream)
+    stream = cuda_lib.stream_of(xa) if stream is None else stream
+    if t.bm == WG_BM:  # one split, no group counters
+        rc = cuda_lib.lib("planner").rows_conv_gn_wg(
+            xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, k, t.bn,
+            t.ring, scale.data_ptr(), gbias.data_ptr(), _ptr(te), te_stride,
+            _ptr(res), eps, stream)
+    else:
+        rc = cuda_lib.lib("planner").rows_conv_gn(
+            xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
+            int(w.dtype == torch.bfloat16), bias.data_ptr(), out.data_ptr(),
+            rows, seg_in, cout, k, t.bm, t.bn, t.splits,
+            _ptr(_partial(xa, t, scratch)), scale.data_ptr(),
+            gbias.data_ptr(), _ptr(te), te_stride, _ptr(res), eps, g.tiles_m,
+            g.tiles_n, g.segs, g.groups, gcounters.data_ptr(), stream)
     cuda_lib.check(rc, "rows_conv_gn")
     rows_conv_gn.launches += 1
 
@@ -295,7 +356,8 @@ def rows_conv_gn(xa, xb, w, bias, k: int, seg_in: int, scale, gbias,
     t, g = _split_k_gn(R, xa.shape[1] + (0 if xb is None else xb.shape[1]), C,
                        k, seg_in, w.dtype == torch.bfloat16)
     out = torch.empty(R, C, dtype=torch.float32, device=xa.device)
-    gcounters = torch.zeros(g.blocks, dtype=torch.int32, device=xa.device)
+    gcounters = None if t.bm == WG_BM else torch.zeros(
+        g.blocks, dtype=torch.int32, device=xa.device)
     te_stride = 0 if te is None or te.numel() == C else C
     launch_rows_conv_gn(xa, xb, w, bias, out, k, seg_in, scale, gbias, te,
                         te_stride, res, gcounters, t=t, g=g)
@@ -546,12 +608,13 @@ class _CudaOps:
                            xa.shape[1] + (0 if xb is None else xb.shape[1]),
                            w.shape[1], k, seg, w.dtype == torch.bfloat16)
         self._grow_scratch(t)
-        if self.gcounters is None or self.gcounters.numel() < g.blocks:
+        if t.bm != WG_BM and (self.gcounters is None
+                              or self.gcounters.numel() < g.blocks):
             self.gcounters = torch.zeros(g.blocks, dtype=torch.int32,
                                          device=self.device)
         launch_rows_conv_gn(xa, xb, w, bias, out, k, seg, scale, gbias, te, 0,
-                            res, self.gcounters, self.stream, self.scratch, t,
-                            g)
+                            res, None if t.bm == WG_BM else self.gcounters,
+                            self.stream, self.scratch, t, g)
         return out
 
     def step(self, x, eps, noise, scal_t, cond, M, b, cfg):

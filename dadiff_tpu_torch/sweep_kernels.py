@@ -6,11 +6,16 @@ shapes (horizon 32, dim 128, mults 1 2 4, random weights):
     python -m dadiff_tpu_torch.sweep_kernels resblock
 
 ``conv``: every distinct conv of one denoise step (the fused ones without
-their GroupNorm epilogue) through ``rows_conv`` (bf16 weights) with each tile of ``conv_tiling.MMA_TILES`` and 1-32 K splits,
-timed as ten launches replayed from a CUDA graph (weights warm in L2), beside
-the tile and split that ``ops/planner.py`` takes itself; the sums over a step
-of the best choices and of the rule's. This is where ``tile_shape`` and
-``_want_splits`` come from.
+their GroupNorm epilogue) through ``rows_conv`` (bf16 weights) with each tile
+of ``conv_tiling.MMA_TILES`` and 1-32 K splits and, from 1,024 rows on, each
+wgmma tile of ``conv_tiling.WG_BUILT`` (width 128 or 256, its ring's stages)
+with 1 and 2 K splits, timed as ten launches replayed from a CUDA graph
+(weights warm in L2), beside the tile and split that ``ops/planner.py``
+takes itself; the sums over a step of the best choices and of the rule's.
+Where the rule takes the wgmma tile it also times every fused pair through
+``rows_conv_gn`` at each built wgmma tile that holds its pairs. This is
+where ``tile_shape``, ``_want_splits``, ``_wg_width`` and ``_wg_splits``
+come from (``--chains 1024`` for the wgmma tile).
 
 ``chain``: the one-launch chain (K3) with 1 or 2 blocks per SM and several
 caps on the K splits of a conv, ms per chain and block 0's cycle shares: where
@@ -135,26 +140,92 @@ def sweep_conv(unet, n_chains: int) -> None:
                 raise SystemExit(f"rows_conv {t} disagrees: {err}")
             return graph_ms(ten) * 100  # us per launch
 
-        us = {}
+        us = {}  # (bm, bn, splits, stages) -> us per launch
         for bm, bn in ct.MMA_TILES:
             tiles = -(-cout // bn) * -(-M // bm) * parities
             for want_s in (1, 2, 4, 8, 16, 32):
                 s = ct.even_splits(k_tiles, want_s)
-                if (bm, bn, s) not in us:
-                    us[bm, bn, s] = time_of(ct.Tiling(bm, bn, tiles, s, M, K,
-                                                      parities, cout))
+                if (bm, bn, s, 0) not in us:
+                    us[bm, bn, s, 0] = time_of(ct.Tiling(
+                        bm, bn, tiles, s, M, K, parities, cout))
+        if M >= 8 * ct.WG_BM and (mode != ct.UP or cin % ct.WG_BK == 0):
+            for (bn, stages), s in itertools.product(ct.WG_BUILT, (1, 2)):
+                t = ct.wg_tiling(M, K, parities, cout, bn, s, stages)
+                us[t.bm, bn, t.splits, stages] = time_of(t)
         rule = pl._split_k(R, cin, cout, mode, k, True)
         rule_us = time_of(rule)
         best = sorted(us, key=us.get)[:3]
         total["best"] += n * us[best[0]]
         total["rule"] += n * rule_us
+        shapes = sorted({q[:2] + (q[3],) for q in us})
         print(f"x{n} M={M} K={K} N={cout} mode={mode}: rule "
-              f"{(rule.bm, rule.bn, rule.splits)} {rule_us:.1f} us | best "
-              + " ".join(f"{q}: {us[q]:.1f}" for q in best) + " | by tile "
-              + " ".join(f"{t}: {min(v for q, v in us.items() if q[:2] == t):.1f}"
-                         for t in ct.MMA_TILES), flush=True)
+              f"{(rule.bm, rule.bn, rule.splits, rule.ring)} {rule_us:.1f} us"
+              " | best " + " ".join(f"{q}: {us[q]:.1f}" for q in best)
+              + " | by tile " + " ".join(
+                  f"{t}: {min(v for q, v in us.items() if q[:2] + (q[3],) == t):.1f}"
+                  for t in shapes), flush=True)
     print(f"per step at {n_chains} chains: best of the sweep "
-          f"{total['best'] / 1e3:.4f} ms, the rule {total['rule'] / 1e3:.4f} ms")
+          f"{total['best'] / 1e3:.4f} ms, the rule {total['rule'] / 1e3:.4f} ms",
+          flush=True)
+    sweep_conv_gn(calls, g)
+
+
+def sweep_conv_gn(calls, g) -> None:
+    """Every distinct fused pair that the rule puts on a wgmma tile, through
+    ``rows_conv_gn`` with a time row and a residual on the fused wgmma tile
+    (``conv_tiling.WG_GN``), checked against the plain version first; beside
+    it the same conv through ``rows_conv`` on that tile, the epilogue's
+    cost."""
+    totals = {}
+    pairs = Counter(c[1:8] for c in calls if c[0] == "conv_gn")
+    for (R, ca, cb, cout, _, k, seg), n in pairs.items():
+        cin = ca + cb
+        t, gp = pl._split_k_gn(R, cin, cout, k, seg, True)
+        if t.bm != ct.WG_BM:
+            continue
+        xa = torch.randn(R, ca, device="cuda", generator=g)
+        xb = torch.randn(R, cb, device="cuda", generator=g) if cb else None
+        w = (torch.randn(k * cin, cout, device="cuda", generator=g)
+             / cin ** 0.5).to(torch.bfloat16)
+        bias, scale, gbias, te = (torch.randn(cout, device="cuda",
+                                              generator=g) for _ in range(4))
+        bias = bias.reshape(1, -1)
+        res = torch.randn(R, cout, device="cuda", generator=g)
+        out = torch.empty(R, cout, device="cuda")
+        want = pl.rows_conv_gn_plain(xa, xb, w, bias, k, seg, scale, gbias,
+                                     te, res)
+        us = {}
+        for bn, stages in (ct.WG_GN,):
+            tw = ct.wg_tiling(R, t.K, 1, cout, bn, 1, stages)
+
+            def ten(tw=tw):
+                for _ in range(10):
+                    pl.launch_rows_conv_gn(xa, xb, w, bias, out, k, seg, scale,
+                                           gbias, te, 0, res, None, t=tw, g=gp)
+
+            ten()
+            torch.cuda.synchronize()
+            err = (out - want).abs().max().item()
+            if err > 1e-3:
+                raise SystemExit(f"rows_conv_gn {tw} disagrees: {err}")
+            us[bn, stages] = graph_ms(ten) * 100
+            totals[bn, stages] = (totals.get((bn, stages), 0.0)
+                                  + n * us[bn, stages])
+            tc = ct.wg_tiling(R, t.K, 1, cout, bn, 1, stages)
+
+            def conv(tc=tc):
+                for _ in range(10):
+                    pl.launch_rows_conv(xa, xb, w, bias, out, ct.SAME, k, seg,
+                                        None, None, tc)
+
+            us["rows_conv"] = graph_ms(conv) * 100
+        print(f"x{n} fused M={R} K={t.K} N={cout} seg={seg}: rule "
+              f"{(t.bn, t.ring)} | " + " ".join(
+                  f"{q}: {v:.1f} us" for q, v in us.items()), flush=True)
+    if totals:
+        print("fused pairs per step by wgmma tile: " + " ".join(
+                  f"{q}: {v / 1e3:.4f} ms" for q, v in totals.items()),
+              flush=True)
 
 
 def sweep_chain(unet, schedule) -> None:

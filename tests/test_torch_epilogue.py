@@ -85,18 +85,28 @@ def test_group_plan_covers_every_pair_once(flagship_pairs, bf16):
 
 
 def test_fused_tile_falls_back_where_the_group_block_is_too_large():
-    """64 chains of 128 rows at 256 channels: the conv's own 64 x 128 tile
-    would give a 128 x 128 group block (64 KB), so the fused conv takes the
-    largest smaller tile whose group block fits; the flagship never does."""
+    """64 chains of 128 rows at 256 channels on the mma.sync tiles: the
+    conv's own 64 x 128 tile would give a 128 x 128 group block (64 KB), so
+    the fused conv takes the largest smaller tile whose group block fits;
+    the flagship never does. At these rows the launcher itself takes the
+    128-row wgmma tile, which holds a 128-row segment in one tile; with
+    24-row segments it cannot, and the fused conv falls back to the same
+    mma.sync rule."""
     rows, cin, cout, seg = 64 * 128, 256, 256, 128
-    t = pl._split_k(rows, cin, cout, ct.SAME, 5, True)
+    t = pl._split_k_mma(rows, cin, cout, ct.SAME, 5, True)
     assert (t.bm, t.bn) == (64, 128)
     assert not ct.group_plan(rows, cout, seg, t.bm, t.bn).fits
-    tg, g = pl._split_k_gn(rows, cin, cout, 5, seg, True)
+    tg, g = pl._split_k_gn_mma(rows, cin, cout, 5, seg, True)
     assert (tg.bm, tg.bn) == (64, 64) and g.fits
     assert g == ct.group_plan(rows, cout, seg, 64, 64)
     assert tg.splits == ct.even_splits(-(-tg.K // ct.BK), pl._want_splits(
         tg.tiles, -(-tg.K // ct.BK))) and tg.tiles == 128 * 4
+    assert pl._split_k_gn(rows, cin, cout, 5, seg, True)[0].bm == ct.WG_BM
+    rows2, seg2 = 24 * 2048, 24
+    assert pl._split_k(rows2, cin, cout, ct.SAME, 5, True).bm == ct.WG_BM
+    tw, gw = pl._split_k_gn(rows2, cin, cout, 5, seg2, True)
+    assert (tw, gw) == pl._split_k_gn_mma(rows2, cin, cout, 5, seg2, True)
+    assert tw.bm != ct.WG_BM and gw.fits
     with pytest.raises(ValueError, match="no tile holds"):
         pl._split_k_gn(64 * 1024, 32, 64, 5, 1024, False)
 

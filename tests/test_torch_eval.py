@@ -598,20 +598,26 @@ def flagship_step():
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
 def test_k2_tiling_and_group_plan_at_1024_chains(flagship_step, bf16):
     """Every conv of a denoise step at R = 32,768 rows, walked in Python as
-    the launchers cut it: a tile the kernels instantiate, whole K splits,
-    grid dimensions within CUDA's limits, and for the fused convs group
-    blocks that fit the conv ring's shared memory and cover every (chain,
-    group) pair once."""
+    the launchers cut it: a tile the kernels instantiate (with bf16 weights
+    the 128-row wgmma tile), whole K splits, grid dimensions within CUDA's
+    limits, and for the fused convs group blocks that cover every (chain,
+    group) pair once: one tile each on the wgmma tile (one K split), else
+    blocks that fit the conv ring's shared memory."""
     calls, n_res = flagship_step
-    known = {(True, *t) for t in ct.MMA_TILES} | {(False, *ct.F32_TILE)}
+    known = ({(True, *t) for t in ct.MMA_TILES + ct.WG_TILES}
+             | {(False, *ct.F32_TILE)})
     assert len(calls) == 35 and n_res == 12
     for kind, rows, ca, cb, cout, mode, k, seg, *_ in calls:
         if kind == "conv":
             t = pl._split_k(rows, ca + cb, cout, mode, k, bf16)
         else:
             t, g = pl._split_k_gn(rows, ca + cb, cout, k, seg, bf16)
-            assert g.fits and g.pairs <= ct.MAX_GROUP_PAIRS
-            assert g.smem_bytes <= ct.CONV_SMEM_BYTES
+            if t.bm == ct.WG_BM:
+                assert (g.tiles_m, g.tiles_n, t.splits) == (1, 1, 1)
+                assert ct.wg_gn_fits(seg, cout, t.bn)
+            else:
+                assert g.fits and g.pairs <= ct.MAX_GROUP_PAIRS
+                assert g.smem_bytes <= ct.CONV_SMEM_BYTES
             seen = np.zeros((t.M // seg, ct.N_GROUPS), np.int64)
             blocks = list(ct.group_blocks(t.M, cout, seg, t.bm, t.bn))
             assert len(blocks) == g.blocks
@@ -620,7 +626,8 @@ def test_k2_tiling_and_group_plan_at_1024_chains(flagship_step, bf16):
                     seen[s, grp] += 1
             assert (seen == 1).all()
         assert (bf16, t.bm, t.bn) in known
-        k_tiles = -(-t.K // ct.BK)
+        assert (t.bm == ct.WG_BM) == bf16  # every bf16 conv takes the wgmma tile
+        k_tiles = -(-t.K // t.bk)
         per_split = -(-k_tiles // t.splits)
         assert (t.splits - 1) * per_split < k_tiles <= t.splits * per_split
         # grid (cout tiles, row tiles, splits x parities): y and z < 65,536
