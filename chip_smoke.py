@@ -46,7 +46,14 @@
    warm start and the student (each held against the CPU) and at 1,024
    chains, runs ``eval_ondevice`` with the student and with warm start, and
    checks that ``--megakernel`` refuses them.
-7. Prints the card, the kernel table as one JSON line, and as the last line
+7. Drives micro-batched serving (``microbatch_phase``): ``serve.main`` with
+   ``--concurrency 4 --max-batch 8``, four TCP clients planning at once
+   (their plans fold into one K2 wave of up to 64 chains), the batched
+   plans against the solo plans, the wave timed at 8-64 chains, and
+   ``dadiff_tpu_torch.bench_serve`` at 4 clients; then value guidance
+   (``value_phase``): ``train_value_main`` for a few steps, value-guided
+   and MPC plans on the card against the CPU.
+8. Prints the card, the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
@@ -1906,7 +1913,7 @@ def fewcall_phase(ckpt: Path, policy, root: Path, results_dir: Path,
             f"eval_ondevice --megakernel {flags} raises")
         args = build_server_parser().parse_args(
             ["--checkpoint", str(ckpt), "--dataset", DATASET,
-             "--megakernel", *flags])
+             "--policy-type", "dynamics-aware", "--megakernel", *flags])
         require(refused(lambda: build_policy_from_args(
             args, teacher, tdata, DATASET, T_STEPS), ValueError,
             "--megakernel"), f"a served --megakernel {flags} raises")
@@ -1919,6 +1926,288 @@ def fewcall_phase(ckpt: Path, policy, root: Path, results_dir: Path,
                         "loss_last": series[-1], "step_ms": step_ms},
             "plans_8_chains": plans8, "plans_1024_chains": plans1024,
             "eval_ondevice": runs, "card": card}
+
+
+def _connect(port: int, deadline_s: float, failure: list):
+    """A connection to the server on ``port`` once it listens."""
+    deadline = time.time() + deadline_s
+    while True:
+        require(not failure, f"server failed: {failure and failure[0]!r}")
+        try:
+            return socket.create_connection(("127.0.0.1", port), timeout=600)
+        except OSError:
+            require(time.time() < deadline, "server did not start")
+            time.sleep(0.2)
+
+
+def _ask(f, req):
+    f.write((json.dumps(req) + "\n").encode())
+    f.flush()
+    return json.loads(f.readline())
+
+
+def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
+    """The micro-batched server through its entry point: ``serve.main``
+    with ``--concurrency 4 --max-batch 8`` on the trained checkpoint, four
+    TCP clients (sessions 0-3 in connection order) planning at once behind a
+    barrier, the counters set to 0 before and read after. Then, on the
+    batcher the server built: (a) a batch of one against the solo plan bit
+    for bit, (b) a request at K_pad 2, 4 and 8 with other companions bit
+    for bit, (c) every lane of a 64-chain wave and each client's served
+    plan against its solo plan within TOL_CHAIN_BF16; no graph captured
+    after construction; the bo8 wave (best of 8 included, staged draws)
+    timed at 8, 16, 32 and 64 chains beside its bound and launches; and
+    ``bench_serve`` at 4 clients."""
+    import numpy as np
+    from dadiff_tpu_torch import bench_serve, serve, serving
+    from dadiff_tpu_torch.guides.sampling import conditions_for_initial_obs_np
+    from dadiff_tpu_torch.ops.planner import _WaveRunner
+
+    made = []
+    original = serving.BatchedPlanner
+
+    class Recording(original):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    n_clients = 4
+    port = free_port()
+    flags = ["--checkpoint", str(ckpt), "--env", ENV, "--dataset", DATASET,
+             "--policy-type", "dynamics-aware", "--n-candidates",
+             str(N_CAND), "--megakernel", "--concurrency", str(n_clients),
+             "--max-batch", "8"]
+    failure = []
+
+    def run():
+        try:
+            # a 20 ms window: the four requests of the burst fold however
+            # the host schedules the client threads
+            serve.main(flags + ["--batch-window-ms", "20", "--port",
+                                str(port), "--max-requests",
+                                str(2 * n_clients)])
+        except BaseException as e:  # reported by the main thread too
+            failure.append(e)
+            raise
+
+    serving.BatchedPlanner = Recording
+    reset_counts()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    try:
+        conns = [_connect(port, 300, failure)]
+        # the batcher is built (and every wave captured) before the server
+        # listens; sessions are numbered in connection order
+        captures = _WaveRunner.captures
+        files = [conns[0].makefile("rwb")]
+        require(_ask(files[0], {"ping": True}).get("ok"), "ping")
+        for _ in range(1, n_clients):
+            conns.append(socket.create_connection(("127.0.0.1", port),
+                                                  timeout=600))
+            files.append(conns[-1].makefile("rwb"))
+            require(_ask(files[-1], {"ping": True}).get("ok"), "ping")
+    finally:
+        serving.BatchedPlanner = original
+    barrier = threading.Barrier(n_clients, timeout=300)
+    served = [None] * n_clients
+
+    def client(i):
+        barrier.wait()
+        t0 = time.perf_counter()
+        r = _ask(files[i], {"obs": obs_rows[i].tolist(), "plan": True})
+        served[i] = (r, (time.perf_counter() - t0) * 1e3)
+
+    workers = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n_clients)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    th.join(timeout=120)
+    for c in conns:
+        c.close()
+    require(not th.is_alive() and not failure,
+            f"the concurrent server did not stop cleanly: {failure}")
+    counts = read_counts()
+    require(len(made) == 1, "the server built one batcher")
+    batcher = made[0]
+    require(all(s is not None and "error" not in s[0] for s in served),
+            f"a served plan failed: {served}")
+    require(batcher.n_requests == n_clients and max(batcher.batch_sizes) > 1,
+            f"the burst folded: batch sizes {batcher.batch_sizes}")
+    require(_WaveRunner.captures == captures and batcher.cold_calls == 0,
+            f"no capture and no cold wave in the live burst "
+            f"({_WaveRunner.captures - captures} captures)")
+    for name in ("rows_conv", "rows_conv_gn", "ddpm_project_step"):
+        require(counts[name] > 0,
+                f"{name} was not launched on the micro-batched path")
+    require(counts["gn_mish"] == 0, "K1 launched on the micro-batched path")
+    log(f"micro-batched serving: {n_clients} clients, batch sizes "
+        f"{batcher.batch_sizes}, plan ms {[round(s[1], 3) for s in served]} "
+        f"(host clock, request to response); launches {counts}")
+
+    # (a)-(c) on the batcher the server built
+    policy = batcher.policy
+    H, D, obs_dim = policy.horizon, policy.transition_dim, \
+        policy.observation_dim
+
+    def request(seed, i):
+        normed = policy.normalizer.normalize_observations(
+            obs_rows[i % len(obs_rows)][None])
+        cond = conditions_for_initial_obs_np(normed, obs_dim, H, D)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return serving._PlanRequest(gen, cond.values), cond
+
+    def solo(seed, i):
+        cond = request(seed, i)[1]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return policy._plan(gen, cond, policy._P, policy._stats)
+
+    solos = [solo(100 + i, i) for i in range(8)]
+    one = batcher._call([request(100, 0)[0]])[0]
+    require(torch.equal(one, solos[0]), "(a) a batch of one == solo plan")
+    for k_pad in (2, 4, 8):
+        a = batcher._call([request(100, 0)[0]] + [
+            request(200 + j, j)[0] for j in range(1, k_pad)])[0]
+        b = batcher._call([request(100, 0)[0]] + [
+            request(300 + j, j + 1)[0] for j in range(1, k_pad)])[0]
+        require(torch.equal(a, b), f"(b) other companions at K_pad {k_pad}")
+    lane_err = {}
+    for k_pad in (2, 4, 8):
+        out = batcher._call([request(100 + i, i)[0] for i in range(k_pad)])
+        lane_err[k_pad * N_CAND] = max(
+            (o - w).abs().max().item() for o, w in zip(out, solos))
+    served_err = max(float(np.abs(
+        np.asarray(served[i][0]["plan"]) - solo(i, i)[0].cpu().numpy()
+    ).max()) for i in range(n_clients))
+    log(f"micro-batched serving: (a) batch of one == solo bit for bit; (b) "
+        f"bit for bit at K_pad 2, 4, 8; (c) lanes vs solo max|err| by wave "
+        f"chains {lane_err}, served plans vs solo {served_err:.3e} "
+        f"(tolerance {TOL_CHAIN_BF16})")
+    require(max(lane_err.values()) <= TOL_CHAIN_BF16
+            and served_err <= TOL_CHAIN_BF16, "(c) lanes vs their solo plans")
+    require(_WaveRunner.captures == captures,
+            "the checks replayed the server's graphs")
+
+    # the bo8 wave at 8-64 chains: staged draws, replay, best of 8
+    flat_w, m_embs, _ = prep = batcher._prepared()
+    waves = {}
+    for k_pad in (1, 2, 4, 8):
+        reqs = [request(400 + i, i)[0] for i in range(k_pad)]
+        x0, noise = batcher._wave.stack_draws(
+            [batcher._wave.draw(r.generator) for r in reqs], k_pad)
+        values = torch.as_tensor(np.stack([r.values[0] for r in reqs]),
+                                 device="cuda")
+
+        def wave():
+            return batcher._wave(None, (values,), prep, x0=x0,
+                                 step_noise=noise)
+
+        wave()
+        reset_counts()
+        wave()
+        torch.cuda.synchronize()
+        launches = sum(read_counts().values())
+        chains = k_pad * N_CAND
+        flops, nbytes, _ = wave_cost(policy.diffusion.model, flat_w, m_embs,
+                                     chains * HORIZON, D)
+        b_ms, b_by = bound_ms(flops, nbytes, BF16_FLOPS)
+        waves[chains] = {
+            "ms": cuda_ms(wave, 5, warmup=1),
+            "call_ms": cuda_ms(lambda: batcher._call(reqs), 5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "launches": launches}
+        log(f"micro-batched wave, {chains} chains: {waves[chains]['ms']:.3f} "
+            f"ms replayed (CUDA events, draws staged, best of 8 included), "
+            f"{waves[chains]['call_ms']:.3f} ms as a batched call (draws "
+            f"included); bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} "
+            f"GFLOP); {launches} launches; card {card}")
+    require(_WaveRunner.captures == captures, "the timed waves replayed")
+
+    bench = bench_serve.main(flags + ["--clients", str(n_clients),
+                                      "--requests-per-client", "8"])
+    require(bench["concurrent_mode"] == "micro-batched"
+            and bench["throughput_gain_vs_serialized_x"] is not None,
+            f"bench_serve micro-batched: {bench}")
+    log(f"bench_serve (4 clients): {json.dumps(bench)}; card {card}")
+    return {"batch_sizes": batcher.batch_sizes, "launches": counts,
+            "served_ms": [s[1] for s in served], "lane_max_abs_err": lane_err,
+            "served_max_abs_err": served_err, "waves": waves,
+            "bench_serve": bench, "card": card}
+
+
+def value_phase(ckpt: Path, root: Path, card: str) -> dict:
+    """Value guidance through its entry points: ``train_value_main`` for a
+    few steps on the committed data at the flagship's schedule, then a
+    value-guided bo1 plan and an MPC bo8 plan built by
+    ``build_policy_from_args`` on the card, each against the same policy on
+    the CPU on the same draws (TOL_CHAIN_F32), and ``--megakernel`` refusing
+    value guidance. The module path runs: no port kernel."""
+    from dadiff_tpu_torch.cli import (
+        build_policy_from_args, load_model, train_value_main,
+    )
+    from dadiff_tpu_torch.serve import build_server_parser
+
+    reset_counts()
+    t0 = time.perf_counter()
+    vpath = train_value_main([
+        "--dataset", DATASET, "--horizon", str(HORIZON), "--n-timesteps",
+        str(T_STEPS), "--batch-size", "64", "--max-steps", "40",
+        "--reward", "goal-dense", "--seed", str(SEED), "--log-dir",
+        str(root / "values")])
+    train_s = time.perf_counter() - t0
+    series = torch.load(vpath, weights_only=False)["loss_series"]
+    require(all(v == v and abs(v) < 1e6 for v in series),
+            f"value loss finite: {series}")
+    models = {dev: load_model(str(ckpt), DATASET, device=dev)
+              for dev in ("cuda", "cpu")}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    obs = torch.randn(6, generator=g, device="cuda").cpu().numpy() * 0.5
+    plans = {}
+    for name, argv, n in (
+            ("value_guided_bo1", ["--policy-type", "value-guided",
+                                  "--value-checkpoint", vpath], 1),
+            ("mpc_bo8", ["--policy-type", "mpc", "--n-candidates",
+                         str(N_CAND)], N_CAND)):
+        D = models["cuda"][0].transition_dim
+        init = torch.randn(n, HORIZON, D, generator=g, device="cuda")
+        step = torch.randn(T_STEPS, n, HORIZON, D, generator=g,
+                           device="cuda")
+        out = {}
+        for dev, (diff, data) in models.items():
+            args = build_server_parser().parse_args(
+                ["--checkpoint", str(ckpt), "--env", ENV, "--dataset",
+                 DATASET, "--device", dev, *argv])
+            policy = build_policy_from_args(args, diff, data, DATASET,
+                                            T_STEPS)
+            plan = policy._plan
+            policy._plan = lambda gen, c, P=None, st=None, _p=plan, _d=dev: \
+                _p(gen, c, P, st, init_noise=init.to(_d),
+                   step_noise=step.to(_d))
+            t0 = time.perf_counter()
+            out[dev] = policy.plan(obs)
+            if dev == "cuda":
+                plan_ms = (time.perf_counter() - t0) * 1e3
+        err = float(abs(out["cuda"] - out["cpu"]).max())
+        plans[name] = {"max_abs_err": err, "plan_ms": plan_ms}
+        log(f"{name}: card vs CPU max|err| {err:.3e} (tolerance "
+            f"{TOL_CHAIN_F32}); a plan {plan_ms:.1f} ms on the card (host "
+            f"clock, module path); card {card}")
+        require(err <= TOL_CHAIN_F32, f"{name} on the card vs the CPU: {err}")
+    diff, data = models["cuda"]
+    args = build_server_parser().parse_args(
+        ["--checkpoint", str(ckpt), "--env", ENV, "--dataset", DATASET,
+         "--policy-type", "value-guided", "--value-checkpoint", vpath,
+         "--megakernel"])
+    require(refused(lambda: build_policy_from_args(
+        args, diff, data, DATASET, T_STEPS), ValueError,
+        "gradient guidance"), "--megakernel refuses value guidance")
+    counts = read_counts()
+    require(not any(counts.values()),
+            f"value guidance runs the module path: no port kernel {counts}")
+    log(f"value phase: {len(series)} epoch(s) of value training in "
+        f"{train_s:.1f} s, loss {series}")
+    return {"train_s": train_s, "loss_series": series, "plans": plans}
 
 
 def host_eval_phase(ckpt: Path, results_dir: Path) -> dict:
@@ -2131,6 +2420,11 @@ def main() -> int:
     fewcall = fewcall_phase(ckpt, policy, ROOT / "build" / "dadiff_tpu_torch"
                             / "smoke", results_dir, card)
     log(f"fewcall_phase: {json.dumps(fewcall)}")
+    micro = microbatch_phase(ckpt, obs_rows, card)
+    log(f"microbatch_phase: {json.dumps(micro)}")
+    value = value_phase(ckpt, ROOT / "build" / "dadiff_tpu_torch" / "smoke",
+                        card)
+    log(f"value_phase: {json.dumps(value)}")
 
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
@@ -2172,6 +2466,7 @@ def main() -> int:
         if name in evaluation:
             # the evaluation path's count (its untimed and timed runs)
             kernels[-1]["launches_evaluation"] = evaluation[name]
+            kernels[-1]["launches_microbatch"] = micro["launches"][name]
         for extra in ("variants", "ms_f32", "cycle_share", "grid_syncs",
                       "ms_by_fan_in", "ms_served", "unfused_ms",
                       "library_composition_ms", "ms_in_sequence", "grid",
@@ -2212,6 +2507,9 @@ def main() -> int:
         "ondevice_waves": ondevice["waves"],
         "ondevice_step_us": ondevice["step_us"],
         "chain64_f32_max_abs_err": chain64["max_abs_err"],
+        # the micro-batched server's waves: K_pad requests of bo8
+        "microbatch_waves": micro["waves"],
+        "microbatch_lane_max_abs_err": micro["lane_max_abs_err"],
     })
     log(f"evaluation: env {json.dumps(env)}; two streams "
         f"{json.dumps(streams)}; host evaluator {json.dumps(host_eval)}")

@@ -5,13 +5,14 @@ Counterpart of the JAX package's cli.py: build_train_parser :57 and train_main
 :147 (the U-Net family and the flagship flags, fine-tune and resume
 included; ``--model-type transformer``, ``--mesh-dp``, ``--config`` and
 ``--dtype`` are not ported), distill_main :509 (the consistency method;
-``--method progressive`` is not ported), build_eval_parser :695 (the flags
-of what is ported, the samplers, warm start and ``--parity-mode``
-included: a flag of a feature the port lacks, such as
-``--value-checkpoint`` or ``--replan-deviation``, is refused by argparse),
+``--method progressive`` is not ported), train_value_main :358 and
+load_value_checkpoint :463 (a ``.pt`` with the JAX checkpoint's config
+keys; orbax is JAX-only), build_eval_parser :695 (its flags, defaults and
+choices, ``--policy-type`` defaulting to mpc; ``--action-source`` and
+``--video-dir`` are not ported and refused by argparse),
 maze_grid_for_env :810, _apply_stored_normalizer :821, load_model :854 (the
-``.pt`` branch, EMA weights and the checkpoint's config included; orbax is
-JAX-only), build_policy_from_args :992 (the dynamics-aware branch and
+``.pt`` branch, EMA weights and the checkpoint's config included),
+build_policy_from_args :1002 (every policy type, the scorers and
 ``--megakernel``) and evaluate_main :1162. Everything runs on the card
 unless ``--device cpu`` is given.
 """
@@ -360,14 +361,159 @@ def distill_main(argv=None) -> str:
     return str(log_dir)
 
 
+def build_value_parser() -> argparse.ArgumentParser:
+    """The JAX value-training flags (cli.py:358-380); ``--device`` is cuda
+    or cpu and ``--max-steps`` bounds a run."""
+    p = argparse.ArgumentParser(
+        description="Train a trajectory value function", allow_abbrev=False)
+    p.add_argument("--dataset", type=str, required=True)
+    p.add_argument("--horizon", type=int, default=32)
+    p.add_argument("--normalizer", type=str, default="LimitsNormalizer")
+    p.add_argument("--discount", type=float, default=0.99)
+    p.add_argument("--dim", type=int, default=32)
+    p.add_argument("--dim-mults", type=int, nargs="+", default=[1, 2, 4])
+    p.add_argument("--n-timesteps", type=int, default=100,
+                   help="diffusion schedule the value net is trained against")
+    p.add_argument("--beta-schedule", type=str, default="cosine")
+    p.add_argument("--n-epochs", type=int, default=50)
+    p.add_argument("--max-steps", type=int, default=None,
+                   help="stop after this many steps, whatever the epoch")
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--log-dir", type=str, default="./logs/values")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--reward", type=str, default="recorded",
+                   choices=["recorded", "goal-dense"],
+                   help="value target reward: the recorded env reward, or "
+                        "the dense negative goal distance of goal-concat "
+                        "maze observations")
+    return p
+
+
+def goal_dense_reward(ep) -> np.ndarray:
+    """r_t = -||pos_{t+1} - goal|| of the goal-concat maze observation
+    layout [x y vx vy gx gy] (cli.py:400-414)."""
+    obs = np.asarray(ep["observations"], dtype=np.float64)
+    if obs.shape[-1] != 6:
+        raise SystemExit(
+            "--reward goal-dense assumes the goal-concat maze observation "
+            f"layout [x y vx vy gx gy] (6 dims); got {obs.shape[-1]} dims — "
+            "use --reward recorded for this dataset")
+    T = len(ep["actions"])
+    nxt = obs[1:T + 1] if len(obs) > T else obs[:T]
+    return -np.linalg.norm(nxt[:, 0:2] - nxt[:, 4:6], axis=-1)
+
+
+def train_value_main(argv=None) -> str:
+    """Train the value net on the dataset's discounted returns-to-go under
+    the diffusion noise of ``--n-timesteps``/``--beta-schedule`` with Adam
+    (cli.py:358-460); returns the written ``value_final.pt``: the state
+    dict and the JAX checkpoint's config keys, with ``loss_series``."""
+    from dadiff_tpu_torch.datasets.sequence import (
+        SequenceDataset,
+        create_dataloader,
+        prefetch_to_device,
+    )
+    from dadiff_tpu_torch.models.value_net import ValueNet, value_loss
+    from dadiff_tpu_torch.ops.schedules import make_schedule
+
+    args = build_value_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    torch.manual_seed(args.seed)
+    dataset = SequenceDataset(
+        dataset_name=args.dataset, horizon=args.horizon,
+        normalizer=args.normalizer, include_returns=True,
+        discount=args.discount,
+        reward_fn=goal_dense_reward if args.reward == "goal-dense" else None)
+    loader = create_dataloader(dataset, batch_size=args.batch_size,
+                               seed=args.seed)
+    schedule = make_schedule(args.n_timesteps, args.beta_schedule, device)
+    vnet = ValueNet(dataset.transition_dim, dim=args.dim,
+                    dim_mults=tuple(args.dim_mults)).to(device)
+    opt = torch.optim.Adam(vnet.parameters(), lr=args.lr)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    series, step = [], 0
+    for epoch in range(args.n_epochs):
+        losses = []
+        for batch in prefetch_to_device(iter(loader), device):
+            x0 = batch["conditions"]
+            t = torch.randint(0, args.n_timesteps, (x0.shape[0],),
+                              generator=gen, device=device)
+            noise = torch.randn(x0.shape, generator=gen, device=device)
+            loss = value_loss(vnet, schedule, batch, t, noise)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+            step += 1
+            if args.max_steps is not None and step >= args.max_steps:
+                break
+        series.append(float(torch.stack(losses).mean()))
+        print(f"Epoch {epoch + 1}: value_loss={series[-1]:.4f}")
+        if args.max_steps is not None and step >= args.max_steps:
+            break
+    log_dir = Path(args.log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    path = log_dir / "value_final.pt"
+    torch.save({
+        "state_dict": {k: v.detach().cpu() for k, v in
+                       vnet.state_dict().items()},
+        "config": {
+            "transition_dim": dataset.transition_dim, "dim": args.dim,
+            "dim_mults": list(args.dim_mults), "horizon": args.horizon,
+            "n_timesteps": args.n_timesteps,
+            "beta_schedule": args.beta_schedule,
+            "returns_mean": dataset.returns_mean,
+            "returns_std": dataset.returns_std},
+        "steps": step, "loss_series": series}, path)
+    print(f"value checkpoint: {path}")
+    return str(path)
+
+
+def load_value_checkpoint(path: str, device="cuda", expect_schedule=None):
+    """The ValueNet of a ``train_value_main`` checkpoint, loaded with
+    ``strict=True`` on ``device``, its weights frozen (cli.py:463-500).
+    ``expect_schedule``: the (n_timesteps, beta_schedule) of the planner it
+    will guide; a mismatch exits, since the guidance would read noise levels
+    the net never saw. It unpickles: load only trusted checkpoints."""
+    from dadiff_tpu_torch.models.value_net import ValueNet
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    cfg = ckpt["config"]
+    if expect_schedule is not None:
+        want_t, want_beta = expect_schedule
+        got_t, got_beta = cfg.get("n_timesteps"), cfg.get("beta_schedule")
+        if (got_t is not None and got_t != want_t) or (
+                got_beta is not None and got_beta != want_beta):
+            raise SystemExit(
+                f"value checkpoint was trained on schedule (T={got_t}, "
+                f"{got_beta}) but the planner uses (T={want_t}, "
+                f"{want_beta}); retrain the value net with matching "
+                f"--n-timesteps/--beta-schedule")
+    vnet = ValueNet(cfg["transition_dim"], dim=cfg["dim"],
+                    dim_mults=tuple(cfg["dim_mults"]))
+    vnet.load_state_dict(ckpt["state_dict"], strict=True)
+    return vnet.to(device).eval().requires_grad_(False)
+
+
 def build_eval_parser() -> argparse.ArgumentParser:
+    """The JAX eval parser's flags, defaults and choices (cli.py:695-800),
+    but for ``--device`` (cuda or cpu), ``--render`` (none only: the card's
+    machine has no display) and the flags of what is not ported
+    (``--video-dir``, ``--action-source``), which argparse refuses."""
     p = argparse.ArgumentParser(
         description="Plan with a diffusion planner", allow_abbrev=False)
     p.add_argument("--checkpoint", type=str, required=True)
     p.add_argument("--env", type=str, default="PointMaze_UMaze-v3")
-    p.add_argument("--policy-type", type=str, default="dynamics-aware",
-                   choices=["dynamics-aware"])
+    p.add_argument("--policy-type", type=str, default="mpc",
+                   choices=["guided", "mpc", "dynamics-aware", "value-guided"])
     p.add_argument("--action-horizon", type=int, default=16)
+    p.add_argument("--value-checkpoint", type=str, default=None,
+                   help="value-net checkpoint (.pt of python -m "
+                        "dadiff_tpu_torch.train_values) for value-guided, or "
+                        "stacked on dynamics-aware")
+    p.add_argument("--guide-weight", type=float, default=1.0)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--dataset", type=str, default=None,
                    help="dataset spec for the normalizer and the sysID "
@@ -388,6 +534,18 @@ def build_eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--wall-margin", type=float, default=None,
                    help="wall probe margin for --wall-aware (default: "
                         "center cell only)")
+    p.add_argument("--candidate-scorer", type=str, default="goal",
+                   choices=["goal", "velocity", "wall-penalty"],
+                   help="best-of-N plan scorer: final goal distance (maze), "
+                        "negative mean planned forward velocity "
+                        "(locomotion), or goal distance + wall-collision "
+                        "penalty; --megakernel selects by goal distance only")
+    p.add_argument("--wall-penalty-weight", type=float, default=5.0,
+                   help="penalty per fully-in-wall plan for "
+                        "--candidate-scorer wall-penalty")
+    p.add_argument("--skip-conditioned-action", action="store_true",
+                   help="start the action buffer at row 1: row 0's action "
+                        "is the one the conditioning zeroed")
     p.add_argument("--sampler", type=str, default="ddpm",
                    choices=["ddpm", "ddim", "dpmpp", "consistency"],
                    help="ddim/dpmpp = strided fast sampling (with conditioning/"
@@ -413,6 +571,13 @@ def build_eval_parser() -> argparse.ArgumentParser:
                    help="run each replan wave (all candidates, conditioning, "
                         "per-step projection) through the planner chain's "
                         "CUDA kernels (ops/planner.py); ddpm only")
+    p.add_argument("--mega-group-chains", type=int, default=64,
+                   help="chains per group of the planner chain's wave")
+    p.add_argument("--replan-deviation", type=float, default=None,
+                   help="replan early when the executed observation drifts "
+                        "more than this L2 distance (normalized space) from "
+                        "the plan row it should be on (sequential protocol "
+                        "only)")
     p.add_argument("--use-ema", action="store_true",
                    help="plan with the EMA weights if the checkpoint has them")
     # the evaluation protocol (evaluate_main)
@@ -522,40 +687,106 @@ def diffusion_from_checkpoint(checkpoint: dict, observation_dim: int,
     return diffusion
 
 
+def _candidate_scorer(args, dataset):
+    """The best-of-N scorer ``--candidate-scorer`` names; None for the
+    policy's default, the goal distance (cli.py:1009-1025)."""
+    from dadiff_tpu_torch.guides import policies
+
+    if args.candidate_scorer == "velocity":
+        return policies.velocity_scorer_for_env(args.env)
+    if args.candidate_scorer == "wall-penalty":
+        grid = maze_grid_for_env(args.env)
+        if grid is None:
+            raise SystemExit(
+                f"--candidate-scorer wall-penalty: no maze map for {args.env}")
+        return policies.make_wall_penalty_scorer(
+            dataset.normalizer.obs_mean, dataset.normalizer.obs_std, grid,
+            penalty=args.wall_penalty_weight)
+    return None
+
+
+def _value_guide(args, diffusion):
+    """guide_fn of ``--value-checkpoint``, refused on another schedule."""
+    from dadiff_tpu_torch.models.value_net import make_value_guide_fn
+
+    vnet = load_value_checkpoint(
+        args.value_checkpoint, device=diffusion.device,
+        expect_schedule=(diffusion.n_timesteps, diffusion.beta_schedule))
+    return make_value_guide_fn(vnet)
+
+
 def build_policy_from_args(args, diffusion, dataset, dataset_spec: str,
                            sampling_timesteps: int):
-    """The dynamics-aware policy an eval-parser namespace describes, wired
-    to the planner chain with ``--megakernel`` (cli.py:1086-1158), which
-    raises for a sampler other than ddpm and for warm start."""
-    from dadiff_tpu_torch.datasets.sources import load_episodes
-    from dadiff_tpu_torch.dynamics.projection import ProjectionMatrixBuilder
-    from dadiff_tpu_torch.dynamics.registry import get_dynamics_for_env
-    from dadiff_tpu_torch.guides.policies import DynamicsAwarePolicy
+    """The policy an eval-parser namespace describes (cli.py:1002-1158):
+    guided, mpc, value-guided or dynamics-aware (optionally with value
+    guidance stacked on its projection), wired to the planner chain with
+    ``--megakernel``, which raises for a sampler other than ddpm, for warm
+    start, for guidance and for a scorer other than the goal distance (the
+    wave selects by goal distance itself)."""
+    from dadiff_tpu_torch.guides import policies
 
-    A, B, state_dim, action_dim = get_dynamics_for_env(
-        args.env, episodes=load_episodes(dataset_spec))
-    P = ProjectionMatrixBuilder(A, B, state_dim, action_dim).get_projection_matrix(
-        diffusion.horizon)
-    wall_grid = None
-    if args.wall_aware:
-        wall_grid = maze_grid_for_env(args.env)
-        if wall_grid is None:
-            raise SystemExit(f"--wall-aware: no maze map for {args.env}")
-    policy = DynamicsAwarePolicy(
-        diffusion, projection_matrix=P, normalizer=dataset.normalizer,
-        state_dim=state_dim, projection_schedule=args.projection_schedule,
-        projection_strength=args.projection_strength,
-        action_horizon=args.action_horizon,
-        sampling_timesteps=sampling_timesteps, parity_mode=args.parity_mode,
-        wall_grid=wall_grid, wall_margin=args.wall_margin, seed=args.seed,
-        n_candidates=args.n_candidates, sampler=args.sampler,
+    if args.megakernel and args.candidate_scorer != "goal":
+        raise ValueError(
+            f"--megakernel selects the best candidate by goal distance "
+            f"inside the wave; --candidate-scorer {args.candidate_scorer} "
+            f"needs the module path (drop --megakernel)")
+    common = dict(
+        sampling_timesteps=sampling_timesteps, seed=args.seed,
+        skip_conditioned_action=args.skip_conditioned_action,
+        candidate_scorer=_candidate_scorer(args, dataset),
         warm_start_t=args.warm_start_t,
         warm_start_auto=args.warm_start_auto,
-    )
+        replan_deviation=args.replan_deviation)
+    sampling = dict(n_candidates=args.n_candidates, sampler=args.sampler)
+    if args.policy_type == "guided":
+        policy = policies.GuidedPolicy(diffusion, dataset.normalizer,
+                                       **common, **sampling)
+    elif args.policy_type == "mpc":
+        policy = policies.MPCPolicy(diffusion, dataset.normalizer,
+                                    action_horizon=args.action_horizon,
+                                    **common, **sampling)
+    elif args.policy_type == "value-guided":
+        if not args.value_checkpoint:
+            raise SystemExit("value-guided requires --value-checkpoint")
+        # one candidate, the ddpm sampler, as the JAX CLI builds it
+        policy = policies.ValueGuidedPolicy(
+            diffusion, dataset.normalizer,
+            trajectory_value_fn=_value_guide(args, diffusion),
+            guide_weight=args.guide_weight,
+            action_horizon=args.action_horizon, **common)
+    else:  # dynamics-aware
+        from dadiff_tpu_torch.datasets.sources import load_episodes
+        from dadiff_tpu_torch.dynamics.projection import (
+            ProjectionMatrixBuilder,
+        )
+        from dadiff_tpu_torch.dynamics.registry import get_dynamics_for_env
+
+        A, B, state_dim, action_dim = get_dynamics_for_env(
+            args.env, episodes=load_episodes(dataset_spec))
+        P = ProjectionMatrixBuilder(A, B, state_dim, action_dim
+                                    ).get_projection_matrix(diffusion.horizon)
+        wall_grid = None
+        if args.wall_aware:
+            wall_grid = maze_grid_for_env(args.env)
+            if wall_grid is None:
+                raise SystemExit(f"--wall-aware: no maze map for {args.env}")
+        guide_fn, guide_weight = None, 0.0
+        if args.value_checkpoint:
+            guide_fn, guide_weight = (_value_guide(args, diffusion),
+                                      args.guide_weight)
+        policy = policies.DynamicsAwarePolicy(
+            diffusion, projection_matrix=P, normalizer=dataset.normalizer,
+            state_dim=state_dim, projection_schedule=args.projection_schedule,
+            projection_strength=args.projection_strength,
+            action_horizon=args.action_horizon, parity_mode=args.parity_mode,
+            wall_grid=wall_grid, wall_margin=args.wall_margin,
+            guide_fn=guide_fn, guide_weight=guide_weight, **common,
+            **sampling)
     if args.megakernel:
         from dadiff_tpu_torch.ops.planner import wire_policy_megakernel
 
-        wire_policy_megakernel(policy, n_candidates=args.n_candidates)
+        wire_policy_megakernel(policy, n_candidates=args.n_candidates,
+                               group_chains=args.mega_group_chains)
         print(f"planner-chain path: bo{args.n_candidates} per replan wave "
               f"through the CUDA kernels")
     return policy
@@ -601,11 +832,15 @@ def planning_timesteps(args, diffusion, dataset) -> int:
 def evaluate_main(argv=None) -> dict:
     """Evaluate a planner on a gymnasium env (cli.py:1162-1286): load the
     checkpoint (``--use-ema``: its EMA weights), check it against
-    ``--sampler``, build the dynamics-aware policy, run the sequential
+    ``--sampler``, build the ``--policy-type`` policy, run the sequential
     protocol or, with ``--batched``, all episodes in lockstep, and write the
     timestamped results JSON with the JAX package's keys. Returns the
     metrics."""
     args = build_eval_parser().parse_args(argv)
+    if args.replan_deviation is not None and args.batched:
+        raise SystemExit(
+            "--replan-deviation needs the sequential protocol (drop --batched):"
+            " lockstep waves cannot replan per-env")
     device = resolve_device(args.device)
     from dadiff_tpu_torch.envs.host import evaluate_policy, make_env, save_results
 
@@ -649,12 +884,14 @@ def evaluate_main(argv=None) -> dict:
         dataset=dataset_spec, n_episodes=args.n_episodes,
         sampling_timesteps=sampling_timesteps, seed=args.seed,
         extra={
-            # the JAX package's provenance keys; the port plans with the
-            # goal scorer and the plan's own actions
+            # the JAX package's provenance keys; the port executes the
+            # plan's own actions
             "sampler": args.sampler,
             "n_candidates": args.n_candidates,
-            "candidate_scorer": "goal",
-            "wall_penalty_weight": None,
+            "candidate_scorer": args.candidate_scorer,
+            "wall_penalty_weight": (args.wall_penalty_weight
+                                    if args.candidate_scorer == "wall-penalty"
+                                    else None),
             "action_source": "plan",
             "batched": args.batched,
             "wall_aware": args.wall_aware,
@@ -664,9 +901,10 @@ def evaluate_main(argv=None) -> dict:
             "projection_strength": args.projection_strength,
             "action_horizon": args.action_horizon,
             "warm_start_t": args.warm_start_t,
-            "replan_deviation": None,
-            "guide_weight": None,
-            "value_checkpoint": None,
+            "replan_deviation": args.replan_deviation,
+            "guide_weight": (args.guide_weight if args.value_checkpoint
+                             else None),
+            "value_checkpoint": args.value_checkpoint,
             "use_ema": args.use_ema,
         })
     print(f"Mean reward: {metrics['mean_reward']:.2f} ± "

@@ -4,9 +4,10 @@ Counterpart of the JAX package's datasets/sequence.py: SequenceDataset :27
 (the packed normalized arena, window indexing, ``get_batch`` :174,
 ``set_normalizer`` :154), DataLoader :183, create_dataloader :221 and
 prefetch_to_device :240. Batches are ``{'conditions': (B, H, obs+act)}`` of
-normalized interleaved trajectories, obs first. Shuffling is numpy's from a
-seed, so this loader and the JAX package's draw the same batches.
-Return-to-go targets (``include_returns``) are not ported yet.
+normalized interleaved trajectories, obs first, and with ``include_returns``
+``'returns'`` (B,), the normalized discounted return-to-go of each window's
+first row (sequence.py:93-106, the value net's target). Shuffling is numpy's
+from a seed, so this loader and the JAX package's draw the same batches.
 """
 
 from __future__ import annotations
@@ -22,12 +23,16 @@ from dadiff_tpu_torch.datasets.sources import Episode, load_episodes
 
 class SequenceDataset:
     """Fixed-length windows over episodes packed into one normalized arena
-    (sequence.py:27-180)."""
+    (sequence.py:27-180). ``include_returns``: each row's discounted
+    return-to-go, accumulated in float64 from the recorded rewards or from
+    ``reward_fn(episode) -> (T,)``, normalized over all rows."""
 
     def __init__(self, dataset_name: Optional[str] = None, horizon: int = 64,
                  normalizer: str = "LimitsNormalizer",
                  max_path_length: int = 1000, use_padding: bool = True,
-                 episodes: Optional[List[Episode]] = None):
+                 episodes: Optional[List[Episode]] = None,
+                 include_returns: bool = False, discount: float = 0.99,
+                 reward_fn=None):
         if episodes is None:
             if dataset_name is None:
                 raise ValueError("Provide dataset_name or episodes")
@@ -40,19 +45,29 @@ class SequenceDataset:
         self.action_dim = int(episodes[0]["actions"].shape[-1])
         self.transition_dim = self.observation_dim + self.action_dim
 
-        segments, window_starts, offset = [], [], 0
+        self.include_returns = include_returns
+        self.discount = discount
+
+        segments, rtg_segments, window_starts, offset = [], [], [], 0
         for ep in episodes:
             obs = np.asarray(ep["observations"], dtype=np.float32)
             act = np.asarray(ep["actions"], dtype=np.float32)
             T = min(len(act), max_path_length)
             seg = np.concatenate([obs[:T], act[:T]], axis=-1)
+            rtg = _returns_to_go(ep, T, discount, reward_fn) \
+                if include_returns else None
             if T < horizon:
                 if not use_padding or T == 0:
                     continue
                 seg = np.concatenate(
                     [seg, np.repeat(seg[-1:], horizon - T, axis=0)], axis=0)
+                if rtg is not None:
+                    rtg = np.concatenate([rtg, np.repeat(rtg[-1:],
+                                                         horizon - T)])
                 T = horizon
             segments.append(seg)
+            if rtg is not None:
+                rtg_segments.append(rtg)
             window_starts.extend(range(offset, offset + T - horizon + 1))
             offset += T
         if not segments:
@@ -61,6 +76,14 @@ class SequenceDataset:
                 f"length and use_padding={use_padding}")
         arena = np.concatenate(segments, axis=0)
         self._starts = np.asarray(window_starts, dtype=np.int64)
+        self._returns = None
+        self.returns_mean = self.returns_std = None
+        if include_returns:
+            rtg_all = np.concatenate(rtg_segments, axis=0)
+            self.returns_mean = float(rtg_all.mean())
+            self.returns_std = float(rtg_all.std() + 1e-6)
+            self._returns = ((rtg_all - self.returns_mean)
+                             / self.returns_std).astype(np.float32)
         self.normalizer = DatasetNormalizer(
             arena[:, : self.observation_dim], arena[:, self.observation_dim:],
             self.observation_dim, self.action_dim, normalizer=normalizer)
@@ -77,12 +100,36 @@ class SequenceDataset:
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         s = self._starts[idx]
-        return {"conditions": self._arena[s:s + self.horizon]}
+        item = {"conditions": self._arena[s:s + self.horizon]}
+        if self._returns is not None:
+            item["returns"] = self._returns[s]
+        return item
 
     def get_batch(self, idxs: np.ndarray) -> Dict[str, np.ndarray]:
         """Vectorized window gather: (B, H, transition_dim) in one take."""
         rows = self._starts[idxs][:, None] + np.arange(self.horizon)[None, :]
-        return {"conditions": self._arena[rows]}
+        batch = {"conditions": self._arena[rows]}
+        if self._returns is not None:
+            batch["returns"] = self._returns[self._starts[idxs]]
+        return batch
+
+
+def _returns_to_go(ep: Episode, T: int, discount: float,
+                   reward_fn) -> np.ndarray:
+    """Discounted return-to-go of an episode's first T rows, accumulated in
+    float64 (sequence.py:93-106); the recorded rewards, zeros where the
+    episode has none, or ``reward_fn(ep)``."""
+    if reward_fn is not None:
+        rewards = np.asarray(reward_fn(ep), dtype=np.float64)[:T]
+    else:
+        rewards = np.asarray(ep.get("rewards", np.zeros(T)),
+                             dtype=np.float64)[:T]
+    rtg = np.zeros(T, dtype=np.float64)
+    acc = 0.0
+    for t in range(T - 1, -1, -1):
+        acc = rewards[t] + discount * acc
+        rtg[t] = acc
+    return rtg.astype(np.float32)
 
 
 class DataLoader:

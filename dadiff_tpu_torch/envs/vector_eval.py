@@ -50,8 +50,10 @@ def evaluate_policy_batched(policy, env_name: str, n_episodes: int = 10,
     obs_dim, act_dim = policy.observation_dim, policy.action_dim
     trans_dim = policy.transition_dim
     a0, a1 = obs_dim, obs_dim + act_dim
-    # the buffer starts at row 0, whose action the conditioning zeroed
-    n_buffered = min(policy.action_horizon + 1, horizon)
+    # the buffer starts at row 0, whose action the conditioning zeroed, or
+    # at row 1 with skip_conditioned_action (vector_eval.py:71-72)
+    start_t = 1 if policy.skip_conditioned_action else 0
+    n_buffered = min(policy.action_horizon + 1, horizon) - start_t
 
     total_reward = np.zeros(n_episodes)
     lengths = np.zeros(n_episodes, dtype=int)
@@ -90,7 +92,8 @@ def evaluate_policy_batched(policy, env_name: str, n_episodes: int = 10,
                                                  trans_dim)
             trajs = policy._plan(policy._generator, cond, policy._P,
                                  policy._stats)
-        actions_norm = trajs.detach().cpu().numpy()[:, :n_buffered, a0:a1]
+        actions_norm = trajs.detach().cpu().numpy()[
+            :, start_t:start_t + n_buffered, a0:a1]
 
         for j in range(n_buffered):
             if step >= max_steps or done.all():

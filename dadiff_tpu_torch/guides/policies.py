@@ -1,16 +1,19 @@
 """Env-facing planning policies with action buffering.
 
-Counterpart of the JAX package's guides/policies.py: goal_distance_scorer :36,
-make_goal_distance_scorer :52, the core of GuidedPolicy :131
-(the samplers, guidance and warm start of ``__init__`` :135-282,
-``_process_observation`` :285, ``plan`` :301, the warm-start depth
-``_k_from_drift`` / ``_auto_warm_k`` / ``_auto_warm_sampler`` :341-362,
-``_warm_init`` :364, ``_fill_action_buffer`` :381, ``get_action`` :436,
-``reset`` :457) and DynamicsAwarePolicy :514 with ``parity_mode``. The
-executed action of every replan starts at row 0, whose action the
-conditioning zeroed (policies.py:381-421), as in the reference. Inverse
-dynamics, deviation replanning, value guidance and the other scorers are
-not ported yet.
+Counterpart of the JAX package's guides/policies.py: the scorers
+goal_distance_scorer :36, make_goal_distance_scorer :52,
+make_wall_penalty_scorer :73, make_velocity_scorer :106 and
+velocity_scorer_for_env :123; GuidedPolicy :131 (the samplers, guidance
+and warm start of ``__init__`` :135-282, ``_process_observation`` :285,
+``plan`` :301, the warm-start depth ``_k_from_drift`` / ``_auto_warm_k`` /
+``_auto_warm_sampler`` :341-362, ``_warm_init`` :364,
+``_fill_action_buffer`` :381 with ``skip_conditioned_action``, inverse
+dynamics and ``track_planned_states``, ``_deviated_from_plan`` and
+``get_action`` :423-455 with ``replan_deviation``, ``reset`` :457);
+MPCPolicy :464, ValueGuidedPolicy :476 (both guide flavours) and
+DynamicsAwarePolicy :514 with ``parity_mode``. By default the executed
+action of every replan starts at row 0, whose action the conditioning
+zeroed (policies.py:381-421), as in the reference.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from dadiff_tpu_torch.guides.sampling import (
     conditions_for_initial_obs_np,
     make_sampler,
 )
-from dadiff_tpu_torch.ops.projection import NormStats
+from dadiff_tpu_torch.ops.projection import NormStats, wall_violation_mask
 
 
 def goal_distance_scorer(trajs: torch.Tensor, normed_obs: torch.Tensor
@@ -55,6 +58,51 @@ def make_goal_distance_scorer(obs_mean, obs_std):
     return scorer
 
 
+def make_wall_penalty_scorer(obs_mean, obs_std, wall_grid,
+                             penalty: float = 5.0,
+                             margin: Optional[float] = None):
+    """Physical-space goal distance plus ``penalty`` times the share of plan
+    rows whose physical position lies in a wall cell (policies.py:73-103):
+    among near-goal candidates the one that does not cut through a wall
+    wins."""
+    base = make_goal_distance_scorer(obs_mean, obs_std)
+    grid = torch.as_tensor(np.asarray(wall_grid), dtype=torch.int32)
+    mean2 = torch.as_tensor(np.asarray(obs_mean)[0:2], dtype=torch.float32)
+    std2 = torch.as_tensor(np.asarray(obs_std)[0:2], dtype=torch.float32)
+
+    def scorer(trajs: torch.Tensor, normed_obs: torch.Tensor) -> torch.Tensor:
+        dev = trajs.device
+        pos = trajs[:, :, 0:2] * std2.to(dev) + mean2.to(dev)
+        bad = wall_violation_mask(pos, grid.to(dev), margin)
+        return base(trajs, normed_obs) + penalty * bad.to(
+            torch.float32).mean(dim=-1)
+
+    return scorer
+
+
+def make_velocity_scorer(vel_index: int):
+    """Locomotion's scorer: the negative mean planned forward velocity,
+    observation component ``vel_index`` (policies.py:106-118)."""
+
+    def scorer(trajs: torch.Tensor, normed_obs: torch.Tensor) -> torch.Tensor:
+        return -trajs[:, :, vel_index].mean(dim=-1)
+
+    return scorer
+
+
+VELOCITY_INDEX = {"halfcheetah": 8, "hopper": 5, "walker": 8}
+
+
+def velocity_scorer_for_env(env_name: str):
+    """The velocity scorer of a gymnasium v5 locomotion env
+    (policies.py:123-128)."""
+    key = env_name.lower()
+    for name, idx in VELOCITY_INDEX.items():
+        if name in key:
+            return make_velocity_scorer(idx)
+    raise ValueError(f"No velocity scorer for {env_name}")
+
+
 class GuidedPolicy:
     """Conditioned sampling with action buffering (policies.py:131-461), on
     the diffusion module's device; ``seed`` seeds the policy's own
@@ -67,7 +115,18 @@ class GuidedPolicy:
     ``warm_start_auto`` picks K at each replan from the drift between the
     observation and the plan row it should be on: the smallest K of a grid
     of 10 with sqrt(1 - abar_{K-1}) >= warm_auto_scale * drift /
-    sqrt(obs_dim), else the full chain (policies.py:238-257)."""
+    sqrt(obs_dim), else the full chain (policies.py:238-257).
+
+    ``skip_conditioned_action`` starts the buffer at row 1.
+    ``inverse_dynamics(s, s_next) -> a`` (physical space, batched) derives
+    the actions from consecutive planned states; with
+    ``track_planned_states`` the buffer holds the planned next states and
+    each action is computed at execution time from the observed state.
+    ``replan_deviation``: drop the buffer and replan once the observation is
+    more than this normalized L2 distance from the plan row it should be
+    on. ``candidate_scorer(trajs (N, H, D), normed_obs) -> (N,)``, lower is
+    better, picks the best of ``n_candidates``; the default is the
+    physical-space goal distance."""
 
     def __init__(self, diffusion, normalizer, action_horizon: Optional[int] = None,
                  sampling_timesteps: Optional[int] = None, seed: int = 0,
@@ -75,9 +134,16 @@ class GuidedPolicy:
                  n_candidates: int = 1, guide_fn: Optional[Callable] = None,
                  guide_weight: float = 1.0, sampler: str = "ddpm",
                  ddim_eta: float = 0.0, warm_start_t: Optional[int] = None,
-                 warm_start_auto: bool = False, warm_auto_scale: float = 4.0):
+                 warm_start_auto: bool = False, warm_auto_scale: float = 4.0,
+                 skip_conditioned_action: bool = False,
+                 candidate_scorer: Optional[Callable] = None,
+                 inverse_dynamics: Optional[Callable] = None,
+                 track_planned_states: bool = False,
+                 replan_deviation: Optional[float] = None):
         if warm_start_auto and warm_start_t is not None:
             raise ValueError("pass either warm_start_t or warm_start_auto")
+        if track_planned_states and inverse_dynamics is None:
+            raise ValueError("track_planned_states needs inverse_dynamics")
         self.diffusion = diffusion
         self.normalizer = normalizer
         self.device = diffusion.device
@@ -108,8 +174,15 @@ class GuidedPolicy:
         self._warm_enabled = warm_start_t is not None or warm_start_auto
         self.last_warm_k: Optional[int] = None
         self._last_plan: Optional[np.ndarray] = None  # normalized (1, H, D)
+        self.skip_conditioned_action = skip_conditioned_action
+        self.inverse_dynamics = inverse_dynamics
+        self.track_planned_states = track_planned_states
+        self.replan_deviation = replan_deviation
+        self._planned_obs: List[np.ndarray] = []  # normalized, buffer-aligned
         self.n_candidates = max(1, n_candidates)
-        if normalizer is not None:
+        if candidate_scorer is not None:
+            self.candidate_scorer = candidate_scorer
+        elif normalizer is not None:
             self.candidate_scorer = make_goal_distance_scorer(
                 normalizer.obs_mean, normalizer.obs_std)
         else:
@@ -208,25 +281,106 @@ class GuidedPolicy:
 
     def _fill_action_buffer(self, trajectory: np.ndarray) -> None:
         """Buffer the plan's actions from row 0, whose action the
-        conditioning zeroed (policies.py:381-421)."""
+        conditioning zeroed, or from row 1 with ``skip_conditioned_action``;
+        from inverse dynamics, or the planned next states to track, where
+        the policy has them (policies.py:381-421). The plan rows aligned
+        with the buffer are kept for the deviation check."""
         traj = trajectory[0]
         a0, a1 = self.observation_dim, self.observation_dim + self.action_dim
-        for t in range(min(self.action_horizon + 1, self.horizon)):
-            action = self.normalizer.unnormalize_actions(traj[t, a0:a1].reshape(1, -1))
-            self.action_buffer.append(np.ravel(action))
+        start = 1 if self.skip_conditioned_action else 0
+        stop = min(self.action_horizon + 1, self.horizon)
+        if self.inverse_dynamics is not None:
+            stop = min(stop, self.horizon - 1)
+            obs_rows = self.normalizer.unnormalize_observations(
+                traj[start:stop + 1, : self.observation_dim])
+            if self.track_planned_states:
+                # actions come at execution time from the observed state
+                self.action_buffer.extend(np.asarray(nxt)
+                                          for nxt in obs_rows[1:])
+            else:
+                acts = np.asarray(self.inverse_dynamics(obs_rows[:-1],
+                                                        obs_rows[1:]))
+                self.action_buffer.extend(np.ravel(a) for a in acts)
+        else:
+            for t in range(start, stop):
+                action = self.normalizer.unnormalize_actions(
+                    traj[t, a0:a1].reshape(1, -1))
+                self.action_buffer.append(np.ravel(action))
+        self._planned_obs = [traj[start + i, : self.observation_dim]
+                             for i in range(len(self.action_buffer))]
+
+    def _deviated_from_plan(self, observation) -> bool:
+        """True when the observation is more than ``replan_deviation``
+        (normalized L2) from the plan row it should be on
+        (policies.py:423-434)."""
+        if self.replan_deviation is None or not self._planned_obs:
+            return False
+        cur = self.normalizer.normalize_observations(
+            self._process_observation(observation))[0]
+        return float(np.linalg.norm(cur - self._planned_obs[0])) \
+            > self.replan_deviation
 
     def get_action(self, observation, **kwargs) -> np.ndarray:
-        """Pop the buffer, replanning when it is empty (policies.py:436-455)."""
+        """Pop the buffer, replanning when it is empty or the observation
+        left the plan (policies.py:436-455)."""
+        if self.action_buffer and self._deviated_from_plan(observation):
+            self.action_buffer.clear()
+            self._planned_obs.clear()
         if not self.action_buffer:
             self._fill_action_buffer(self.plan(observation))
         self._actions_taken += 1
-        return self.action_buffer.pop(0)
+        if self._planned_obs:
+            self._planned_obs.pop(0)
+        item = self.action_buffer.pop(0)
+        if self.track_planned_states:
+            # u_t = g(s_observed, s_planned_next)
+            obs_phys = self._process_observation(observation)
+            return np.ravel(np.asarray(self.inverse_dynamics(obs_phys,
+                                                             item[None])))
+        return item
 
     def reset(self) -> None:
         """A new episode: the action buffer and the warm state go."""
         self.action_buffer.clear()
         self._last_plan = None
         self._actions_taken = 0
+        self._planned_obs = []
+
+
+class MPCPolicy(GuidedPolicy):
+    """Plan once, execute ``action_horizon`` actions, replan
+    (policies.py:464-473)."""
+
+    def __init__(self, diffusion, normalizer, action_horizon: int = 8,
+                 **kwargs):
+        super().__init__(diffusion, normalizer, action_horizon=action_horizon,
+                         **kwargs)
+
+
+class ValueGuidedPolicy(GuidedPolicy):
+    """Gradient guidance from a learned value (policies.py:476-511), one of
+    two flavours: ``value_fn(obs (B, H, obs_dim)) -> (B, H)`` per-step
+    values summed over the horizon, or ``trajectory_value_fn(x (B, H, D),
+    t (B,)) -> (B,)``, the noisy-trajectory value net
+    (models/value_net.py)."""
+
+    def __init__(self, diffusion, normalizer,
+                 value_fn: Optional[Callable] = None,
+                 guide_weight: float = 1.0,
+                 action_horizon: Optional[int] = None,
+                 trajectory_value_fn: Optional[Callable] = None, **kwargs):
+        obs_dim = diffusion.observation_dim
+        if trajectory_value_fn is not None:
+            guide_fn = trajectory_value_fn
+        elif value_fn is not None:
+            def guide_fn(x, t):
+                return value_fn(x[:, :, :obs_dim]).sum(dim=1)
+        else:
+            raise ValueError("provide value_fn or trajectory_value_fn")
+        super().__init__(diffusion, normalizer, guide_fn=guide_fn,
+                         guide_weight=guide_weight,
+                         action_horizon=action_horizon, **kwargs)
+        self.value_fn = value_fn
 
 
 class DynamicsAwarePolicy(GuidedPolicy):

@@ -154,6 +154,8 @@ def make_sampler(diffusion: GaussianDiffusion, *,
     start, the noise of the forward step); ``step_noise`` (n_steps, B, H, D)
     the per-step draws of the stochastic samplers (ddpm, ddim with eta > 0);
     the deterministic ones draw none (sampling.py:261-269).
+    ``plan.draw(generator, batch)`` returns the two draws a plan of
+    ``batch`` chains takes from ``generator``.
     """
     schedule = diffusion.schedule
     device = diffusion.device
@@ -300,6 +302,15 @@ def make_sampler(diffusion: GaussianDiffusion, *,
             x = conditions.apply(x)
         return x
 
+    def draw(generator: Optional[torch.Generator], batch: int):
+        """(init_noise, step_noise or None) of a plan of ``batch`` chains,
+        drawn from ``generator`` as :func:`plan` draws them."""
+        shape = (batch, H, D)
+        init = torch.randn(shape, generator=generator, device=device)
+        return init, (torch.randn((n_steps,) + shape, generator=generator,
+                                  device=device) if stochastic else None)
+
     plan.timesteps = ts
     plan.stochastic = stochastic
+    plan.draw = draw
     return plan

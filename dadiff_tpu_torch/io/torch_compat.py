@@ -9,7 +9,8 @@ ema_state_dict?}`` with the denoiser under ``model.`` and the 12 schedule
 buffers at the top of ``model_state_dict``.
 
 ``params_from_jax`` turns a Flax TemporalUnet parameter tree (as numpy)
-into the port's TemporalUnet state dict; ``block_params_from_jax`` one
+into the port's TemporalUnet state dict, ``value_params_from_jax`` a Flax
+ValueNet tree into the port's ValueNet's; ``block_params_from_jax`` one
 residual block's dict and ``train_state_from_jax`` an optax Adam state and
 EMA tree. Layouts:
   Conv1d          flax (k, in, out) -> torch (out, in, k)
@@ -27,20 +28,21 @@ import numpy as np
 import torch
 
 
+def _res_keys(prefix: str, name: str):
+    """The key table of one ResidualTemporalBlock."""
+    return [
+        (f"{prefix}.blocks.0.block.0", (name, "block1", "conv"), "conv"),
+        (f"{prefix}.blocks.0.block.1", (name, "block1", "norm"), "norm"),
+        (f"{prefix}.blocks.1.block.0", (name, "block2", "conv"), "conv"),
+        (f"{prefix}.blocks.1.block.1", (name, "block2", "norm"), "norm"),
+        (f"{prefix}.time_mlp.1", (name, "time_dense"), "dense"),
+        (f"{prefix}.residual_conv", (name, "residual_conv"), "conv"),
+    ]
+
+
 def unet_key_mapping(n_levels: int) -> List[Tuple[str, Tuple[str, ...], str]]:
     """(torch prefix, flax path, kind) for every TemporalUnet layer
     (torch_compat.py:41-82); torch prefixes are relative to the unet."""
-
-    def res(prefix, name):
-        return [
-            (f"{prefix}.blocks.0.block.0", (name, "block1", "conv"), "conv"),
-            (f"{prefix}.blocks.0.block.1", (name, "block1", "norm"), "norm"),
-            (f"{prefix}.blocks.1.block.0", (name, "block2", "conv"), "conv"),
-            (f"{prefix}.blocks.1.block.1", (name, "block2", "norm"), "norm"),
-            (f"{prefix}.time_mlp.1", (name, "time_dense"), "dense"),
-            (f"{prefix}.residual_conv", (name, "residual_conv"), "conv"),
-        ]
-
     table = [
         ("time_mlp.1", ("time_dense1",), "dense"),
         ("time_mlp.3", ("time_dense2",), "dense"),
@@ -49,15 +51,15 @@ def unet_key_mapping(n_levels: int) -> List[Tuple[str, Tuple[str, ...], str]]:
         ("final_conv.1", ("final_conv",), "conv"),
     ]
     for i in range(n_levels):
-        table += res(f"downs.{i}.0", f"down_{i}_res1")
-        table += res(f"downs.{i}.1", f"down_{i}_res2")
+        table += _res_keys(f"downs.{i}.0", f"down_{i}_res1")
+        table += _res_keys(f"downs.{i}.1", f"down_{i}_res2")
         if i < n_levels - 1:
             table.append((f"downs.{i}.2.conv", (f"down_{i}_downsample",), "conv"))
-    table += res("mid_block1", "mid_block1")
-    table += res("mid_block2", "mid_block2")
+    table += _res_keys("mid_block1", "mid_block1")
+    table += _res_keys("mid_block2", "mid_block2")
     for i in range(n_levels - 1):
-        table += res(f"ups.{i}.0", f"up_{i}_res1")
-        table += res(f"ups.{i}.1", f"up_{i}_res2")
+        table += _res_keys(f"ups.{i}.0", f"up_{i}_res1")
+        table += _res_keys(f"ups.{i}.1", f"up_{i}_res2")
         table.append((f"ups.{i}.2.conv", (f"up_{i}_upsample",), "convtranspose"))
     return table
 
@@ -66,8 +68,28 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax TemporalUnet params (nested dicts of numpy arrays) -> the port's
     ``TemporalUnet`` state dict, loadable with ``strict=True``."""
     n_levels = sum(1 for k in params if k.startswith("down_") and k.endswith("_res1"))
+    return _state_from_table(params, unet_key_mapping(n_levels))
+
+
+def value_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ValueNet params (numpy) -> the port's ``ValueNet`` state dict,
+    loadable with ``strict=True`` (models/value_net.py names its modules
+    after the Flax tree)."""
+    n_levels = sum(1 for k in params if k.startswith("enc_")
+                   and k.endswith("_res"))
+    table = [("time_mlp.1", ("time_dense1",), "dense"),
+             ("time_mlp.3", ("time_dense2",), "dense"),
+             ("head1", ("head1",), "dense"), ("head2", ("head2",), "dense")]
+    for i in range(n_levels):
+        table += _res_keys(f"blocks.{i}", f"enc_{i}_res")
+        if i < n_levels - 1:
+            table.append((f"downs.{i}", (f"enc_{i}_down",), "conv"))
+    return _state_from_table(params, table)
+
+
+def _state_from_table(params, table) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
-    for prefix, path, kind in unet_key_mapping(n_levels):
+    for prefix, path, kind in table:
         node = params
         for p in path:
             node = node.get(p) if isinstance(node, Mapping) else None

@@ -176,7 +176,8 @@ def make_consistency_sampler(diffusion: GaussianDiffusion, *,
     q_sample and re-imposes them again. ``init_noise`` (B, H, D) is the
     first call's draw, ``step_noise`` (len(levels) - 1, B, H, D) the
     re-noising draws, as the JAX plan takes them from ``split(rng,
-    n_steps)``'s keys in order."""
+    n_steps)``'s keys in order; ``plan.draw(generator, batch)`` returns
+    both as a plan draws them."""
     from dadiff_tpu_torch.ops.projection import (
         apply_projection,
         projection_alpha,
@@ -231,6 +232,15 @@ def make_consistency_sampler(diffusion: GaussianDiffusion, *,
             x0 = conditions.apply(x0)
         return x0
 
+    def draw(generator: Optional[torch.Generator], batch: int):
+        """(init_noise, step_noise) of a plan of ``batch`` chains, drawn
+        from ``generator`` as :func:`plan` draws them."""
+        shape = (batch, H, D)
+        init = torch.randn(shape, generator=generator, device=device)
+        return init, torch.randn((len(levels) - 1,) + shape,
+                                 generator=generator, device=device)
+
     plan.timesteps = levels
     plan.stochastic = len(levels) > 1
+    plan.draw = draw
     return plan

@@ -735,6 +735,7 @@ class _WaveRunner:
     alive)."""
 
     MAX_GRAPHS = 4
+    captures = 0  # graphs captured by every runner, ever
 
     def __init__(self, unet, cfg: StepConfig, ops, shape, T: int, device):
         R, D = shape
@@ -752,6 +753,7 @@ class _WaveRunner:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             wave()
+        _WaveRunner.captures += 1
         return graph.replay
 
     def run(self, flat_w, x0, m_embs, step_noise, scal, cond, M, b,
@@ -895,7 +897,10 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
     ``prepared``: on the card the wave of prepared operands is captured in
     a CUDA graph at its first plan and replayed afterwards, while a plan
     without them prepares anew and drives its wave from the host.
-    ``x0``/``step_noise`` inject the randomness (tests)."""
+    ``x0``/``step_noise`` inject the randomness: ``plan.draw(generator)``
+    draws one stream's as a plan of one stream does, and
+    ``plan.stack_draws(draws, B)`` lays B streams' draws out as the wave of
+    B streams takes them (a micro-batched server, serving.py)."""
     from dadiff_tpu_torch.models.diffusion import default_timesteps
 
     if diffusion.prediction == "v":
@@ -927,6 +932,14 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
                 (float(stats.obs_std[0]), float(stats.obs_std[1])),
             )
     chains = {}
+    n_steps = len(default_timesteps(diffusion.n_timesteps, sampling_timesteps))
+
+    def _layout(n_streams):
+        """Chains per group, groups, and all chains with the pad."""
+        C_tot = n_streams * n_candidates
+        Ng = min(group_chains, C_tot)
+        G = -(-C_tot // Ng)
+        return Ng, G, G * Ng
 
     def _get_chain(n_chains, n_groups):
         key = (n_chains, n_groups)
@@ -964,9 +977,7 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
             values = values[None]
         B = values.shape[0]
         C_tot = B * n_candidates
-        Ng = min(group_chains, C_tot)
-        G = -(-C_tot // Ng)
-        C_pad = G * Ng
+        Ng, G, C_pad = _layout(B)
         flat_w, m_embs, scal = prepared if prepared is not None else prepare()
         T = scal.shape[0]
         if x0 is None:
@@ -996,19 +1007,46 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
         best = torch.argmin(d, dim=1)
         return plans[torch.arange(B, device=device), best]
 
+    def draw(generator):
+        """x_T and step noise of a plan of one stream, drawn from
+        ``generator`` as :func:`plan` draws them."""
+        rows = _layout(1)[2] * H
+        x0 = torch.randn(rows, D, generator=generator, device=device)
+        return x0, torch.randn(n_steps, rows, D, generator=generator,
+                               device=device)
+
+    def stack_draws(draws, n_streams: int):
+        """The wave's x_T and step noise of ``n_streams`` streams from their
+        :func:`draw` results (fewer draws than streams: the rest of the
+        wave, like the pad chains, is zeros). Chains are independent, so a
+        stream's plan does not depend on the other streams' draws."""
+        rows = n_candidates * H
+        wave_rows = _layout(n_streams)[2] * H
+        x0 = torch.zeros(wave_rows, D, device=device)
+        step_noise = torch.zeros(n_steps, wave_rows, D, device=device)
+        for i, (x, n) in enumerate(draws):
+            x0[i * rows:(i + 1) * rows] = x[:rows]
+            step_noise[:, i * rows:(i + 1) * rows] = n[:, :rows]
+        return x0, step_noise
+
     plan.uses_projection = use_projection
     plan.prepare = prepare
+    plan.draw = draw
+    plan.stack_draws = stack_draws
     return plan
 
 
-def wire_policy_megakernel(policy, *, n_candidates: int):
+def wire_policy_megakernel(policy, *, n_candidates: int,
+                           group_chains: int = 64):
     """Route a policy's replans through the planner chain: one chain call per
     replan wave (all candidates, conditioning, per-step projection), then
     best-of-N selection; ``policy.n_candidates`` becomes 1
     (pallas_planner.py:449-494). Weights are bf16 on the card and f32 on the
     CPU, as the TPU path takes bf16 and its interpret mode f32. The chain is
     the DDPM sampler alone: another sampler, guidance or warm start raises
-    (pallas_planner.py:465-470), never routed quietly to the module path."""
+    (pallas_planner.py:465-470), never routed quietly to the module path.
+    The replan function carries the sampler (``.sampler``) and its prepared
+    operands (``.prepared()``), which a micro-batched server shares."""
     cfg = policy._sampler_config
     if cfg["sampler"] != "ddpm":
         raise ValueError("--megakernel supports the ddpm sampler only")
@@ -1023,16 +1061,21 @@ def wire_policy_megakernel(policy, *, n_candidates: int):
         P=getattr(policy, "_P", None),
         stats=getattr(policy, "_stats", None),
         n_candidates=n_candidates,
+        group_chains=group_chains,
         sampling_timesteps=cfg["sampling_timesteps"],
         weight_dtype=torch.float32 if cpu else torch.bfloat16,
     )
     box = {}
 
-    def plan(generator, conditions, P=None, stats_=None):
+    def prepared():
         if "prep" not in box:
             box["prep"] = mega.prepare()
-        return mega(generator, conditions, box["prep"])
+        return box["prep"]
 
+    def plan(generator, conditions, P=None, stats_=None):
+        return mega(generator, conditions, prepared())
+
+    plan.sampler, plan.prepared = mega, prepared
     policy._plan = plan
     policy.n_candidates = 1
     policy.megakernel = True

@@ -1,12 +1,17 @@
 """Planning server: a policy behind newline-delimited JSON over TCP.
 
-Counterpart of scripts/serve.py (make_handler :64, serve :143 with
-concurrency 1, main :203). Micro-batching of concurrent clients
-(the JAX package's serving.py) is not ported yet.
+Counterpart of scripts/serve.py (make_handler :64, _serve_connection and
+_Counter :108-140, serve :143, main :203).
 
     python -m dadiff_tpu_torch.serve --checkpoint model.pt \\
         --dataset npz:data/pointmaze_umaze_expert.npz \\
         --policy-type dynamics-aware --n-candidates 8 --megakernel --port 7033
+
+``--concurrency 1`` (the default) serves one client at a time. With
+``--concurrency K`` > 1 each connection gets its own policy session in its
+own thread, and the plan requests that arrive within ``--batch-window-ms``
+(at most ``--max-batch``) run as one batched call (serving.py): with
+``--megakernel`` one planner-chain wave of K_pad x n_candidates chains.
 
 Every flag of the evaluate CLI applies (cli.build_eval_parser): the
 samplers, warm start (``--warm-start-t``, ``--warm-start-auto``), a
@@ -26,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import socket
+import threading
 import time
 
 import numpy as np
@@ -40,6 +46,15 @@ def build_server_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=7033)
     p.add_argument("--max-requests", type=int, default=None,
                    help="exit after N requests")
+    p.add_argument("--concurrency", type=int, default=1,
+                   help="concurrent client connections; > 1 micro-batches "
+                        "the plan requests that arrive within "
+                        "--batch-window-ms into one call (serving.py)")
+    p.add_argument("--batch-window-ms", type=float, default=5.0,
+                   help="how long the batcher waits to fold concurrent "
+                        "plan requests into one call")
+    p.add_argument("--max-batch", type=int, default=8,
+                   help="most plan requests folded into one call")
     return p
 
 
@@ -86,36 +101,94 @@ def make_handler(policy):
     return handle
 
 
-def serve(policy, host: str, port: int, max_requests=None, ready_cb=None) -> int:
-    """Accept loop, one client at a time; returns the requests served after
-    ``max_requests`` (serve.py:143-200 with concurrency 1)."""
+def _serve_connection(conn, handle, counter, max_requests) -> None:
+    """Answer one connection's requests until it closes or the server's
+    limit is reached (serve.py:108-121)."""
+    with conn, conn.makefile("rwb") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                resp = handle(json.loads(line))
+            except Exception as e:  # malformed request; keep serving
+                resp = {"error": f"{type(e).__name__}: {e}"}
+            f.write((json.dumps(resp) + "\n").encode())
+            f.flush()
+            if counter.bump() and max_requests is not None:
+                return
+
+
+class _Counter:
+    """Requests answered by all connections (serve.py:124-140)."""
+
+    def __init__(self, limit):
+        self.limit = limit
+        self.n = 0
+        self._lock = threading.Lock()
+
+    def bump(self) -> bool:
+        """Count one; True once the limit is reached."""
+        with self._lock:
+            self.n += 1
+            return self.limit is not None and self.n >= self.limit
+
+    def done(self) -> bool:
+        with self._lock:
+            return self.limit is not None and self.n >= self.limit
+
+
+def serve(policy, host: str, port: int, max_requests=None, ready_cb=None,
+          concurrency: int = 1, window_ms: float = 5.0,
+          max_batch: int = 8) -> int:
+    """Accept loop; returns the requests served after ``max_requests``
+    (serve.py:143-200). ``concurrency == 1``: one client at a time, on the
+    policy itself. ``concurrency > 1``: a session per connection in its own
+    thread, the sessions' replans micro-batched (serving.py); the batcher,
+    every wave of it captured, is built before the server listens."""
+    batcher = None
+    if concurrency > 1:
+        from dadiff_tpu_torch.serving import BatchedPlanner
+
+        batcher = BatchedPlanner(policy, max_batch=max_batch,
+                                 window_ms=window_ms)
     handle = make_handler(policy)
-    n = 0
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as srv:
-        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        srv.bind((host, port))
-        srv.listen(1)
-        bound_port = srv.getsockname()[1]
-        print(f"serving on {host}:{bound_port}", flush=True)
-        if ready_cb is not None:
-            ready_cb(bound_port)
-        while max_requests is None or n < max_requests:
-            conn, _ = srv.accept()
-            with conn, conn.makefile("rwb") as f:
-                for line in f:
-                    line = line.strip()
-                    if not line:
-                        continue
-                    try:
-                        resp = handle(json.loads(line))
-                    except Exception as e:  # malformed request; keep serving
-                        resp = {"error": f"{type(e).__name__}: {e}"}
-                    f.write((json.dumps(resp) + "\n").encode())
-                    f.flush()
-                    n += 1
-                    if max_requests is not None and n >= max_requests:
-                        break
-    return n
+    counter = _Counter(max_requests)
+    threads, next_session = [], 0
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as srv:
+            srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            srv.bind((host, port))
+            srv.listen(max(1, concurrency))
+            bound_port = srv.getsockname()[1]
+            print(f"serving on {host}:{bound_port} (concurrency="
+                  f"{concurrency})", flush=True)
+            if ready_cb is not None:
+                ready_cb(bound_port)
+            srv.settimeout(0.2)
+            while not counter.done():
+                try:
+                    conn, _ = srv.accept()
+                except socket.timeout:
+                    threads = [t for t in threads if t.is_alive()]
+                    continue
+                conn.settimeout(None)
+                if batcher is None:
+                    _serve_connection(conn, handle, counter, max_requests)
+                    continue
+                session = make_handler(batcher.session(seed=next_session))
+                next_session += 1
+                t = threading.Thread(target=_serve_connection,
+                                     args=(conn, session, counter,
+                                           max_requests), daemon=True)
+                t.start()
+                threads.append(t)
+    finally:
+        for t in threads:
+            t.join(timeout=5.0)
+        if batcher is not None:
+            batcher.close()
+    return counter.n
 
 
 def main(argv=None):
@@ -137,7 +210,9 @@ def main(argv=None):
     sampling_timesteps = planning_timesteps(args, diffusion, dataset)
     policy = build_policy_from_args(args, diffusion, dataset, dataset_spec,
                                     sampling_timesteps)
-    serve(policy, args.host, args.port, max_requests=args.max_requests)
+    serve(policy, args.host, args.port, max_requests=args.max_requests,
+          concurrency=args.concurrency, window_ms=args.batch_window_ms,
+          max_batch=args.max_batch)
 
 
 if __name__ == "__main__":

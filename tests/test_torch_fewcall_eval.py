@@ -317,7 +317,8 @@ def test_megakernel_refuses_other_samplers_and_warm_start(teacher, argv):
     quietly to the module path (pallas_planner.py:465-470)."""
     args = build_server_parser().parse_args(
         ["--checkpoint", teacher, "--dataset", DATASET, "--device", "cpu",
-         "--n-candidates", "2", "--megakernel", *argv])
+         "--policy-type", "dynamics-aware", "--n-candidates", "2",
+         "--megakernel", *argv])
     diff, dataset = cli.load_model(teacher, DATASET, device="cpu")
     with pytest.raises(ValueError, match="--megakernel"):
         cli.build_policy_from_args(args, diff, dataset, DATASET, T_STEPS)
@@ -429,7 +430,8 @@ def test_server_keeps_warm_state_until_reset(teacher):
     request refills the buffer from the returned plan."""
     args = build_server_parser().parse_args(
         ["--checkpoint", teacher, "--dataset", DATASET, "--device", "cpu",
-         "--n-candidates", "2", "--action-horizon", "2", "--warm-start-t",
+         "--policy-type", "dynamics-aware", "--n-candidates", "2",
+         "--action-horizon", "2", "--warm-start-t",
          "8", "--sampler", "ddim", "--sampling-timesteps", "10"])
     diff, dataset = cli.load_model(teacher, DATASET, device="cpu")
     policy = cli.build_policy_from_args(

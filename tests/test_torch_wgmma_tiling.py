@@ -1,7 +1,7 @@
 """The wgmma tile of K2's conv product (``WgTile`` of csrc/wgmma.cuh, through
 ``rows_conv_wg`` / ``rows_conv_gn_wg`` of csrc/planner.cu), held on the CPU
 where no kernel runs: which convs take it (every conv of the 1,024-chain
-wave, none of the served 8-chain wave, the 64-chain chain or K3), and its
+wave, none of the served waves of 8-64 chains or K3), and its
 walk (``conv_tiling.rows_conv_tiled`` / ``rows_conv_gn_tiled`` at 128 rows,
 BK = 64, TMA boxes of consecutive weight rows, statistics per 8-row piece)
 against the plain versions and the JAX package's ``_conv_stack`` +
@@ -51,6 +51,13 @@ PINNED = {
     8: [(16, 64, s) for s in (1, 1, 7, 7, 7, 6, 7, 1, 8, 8, 8, 8, 8, 4, 8, 8,
                               8, 8, 8, 8, 8, 16, 8, 8, 8, 8, 8, 8, 8, 7, 7, 7,
                               4, 7, 1)],
+    # the micro-batched server's waves of 2 and 4 requests of 8 candidates
+    16: [(16, 64, s) for s in (1, 1, 7, 7, 7, 6, 7, 1, 8, 8, 8, 8, 8, 4, 8, 8,
+                               8, 8, 8, 8, 8, 16, 8, 8, 8, 8, 8, 8, 8, 7, 7, 7,
+                               4, 7, 1)],
+    32: [(16, 64, s) for s in (1, 1, 5, 5, 5, 6, 5, 1, 5, 5, 5, 8, 5, 4, 5, 5,
+                               5, 5, 5, 5, 5, 9, 8, 8, 8, 8, 4, 8, 8, 7, 7, 7,
+                               4, 5, 1)],
     64: [(16, 64, s) for s in (1, 1, 3, 3, 3, 4, 3, 1, 3, 3, 3, 5, 3, 3, 3, 3,
                                3, 3, 3, 3, 3, 5, 5, 5, 5, 5, 3, 5, 4, 5, 5, 5,
                                3, 3, 1)],
@@ -67,11 +74,12 @@ K3_PINNED = {
 }
 
 
-@pytest.mark.parametrize("chains", [8, 64])
+@pytest.mark.parametrize("chains", [8, 16, 32, 64])
 def test_served_and_64_chain_waves_keep_their_tiles(flagship, chains):
-    """The served bo8 wave (256 rows) and the 64-chain chain keep the
-    mma.sync tiles and K splits they had, so their results stay bit for bit
-    those of before."""
+    """The served bo8 wave (256 rows), the micro-batched server's waves of
+    16 and 32 chains and the 64-chain chain (8 requests) keep the mma.sync
+    tiles and K splits they had, so their results stay bit for bit those of
+    before."""
     calls, _, _ = step_launches(flagship, chains * 32, 8, 32)
     assert len(calls) == 35
     assert _tiles(calls) == PINNED[chains]
