@@ -1956,8 +1956,10 @@ def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
     for bit, (c) every lane of a 64-chain wave and each client's served
     plan against its solo plan within TOL_CHAIN_BF16; no graph captured
     after construction; the bo8 wave (best of 8 included, staged draws)
-    timed at 8, 16, 32 and 64 chains beside its bound and launches; and
-    ``bench_serve`` at 4 clients."""
+    timed at 8, 16, 32 and 64 chains beside its bound and launches, its
+    chain against the plain chain at bf16 on the same draws (timed too),
+    and at 16-64 chains every conv and fused pair of a step against its
+    plain version with bf16 weights; and ``bench_serve`` at 4 clients."""
     import numpy as np
     from dadiff_tpu_torch import bench_serve, serve, serving
     from dadiff_tpu_torch.guides.sampling import conditions_for_initial_obs_np
@@ -2089,8 +2091,13 @@ def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
     require(_WaveRunner.captures == captures,
             "the checks replayed the server's graphs")
 
-    # the bo8 wave at 8-64 chains: staged draws, replay, best of 8
-    flat_w, m_embs, _ = prep = batcher._prepared()
+    # the bo8 wave at 8-64 chains: staged draws, replay, best of 8; its
+    # chain against the plain chain at bf16 on the same draws; at 16-64
+    # chains (other tiles and K splits than the 8-chain wave) every conv
+    # and fused pair of a denoise step against its plain version
+    flat_w, m_embs, scal = prep = batcher._prepared()
+    unet = policy.diffusion.model
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
     waves = {}
     for k_pad in (1, 2, 4, 8):
         reqs = [request(400 + i, i)[0] for i in range(k_pad)]
@@ -2109,19 +2116,44 @@ def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
         torch.cuda.synchronize()
         launches = sum(read_counts().values())
         chains = k_pad * N_CAND
-        flops, nbytes, _ = wave_cost(policy.diffusion.model, flat_w, m_embs,
-                                     chains * HORIZON, D)
+        flops, nbytes, _ = wave_cost(unet, flat_w, m_embs, chains * HORIZON,
+                                     D)
         b_ms, b_by = bound_ms(flops, nbytes, BF16_FLOPS)
+        chain, (M, b) = batcher._wave.chain_of(k_pad)
+        cond_rows = values.repeat_interleave(N_CAND, dim=0).reshape(-1, D)
+        got = chain(flat_w, x0, m_embs, noise, scal, cond_rows, M, b)
+        box = {}
+
+        def plain():
+            box["x"] = chain.plain(flat_w, x0, m_embs, noise, scal,
+                                   cond_rows, M, b)
+
+        plain_ms = cuda_ms(plain, 1, warmup=0)
+        err = (got - box.pop("x")).abs().max().item()
+        require(err <= TOL_CHAIN_BF16 and bool(torch.isfinite(got).all()),
+                f"the {chains}-chain served wave vs the plain chain at bf16: "
+                f"{err}")
         waves[chains] = {
             "ms": cuda_ms(wave, 5, warmup=1),
             "call_ms": cuda_ms(lambda: batcher._call(reqs), 5, warmup=1),
+            "plain_ms": plain_ms, "max_abs_err": err,
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
             "launches": launches}
         log(f"micro-batched wave, {chains} chains: {waves[chains]['ms']:.3f} "
             f"ms replayed (CUDA events, draws staged, best of 8 included), "
             f"{waves[chains]['call_ms']:.3f} ms as a batched call (draws "
-            f"included); bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} "
-            f"GFLOP); {launches} launches; card {card}")
+            f"included), the plain chain {plain_ms:.3f} ms; chain vs plain "
+            f"at bf16 max|err| {err:.3e} (tolerance {TOL_CHAIN_BF16}); bound "
+            f"{b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP); {launches} "
+            f"launches; card {card}")
+        if k_pad > 1:
+            calls = step_launches(unet, chains * HORIZON, D)[0]
+            waves[chains]["conv_max_abs_err"] = hold_rows_conv(
+                [c[1:8] for c in calls], (torch.bfloat16,), g)
+            gn_err, gn_worst = hold_rows_conv_gn(
+                [c for c in calls if c[0] == "conv_gn"], (torch.bfloat16,), g)
+            waves[chains].update(conv_gn_max_abs_err=gn_err,
+                                 conv_gn_worst_err_over_tolerance=gn_worst)
     require(_WaveRunner.captures == captures, "the timed waves replayed")
 
     bench = bench_serve.main(flags + ["--clients", str(n_clients),

@@ -67,29 +67,19 @@ def _quantile_ms(lats, q):
 def main(argv=None) -> dict:
     import torch
 
-    from dadiff_tpu_torch.cli import (
-        ENV_TO_DATASET,
-        build_policy_from_args,
-        load_model,
-        planning_timesteps,
-        resolve_device,
+    from dadiff_tpu_torch.serve import (
+        build_server_parser,
+        policy_from_args,
+        serve,
     )
-    from dadiff_tpu_torch.serve import build_server_parser, serve
 
     parser = build_server_parser()
     parser.add_argument("--clients", type=int, default=4)
     parser.add_argument("--requests-per-client", type=int, default=8)
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
-    dataset_spec = args.dataset or ENV_TO_DATASET.get(args.env)
-    if dataset_spec is None:
-        raise SystemExit(f"No default dataset for {args.env}; pass --dataset")
-    diffusion, dataset = load_model(args.checkpoint, dataset_spec,
-                                    device=device, use_ema=args.use_ema)
-    steps = planning_timesteps(args, diffusion, dataset)
-    policy = build_policy_from_args(args, diffusion, dataset, dataset_spec,
-                                    steps)
-    obs_dim = diffusion.observation_dim
+    policy, steps = policy_from_args(args)
+    device = policy.device
+    obs_dim = policy.observation_dim
     K, R = args.clients, args.requests_per_client
 
     def run_phase(concurrency, n_clients):

@@ -228,8 +228,11 @@ def make_sampler(diffusion: GaussianDiffusion, *,
             conditions.values) else conditions.values
         batch = values.shape[0] if values.ndim == 3 else 1
         shape = (batch, H, D)
-        noise0 = (torch.randn(shape, generator=generator, device=device)
-                  if init_noise is None else init_noise.to(device))
+        if init_noise is None or (stochastic and step_noise is None):
+            drawn = draw(generator, batch)
+            init_noise = drawn[0] if init_noise is None else init_noise
+            step_noise = drawn[1] if step_noise is None else step_noise
+        noise0 = init_noise.to(device)
         if warm:
             if x_init is None:
                 raise ValueError(
@@ -240,9 +243,6 @@ def make_sampler(diffusion: GaussianDiffusion, *,
             x = q_sample(schedule, x_init, ts[0].expand(batch), noise0)
         else:
             x = noise0
-        if stochastic and step_noise is None:
-            step_noise = torch.randn((n_steps,) + shape, generator=generator,
-                                     device=device)
         x = conditions.apply(x)
         if use_projection:
             P = torch.as_tensor(P, dtype=torch.float32, device=device)
@@ -303,8 +303,9 @@ def make_sampler(diffusion: GaussianDiffusion, *,
         return x
 
     def draw(generator: Optional[torch.Generator], batch: int):
-        """(init_noise, step_noise or None) of a plan of ``batch`` chains,
-        drawn from ``generator`` as :func:`plan` draws them."""
+        """(init_noise, step_noise or None) of a plan of ``batch`` chains:
+        the draws :func:`plan` takes from ``generator`` when none are
+        injected."""
         shape = (batch, H, D)
         init = torch.randn(shape, generator=generator, device=device)
         return init, (torch.randn((n_steps,) + shape, generator=generator,

@@ -206,12 +206,10 @@ def make_consistency_sampler(diffusion: GaussianDiffusion, *,
              step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         values = conditions.values
         batch = values.shape[0] if values.ndim == 3 else 1
-        shape = (batch, H, D)
-        if init_noise is None:
-            init_noise = torch.randn(shape, generator=generator, device=device)
-        if step_noise is None:
-            step_noise = torch.randn((len(levels) - 1,) + shape,
-                                     generator=generator, device=device)
+        if init_noise is None or step_noise is None:
+            drawn = draw(generator, batch)
+            init_noise = drawn[0] if init_noise is None else init_noise
+            step_noise = drawn[1] if step_noise is None else step_noise
         if use_projection:
             P = torch.as_tensor(P, dtype=torch.float32, device=device)
         x = conditions.apply(init_noise.to(device))
@@ -233,8 +231,9 @@ def make_consistency_sampler(diffusion: GaussianDiffusion, *,
         return x0
 
     def draw(generator: Optional[torch.Generator], batch: int):
-        """(init_noise, step_noise) of a plan of ``batch`` chains, drawn
-        from ``generator`` as :func:`plan` draws them."""
+        """(init_noise, step_noise) of a plan of ``batch`` chains: the
+        draws :func:`plan` takes from ``generator`` when none are
+        injected."""
         shape = (batch, H, D)
         init = torch.randn(shape, generator=generator, device=device)
         return init, torch.randn((len(levels) - 1,) + shape,

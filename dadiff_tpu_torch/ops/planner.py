@@ -829,8 +829,7 @@ def make_planner_chain(unet, schedule, horizon: int, n_chains: int,
         if not projection:
             M = b = None
         if x0.device.type == "cpu":
-            return run_chain(_PlainOps(), unet, flat_w, x0, m_embs, step_noise,
-                             scal, cond, M, b, cfg)
+            return plain(flat_w, x0, m_embs, step_noise, scal, cond, M, b)
         acts = [t for t in (x0, m_embs, step_noise, scal, cond, M, b)
                 if t is not None]
         if any(t.dtype != torch.float32 for t in acts) or any(
@@ -847,8 +846,17 @@ def make_planner_chain(unet, schedule, horizon: int, n_chains: int,
         return runners[key].run(flat_w, x0, m_embs, step_noise, scal, cond,
                                 M, b, graph).clone()
 
+    @torch.no_grad()
+    def plain(flat_w, x0, m_embs, step_noise, scal, cond, M=None, b=None):
+        """The chain's plain version on the same operands, on their device:
+        the same rounding points, PyTorch ops for the kernels."""
+        return run_chain(_PlainOps(), unet, flat_w, x0, m_embs, step_noise,
+                         scal, cond, M if projection else None,
+                         b if projection else None, cfg)
+
     chain.timesteps = ts
     chain.n_steps = len(ts)
+    chain.plain = plain
     return chain
 
 
@@ -897,10 +905,10 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
     ``prepared``: on the card the wave of prepared operands is captured in
     a CUDA graph at its first plan and replayed afterwards, while a plan
     without them prepares anew and drives its wave from the host.
-    ``x0``/``step_noise`` inject the randomness: ``plan.draw(generator)``
-    draws one stream's as a plan of one stream does, and
-    ``plan.stack_draws(draws, B)`` lays B streams' draws out as the wave of
-    B streams takes them (a micro-batched server, serving.py)."""
+    ``x0``/``step_noise`` inject the randomness; without them a plan of B
+    streams takes ``plan.draw(generator, B)``, and ``plan.stack_draws(draws,
+    B)`` lays B streams' own draws out as the wave of B streams takes them
+    (a micro-batched server, serving.py)."""
     from dadiff_tpu_torch.models.diffusion import default_timesteps
 
     if diffusion.prediction == "v":
@@ -979,12 +987,10 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
         C_tot = B * n_candidates
         Ng, G, C_pad = _layout(B)
         flat_w, m_embs, scal = prepared if prepared is not None else prepare()
-        T = scal.shape[0]
-        if x0 is None:
-            x0 = torch.randn(C_pad * H, D, generator=generator, device=device)
-        if step_noise is None:
-            step_noise = torch.randn(T, C_pad * H, D, generator=generator,
-                                     device=device)
+        if x0 is None or step_noise is None:
+            drawn = draw(generator, B)
+            x0 = drawn[0] if x0 is None else x0
+            step_noise = drawn[1] if step_noise is None else step_noise
         cond = torch.cat([values.repeat_interleave(n_candidates, dim=0),
                           values.new_zeros(C_pad - C_tot, H, D)]
                          ).reshape(C_pad * H, D)
@@ -1007,10 +1013,11 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
         best = torch.argmin(d, dim=1)
         return plans[torch.arange(B, device=device), best]
 
-    def draw(generator):
-        """x_T and step noise of a plan of one stream, drawn from
-        ``generator`` as :func:`plan` draws them."""
-        rows = _layout(1)[2] * H
+    def draw(generator, n_streams: int = 1):
+        """x_T and step noise of a plan of ``n_streams`` streams (all chains
+        of its wave, the pad included): the draws :func:`plan` takes from
+        ``generator`` when none are injected."""
+        rows = _layout(n_streams)[2] * H
         x0 = torch.randn(rows, D, generator=generator, device=device)
         return x0, torch.randn(n_steps, rows, D, generator=generator,
                                device=device)
@@ -1029,8 +1036,15 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
             step_noise[:, i * rows:(i + 1) * rows] = n[:, :rows]
         return x0, step_noise
 
+    def chain_of(n_streams: int):
+        """The planner chain of the wave of ``n_streams`` streams and its
+        projection operands (M, b): a check runs the chain's plain version
+        (``chain.plain``) on a wave's own operands."""
+        return _get_chain(*_layout(n_streams)[:2]), (M, b)
+
     plan.uses_projection = use_projection
     plan.prepare = prepare
+    plan.chain_of = chain_of
     plan.draw = draw
     plan.stack_draws = stack_draws
     return plan

@@ -191,8 +191,10 @@ def serve(policy, host: str, port: int, max_requests=None, ready_cb=None,
     return counter.n
 
 
-def main(argv=None):
-    args = build_server_parser().parse_args(argv)
+def policy_from_args(args):
+    """The policy the server flags describe, on its device, and the
+    planning steps it takes (the set-up of :func:`main` and of
+    bench_serve)."""
     from dadiff_tpu_torch.cli import (
         ENV_TO_DATASET,
         build_policy_from_args,
@@ -207,9 +209,14 @@ def main(argv=None):
         raise SystemExit(f"No default dataset for {args.env}; pass --dataset")
     diffusion, dataset = load_model(args.checkpoint, dataset_spec,
                                     device=device, use_ema=args.use_ema)
-    sampling_timesteps = planning_timesteps(args, diffusion, dataset)
-    policy = build_policy_from_args(args, diffusion, dataset, dataset_spec,
-                                    sampling_timesteps)
+    steps = planning_timesteps(args, diffusion, dataset)
+    return build_policy_from_args(args, diffusion, dataset, dataset_spec,
+                                  steps), steps
+
+
+def main(argv=None):
+    args = build_server_parser().parse_args(argv)
+    policy, _ = policy_from_args(args)
     serve(policy, args.host, args.port, max_requests=args.max_requests,
           concurrency=args.concurrency, window_ms=args.batch_window_ms,
           max_batch=args.max_batch)

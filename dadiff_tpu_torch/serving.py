@@ -72,8 +72,7 @@ class BatchedPlanner:
     batched calls; ``cold_calls`` counts the calls at a shape the prewarm
     did not run."""
 
-    def __init__(self, policy, *, max_batch: int = 8, window_ms: float = 5.0,
-                 prewarm: bool = True):
+    def __init__(self, policy, *, max_batch: int = 8, window_ms: float = 5.0):
         cfg = getattr(policy, "_sampler_config", None)
         if cfg is None:
             raise ValueError("policy does not expose _sampler_config; build "
@@ -101,17 +100,16 @@ class BatchedPlanner:
         self.batch_sizes: List[int] = []
         self.cold_calls = 0
         self._warm_shapes = set()
-        if prewarm:
-            values = np.zeros((policy.n_candidates, policy.horizon,
-                               policy.transition_dim), np.float32)
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            k_pad = 1
-            while True:
-                self._call([_PlanRequest(gen, values)] * k_pad)
-                self._warm_shapes.add((k_pad,) + values.shape)
-                if k_pad >= self.max_batch:
-                    break
-                k_pad *= 2
+        values = np.zeros((policy.n_candidates, policy.horizon,
+                           policy.transition_dim), np.float32)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        k_pad = 1
+        while True:
+            self._call([_PlanRequest(gen, values)] * k_pad)
+            self._warm_shapes.add((k_pad,) + values.shape)
+            if k_pad >= self.max_batch:
+                break
+            k_pad *= 2
         self._queue: "queue.Queue[_PlanRequest]" = queue.Queue()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)

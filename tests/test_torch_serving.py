@@ -169,9 +169,38 @@ def test_concurrent_sessions_fold_into_one_call(batcher):
         np.testing.assert_allclose(got, want, atol=TOL_LANE)
 
 
+@pytest.mark.parametrize("kind", ["k2", "ddpm", "consistency"])
+def test_plan_draws_through_its_draw(parts, kind):
+    """A plan given no noise takes from its generator exactly what its
+    sampler's ``draw`` gives (for the planner chain, of two streams): the
+    one definition of a plan's draws, which the batcher's per-request
+    draws rely on for (a) and (b)."""
+    from dadiff_tpu_torch.models.consistency import make_consistency_sampler
+    from dadiff_tpu_torch.guides.sampling import make_sampler
+
+    diff = parts[0]
+    policy = _policy(parts, "module")
+    cond = _request(policy, 0, 0)[1]
+    gen = lambda: torch.Generator().manual_seed(7)  # noqa: E731
+    if kind == "k2":
+        plan = _policy(parts, "k2")._plan.sampler
+        values = (torch.as_tensor(np.concatenate(
+            [_request(policy, 0, i)[1].values[:1] for i in range(2)])),)
+        x0, noise = plan.draw(gen(), 2)
+        got = plan(gen(), values)
+        want = plan(None, values, x0=x0, step_noise=noise)
+    else:
+        plan = (make_sampler(diff) if kind == "ddpm"
+                else make_consistency_sampler(diff, n_steps=3))
+        init, noise = plan.draw(gen(), N)
+        got = plan(gen(), cond)
+        want = plan(None, cond, init_noise=init, step_noise=noise)
+    assert torch.equal(got, want)
+
+
 def test_window_max_batch_and_padding(parts):
     policy = _policy(parts, "module")
-    b = BatchedPlanner(policy, max_batch=2, window_ms=200.0, prewarm=False)
+    b = BatchedPlanner(policy, max_batch=2, window_ms=200.0)
     try:
         lanes = []
         call = b._call
@@ -193,8 +222,7 @@ def test_window_max_batch_and_padding(parts):
 
 
 def test_error_reaches_every_waiter(parts):
-    b = BatchedPlanner(_policy(parts, "k2"), max_batch=4, window_ms=200.0,
-                       prewarm=False)
+    b = BatchedPlanner(_policy(parts, "k2"), max_batch=4, window_ms=200.0)
 
     def broken(lanes):
         raise RuntimeError("wave failed to launch")
@@ -214,22 +242,24 @@ def test_error_reaches_every_waiter(parts):
                          ids=["warm_start_t", "warm_start_auto"])
 def test_batching_rejects_warm_start(parts, kw):
     with pytest.raises(ValueError, match="warm-start"):
-        BatchedPlanner(_policy(parts, "module", **kw), prewarm=False)
+        BatchedPlanner(_policy(parts, "module", **kw))
 
 
 @pytest.mark.parametrize("path", ["module", "k2"])
 def test_prewarm_runs_the_live_shapes(parts, path):
-    """The prewarm runs every padded call with the shapes of a live request
-    ((K_pad, candidates, H, D)), so a live burst meets no new shape; on the
-    CPU nothing is captured. Without the prewarm the burst is cold."""
+    """The prewarm at construction runs every padded call with the shapes
+    of a live request ((K_pad, candidates, H, D)), so a live burst meets no
+    new shape; on the CPU nothing is captured. With the prewarm's record
+    cleared the same burst counts as cold."""
     captures = _WaveRunner.captures
+    n_values = 1 if path == "k2" else N
     for prewarm in (True, False):
         b = BatchedPlanner(_policy(parts, path), max_batch=4,
-                           window_ms=200.0, prewarm=prewarm)
+                           window_ms=200.0)
         try:
-            n_values = 1 if path == "k2" else N
-            assert b._warm_shapes == ({(k, n_values, H, D) for k in (1, 2, 4)}
-                                      if prewarm else set())
+            assert b._warm_shapes == {(k, n_values, H, D) for k in (1, 2, 4)}
+            if not prewarm:
+                b._warm_shapes.clear()
             out = _concurrently([lambda i=i: b.session(seed=i).plan(_obs(i))
                                  for i in range(3)])
             assert all(isinstance(o, np.ndarray) for o in out), out
