@@ -53,7 +53,19 @@
    ``dadiff_tpu_torch.bench_serve`` at 4 clients; then value guidance
    (``value_phase``): ``train_value_main`` for a few steps, value-guided
    and MPC plans on the card against the CPU.
-8. Prints the card, the kernel table as one JSON line, and as the last line
+8. Drives locomotion (``locomotion_phase``): ``train_main`` at the Hopper
+   planner's full width (dim 128, mults 1 4 8) for a few steps, one env
+   step of HalfCheetah (Euler), Hopper and Walker2d (RK4) with both
+   constraint solvers in float64 and float32 on the card against the CPU
+   (ground contact and joints past their limits among the states), an env
+   step timed host-driven and as a CUDA-graph replay, and
+   ``eval_ondevice_locomotion.main`` on the card (Hopper, 30 envs, a few
+   replans of one action, jacobi): the chunk-bound guard passes, the
+   results file is written, every op of the loop runs on the card, the
+   graph replays equal the host-driven loop, and no port kernel launches
+   (the JAX evaluator plans through XLA; so does this path, through the
+   module path).
+9. Prints the card, the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
@@ -71,6 +83,8 @@ import time
 from pathlib import Path
 
 import torch
+from torch.utils import _pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -2242,6 +2256,263 @@ def value_phase(ckpt: Path, root: Path, card: str) -> dict:
     return {"train_s": train_s, "loss_series": series, "plans": plans}
 
 
+# the locomotion slice: the Hopper planner of scripts/r5_phase3.sh:28-31 at
+# full width (horizon 32, dim 128, mults 1 4 8, T = 100), a few steps here
+LOCO_DATA = "npz:data/hopper_mppi.npz+npz:data/hopper_engine_r5.npz"
+LOCO_MULTS, LOCO_STEPS, LOCO_BATCH = (1, 4, 8), 40, 32
+# the on-device protocol of r5_phase3.sh:45-48 at a few replans
+LOCO_ENVS, LOCO_REPLANS, LOCO_SEED = 30, 8, 42
+# solver iterations: the CLI's --solver-iters for jacobi; PGS, sequential
+# over rows (5 launches a row per sweep, 190k-540k launches an env step at
+# 100), is held at the CPU tests' 30 to keep the phase short
+LOCO_ITERS = {"jacobi": 100, "pgs": 30}
+# the card's physics against the CPU's after one env step from the same
+# states: float64 to 1e-9, float32 to 1e-4 in qpos and qvel
+TOL_PHYS = {torch.float64: 1e-9, torch.float32: 1e-4}
+
+
+def _physics_states(env):
+    """(qpos, qvel, ctrl), float64, 8 rows: resets (seeds 0-3), two pushed
+    1-3 cm into the ground, two with a limited hinge past its range and in
+    the ground; and which rows have an active contact row and a limit row."""
+    import numpy as np
+
+    m, phys = env.model, env.phys
+    rows = [env.reset_state(s) for s in range(8)]
+    qpos = np.stack([r[0] for r in rows])
+    qvel = np.stack([r[1] for r in rows]) + np.linspace(-1, 1, 8)[:, None]
+    lim = [d for d in range(m.nv) if m.jnt_limited[d]]
+    lo, hi = m.jnt_range[lim[0]][0], m.jnt_range[lim[-1]][1]
+    qpos[6, lim[0]], qpos[7, lim[-1]] = lo - 0.05, hi + 0.05
+    pts = phys.contact_points(torch.from_numpy(qpos))
+    gap = (pts[..., 1] - torch.from_numpy(m.con_radius)
+           - torch.from_numpy(m.con_margin)).amin(-1).numpy()
+    qpos[4:8, 1] -= gap[4:8] + np.array([0.01, 0.03, 0.01, 0.02])
+    ctrl = np.random.RandomState(SEED).uniform(-1, 1, (8, m.nu))
+    active = phys._constraint_rows(torch.from_numpy(qpos),
+                                   torch.from_numpy(qvel))[3]
+    n_con = phys.pyramid_edges * len(m.con_body)
+    return (qpos, qvel, ctrl, bool(active[:, :n_con].any()),
+            bool(active[:, n_con:].any()))
+
+
+class _DeviceAudit(TorchDispatchMode):
+    """Counts the ops dispatched while active, and those that touch a CPU
+    tensor of one element or more (a Python number PyTorch wraps is none)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.cpu_ops = 0, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        leaves = _pytree.tree_leaves((args, kwargs, out))
+        self.ops += 1
+        if any(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+               and t.dim() > 0 for t in leaves):
+            self.cpu_ops[str(func)] = self.cpu_ops.get(str(func), 0) + 1
+        return out
+
+
+def locomotion_phase(root: Path, card: str) -> dict:
+    """The locomotion path on the card: ``train_main`` at the Hopper
+    planner's full width for LOCO_STEPS steps; one env step of each env,
+    each solver and each dtype on the card against the CPU from the same
+    states (ground contact and a joint past its limit among them); one
+    jacobi env step at LOCO_ENVS envs timed from the host and as a
+    CUDA-graph replay;
+    then ``eval_ondevice_locomotion.main`` on the card at the r5 protocol
+    cut to LOCO_REPLANS replans (the chunk-bound guard must pass, the
+    results file must be written, every op of the evaluator's loop must run
+    on the card), held against the same evaluator without CUDA graphs on
+    the same draws. The path plans through the module path
+    (guides/sampling.py, as the JAX evaluator plans through XLA): the
+    kernels' launch counters must read 0 around it."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from dadiff_tpu_torch import eval_ondevice_locomotion as evl
+    from dadiff_tpu_torch.cli import load_model, train_main
+    from dadiff_tpu_torch.envs import locomotion_jax as loco
+    from dadiff_tpu_torch.envs.planar_physics import _Consts
+    from dadiff_tpu_torch.ops.projection import NormStats
+
+    out = {"card": card}
+    reset_counts()
+    t0 = time.perf_counter()
+    log_dir = Path(train_main([
+        "--dataset", LOCO_DATA, "--horizon", str(HORIZON), "--dim", str(DIM),
+        "--dim-mults", *map(str, LOCO_MULTS), "--n-timesteps", str(T_STEPS),
+        "--batch-size", str(LOCO_BATCH), "--n-epochs", "1",
+        "--max-steps", str(LOCO_STEPS), "--warmup-steps", "10",
+        "--log-freq", str(LOCO_STEPS // 4), "--eval-freq", "0",
+        "--save-freq", "0", "--seed", str(SEED), "--log-dir",
+        str(root / "hopper")]))
+    record = json.loads((log_dir / "metrics.jsonl").read_text()
+                        .splitlines()[-1])
+    series = record["total_series"]
+    require(record["step"] == LOCO_STEPS and all(
+        v == v and abs(v) < 1e6 for v in series),
+        f"Hopper training: {record['step']} steps, loss {series}")
+    ckpt = log_dir / f"checkpoint_step_{LOCO_STEPS}.pt"
+    require(ckpt.is_file(), f"{ckpt} was exported")
+    out["train"] = {"steps": LOCO_STEPS, "batch": LOCO_BATCH,
+                    "s": time.perf_counter() - t0, "loss_series": series}
+    log(f"locomotion: trained the Hopper planner (dim {DIM}, mults "
+        f"{LOCO_MULTS}) {LOCO_STEPS} steps in {out['train']['s']:.1f} s "
+        f"(set-up included); loss {series}")
+
+    # -- the card's physics against the CPU's, one env step
+    parity, timing = {}, {}
+    t0 = time.perf_counter()
+    for cls in (loco.HalfCheetahJax, loco.HopperJax, loco.Walker2dJax):
+        for solver in ("pgs", "jacobi"):
+            env = cls(solver_iters=LOCO_ITERS[solver], solver=solver)
+            qpos, qvel, ctrl, contact, limit = _physics_states(env)
+            require(contact and limit, f"{env.ENV_NAME}: the states hold a "
+                    f"contact ({contact}) and a limit ({limit})")
+            for dtype, tol in TOL_PHYS.items():
+                args = [torch.as_tensor(a, dtype=dtype)
+                        for a in (qpos, qvel, ctrl)]
+                cpu = env.step_batch(*args)
+                card_out = env.step_batch(*(a.cuda() for a in args))
+                require(all(t.device.type == "cuda" for t in card_out),
+                        "the physics ran on the card")
+                err = max(float((c.cpu() - h).abs().max())
+                          for c, h in zip(card_out[:2], cpu[:2]))
+                same_done = bool((card_out[4].cpu() == cpu[4]).all())
+                key = f"{env.ENV_NAME}/{solver}/{str(dtype)[6:]}"
+                parity[key] = err
+                require(err <= tol and same_done,
+                        f"physics {key}: card vs CPU {err} > {tol} or done "
+                        f"differs ({same_done})")
+            key = f"{env.ENV_NAME}/{solver}"
+            msg = (f"physics {key} ({LOCO_ITERS[solver]} iterations, "
+                   f"{env.phys.n_rows} rows): card vs CPU max|err| f64 "
+                   f"{parity[key + '/float64']:.2e} f32 "
+                   f"{parity[key + '/float32']:.2e}")
+            if solver == "jacobi":
+                # one env step of LOCO_ENVS envs, float32: host-driven and
+                # as a replay of its CUDA graph (both solvers: bench_physics)
+                idx = torch.arange(LOCO_ENVS) % 8
+                qp, qv, u = (torch.as_tensor(a, dtype=torch.float32)[idx]
+                             .cuda() for a in (qpos, qvel, ctrl))
+
+                def one_step(qp=qp, qv=qv, u=u, env=env):
+                    env.step_batch(qp, qv, u)
+
+                eager = cuda_ms(one_step, 5, warmup=1)
+                graph = graph_ms(one_step, 5)
+                timing[key] = {"eager_ms": eager, "graph_ms": graph,
+                               "rows": env.phys.n_rows,
+                               "frames": env.FRAME_SKIP,
+                               "integrator": env.model.integrator}
+                msg += (f"; an env step of {LOCO_ENVS} envs (f32) "
+                        f"{eager:.3f} ms host-driven, {graph:.3f} ms as a "
+                        f"graph replay (CUDA events; card {card})")
+            log(msg)
+    out["physics_max_abs_err"] = parity
+    out["env_step_ms"] = timing
+    out["physics_s"] = time.perf_counter() - t0
+
+    # -- the evaluator's CLI on the card
+    results_dir = root / "results_locomotion"
+    argv = ["--checkpoint", str(ckpt), "--dataset", LOCO_DATA, "--env",
+            "Hopper-v5", "--backend", "physics", "--solver", "jacobi",
+            "--batch", str(LOCO_ENVS), "--n-replans", str(LOCO_REPLANS),
+            "--action-horizon", "1", "--skip-conditioned-action", "--seed",
+            str(LOCO_SEED), "--results-dir", str(results_dir)]
+    audits = []   # one per evaluator call: the untimed run, the timed run
+    call = loco.PhysicsLocomotionEvaluator.__call__
+
+    def audited(self, *a, **kw):
+        audits.append(_DeviceAudit())
+        with audits[-1]:
+            return call(self, *a, **kw)
+
+    # the CLI as a user runs it: TF32 convs on (the library's default)
+    loco.PhysicsLocomotionEvaluator.__call__ = audited
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    printed = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = evl.main(argv)
+        run_s = time.perf_counter() - t0
+    finally:
+        loco.PhysicsLocomotionEvaluator.__call__ = call
+    counts = read_counts()
+    log(printed.getvalue().rstrip())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    require("chunk bound OK" in printed.getvalue(),
+            "the K* guard passed at --action-horizon 1")
+    require(Path(result["results_path"]).is_file(), "results file written")
+    require(np.isfinite(result["mean_return"])
+            and result["mean_alive_length"] > 0, f"returns {result}")
+    # the first call uploads the physics model's constants once (a host
+    # tensor made and copied per field); nothing else touches the CPU
+    upload = {"aten.lift_fresh.default": len(_Consts._fields),
+              "aten._to_copy.default": len(_Consts._fields)}
+    require(len(audits) == 2 and audits[0].cpu_ops == upload
+            and not audits[1].cpu_ops and audits[1].ops > 0,
+            f"the evaluator's loop ran on the card: ops "
+            f"{[a.ops for a in audits]}, on the CPU "
+            f"{[a.cpu_ops for a in audits]}")
+    require(result["timing"]["graph"], "the replans replayed CUDA graphs")
+    require(not any(counts.values()), f"the locomotion path runs the module "
+            f"path: no port kernel {counts}")
+
+    # the same evaluator without CUDA graphs, on the same draws
+    diff, data = load_model(str(ckpt), LOCO_DATA, device="cuda")
+    stats = NormStats.from_normalizer(data.normalizer, "cuda")
+    env = loco.HopperJax(solver_iters=LOCO_ITERS["jacobi"], solver="jacobi")
+    init = torch.as_tensor(env.reset_obs(range(LOCO_SEED,
+                                               LOCO_SEED + LOCO_ENVS)),
+                           dtype=torch.float32, device="cuda")
+    returns = {}
+    try:
+        for graph in (True, False):
+            ev = loco.make_physics_locomotion_evaluator(
+                diff, env, action_horizon=1, n_replans=LOCO_REPLANS,
+                skip_conditioned_action=True, graph=graph)
+            g = torch.Generator(device="cuda").manual_seed(LOCO_SEED + 1)
+            returns[graph] = ev(g, stats, init)[2]
+            returns[f"timing_{graph}"] = ev.timing
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    graph_err = float((returns[True] - returns[False]).abs().max())
+    eager_replan = float(np.mean([p + s for p, s in
+                                  returns["timing_False"][1:]]))
+    eager_plan = float(np.mean([p for p, _ in returns["timing_False"][1:]]))
+    require(graph_err <= 1e-3, f"graph replans vs host-driven: {graph_err}")
+    out["evaluator"] = {
+        "argv": argv, "mean_return": result["mean_return"],
+        "return_se": result["return_se"],
+        "mean_alive_length": result["mean_alive_length"],
+        "timing": result["timing"], "run_s": run_s, "peak_memory_mib": peak,
+        "audited_ops": [a.ops for a in audits], "launches": counts,
+        "graph_vs_eager_max_abs_err": graph_err,
+        "eager_ms_per_replan": eager_replan, "eager_ms_per_plan": eager_plan,
+        "results_path": result["results_path"]}
+    tm = result["timing"]
+    log(f"locomotion evaluator (Hopper, {LOCO_ENVS} envs, {LOCO_REPLANS} "
+        f"replans, jacobi): mean return {result['mean_return']} (se "
+        f"{result['return_se']}, 40-step planner), ms per replan "
+        f"{tm['ms_per_replan']:.3f} as graph replays (host-driven "
+        f"{eager_replan:.3f}), plan {tm['ms_per_plan']:.3f} (host-driven "
+        f"{eager_plan:.3f}), env step "
+        f"{tm['ms_per_env_step']:.3f}, {tm['episodes_per_hour']:.1f} "
+        f"episodes/hour ({result['env_steps_per_episode']}-step episodes), "
+        f"peak memory {peak:.1f} MiB; graph vs host-driven returns "
+        f"{graph_err:.2e}; {sum(a.ops for a in audits)} ops audited, none "
+        f"on the CPU but the model's upload; TF32 convs; "
+        f"launches {counts}; card {card}")
+    return out
+
+
 def host_eval_phase(ckpt: Path, results_dir: Path) -> dict:
     """The host evaluator (``python -m dadiff_tpu_torch.evaluate``) in
     lockstep through the planner chain, where gymnasium and
@@ -2457,6 +2728,9 @@ def main() -> int:
     value = value_phase(ckpt, ROOT / "build" / "dadiff_tpu_torch" / "smoke",
                         card)
     log(f"value_phase: {json.dumps(value)}")
+    locomotion = locomotion_phase(ROOT / "build" / "dadiff_tpu_torch"
+                                  / "smoke", card)
+    log(f"locomotion_phase: {json.dumps(locomotion)}")
 
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
@@ -2495,6 +2769,9 @@ def main() -> int:
             "per": r["per"], "launches_per_step": r.get("launches_per_step"),
             "host_ms": r.get("host_ms"),
         })
+        # the locomotion path plans through the module path: none
+        kernels[-1]["launches_locomotion"] = \
+            locomotion["evaluator"]["launches"][name]
         if name in evaluation:
             # the evaluation path's count (its untimed and timed runs)
             kernels[-1]["launches_evaluation"] = evaluation[name]

@@ -57,8 +57,8 @@ def conditions_for_initial_obs(normed_obs: torch.Tensor, observation_dim: int,
     values = torch.zeros(batch, horizon, transition_dim, dtype=torch.float32,
                          device=normed_obs.device)
     values[:, 0, :observation_dim] = normed_obs
-    mask = torch.zeros(horizon, dtype=torch.bool, device=normed_obs.device)
-    mask[0] = True
+    # built on the device without a host copy: capturable in a CUDA graph
+    mask = torch.arange(horizon, device=normed_obs.device) == 0
     return Conditions(values=values, mask=mask)
 
 

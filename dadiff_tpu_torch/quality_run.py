@@ -2,6 +2,7 @@
 README recipe, then evaluate on the on-device protocol and its ablation.
 
     python -m dadiff_tpu_torch.quality_run [--out build/quality/results]
+    python -m dadiff_tpu_torch.quality_run --suite hopper --out ...
 
 1. ``train_main`` at the flagship flags (horizon 32, dim 128, mults 1 2 4,
    T = 100, 100 epochs of batch 256, lr 2e-4, seed 42) on
@@ -17,6 +18,14 @@ README recipe, then evaluate on the on-device protocol and its ablation.
    checkpoint, then the few-call cells of dynamics-aware best of 8 through
    the module path, each at the four seeds: the student at 1 and 2 calls,
    DDIM-10, DDIM-20 and DDPM warm start K=40.
+
+With ``--suite hopper`` it runs the locomotion cell instead: ``train_main``
+by the r5 recipe of scripts/r5_phase3.sh:28-31 (horizon 32, dim 128, mults
+1 4 8, T = 100, 60 epochs of batch 256, lr 2e-4, seed 42) on
+data/hopper_mppi.npz + data/hopper_engine_r5.npz, then
+``eval_ondevice_locomotion.main`` at that script's on-device protocol
+(:45-48: exact physics, jacobi, 30 envs, 992 replans of one action,
+skip-conditioned, seed 42), untuned.
 
 Prints one JSON line per cell and a summary line with the card's name and
 power limit; writes the results files under ``--out``. Needs a CUDA device.
@@ -70,6 +79,18 @@ FEW_CELLS = {
 }
 CELL_KEYS = ("success_rate", "mean_reward", "mean_final_distance",
              "wallclock_s", "episodes_per_hour", "compile_s")
+# the locomotion cell: scripts/r5_phase3.sh:28-31 and :45-48
+HOPPER_DATA = "npz:data/hopper_mppi.npz+npz:data/hopper_engine_r5.npz"
+HOPPER_RECIPE = ["--dataset", HOPPER_DATA, "--horizon", "32", "--dim", "128",
+                 "--dim-mults", "1", "4", "8", "--n-timesteps", "100",
+                 "--n-epochs", "60", "--batch-size", "256", "--lr", "2e-4"]
+HOPPER_PROTOCOL = ["--dataset", HOPPER_DATA, "--env", "Hopper-v5",
+                   "--backend", "physics", "--solver", "jacobi", "--batch",
+                   "30", "--n-replans", "992", "--action-horizon", "1",
+                   "--skip-conditioned-action", "--seed", "42"]
+HOPPER_KEYS = ("mean_return", "return_std", "return_se",
+               "mean_alive_length", "wall_clock_s",
+               "episodes_per_hour_per_chip", "timing")
 
 
 def card_line() -> str:
@@ -87,34 +108,61 @@ def latest_pt(log_dir: str) -> str:
     return max(pts, key=lambda p: int(re.search(r"_(\d+)\.pt$", p).group(1)))
 
 
+def train(recipe, run_name: str, train_dir: str, card: str) -> dict:
+    """``train_main`` by ``recipe`` at seed 42; the summary of the run, its
+    last checkpoint under "checkpoint"."""
+    from dadiff_tpu_torch.cli import train_main
+
+    t0 = time.perf_counter()
+    log_dir = train_main(recipe + ["--log-dir", train_dir, "--run-name",
+                                   run_name, "--seed", "42", "--save-freq",
+                                   "0", "--eval-freq", "0"])
+    train_s = time.perf_counter() - t0
+    records = [json.loads(line) for line in
+               open(os.path.join(log_dir, "metrics.jsonl"))]
+    summary = {"card": card, "checkpoint": latest_pt(log_dir),
+               "train_s": train_s, "train_steps": records[-1]["step"],
+               "loss_first_epoch": records[0].get("total"),
+               "loss_last_epoch": records[-1].get("total"), "cells": {}}
+    print(json.dumps({"training": summary}), flush=True)
+    return summary
+
+
+def hopper_suite(args, card: str) -> dict:
+    """The Hopper cell: train by the r5 recipe, then the on-device
+    exact-physics protocol on the last checkpoint."""
+    from dadiff_tpu_torch import eval_ondevice_locomotion
+
+    summary = train(HOPPER_RECIPE, "hop_r5", args.train_dir, card)
+    out = eval_ondevice_locomotion.main([
+        "--checkpoint", summary["checkpoint"], *HOPPER_PROTOCOL,
+        "--results-dir", os.path.join(args.out, "hopper_physics_ah1_seed42")])
+    summary["cells"]["hopper_physics_ah1_seed42"] = {
+        k: out[k] for k in HOPPER_KEYS}
+    return summary
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", type=str, default="build/quality/results")
     p.add_argument("--train-dir", type=str, default="build/quality")
+    p.add_argument("--suite", type=str, default="pointmaze",
+                   choices=["pointmaze", "hopper"])
     args = p.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("quality_run needs a CUDA device")
     from dadiff_tpu_torch import eval_ondevice
-    from dadiff_tpu_torch.cli import distill_main, train_main
+    from dadiff_tpu_torch.cli import distill_main
 
     os.chdir(ROOT)
     card = card_line()
     print(f"card: {card}", flush=True)
-    t0 = time.perf_counter()
-    log_dir = train_main(RECIPE + ["--log-dir", args.train_dir,
-                                   "--run-name", "flagship", "--seed", "42",
-                                   "--save-freq", "0", "--eval-freq", "0"])
-    train_s = time.perf_counter() - t0
-    ckpt = latest_pt(log_dir)
-    records = [json.loads(line) for line in
-               open(os.path.join(log_dir, "metrics.jsonl"))]
-    summary = {"card": card, "checkpoint": ckpt, "train_s": train_s,
-               "train_steps": records[-1]["step"],
-               "loss_first_epoch": records[0].get("total"),
-               "loss_last_epoch": records[-1].get("total"), "cells": {}}
-    print(json.dumps({"training": summary}), flush=True)
+    if args.suite == "hopper":
+        return _finish(hopper_suite(args, card), args.out)
+    summary = train(RECIPE, "flagship", args.train_dir, card)
+    ckpt = summary["checkpoint"]
     for name, flags in RUNS:
         out = eval_ondevice.main(["--checkpoint", ckpt, *PROTOCOL, *flags,
                                   "--results-dir",
@@ -144,9 +192,13 @@ def main(argv=None) -> dict:
             summary["cells"][name] = {k: out[k] for k in CELL_KEYS} | {
                 "model_calls_per_replan": out["model_calls_per_replan"]}
             print(json.dumps({name: summary["cells"][name]}), flush=True)
+    return _finish(summary, args.out)
+
+
+def _finish(summary: dict, out_dir: str) -> dict:
     summary["card_after"] = card_line()
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "summary.json"), "w") as f:
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(json.dumps(summary), flush=True)
     return summary
