@@ -62,7 +62,8 @@
    ``eval_ondevice_locomotion.main`` on the card (Hopper, 30 envs, a few
    replans of one action, jacobi): the chunk-bound guard passes, the
    results file is written, every op of the loop runs on the card, the
-   graph replays equal the host-driven loop, and no port kernel launches
+   graph replays equal the host-driven loop (at two actions a replan, and
+   on a second call that reuses the graphs), and no port kernel launches
    (the JAX evaluator plans through XLA; so does this path, through the
    module path).
 9. Prints the card, the kernel table as one JSON line, and as the last line
@@ -2262,6 +2263,8 @@ LOCO_DATA = "npz:data/hopper_mppi.npz+npz:data/hopper_engine_r5.npz"
 LOCO_MULTS, LOCO_STEPS, LOCO_BATCH = (1, 4, 8), 40, 32
 # the on-device protocol of r5_phase3.sh:45-48 at a few replans
 LOCO_ENVS, LOCO_REPLANS, LOCO_SEED = 30, 8, 42
+# graph replays against the host-driven loop at two actions a replan
+LOCO_CMP_AH = 2
 # solver iterations: the CLI's --solver-iters for jacobi; PGS, sequential
 # over rows (5 launches a row per sweep, 190k-540k launches an env step at
 # 100), is held at the CPU tests' 30 to keep the phase short
@@ -2319,8 +2322,8 @@ def locomotion_phase(root: Path, card: str) -> dict:
     planner's full width for LOCO_STEPS steps; one env step of each env,
     each solver and each dtype on the card against the CPU from the same
     states (ground contact and a joint past its limit among them); one
-    jacobi env step at LOCO_ENVS envs timed from the host and as a
-    CUDA-graph replay;
+    jacobi env step of each env timed from the host and as a CUDA-graph
+    replay (``bench_physics.time_env_step``);
     then ``eval_ondevice_locomotion.main`` on the card at the r5 protocol
     cut to LOCO_REPLANS replans (the chunk-bound guard must pass, the
     results file must be written, every op of the evaluator's loop must run
@@ -2333,6 +2336,7 @@ def locomotion_phase(root: Path, card: str) -> dict:
 
     import numpy as np
     from dadiff_tpu_torch import eval_ondevice_locomotion as evl
+    from dadiff_tpu_torch.bench_physics import time_env_step
     from dadiff_tpu_torch.cli import load_model, train_main
     from dadiff_tpu_torch.envs import locomotion_jax as loco
     from dadiff_tpu_torch.envs.planar_physics import _Consts
@@ -2393,24 +2397,15 @@ def locomotion_phase(root: Path, card: str) -> dict:
                    f"{parity[key + '/float64']:.2e} f32 "
                    f"{parity[key + '/float32']:.2e}")
             if solver == "jacobi":
-                # one env step of LOCO_ENVS envs, float32: host-driven and
-                # as a replay of its CUDA graph (both solvers: bench_physics)
-                idx = torch.arange(LOCO_ENVS) % 8
-                qp, qv, u = (torch.as_tensor(a, dtype=torch.float32)[idx]
-                             .cuda() for a in (qpos, qvel, ctrl))
-
-                def one_step(qp=qp, qv=qv, u=u, env=env):
-                    env.step_batch(qp, qv, u)
-
-                eager = cuda_ms(one_step, 5, warmup=1)
-                graph = graph_ms(one_step, 5)
-                timing[key] = {"eager_ms": eager, "graph_ms": graph,
-                               "rows": env.phys.n_rows,
-                               "frames": env.FRAME_SKIP,
-                               "integrator": env.model.integrator}
-                msg += (f"; an env step of {LOCO_ENVS} envs (f32) "
-                        f"{eager:.3f} ms host-driven, {graph:.3f} ms as a "
-                        f"graph replay (CUDA events; card {card})")
+                # one env step of 30 envs from resets, float32: host-driven
+                # and as a replay of its CUDA graph (PGS: bench_physics)
+                row = time_env_step(env)
+                timing[key] = row
+                msg += (f"; an env step of {row['envs']} envs (f32, "
+                        f"{row['ops_per_env_step']} ops) "
+                        f"{row['host_driven_ms']:.3f} ms host-driven, "
+                        f"{row['graph_ms']:.3f} ms as a graph replay (CUDA "
+                        f"events; card {card})")
             log(msg)
     out["physics_max_abs_err"] = parity
     out["env_step_ms"] = timing
@@ -2465,29 +2460,36 @@ def locomotion_phase(root: Path, card: str) -> dict:
     require(not any(counts.values()), f"the locomotion path runs the module "
             f"path: no port kernel {counts}")
 
-    # the same evaluator without CUDA graphs, on the same draws
+    # the evaluator at LOCO_CMP_AH actions a replan (the env step's graph
+    # replayed once per action), called twice with CUDA graphs (the second
+    # call replays from its first replan) and once without, on the same draws
     diff, data = load_model(str(ckpt), LOCO_DATA, device="cuda")
     stats = NormStats.from_normalizer(data.normalizer, "cuda")
     env = loco.HopperJax(solver_iters=LOCO_ITERS["jacobi"], solver="jacobi")
     init = torch.as_tensor(env.reset_obs(range(LOCO_SEED,
                                                LOCO_SEED + LOCO_ENVS)),
                            dtype=torch.float32, device="cuda")
-    returns = {}
+    runs = {}
     try:
         for graph in (True, False):
             ev = loco.make_physics_locomotion_evaluator(
-                diff, env, action_horizon=1, n_replans=LOCO_REPLANS,
+                diff, env, action_horizon=LOCO_CMP_AH, n_replans=LOCO_REPLANS,
                 skip_conditioned_action=True, graph=graph)
-            g = torch.Generator(device="cuda").manual_seed(LOCO_SEED + 1)
-            returns[graph] = ev(g, stats, init)[2]
-            returns[f"timing_{graph}"] = ev.timing
+            for call in range(2 if graph else 1):
+                g = torch.Generator(device="cuda").manual_seed(LOCO_SEED + 1)
+                runs[graph, call] = (ev(g, stats, init)[2], ev.timing,
+                                     ev.replayed)
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    graph_err = float((returns[True] - returns[False]).abs().max())
-    eager_replan = float(np.mean([p + s for p, s in
-                                  returns["timing_False"][1:]]))
-    eager_plan = float(np.mean([p for p, _ in returns["timing_False"][1:]]))
+    eager = runs[False, 0]
+    graph_err = max(float((runs[True, c][0] - eager[0]).abs().max())
+                    for c in (0, 1))
+    eager_replan = float(np.mean([p + s for p, s in eager[1][1:]]))
+    eager_plan = float(np.mean([p for p, _ in eager[1][1:]]))
     require(graph_err <= 1e-3, f"graph replans vs host-driven: {graph_err}")
+    require(runs[True, 0][2] == [False] + [True] * (LOCO_REPLANS - 1)
+            and all(runs[True, 1][2]) and not any(eager[2]),
+            f"replayed replans: {[runs[k][2] for k in runs]}")
     out["evaluator"] = {
         "argv": argv, "mean_return": result["mean_return"],
         "return_se": result["return_se"],
@@ -2495,18 +2497,20 @@ def locomotion_phase(root: Path, card: str) -> dict:
         "timing": result["timing"], "run_s": run_s, "peak_memory_mib": peak,
         "audited_ops": [a.ops for a in audits], "launches": counts,
         "graph_vs_eager_max_abs_err": graph_err,
+        "compared_at_action_horizon": LOCO_CMP_AH,
         "eager_ms_per_replan": eager_replan, "eager_ms_per_plan": eager_plan,
         "results_path": result["results_path"]}
     tm = result["timing"]
     log(f"locomotion evaluator (Hopper, {LOCO_ENVS} envs, {LOCO_REPLANS} "
         f"replans, jacobi): mean return {result['mean_return']} (se "
         f"{result['return_se']}, 40-step planner), ms per replan "
-        f"{tm['ms_per_replan']:.3f} as graph replays (host-driven "
-        f"{eager_replan:.3f}), plan {tm['ms_per_plan']:.3f} (host-driven "
-        f"{eager_plan:.3f}), env step "
+        f"{tm['ms_per_replan']:.3f} as graph replays (host-driven at "
+        f"{LOCO_CMP_AH} actions {eager_replan:.3f}), plan "
+        f"{tm['ms_per_plan']:.3f} (host-driven {eager_plan:.3f}), env step "
         f"{tm['ms_per_env_step']:.3f}, {tm['episodes_per_hour']:.1f} "
         f"episodes/hour ({result['env_steps_per_episode']}-step episodes), "
-        f"peak memory {peak:.1f} MiB; graph vs host-driven returns "
+        f"peak memory {peak:.1f} MiB; graph vs host-driven returns at "
+        f"{LOCO_CMP_AH} actions a replan, two graph calls, "
         f"{graph_err:.2e}; {sum(a.ops for a in audits)} ops audited, none "
         f"on the CPU but the model's upload; TF32 convs; "
         f"launches {counts}; card {card}")

@@ -1,23 +1,29 @@
 """Time one env step of the exact planar physics on the card, host-driven
 and as a CUDA-graph replay, for each env and constraint solver.
 
-    python -m dadiff_tpu_torch.bench_physics [--envs 30] [--iters 100]
+    python -m dadiff_tpu_torch.bench_physics
 
 Prints one JSON line per (env, solver): ms per env step from CUDA events,
 host-driven and replayed, the ops one env step dispatches (each one launch
 on the card), the constraint rows and the frame skip, then the card's name
-and power limit. Float32, the states of gymnasium resets. Needs a CUDA
-device.
+and power limit. ENVS envs in float32 from gymnasium resets, ITERS solver
+iterations (the CLI's default). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 
+ENVS = 30
+ITERS = 100
+SOLVERS = ("jacobi", "pgs")
+# timed env steps per measurement: a PGS step dispatches ~0.6-1.6M ops
+REPS = {"jacobi": 10, "pgs": 2}
+
 
 def _ms(fn, reps: int) -> float:
+    """CUDA-event ms per call of ``fn``, after one untimed call."""
     import torch
 
     fn()
@@ -30,20 +36,6 @@ def _ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _graph(fn):
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph.replay
 
 
 def _count_ops(fn) -> int:
@@ -61,16 +53,42 @@ def _count_ops(fn) -> int:
     return Count.n
 
 
-def main(argv=None) -> list:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--envs", type=int, default=30)
-    p.add_argument("--iters", type=int, default=100)
-    p.add_argument("--solvers", nargs="+", default=["jacobi", "pgs"],
-                   choices=["jacobi", "pgs"])
-    p.add_argument("--reps", type=int, default=10,
-                   help="timed steps per measurement (PGS takes 2)")
-    args = p.parse_args(argv)
+def time_env_step(env) -> dict:
+    """One float32 env step of ``env`` for ENVS envs from gymnasium resets
+    (seeds 0..ENVS-1) under uniform random actions: the ops it dispatches,
+    and its ms host-driven and as a replay of its CUDA graph."""
     import numpy as np
+    import torch
+
+    states = [env.reset_state(s) for s in range(ENVS)]
+    qpos, qvel = (torch.as_tensor(np.stack([s[i] for s in states]),
+                                  dtype=torch.float32, device="cuda")
+                  for i in (0, 1))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.rand(ENVS, env.act_dim, generator=g, device="cuda") * 2 - 1
+
+    def step():
+        env.step_batch(qpos, qvel, u)
+
+    reps = REPS[env.phys.solver]
+    ops = _count_ops(step)
+    host_ms = _ms(step, reps)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return {"env": env.ENV_NAME, "solver": env.phys.solver,
+            "iters": env.phys.solver_iters, "envs": ENVS,
+            "integrator": env.model.integrator, "frames": env.FRAME_SKIP,
+            "rows": env.phys.n_rows, "ops_per_env_step": ops,
+            "host_driven_ms": host_ms, "graph_ms": _ms(graph.replay, reps)}
+
+
+def main() -> list:
     import torch
 
     from dadiff_tpu_torch.envs.locomotion_jax import PHYSICS_ENVS
@@ -84,27 +102,9 @@ def main(argv=None) -> list:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     rows = []
     for cls in PHYSICS_ENVS.values():
-        for solver in args.solvers:
-            env = cls(solver_iters=args.iters, solver=solver)
-            states = [env.reset_state(s) for s in range(args.envs)]
-            qpos, qvel = (torch.as_tensor(np.stack([s[i] for s in states]),
-                                          dtype=torch.float32, device="cuda")
-                          for i in (0, 1))
-            g = torch.Generator(device="cuda").manual_seed(0)
-            u = torch.rand(args.envs, env.act_dim, generator=g,
-                           device="cuda") * 2 - 1
-
-            def step(env=env, qpos=qpos, qvel=qvel, u=u):
-                env.step_batch(qpos, qvel, u)
-
-            reps = 2 if solver == "pgs" else args.reps
-            row = {"env": env.ENV_NAME, "solver": solver,
-                   "iters": args.iters, "envs": args.envs,
-                   "integrator": env.model.integrator,
-                   "frames": env.FRAME_SKIP, "rows": env.phys.n_rows,
-                   "ops_per_env_step": _count_ops(step),
-                   "host_driven_ms": _ms(step, reps),
-                   "graph_ms": _ms(_graph(step), reps), "card": card}
+        for solver in SOLVERS:
+            row = time_env_step(cls(solver_iters=ITERS, solver=solver))
+            row["card"] = card
             rows.append(row)
             print(json.dumps(row), flush=True)
     print(card, flush=True)

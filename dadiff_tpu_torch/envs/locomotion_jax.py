@@ -211,10 +211,15 @@ class PhysicsLocomotionEvaluator:
     freezes: its reward and length are masked and its state held.
 
     On the card, with ``graph`` (the default there), the first replan runs
-    from the host and the plan and the physics steps of a replan are then
-    captured as two CUDA graphs; every later replan copies its draws in and
-    replays both. ``timing`` holds the last call's CUDA-event times per
-    replan (plan ms, steps ms) on the card, host-clock times on the CPU.
+    from the host; the plan and one env step are then captured as two CUDA
+    graphs, and every later replan copies its draws in, replays the plan and
+    replays the env step once per action, each time after copying that
+    action into the step's input. The step's graph is the same size at any
+    ``action_horizon``. Buffers and graphs are kept for the next call with
+    the same batch size, dtype and ``stats``, so a second call replays from
+    its first replan. ``timing`` holds the last call's times per replan
+    (plan ms, steps ms): CUDA events on the card, host clock on the CPU;
+    ``replayed`` whether each replan replayed the graphs.
 
     ``noise``: hook for tests; ``noise[k]`` = (init_noise (B, H, D),
     step_noise (S, B, H, D) or None) replaces replan k's draws, as the
@@ -224,12 +229,9 @@ class PhysicsLocomotionEvaluator:
                  action_horizon: int = 8, n_replans: int = 25,
                  sampling_timesteps: Optional[int] = None,
                  sampler: str = "ddpm", skip_conditioned_action: bool = False,
-                 mesh=None, graph: Optional[bool] = None):
+                 graph: Optional[bool] = None):
         from dadiff_tpu_torch.guides.sampling import make_sampler
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md, Queue 1)")
         self.diffusion, self.env = diffusion, env
         self.plan = make_sampler(diffusion,
                                  sampling_timesteps=sampling_timesteps,
@@ -244,104 +246,140 @@ class PhysicsLocomotionEvaluator:
         if self.graph and diffusion.device.type != "cuda":
             raise ValueError("CUDA graphs need the card")
         self.timing: List[Tuple[float, float]] = []
-
-    def _parts(self, stats, state, draws, acts):
-        """The plan and the steps of one replan as functions of fixed
-        buffers: ``state`` [qpos, qvel, total, length, alive], ``draws``
-        [init_noise, step_noise or None] and ``acts`` (B, K, nu)."""
-        from dadiff_tpu_torch.guides.sampling import (
-            conditions_for_initial_obs,
-        )
-
-        d, env = self.diffusion, self.env
-        od, ad = d.observation_dim, d.action_dim
-        s, K = self.start_t, self.action_horizon
-
-        def plan_part():
-            obs = env.state_to_obs(state[0], state[1])
-            normed = (obs - stats.obs_mean) / stats.obs_std
-            cond = conditions_for_initial_obs(normed, od, d.horizon,
-                                              d.transition_dim)
-            traj = self.plan(None, cond, init_noise=draws[0],
-                             step_noise=draws[1])
-            acts.copy_(traj[:, s:s + K, od:od + ad] * stats.action_std
-                       + stats.action_mean)
-
-        def step_part():
-            qp, qv, total, length, alive = state
-            for j in range(K):
-                nqp, nqv, _, reward, done = env.step_batch(qp, qv, acts[:, j])
-                total = total + reward * alive
-                length = length + alive
-                alive = alive & ~done
-                # a frozen env keeps its last state (a masked step)
-                qp = torch.where(alive[:, None], nqp, qp)
-                qv = torch.where(alive[:, None], nqv, qv)
-            for buf, new in zip(state, (qp, qv, total, length, alive)):
-                buf.copy_(new)
-
-        return plan_part, step_part
+        self.replayed: List[bool] = []
+        self._loop: Optional[_Loop] = None
 
     @torch.no_grad()
     def __call__(self, generator: Optional[torch.Generator], stats,
                  init_obs, *, noise=None):
-        d, env = self.diffusion, self.env
+        d = self.diffusion
         device = d.device
         obs = torch.as_tensor(init_obs, device=device)
         if obs.device != device:
             raise ValueError(f"init_obs on {obs.device}, the planner on "
                              f"{device}")
         B = obs.shape[0]
-        qpos, qvel = env.obs_to_state(obs)
-        state = [qpos.contiguous(), qvel.contiguous(),
-                 obs.new_zeros(B), obs.new_zeros(B),
-                 torch.ones(B, dtype=torch.bool, device=device)]
-        draws = list(self.plan.draw(generator, B)) if noise is None else [
-            None if v is None else v.to(device).clone() for v in noise[0]]
-        acts = obs.new_zeros(B, self.action_horizon, d.action_dim,
-                             dtype=torch.float32)
-        plan_part, step_part = self._parts(stats, state, draws, acts)
+        loop = self._loop
+        if loop is None or not loop.fits(B, obs.dtype, stats):
+            loop = self._loop = _Loop(self, stats, B, obs.dtype)
+        first = self.plan.draw(generator, B) if noise is None else noise[0]
+        loop.reset(obs, first)
         cuda = device.type == "cuda"
-        graphs = None
-        self.timing = []
+        self.timing, self.replayed = [], []
         for k in range(self.n_replans):
             if k:
-                new = self.plan.draw(generator, B) if noise is None \
-                    else noise[k]
-                for buf, v in zip(draws, new):
-                    if buf is not None:
-                        buf.copy_(v)
+                loop.set_draws(self.plan.draw(generator, B) if noise is None
+                               else noise[k])
+            self.replayed.append(loop.graphs is not None)
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
                 ev[0].record()
             else:
                 t0 = time.perf_counter()
-            if graphs is None:
-                plan_part()
-            else:
-                graphs[0]()
+            loop.run_plan()
             if cuda:
                 ev[1].record()
             else:
                 t1 = time.perf_counter()
-            if graphs is None:
-                step_part()
-            else:
-                graphs[1]()
+            for j in range(self.action_horizon):
+                loop.run_step(j)
             if cuda:
                 ev[2].record()
                 self.timing.append(ev)
             else:
                 self.timing.append(((t1 - t0) * 1e3,
                                     (time.perf_counter() - t1) * 1e3))
-            if self.graph and graphs is None and k + 1 < self.n_replans:
-                graphs = (_capture(plan_part), _capture(step_part))
+            if self.graph and loop.graphs is None and k + 1 < self.n_replans:
+                loop.capture()
         if cuda:
             torch.cuda.synchronize(device)
             self.timing = [(a.elapsed_time(b), b.elapsed_time(c))
                            for a, b, c in self.timing]
-        total, length = state[2], state[3]
-        return total.mean(), length.mean(), total
+        total, length = loop.state[2], loop.state[3]
+        return total.mean(), length.mean(), total.clone()
+
+
+class _Loop:
+    """The fixed buffers of an evaluator's replans and, once captured, their
+    two CUDA graphs: ``state`` [qpos, qvel, total, length, alive], ``draws``
+    [init_noise, step_noise or None], the plan's actions ``acts`` (B, K, nu)
+    and the env step's input ``act`` (B, nu)."""
+
+    def __init__(self, ev: PhysicsLocomotionEvaluator, stats, B: int,
+                 dtype: torch.dtype):
+        from dadiff_tpu_torch.guides.sampling import (
+            conditions_for_initial_obs,
+        )
+
+        d, env = ev.diffusion, ev.env
+        device = d.device
+        od, ad = d.observation_dim, d.action_dim
+        s, K = ev.start_t, ev.action_horizon
+        self.B, self.dtype, self.stats, self.env = B, dtype, stats, env
+        zeros = torch.zeros(B, env.nq, dtype=dtype, device=device)
+        self.state = [zeros, zeros.clone(), zeros.new_zeros(B),
+                      zeros.new_zeros(B),
+                      torch.ones(B, dtype=torch.bool, device=device)]
+        self.draws = None
+        self.acts = torch.zeros(B, K, ad, dtype=torch.float32, device=device)
+        self.act = torch.zeros(B, ad, dtype=torch.float32, device=device)
+        self.graphs = None
+        state, acts, act = self.state, self.acts, self.act
+
+        def plan_part():
+            obs = env.state_to_obs(state[0], state[1])
+            normed = (obs - stats.obs_mean) / stats.obs_std
+            cond = conditions_for_initial_obs(normed, od, d.horizon,
+                                              d.transition_dim)
+            traj = ev.plan(None, cond, init_noise=self.draws[0],
+                           step_noise=self.draws[1])
+            acts.copy_(traj[:, s:s + K, od:od + ad] * stats.action_std
+                       + stats.action_mean)
+
+        def step_part():
+            qp, qv, total, length, alive = state
+            nqp, nqv, _, reward, done = env.step_batch(qp, qv, act)
+            new_alive = alive & ~done
+            # a frozen env keeps its last state (a masked step)
+            for buf, new in zip(state, (
+                    torch.where(new_alive[:, None], nqp, qp),
+                    torch.where(new_alive[:, None], nqv, qv),
+                    total + reward * alive, length + alive, new_alive)):
+                buf.copy_(new)
+
+        self.plan_part, self.step_part = plan_part, step_part
+
+    def fits(self, B: int, dtype: torch.dtype, stats) -> bool:
+        return (B, dtype) == (self.B, self.dtype) and stats is self.stats
+
+    def reset(self, obs: torch.Tensor, draws) -> None:
+        """The initial states of ``obs`` (B, obs_dim) and replan 0's draws;
+        returns and lengths to 0, every env alive."""
+        qpos, qvel = self.env.obs_to_state(obs)
+        self.state[0].copy_(qpos)
+        self.state[1].copy_(qvel)
+        for buf, v in zip(self.state[2:], (0, 0, True)):
+            buf.fill_(v)
+        self.set_draws(draws)
+
+    def set_draws(self, draws) -> None:
+        if self.draws is None:
+            self.draws = [None if v is None else v.to(self.act.device).clone()
+                          for v in draws]
+            return
+        for buf, v in zip(self.draws, draws):
+            if buf is not None:
+                buf.copy_(v)
+
+    def run_plan(self) -> None:
+        (self.graphs[0] if self.graphs else self.plan_part)()
+
+    def run_step(self, j: int) -> None:
+        self.act.copy_(self.acts[:, j])
+        (self.graphs[1] if self.graphs else self.step_part)()
+
+    def capture(self) -> None:
+        self.graphs = (_capture(self.plan_part), _capture(self.step_part))
 
 
 def _capture(fn):

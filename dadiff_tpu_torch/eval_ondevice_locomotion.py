@@ -13,8 +13,9 @@ drawn from the committed model's constants (envs/locomotion_jax.py
 ``reset_obs``), so the card's machine needs no gymnasium. A run is refused
 when ``--action-horizon`` exceeds the env's measured chunk bound K*
 (results/physics_bound_<env>_float32.json, the contiguous quotable prefix),
-unless ``--allow-unquotable``. One untimed run (seed), then the timed run
-(seed + 1) whose returns are reported, as JSON with the JAX script's keys
+unless ``--allow-unquotable``. One untimed run (seed), which captures the
+CUDA graphs on the card, then the timed run (seed + 1), which replays them
+and whose returns are reported, as JSON with the JAX script's keys
 and in a results file (envs/host.py ``save_results``, policy type
 ``ondevice-physics``). Lines before the result give ms per replan, per plan
 and per env step (CUDA events on the card) and episodes/hour.
@@ -163,23 +164,27 @@ def main(argv=None) -> dict:
         return out, time.perf_counter() - t0
 
     _, first_s = run(args.seed)            # builds, captures the graphs
+    first_replan_ms = sum(evaluate.timing[0])
     (mean_ret, mean_len, returns), dt = run(args.seed + 1)
 
-    plan_ms = [p for p, _ in evaluate.timing]
-    step_ms = [s for _, s in evaluate.timing]
-    # the replans after the first (graph replays on the card)
-    later = slice(1, None) if len(plan_ms) > 1 else slice(None)
+    plan_ms = np.array([p for p, _ in evaluate.timing])
+    step_ms = np.array([s for _, s in evaluate.timing])
+    # the replans that replayed the graphs (on the card: all of the timed
+    # run's, since the first run captured them)
+    timed = np.array(evaluate.replayed) if any(evaluate.replayed) \
+        else np.ones(len(plan_ms), bool)
     clock = "CUDA events" if device.type == "cuda" else "host clock, CPU"
     timing = {
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "clock": clock,
         "graph": evaluate.graph,
-        "ms_per_replan": float(np.mean(np.add(plan_ms, step_ms)[later])),
-        "ms_per_plan": float(np.mean(plan_ms[later])),
-        "ms_per_env_step": float(np.mean(step_ms[later]))
+        "ms_per_replan": float(np.mean((plan_ms + step_ms)[timed])),
+        "ms_per_plan": float(np.mean(plan_ms[timed])),
+        "ms_per_env_step": float(np.mean(step_ms[timed]))
         / args.action_horizon,
-        "first_replan_ms": plan_ms[0] + step_ms[0],
+        "replans_timed": int(timed.sum()),
+        "first_replan_ms": first_replan_ms,
         "episodes_per_hour": args.batch / dt * 3600.0,
         "first_run_s": first_s,
     }
@@ -189,9 +194,11 @@ def main(argv=None) -> dict:
     print(f"ms per replan {timing['ms_per_replan']:.3f} (plan "
           f"{timing['ms_per_plan']:.3f}, env steps "
           f"{timing['ms_per_env_step'] * args.action_horizon:.3f}; {clock}, "
-          f"replans 2-{len(plan_ms)}, graph={evaluate.graph})", flush=True)
+          f"{timing['replans_timed']} replans of the timed run, "
+          f"graph={evaluate.graph})", flush=True)
     print(f"ms per env step {timing['ms_per_env_step']:.3f}; first replan "
-          f"{timing['first_replan_ms']:.3f} ms (host-driven)", flush=True)
+          f"{timing['first_replan_ms']:.3f} ms (host-driven, untimed run)",
+          flush=True)
     print(f"episodes/hour {timing['episodes_per_hour']:.1f} ({args.batch} "
           f"envs in {dt:.3f} s; untimed first run {first_s:.3f} s)",
           flush=True)

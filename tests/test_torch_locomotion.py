@@ -38,25 +38,15 @@ from dadiff_tpu_torch.io.torch_compat import params_from_jax  # noqa: E402
 from dadiff_tpu_torch.models.diffusion import GaussianDiffusion  # noqa: E402
 from dadiff_tpu_torch.models.temporal_unet import TemporalUnet  # noqa: E402
 from dadiff_tpu_torch.ops.projection import NormStats  # noqa: E402
+from tests import torch_jax_physics as tj  # noqa: E402
 
 torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-ENVS = {"HalfCheetah-v5": (jl.HalfCheetahJax, tl.HalfCheetahJax),
-        "Hopper-v5": (jl.HopperJax, tl.HopperJax),
-        "Walker2d-v5": (jl.Walker2dJax, tl.Walker2dJax)}
+ENVS = {"HalfCheetah-v5": tl.HalfCheetahJax, "Hopper-v5": tl.HopperJax,
+        "Walker2d-v5": tl.Walker2dJax}
 HOPPER_DATA = "npz:data/hopper_mppi.npz+npz:data/hopper_engine_r5.npz"
-ITERS = 30
-
-
-def _jax_env(cls, **kw):
-    """A JAX env whose engine's ``_forward`` is wrapped in ``jax.jit`` on the
-    instance: an RK4 step then traces it once instead of four times (jit
-    changes no value; most of these tests' time is JAX tracing and
-    compiling its autodiff)."""
-    env = cls(**kw)
-    env.phys._forward = jax.jit(env.phys._forward)
-    return env
+ITERS = tj.ITERS
 
 
 @pytest.fixture
@@ -103,15 +93,8 @@ def test_env_steps_match_jax(env_name, dtype, x64):
     env's, both from the JAX state of each step. In float64 these are the
     env's integrator steps (Euler for HalfCheetah, RK4 for the others) to
     1e-9."""
-    jcls, tcls = ENVS[env_name]
-    jenv, tenv = _jax_env(jcls, solver_iters=ITERS), tcls(solver_iters=ITERS)
+    jenv, tenv = tj.env(env_name), ENVS[env_name](solver_iters=ITERS)
     np_dtype = np.dtype(dtype)
-    one = jax.jit(jenv.step)
-
-    def jstep(*arrays):
-        outs = [one(*(a[i] for a in arrays)) for i in range(len(arrays[0]))]
-        return [np.stack(v) for v in zip(*outs)]
-
     qpos, qvel = (a.astype(np_dtype) for a in _start_states(tenv))
     rng = np.random.RandomState(3)
     tol = 1e-9 if dtype == "float64" else 1e-5
@@ -119,7 +102,7 @@ def test_env_steps_match_jax(env_name, dtype, x64):
     for _ in range(3):
         act = np.clip(rng.randn(qpos.shape[0], tenv.act_dim) * 0.6, -1, 1
                       ).astype(np_dtype)
-        want = jstep(*(jnp.asarray(a) for a in (qpos, qvel, act)))
+        want = tj.rows(jenv.step_jit, qpos, qvel, act)
         got = [v.numpy() for v in tenv.step_batch(
             *(torch.from_numpy(a) for a in (qpos, qvel, act)))]
         for name, g, w in zip(("qpos", "qvel", "obs", "reward"), got, want):
@@ -201,9 +184,10 @@ def _jax_draws(key):
 def test_evaluator_matches_jax(tiny, skip):
     """4 Hopper envs x 3 replans x 2 actions on the JAX draws; env 3 starts
     pitched and falls in its first step, so its reward and length are
-    masked from then on and its state held."""
+    masked from then on and its state held. With skip, a second call of the
+    same evaluator returns the same."""
     jdiff, params, diff, stats = tiny
-    jenv = _jax_env(jl.HopperJax, solver_iters=ITERS, solver="jacobi")
+    jenv = tj.env("Hopper-v5", "jacobi")
     tenv = tl.HopperJax(solver_iters=ITERS, solver="jacobi")
     init_obs = tenv.reset_obs(range(B)).astype(np.float32)
     init_obs[3, 1], init_obs[3, OBS // 2 + 2] = 0.19, 4.0
@@ -216,11 +200,17 @@ def test_evaluator_matches_jax(tiny, skip):
     ev = tl.make_physics_locomotion_evaluator(
         diff, tenv, action_horizon=AH, n_replans=R,
         skip_conditioned_action=skip)
-    got = ev(None, NormStats(*map(torch.from_numpy, stats)),
-             torch.from_numpy(init_obs), noise=_jax_draws(key))
+    tstats = NormStats(*map(torch.from_numpy, stats))
+    got = ev(None, tstats, torch.from_numpy(init_obs), noise=_jax_draws(key))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+    if skip:
+        # a second call reuses the first one's buffers from a fresh reset
+        again = ev(None, tstats, torch.from_numpy(init_obs),
+                   noise=_jax_draws(key))
+        for a, g in zip(again, got):
+            assert torch.equal(a, g)
     returns = got[2].numpy()
     assert len(ev.timing) == R and not ev.graph
     # env 3 fell at its first step: one step counted, the others all

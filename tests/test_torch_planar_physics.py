@@ -7,10 +7,9 @@ in ground contact and at joint limits.
 Both sides run float64 (the JAX side under the x64 fixture of
 tests/test_planar_physics.py). The port writes the planar Jacobians out by
 hand where JAX differentiates, so the two agree to rounding: 1e-10,
-relative where the quantity is large (qacc reaches ~3,000). The JAX side is
-jitted per state, and its ``_forward`` wrapped in ``jax.jit`` on the
-instance, so that an RK4 step traces it once instead of four times (most of
-these tests' time is JAX tracing and compiling its autodiff).
+relative where the quantity is large (qacc reaches ~3,000). The JAX engines
+come from tests/torch_jax_physics.py, built and jitted once per (env,
+solver) and shared with tests/test_torch_locomotion.py.
 """
 
 import numpy as np
@@ -18,7 +17,6 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 mujoco = pytest.importorskip("mujoco")
 gym = pytest.importorskip("gymnasium")
@@ -26,12 +24,13 @@ gym = pytest.importorskip("gymnasium")
 from dadiff_tpu.envs import planar_physics as jp  # noqa: E402
 
 from dadiff_tpu_torch.envs import planar_physics as tp  # noqa: E402
+from tests import torch_jax_physics as tj  # noqa: E402
 
 torch.set_num_threads(1)
 
 ENVS = ("HalfCheetah-v5", "Hopper-v5", "Walker2d-v5")
 TOL = 1e-10
-ITERS = 30
+ITERS = tj.ITERS
 
 
 @pytest.fixture(autouse=True)
@@ -67,19 +66,9 @@ def _states(env, seed=0):
 
 
 def _pair(env, solver="pgs"):
-    jph = jp.PlanarPhysics(jp.extract_planar_model(env), solver_iters=ITERS,
-                           solver=solver)
-    jph._forward = jax.jit(jph._forward)
-    return jph, tp.PlanarPhysics(tp.load_planar_model(env),
-                                 solver_iters=ITERS, solver=solver)
-
-
-def _jax_rows(fn, *arrays):
-    """``fn`` of the JAX engine on each batch row, stacked."""
-    f = jax.jit(fn)
-    outs = [f(*(jnp.asarray(a[i]) for a in arrays))
-            for i in range(len(arrays[0]))]
-    return jax.tree_util.tree_map(lambda *v: np.stack(v), *outs)
+    """The shared JAX engine and the port's, at ITERS iterations."""
+    return tj.env(env, solver).phys, tp.PlanarPhysics(
+        tp.load_planar_model(env), solver_iters=ITERS, solver=solver)
 
 
 def _close(got, want, what):
@@ -129,19 +118,16 @@ def test_smooth_dynamics_and_constraint_rows_match_jax(env):
     active), and the states cover what they claim: contacts active in the
     pushed rows, a limit row active in the limit rows, no contact in the
     airborne rows."""
-    jph, tph = _pair(env)
+    _, tph = _pair(env)
     qpos, qvel, _ = _states(env)
     tq, tv = torch.from_numpy(qpos), torch.from_numpy(qvel)
-    _close(tph.mass_matrix(tq).numpy(),
-           _jax_rows(jph.mass_matrix, qpos), "mass matrix")
-    _close(tph.bias_forces(tq, tv).numpy(),
-           _jax_rows(jph.bias_forces, qpos, qvel), "bias forces")
-    _close(tph._potential(tq).numpy(), _jax_rows(jph._potential, qpos),
-           "potential")
-    _close(tph.contact_points(tq).numpy(),
-           _jax_rows(jph.contact_points, qpos), "contact points")
+    wM, wbias, wpot, wpts, (wJ, waref, wR, wactive) = tj.rows(
+        tj.env(env).smooth_jit, qpos, qvel)
+    _close(tph.mass_matrix(tq).numpy(), wM, "mass matrix")
+    _close(tph.bias_forces(tq, tv).numpy(), wbias, "bias forces")
+    _close(tph._potential(tq).numpy(), wpot, "potential")
+    _close(tph.contact_points(tq).numpy(), wpts, "contact points")
     J, aref, R, active = (v.numpy() for v in tph._constraint_rows(tq, tv))
-    wJ, waref, wR, wactive = _jax_rows(jph._constraint_rows, qpos, qvel)
     _close(J, wJ, "J")
     _close(aref, waref, "aref")
     _close(R, wR, "R")
@@ -161,8 +147,7 @@ def test_forward_matches_jax(env, solver):
     qpos, qvel, ctrl = _states(env, seed=1)
     qacc = tph._forward(*(torch.from_numpy(a) for a in (qpos, qvel, ctrl)))
     _close(qacc[0].numpy(),
-           _jax_rows(lambda *a: jph._forward(*a)[0], qpos, qvel, ctrl),
-           "qacc")
+           tj.rows(jph._forward, qpos, qvel, ctrl)[0], "qacc")
 
 
 @pytest.mark.parametrize("env,solver", [("HalfCheetah-v5", "pgs"),
@@ -176,7 +161,7 @@ def test_one_step_matches_jax(env, solver):
     qpos, qvel, ctrl = _states(env, seed=2)
     qp, qv = (v.numpy() for v in tph.step(
         *(torch.from_numpy(a) for a in (qpos, qvel, ctrl))))
-    wqp, wqv = _jax_rows(jph.step, qpos, qvel, ctrl)
+    wqp, wqv = tj.rows(jph.step, qpos, qvel, ctrl)
     _close(qp, wqp, "qpos")
     _close(qv, wqv, "qvel")
     assert tph.m.integrator == ("euler" if env == "HalfCheetah-v5" else "rk4")
