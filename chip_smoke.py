@@ -66,8 +66,20 @@
    on a second call that reuses the graphs), and no port kernel launches
    (the JAX evaluator plans through XLA; so does this path, through the
    module path).
-9. Prints the card, the kernel table as one JSON line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+9. Drives the learned simulator (``learned_phase``): ``train_dynamics_ensemble``
+   at the CLI's widths (4 members of (256, 256), batch 1,024) on the
+   HalfCheetah data, its mean and trajectory-sampling steps on the card
+   against the CPU, ``eval_ondevice_locomotion.main`` with no
+   ``--backend`` (the learned default) on the Hopper checkpoint at 128
+   envs and 8 actions (the results file must carry the JAX learned keys,
+   the loop must run on the card, no port kernel may launch, the graph
+   replays must equal the host-driven loop bit for bit), and the MPPI
+   planner at the r5 recipe's shape (16,384 lanes, 4 members of (512,
+   512)) replayed from its CUDA graph, against the CPU on the same noise.
+   At the 1,024-chain wave's shapes it also times the U-Net's final conv
+   alone beside cuDNN's.
+10. Prints the card, the kernel table as one JSON line, and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
 checkout of the repository. It uses nothing of JAX.
@@ -1456,6 +1468,16 @@ def step_library_times(calls, g) -> dict:
             "bound_us": 1e3 * bound_ms(fl, nb, BF16_FLOPS)[0]})
     log(f"K2 rows_conv at {calls[0][1]} rows, per launch (weights warm in "
         f"L2): " + json.dumps(per_launch))
+    # the U-Net's final conv (the narrowest output), alone beside cuDNN's
+    i = min(range(len(conv_calls)), key=lambda j: conv_calls[j][3])
+    final = dict(per_launch[i], cin=conv_calls[i][1] + conv_calls[i][2],
+                 kernel_over_library=per_launch[i]["us"]
+                 / per_launch[i]["library_us"])
+    log(f"K2 rows_conv, the final {final['cin']}->{final['N']} conv at "
+        f"{calls[0][1]} rows ({final['tile']}, {final['splits']} split(s)): "
+        f"kernel {final['us']:.2f} us, cuDNN (F.conv1d, bf16) "
+        f"{final['library_us']:.2f} us, bound {final['bound_us']:.2f} us "
+        f"a launch (CUDA-graph replays of 5 launches)")
 
     # the same launches on the mma.sync tiles (the tile rule of before)
     mma = []
@@ -1494,6 +1516,7 @@ def step_library_times(calls, g) -> dict:
             bound_ms=sum(bound_ms(fl, nb, BF16_FLOPS)[0]
                          for (fl, nb), call in zip(costs, calls)
                          if call[0] == "conv")),
+        final_conv=final,
         tiles=sorted({q["tile"] for q in per_launch}))}
     del conv_bufs, mma, wave
     fused = [c for c in calls if c[0] == "conv_gn"]
@@ -2363,6 +2386,7 @@ def locomotion_phase(root: Path, card: str) -> dict:
     require(ckpt.is_file(), f"{ckpt} was exported")
     out["train"] = {"steps": LOCO_STEPS, "batch": LOCO_BATCH,
                     "s": time.perf_counter() - t0, "loss_series": series}
+    out["checkpoint"] = str(ckpt)
     log(f"locomotion: trained the Hopper planner (dim {DIM}, mults "
         f"{LOCO_MULTS}) {LOCO_STEPS} steps in {out['train']['s']:.1f} s "
         f"(set-up included); loss {series}")
@@ -2514,6 +2538,283 @@ def locomotion_phase(root: Path, card: str) -> dict:
         f"{graph_err:.2e}; {sum(a.ops for a in audits)} ops audited, none "
         f"on the CPU but the model's upload; TF32 convs; "
         f"launches {counts}; card {card}")
+    return out
+
+
+# the learned slice: the simulator at the CLI's widths (an ensemble of 4
+# members of (256, 256), batch 1,024) on the HalfCheetah data, a few hundred
+# steps here (the CLI's default is 3,000)
+LEARNED_DATA = "npz:data/halfcheetah_mppi.npz"
+LEARNED_FIT_STEPS, LEARNED_STATES = 300, 128
+# the evaluator's CLI at its own 128 envs and 8 actions, a few replans on a
+# simulator fit for a few hundred steps
+LEARNED_ENVS, LEARNED_REPLANS, LEARNED_MODEL_STEPS = 128, 3, 200
+# the MPPI planner at the r5 recipe's shape (scripts/r5_phase3.sh:14-18):
+# horizon 12, 1,024 candidates for each of 16 envs, 4 members of (512, 512)
+MPPI_H, MPPI_N, MPPI_ENVS, MPPI_HIDDEN, MPPI_MEMBERS = 12, 1024, 16, \
+    (512, 512), 4
+MPPI_EXEC, MPPI_REPLANS = 4, 20
+# the card's simulator step against the CPU's: f32 products (TF32 off) in
+# another order, |card - cpu| <= TOL * (1 + |cpu|); the MPPI plan likewise,
+# its softmax over 1,024 returns dividing their rounding by lam = 0.3
+TOL_SIM, TOL_MPPI = 1e-5, 1e-4
+
+
+def _rel_err(card, cpu) -> float:
+    return float(((card.cpu() - cpu).abs() / (1 + cpu.abs())).max())
+
+
+def learned_phase(ckpt: Path, root: Path, card: str) -> dict:
+    """The learned simulator on the card: ``train_dynamics_ensemble`` at the
+    CLI's widths (ms per training step, held-out R^2); one ensemble-mean
+    and one trajectory-sampling step of LEARNED_STATES states on the card
+    against the CPU; ``eval_ondevice_locomotion.main`` with no
+    ``--backend`` (the learned default) on ``locomotion_phase``'s Hopper
+    checkpoint at the CLI's 128 envs and 8 actions, a few replans (the
+    results file must carry the JAX script's learned keys, every op of the
+    loop must run on the card, no port kernel may launch), and its graph
+    replays against the same evaluator driven from the host on the same
+    draws, bit for bit; then ``make_mppi_planner`` at the r5 shape,
+    replayed from its CUDA graph, timed, and held against the CPU on the
+    same noise."""
+    import contextlib
+    import copy
+    import io
+
+    import numpy as np
+    from dadiff_tpu_torch import eval_ondevice_locomotion as evl
+    from dadiff_tpu_torch.cli import load_model
+    from dadiff_tpu_torch.datasets.sources import load_episodes
+    from dadiff_tpu_torch.envs import learned_model as lm
+    from dadiff_tpu_torch.envs import locomotion_jax as loco
+    from dadiff_tpu_torch.envs.mppi_tpu import make_mppi_planner
+    from dadiff_tpu_torch.ops.projection import NormStats
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    episodes = load_episodes(LEARNED_DATA)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, stats, metrics = lm.train_dynamics_ensemble(
+        episodes, n_models=4, hidden=(256, 256), batch_size=1024,
+        n_steps=LEARNED_FIT_STEPS, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    require(np.isfinite(metrics["r2_mean"]), f"simulator R^2 {metrics}")
+    out["fit"] = {"steps": LEARNED_FIT_STEPS, "members": 4,
+                  "hidden": [256, 256], "batch": 1024, "s": fit_s,
+                  "ms_per_step": fit_s * 1e3 / LEARNED_FIT_STEPS,
+                  "r2_mean": metrics["r2_mean"], "r2_min": metrics["r2_min"],
+                  "member_r2": metrics["member_r2"]}
+    log(f"learned: train_dynamics_ensemble (4 x (256, 256), batch 1,024) "
+        f"{LEARNED_FIT_STEPS} steps in {fit_s:.3f} s, "
+        f"{out['fit']['ms_per_step']:.3f} ms a step (host clock, set-up and "
+        f"R^2 included); held-out one-step R^2 mean {metrics['r2_mean']:.4f} "
+        f"min {metrics['r2_min']:.4f}; card {card}")
+
+    # -- one mean step and one TS step on the card against the CPU
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_stats = stats.to("cpu")
+    rng = np.random.RandomState(SEED)
+    o = np.concatenate([ep["observations"][:-1] for ep in episodes[:2]])
+    pick = rng.choice(len(o), LEARNED_STATES, replace=False)
+    obs = torch.as_tensor(o[pick], dtype=torch.float32)
+    act = torch.as_tensor(rng.uniform(-1, 1, (LEARNED_STATES, 6)),
+                          dtype=torch.float32)
+    errs = {}
+    with torch.no_grad():
+        for name, card_fn, cpu_fn, shape in (
+                ("mean", lm.make_mean_step_fn(model, stats),
+                 lm.make_mean_step_fn(cpu_model, cpu_stats), None),
+                ("ts", lm.make_ensemble_step_fn(model, stats, LEARNED_STATES),
+                 lm.make_ensemble_step_fn(cpu_model, cpu_stats,
+                                          LEARNED_STATES), (-1, 1))):
+            o_, a_ = ((obs, act) if shape is None else
+                      (obs.reshape(LEARNED_STATES, 1, -1),
+                       act.reshape(LEARNED_STATES, 1, -1)))
+            got = card_fn(o_.cuda(), a_.cuda())
+            require(got.device.type == "cuda", "the simulator ran on the card")
+            errs[name] = _rel_err(got, cpu_fn(o_, a_))
+            require(errs[name] <= TOL_SIM, f"simulator {name} step: card vs "
+                    f"CPU {errs[name]} > {TOL_SIM}")
+    out["step_err"] = errs
+    log(f"learned: ensemble-mean and trajectory-sampling steps of "
+        f"{LEARNED_STATES} states, card vs CPU max |err|/(1+|cpu|) "
+        f"{errs['mean']:.2e} / {errs['ts']:.2e} (tolerance {TOL_SIM})")
+
+    # -- the evaluator's CLI with no --backend: the learned default
+    results_dir = root / "results_learned"
+    argv = ["--checkpoint", ckpt, "--dataset", LOCO_DATA, "--env",
+            "Hopper-v5", "--batch", str(LEARNED_ENVS), "--n-replans",
+            str(LEARNED_REPLANS), "--model-steps", str(LEARNED_MODEL_STEPS),
+            "--seed", str(LOCO_SEED), "--results-dir", str(results_dir)]
+    audits = []
+    call = loco.LocomotionEvaluator.__call__
+
+    def audited(self, *a, **kw):
+        audits.append(_DeviceAudit())
+        with audits[-1]:
+            return call(self, *a, **kw)
+
+    loco.LocomotionEvaluator.__call__ = audited
+    # the CLI as a user runs it: TF32 convs on (the library's default)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    printed = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = evl.main(argv)
+        run_s = time.perf_counter() - t0
+    finally:
+        loco.LocomotionEvaluator.__call__ = call
+    counts = read_counts()
+    log(printed.getvalue().rstrip())
+    require(result["backend"] == "learned", "no --backend runs the learned "
+            "simulator")
+    saved = json.loads(Path(result["results_path"]).read_text())
+    learned_keys = {"model_based_mean_return", "model_based_return_std",
+                    "simulator_r2_mean", "note"}
+    require(learned_keys <= set(saved) and "mean_return" not in saved
+            and saved["policy_type"] == "ondevice-learned"
+            and saved["solver"] is None and saved["solver_iters"] is None,
+            f"the results file carries the JAX learned keys: {sorted(saved)}")
+    require(np.isfinite(result["model_based_mean_return"]),
+            f"returns {result}")
+    require(len(audits) == 2 and all(a.ops > 0 and not a.cpu_ops
+                                     for a in audits),
+            f"the evaluator's loop ran on the card: ops "
+            f"{[a.ops for a in audits]}, on the CPU "
+            f"{[a.cpu_ops for a in audits]}")
+    require(result["timing"]["graph"], "the replans replayed CUDA graphs")
+    require(not any(counts.values()), f"the learned path runs the module "
+            f"path: no port kernel {counts}")
+
+    # the evaluator replayed from its graphs (two calls) and driven from the
+    # host, on the same simulator and draws
+    diff, data = load_model(ckpt, LOCO_DATA, device="cuda")
+    nstats = NormStats.from_normalizer(data.normalizer, "cuda")
+    hop, hstats, _ = lm.train_dynamics_ensemble(
+        load_episodes(LOCO_DATA), n_models=4, n_steps=LEARNED_MODEL_STEPS,
+        seed=LOCO_SEED, device="cuda")
+    init = torch.as_tensor(loco.HopperJax().reset_obs(
+        range(LOCO_SEED, LOCO_SEED + LEARNED_ENVS)), dtype=torch.float32,
+        device="cuda")
+    runs = {}
+    try:
+        for graph in (True, False):
+            ev = lm.make_ondevice_locomotion_evaluator(
+                diff, hop, hstats, lm.hopper_reward_done,
+                n_replans=LEARNED_REPLANS, graph=graph)
+            for c in range(2 if graph else 1):
+                g = torch.Generator(device="cuda").manual_seed(LOCO_SEED + 1)
+                runs[graph, c] = ev(g, nstats, init)[2], ev.replayed
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    eager = runs[False, 0][0]
+    same = all(torch.equal(runs[True, c][0], eager) for c in (0, 1))
+    require(same, f"learned evaluator: graph replays vs host-driven, max "
+            f"|diff| {max(float((runs[True, c][0] - eager).abs().max()) for c in (0, 1))}")
+    require(runs[True, 0][1] == [False] + [True] * (LEARNED_REPLANS - 1)
+            and all(runs[True, 1][1]) and not any(runs[False, 0][1]),
+            f"replayed replans: {[runs[k][1] for k in runs]}")
+    tm = result["timing"]
+    out["evaluator"] = {
+        "argv": argv, "result": {k: v for k, v in result.items()
+                                 if k != "timing"},
+        "timing": tm, "run_s": run_s,
+        "audited_ops": [a.ops for a in audits], "launches": counts,
+        "graph_equals_host_driven": same}
+    log(f"learned evaluator (Hopper, {LEARNED_ENVS} envs, {LEARNED_REPLANS} "
+        f"replans of 8 actions, 4 members): model-based return "
+        f"{result['model_based_mean_return']} (R^2 "
+        f"{result['simulator_r2_mean']}), ms per replan "
+        f"{tm['ms_per_replan']:.3f} (plan {tm['ms_per_plan']:.3f}, 8 model "
+        f"steps {tm['ms_per_env_step'] * 8:.3f}; CUDA events, graph "
+        f"replays), simulator fit {tm['ms_per_sim_train_step']:.3f} ms a "
+        f"step, {tm['episodes_per_hour']:.1f} episodes/hour "
+        f"({result['env_steps_per_episode']}-step episodes), peak memory "
+        f"{tm['peak_memory_mib']:.1f} MiB; graph replays == host-driven bit "
+        f"for bit (two graph calls); {sum(a.ops for a in audits)} ops "
+        f"audited, none on the CPU; launches {counts}; card {card}")
+
+    # -- the MPPI planner at the r5 shape, one CUDA graph per replan
+    ens = lm.DynamicsMLP(17, 6, MPPI_HIDDEN, n_models=MPPI_MEMBERS,
+                         seed=SEED).cuda().eval()
+    step = lm.make_ensemble_step_fn(ens, stats, MPPI_N)
+    kw = dict(act_dim=6, horizon=MPPI_H, n_samples=MPPI_N, n_exec=MPPI_EXEC)
+    plan = make_mppi_planner(step, lm.halfcheetah_reward_done, **kw)
+    mobs = obs[:MPPI_ENVS].cuda()
+    mean = torch.zeros(MPPI_ENVS, MPPI_H, 6, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    noise = plan.draw(g, MPPI_ENVS)
+    reset_counts()
+    first = plan(None, mobs, mean, noise=noise)        # host-driven, captured
+    replay = plan(None, mobs, mean, noise=noise)
+    require(plan.replayed and all(torch.equal(a, b) for a, b in
+                                  zip(first, replay)),
+            "MPPI: the replayed replan equals the host-driven one")
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for _ in range(MPPI_REPLANS):
+        acts, mean = plan(g, mobs, mean)
+    ev1.record()
+    ev1.synchronize()
+    mppi_ms = ev0.elapsed_time(ev1) / MPPI_REPLANS
+    mppi_counts = read_counts()
+    require(not any(mppi_counts.values()), f"MPPI launches {mppi_counts}")
+    cpu_plan = make_mppi_planner(
+        lm.make_ensemble_step_fn(copy.deepcopy(ens).cpu(), cpu_stats, MPPI_N),
+        lm.halfcheetah_reward_done, device="cpu", **kw)
+    want = cpu_plan(None, mobs.cpu(), torch.zeros(MPPI_ENVS, MPPI_H, 6),
+                    noise=noise.cpu())
+    mppi_err = max(_rel_err(a, b) for a, b in zip(first, want))
+    require(mppi_err <= TOL_MPPI, f"MPPI: card vs CPU {mppi_err} > {TOL_MPPI}")
+    require(acts.shape == (MPPI_ENVS, MPPI_EXEC, 6)
+            and bool(torch.isfinite(acts).all()), "MPPI actions")
+    # the simulator's share: the horizon's 12 TS steps alone, replayed; the
+    # bound: the members' products at the f32 peak against every weight,
+    # state and action read once and every state written once
+    lanes = MPPI_N * MPPI_ENVS
+    o_in = mobs[None].expand(MPPI_N, -1, -1).contiguous()
+    a_in = noise.clamp(-1, 1)
+
+    def steps():
+        o = o_in
+        with torch.no_grad():
+            for t in range(MPPI_H):
+                o = step(o, a_in[:, :, t])
+        return o
+
+    sim_ms = graph_ms(steps, 5)
+    widths = [17 + 6, *MPPI_HIDDEN, 17]
+    flops = 2.0 * lanes * MPPI_H * sum(i * o for i, o in
+                                      zip(widths[:-1], widths[1:]))
+    nbytes = 4 * (sum(p.numel() for p in ens.parameters())
+                  + lanes * MPPI_H * (6 + 2 * 17))
+    mppi_bound, mppi_by = bound_ms(flops, nbytes, F32_FLOPS)
+    out["mppi"] = {"horizon": MPPI_H, "n_samples": MPPI_N,
+                   "envs": MPPI_ENVS, "lanes": MPPI_N * MPPI_ENVS,
+                   "members": MPPI_MEMBERS, "hidden": list(MPPI_HIDDEN),
+                   "ms_per_replan": mppi_ms, "replans": MPPI_REPLANS,
+                   "sim_steps_ms": sim_ms, "bound_ms": mppi_bound,
+                   "bound_by": mppi_by, "flops": flops,
+                   "card_vs_cpu": mppi_err, "launches": mppi_counts}
+    log(f"MPPI planner (r5 shape: horizon {MPPI_H}, {MPPI_N} candidates x "
+        f"{MPPI_ENVS} envs = {MPPI_N * MPPI_ENVS} lanes, {MPPI_MEMBERS} "
+        f"members of {MPPI_HIDDEN}, TS step): {mppi_ms:.3f} ms a replan "
+        f"(CUDA events over {MPPI_REPLANS} graph replays, noise draw "
+        f"included), of which the {MPPI_H} simulator steps alone "
+        f"{sim_ms:.3f} ms (a graph replay); bound {mppi_bound:.3f} ms "
+        f"({mppi_by}: {flops:.3g} FLOP at the f32 peak); card vs CPU on the "
+        f"same noise {mppi_err:.2e} "
+        f"(tolerance {TOL_MPPI}); replay == host-driven bit for bit; "
+        f"launches {mppi_counts}; card {card}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"learned phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2735,6 +3036,9 @@ def main() -> int:
     locomotion = locomotion_phase(ROOT / "build" / "dadiff_tpu_torch"
                                   / "smoke", card)
     log(f"locomotion_phase: {json.dumps(locomotion)}")
+    learned = learned_phase(locomotion["checkpoint"], ROOT / "build"
+                            / "dadiff_tpu_torch" / "smoke", card)
+    log(f"learned_phase: {json.dumps(learned)}")
 
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
@@ -2760,7 +3064,7 @@ def main() -> int:
         kern[name]["at_32768_rows"] = {k: lib[k] for k in (
             "ms", "library_ms", "bound_ms", "bound_by", "kernel_over_library",
             "tiles", "mma_sync_ms", "ms_in_turns") + (
-                ("wave_convs",) if name == "rows_conv" else ())}
+                ("wave_convs", "final_conv") if name == "rows_conv" else ())}
     kernels = []
     for name, (source, replaces, launches) in table.items():
         r = kern[name]
@@ -2773,9 +3077,13 @@ def main() -> int:
             "per": r["per"], "launches_per_step": r.get("launches_per_step"),
             "host_ms": r.get("host_ms"),
         })
-        # the locomotion path plans through the module path: none
+        # the locomotion path plans through the module path: none; nor
+        # does the learned path or the MPPI planner
         kernels[-1]["launches_locomotion"] = \
             locomotion["evaluator"]["launches"][name]
+        kernels[-1]["launches_learned"] = \
+            learned["evaluator"]["launches"][name]
+        kernels[-1]["launches_mppi"] = learned["mppi"]["launches"][name]
         if name in evaluation:
             # the evaluation path's count (its untimed and timed runs)
             kernels[-1]["launches_evaluation"] = evaluation[name]

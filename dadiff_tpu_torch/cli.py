@@ -500,8 +500,8 @@ def load_value_checkpoint(path: str, device="cuda", expect_schedule=None):
 def build_eval_parser() -> argparse.ArgumentParser:
     """The JAX eval parser's flags, defaults and choices (cli.py:695-800),
     but for ``--device`` (cuda or cpu), ``--render`` (none only: the card's
-    machine has no display) and the flags of what is not ported
-    (``--video-dir``, ``--action-source``), which argparse refuses."""
+    machine has no display) and ``--video-dir``, which goes with it and
+    argparse refuses."""
     p = argparse.ArgumentParser(
         description="Plan with a diffusion planner", allow_abbrev=False)
     p.add_argument("--checkpoint", type=str, required=True)
@@ -534,6 +534,15 @@ def build_eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--wall-margin", type=float, default=None,
                    help="wall probe margin for --wall-aware (default: "
                         "center cell only)")
+    p.add_argument("--action-source", type=str, default="plan",
+                   choices=["plan", "inverse-dynamics", "track"],
+                   help="execute the plan's action columns; derive actions "
+                        "from consecutive planned states via a learned "
+                        "inverse-dynamics model fitted to --dataset "
+                        "(Decision-Diffuser-style, open-loop); or 'track': "
+                        "each action computed at execution time from the "
+                        "OBSERVED state toward the planned next state, "
+                        "u_t = g(s_obs, s_plan_next)")
     p.add_argument("--candidate-scorer", type=str, default="goal",
                    choices=["goal", "velocity", "wall-penalty"],
                    help="best-of-N plan scorer: final goal distance (maze), "
@@ -722,7 +731,10 @@ def build_policy_from_args(args, diffusion, dataset, dataset_spec: str,
     guidance stacked on its projection), wired to the planner chain with
     ``--megakernel``, which raises for a sampler other than ddpm, for warm
     start, for guidance and for a scorer other than the goal distance (the
-    wave selects by goal distance itself)."""
+    wave selects by goal distance itself). ``--action-source
+    inverse-dynamics|track`` fits an inverse-dynamics model to the dataset
+    (envs/learned_model.py, on the planner's device) and hands it to the
+    policy (cli.py:1020-1032)."""
     from dadiff_tpu_torch.guides import policies
 
     if args.megakernel and args.candidate_scorer != "goal":
@@ -730,10 +742,26 @@ def build_policy_from_args(args, diffusion, dataset, dataset_spec: str,
             f"--megakernel selects the best candidate by goal distance "
             f"inside the wave; --candidate-scorer {args.candidate_scorer} "
             f"needs the module path (drop --megakernel)")
+    inverse_dynamics = None
+    if args.action_source in ("inverse-dynamics", "track"):
+        from dadiff_tpu_torch.datasets.sources import load_episodes
+        from dadiff_tpu_torch.envs.learned_model import (
+            train_inverse_dynamics,
+        )
+
+        print("fitting inverse-dynamics model on the dataset ...")
+        inverse_dynamics, inv_metrics = train_inverse_dynamics(
+            load_episodes(dataset_spec), seed=args.seed,
+            device=diffusion.device)
+        print(f"inverse-dynamics held-out action R^2: "
+              f"mean={inv_metrics['r2_mean']:.4f} "
+              f"min={inv_metrics['r2_min']:.4f}")
     common = dict(
         sampling_timesteps=sampling_timesteps, seed=args.seed,
         skip_conditioned_action=args.skip_conditioned_action,
         candidate_scorer=_candidate_scorer(args, dataset),
+        inverse_dynamics=inverse_dynamics,
+        track_planned_states=args.action_source == "track",
         warm_start_t=args.warm_start_t,
         warm_start_auto=args.warm_start_auto,
         replan_deviation=args.replan_deviation)
@@ -884,15 +912,14 @@ def evaluate_main(argv=None) -> dict:
         dataset=dataset_spec, n_episodes=args.n_episodes,
         sampling_timesteps=sampling_timesteps, seed=args.seed,
         extra={
-            # the JAX package's provenance keys; the port executes the
-            # plan's own actions
+            # the JAX package's provenance keys
             "sampler": args.sampler,
             "n_candidates": args.n_candidates,
             "candidate_scorer": args.candidate_scorer,
             "wall_penalty_weight": (args.wall_penalty_weight
                                     if args.candidate_scorer == "wall-penalty"
                                     else None),
-            "action_source": "plan",
+            "action_source": args.action_source,
             "batched": args.batched,
             "wall_aware": args.wall_aware,
             "wall_margin": args.wall_margin,

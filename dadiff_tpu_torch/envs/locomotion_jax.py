@@ -200,20 +200,45 @@ def make_physics_step_fn(env: PlanarGymEnv):
     return step_fn
 
 
-class PhysicsLocomotionEvaluator:
+class PhysicsSim:
+    """The locomotion evaluator's simulator on exact physics: the state is
+    (qpos, qvel), observed through the env's gym semantics."""
+
+    def __init__(self, env: PlanarGymEnv):
+        self.env = env
+
+    def from_obs(self, obs: torch.Tensor) -> List[torch.Tensor]:
+        return list(self.env.obs_to_state(obs))
+
+    def observe(self, state: Sequence[torch.Tensor]) -> torch.Tensor:
+        return self.env.state_to_obs(*state)
+
+    def step(self, state, act):
+        """(next state, reward, done) of one env step of every env."""
+        qpos, qvel, _, reward, done = self.env.step_batch(*state, act)
+        return [qpos, qvel], reward, done
+
+
+class LocomotionEvaluator:
     """``evaluate(generator, stats, init_obs, *, noise=None) -> (mean_return,
-    mean_length, returns)``: ``n_replans`` replans of a batch of envs on the
-    exact physics (locomotion_jax.py:198-292). Each normalizes the
-    observation, conditions row 0 on it, plans through ``guides/sampling.py``
-    ``make_sampler`` (the module path: the JAX evaluator plans through XLA,
+    mean_length, returns)``: ``n_replans`` replans of a batch of envs on a
+    simulator ``sim`` (:class:`PhysicsSim`, or the learned simulator of
+    envs/learned_model.py). Each replan normalizes the observation,
+    conditions row 0 on it, plans through ``guides/sampling.py``
+    ``make_sampler`` (the module path: the JAX evaluators plan through XLA,
     not through a kernel), takes the actions at ``[start_t, start_t +
-    action_horizon)``, un-normalizes them and steps the physics. A done env
-    freezes: its reward and length are masked and its state held.
+    action_horizon)``, un-normalizes them and steps the simulator once per
+    action. A done env freezes: its reward and length are masked and its
+    state held.
+
+    ``sim`` gives ``from_obs(obs) -> state`` (a list of (B, ...) tensors),
+    ``observe(state) -> obs`` and ``step(state, act) -> (state, reward,
+    done)``.
 
     On the card, with ``graph`` (the default there), the first replan runs
-    from the host; the plan and one env step are then captured as two CUDA
-    graphs, and every later replan copies its draws in, replays the plan and
-    replays the env step once per action, each time after copying that
+    from the host; the plan and one simulator step are then captured as two
+    CUDA graphs, and every later replan copies its draws in, replays the
+    plan and replays the step once per action, each time after copying that
     action into the step's input. The step's graph is the same size at any
     ``action_horizon``. Buffers and graphs are kept for the next call with
     the same batch size, dtype and ``stats``, so a second call replays from
@@ -225,14 +250,13 @@ class PhysicsLocomotionEvaluator:
     step_noise (S, B, H, D) or None) replaces replan k's draws, as the
     sampler's ``plan.draw`` takes them."""
 
-    def __init__(self, diffusion, env: PlanarGymEnv, *,
-                 action_horizon: int = 8, n_replans: int = 25,
-                 sampling_timesteps: Optional[int] = None,
+    def __init__(self, diffusion, sim, *, action_horizon: int = 8,
+                 n_replans: int = 25, sampling_timesteps: Optional[int] = None,
                  sampler: str = "ddpm", skip_conditioned_action: bool = False,
                  graph: Optional[bool] = None):
         from dadiff_tpu_torch.guides.sampling import make_sampler
 
-        self.diffusion, self.env = diffusion, env
+        self.diffusion, self.sim = diffusion, sim
         self.plan = make_sampler(diffusion,
                                  sampling_timesteps=sampling_timesteps,
                                  sampler=sampler)
@@ -261,7 +285,7 @@ class PhysicsLocomotionEvaluator:
         B = obs.shape[0]
         loop = self._loop
         if loop is None or not loop.fits(B, obs.dtype, stats):
-            loop = self._loop = _Loop(self, stats, B, obs.dtype)
+            loop = self._loop = _Loop(self, stats, obs)
         first = self.plan.draw(generator, B) if noise is None else noise[0]
         loop.reset(obs, first)
         cuda = device.type == "cuda"
@@ -295,39 +319,47 @@ class PhysicsLocomotionEvaluator:
             torch.cuda.synchronize(device)
             self.timing = [(a.elapsed_time(b), b.elapsed_time(c))
                            for a, b, c in self.timing]
-        total, length = loop.state[2], loop.state[3]
+        total, length = loop.totals[0], loop.totals[1]
         return total.mean(), length.mean(), total.clone()
+
+
+class PhysicsLocomotionEvaluator(LocomotionEvaluator):
+    """The evaluator on exact physics (locomotion_jax.py:198-292): a
+    :class:`LocomotionEvaluator` whose simulator is ``env``."""
+
+    def __init__(self, diffusion, env: PlanarGymEnv, **kwargs):
+        self.env = env
+        super().__init__(diffusion, PhysicsSim(env), **kwargs)
 
 
 class _Loop:
     """The fixed buffers of an evaluator's replans and, once captured, their
-    two CUDA graphs: ``state`` [qpos, qvel, total, length, alive], ``draws``
-    [init_noise, step_noise or None], the plan's actions ``acts`` (B, K, nu)
-    and the env step's input ``act`` (B, nu)."""
+    two CUDA graphs: the simulator's ``state``, ``totals`` [total, length,
+    alive], ``draws`` [init_noise, step_noise or None], the plan's actions
+    ``acts`` (B, K, nu) and the step's input ``act`` (B, nu)."""
 
-    def __init__(self, ev: PhysicsLocomotionEvaluator, stats, B: int,
-                 dtype: torch.dtype):
+    def __init__(self, ev: LocomotionEvaluator, stats, obs: torch.Tensor):
         from dadiff_tpu_torch.guides.sampling import (
             conditions_for_initial_obs,
         )
 
-        d, env = ev.diffusion, ev.env
+        d, sim = ev.diffusion, ev.sim
         device = d.device
         od, ad = d.observation_dim, d.action_dim
         s, K = ev.start_t, ev.action_horizon
-        self.B, self.dtype, self.stats, self.env = B, dtype, stats, env
-        zeros = torch.zeros(B, env.nq, dtype=dtype, device=device)
-        self.state = [zeros, zeros.clone(), zeros.new_zeros(B),
-                      zeros.new_zeros(B),
-                      torch.ones(B, dtype=torch.bool, device=device)]
+        B = obs.shape[0]
+        self.B, self.dtype, self.stats, self.sim = B, obs.dtype, stats, sim
+        self.state = [t.clone() for t in sim.from_obs(obs)]
+        self.totals = [obs.new_zeros(B), obs.new_zeros(B),
+                       torch.ones(B, dtype=torch.bool, device=device)]
         self.draws = None
         self.acts = torch.zeros(B, K, ad, dtype=torch.float32, device=device)
         self.act = torch.zeros(B, ad, dtype=torch.float32, device=device)
         self.graphs = None
-        state, acts, act = self.state, self.acts, self.act
+        state, totals, acts, act = self.state, self.totals, self.acts, self.act
 
         def plan_part():
-            obs = env.state_to_obs(state[0], state[1])
+            obs = sim.observe(state)
             normed = (obs - stats.obs_mean) / stats.obs_std
             cond = conditions_for_initial_obs(normed, od, d.horizon,
                                               d.transition_dim)
@@ -337,15 +369,16 @@ class _Loop:
                        + stats.action_mean)
 
         def step_part():
-            qp, qv, total, length, alive = state
-            nqp, nqv, _, reward, done = env.step_batch(qp, qv, act)
+            total, length, alive = totals
+            new, reward, done = sim.step(state, act)
             new_alive = alive & ~done
             # a frozen env keeps its last state (a masked step)
-            for buf, new in zip(state, (
-                    torch.where(new_alive[:, None], nqp, qp),
-                    torch.where(new_alive[:, None], nqv, qv),
-                    total + reward * alive, length + alive, new_alive)):
-                buf.copy_(new)
+            for buf, v in zip(state, new):
+                buf.copy_(torch.where(new_alive.view((B,) + (1,) * (
+                    v.dim() - 1)), v, buf))
+            for buf, v in zip(totals, (total + reward * alive,
+                                       length + alive, new_alive)):
+                buf.copy_(v)
 
         self.plan_part, self.step_part = plan_part, step_part
 
@@ -355,10 +388,9 @@ class _Loop:
     def reset(self, obs: torch.Tensor, draws) -> None:
         """The initial states of ``obs`` (B, obs_dim) and replan 0's draws;
         returns and lengths to 0, every env alive."""
-        qpos, qvel = self.env.obs_to_state(obs)
-        self.state[0].copy_(qpos)
-        self.state[1].copy_(qvel)
-        for buf, v in zip(self.state[2:], (0, 0, True)):
+        for buf, v in zip(self.state, self.sim.from_obs(obs)):
+            buf.copy_(v)
+        for buf, v in zip(self.totals, (0, 0, True)):
             buf.fill_(v)
         self.set_draws(draws)
 

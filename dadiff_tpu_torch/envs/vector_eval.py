@@ -2,8 +2,8 @@
 replan per wave.
 
 Counterpart of the JAX package's envs/vector_eval.py,
-evaluate_policy_batched :31-260 without its warm-start and inverse-dynamics
-branches (not ported: a policy that asks for them is refused). Episodes are
+evaluate_policy_batched :31-260 without its warm-start branch (not ported:
+a policy that asks for it is refused). Episodes are
 seeded per env (seed + i), so results are not episode for episode those of
 the sequential protocol (envs/host.py). Best of N: each replan samples
 N * K plans in one batched call and keeps the best per env under
@@ -31,8 +31,14 @@ def evaluate_policy_batched(policy, env_name: str, n_episodes: int = 10,
 
     With ``record_episodes=True`` the executed transitions come back under
     ``metrics["recorded_episodes"]`` in the npz schema (processed
-    observations with the goal, len(obs) = len(act) + 1)."""
-    for attr in ("inverse_dynamics", "warm_start_t", "warm_start_auto"):
+    observations with the goal, len(obs) = len(act) + 1).
+
+    With ``policy.inverse_dynamics`` the actions come from consecutive
+    planned states, one batched call per replan, or, with
+    ``track_planned_states``, one batched call per lockstep step from the
+    observed states toward the planned next states (vector_eval.py:
+    161-205)."""
+    for attr in ("warm_start_t", "warm_start_auto"):
         if getattr(policy, attr, None):
             raise NotImplementedError(f"evaluate_policy_batched: {attr} is "
                                       "not ported")
@@ -92,14 +98,40 @@ def evaluate_policy_batched(policy, env_name: str, n_episodes: int = 10,
                                                  trans_dim)
             trajs = policy._plan(policy._generator, cond, policy._P,
                                  policy._stats)
-        actions_norm = trajs.detach().cpu().numpy()[
-            :, start_t:start_t + n_buffered, a0:a1]
+        trajs = trajs.detach().cpu().numpy()
+        inverse = policy.inverse_dynamics
+        if inverse is not None:
+            # actions from consecutive planned states (one batched call)
+            stop_t = min(start_t + n_buffered, horizon - 1)
+            obs_rows = policy.normalizer.unnormalize_observations(
+                trajs[:, start_t:stop_t + 1, :obs_dim].reshape(-1, obs_dim)
+            ).reshape(n_episodes, -1, obs_dim)
+            planned_next = obs_rows[:, 1:]
+            n_exec = planned_next.shape[1]
+            if not policy.track_planned_states:
+                inv_acts = np.asarray(inverse(
+                    obs_rows[:, :-1].reshape(-1, obs_dim),
+                    planned_next.reshape(-1, obs_dim))).reshape(
+                    n_episodes, -1, act_dim)
+        else:
+            actions_norm = trajs[:, start_t:start_t + n_buffered, a0:a1]
+            n_exec = n_buffered
 
-        for j in range(n_buffered):
+        for j in range(n_exec):
             if step >= max_steps or done.all():
                 break
-            acts = policy.normalizer.unnormalize_actions(
-                actions_norm[:, j].reshape(n_episodes, -1))
+            if inverse is None:
+                acts = policy.normalizer.unnormalize_actions(
+                    actions_norm[:, j].reshape(n_episodes, -1))
+            elif policy.track_planned_states:
+                # u_t = g(s_observed, s_planned_next), done envs included
+                cur = np.concatenate(
+                    [policy._process_observation(o) for o in obs_list],
+                    axis=0)
+                acts = np.asarray(inverse(cur, planned_next[:, j])).reshape(
+                    n_episodes, -1)
+            else:
+                acts = inv_acts[:, j]
             for i, env in enumerate(envs):
                 if done[i]:
                     continue

@@ -1,6 +1,20 @@
-"""On-device locomotion evaluation on exact planar physics: plans, actions
-and the physics of a batch of envs all on the card. Counterpart of the JAX
-package's scripts/eval_ondevice_locomotion.py (its ``--backend physics``).
+"""On-device locomotion evaluation: plans, actions and the simulator of a
+batch of envs all on the card. Counterpart of the JAX package's
+scripts/eval_ondevice_locomotion.py, with both of its backends:
+
+- ``--backend learned`` (the default, as in JAX): an ensemble of
+  DynamicsMLPs (``--sim-ensemble``, one model at 1) is fitted for
+  ``--model-steps`` steps to the transitions of ``--dataset`` (the data the
+  planner trained on) and the loop steps its members' mean
+  (envs/learned_model.py). Returns are model-based (surrogate): the keys
+  ``model_based_mean_return`` and ``model_based_return_std``, the held-out
+  one-step R^2 as ``simulator_r2_mean``; their bound is measured by
+  ``python -m dadiff_tpu_torch.surrogate_bound``.
+- ``--backend physics``: exact planar MuJoCo dynamics
+  (envs/locomotion_jax.py); returns are real. A run is refused when
+  ``--action-horizon`` exceeds the env's measured chunk bound K*
+  (results/physics_bound_<env>_float32.json, the contiguous quotable
+  prefix), unless ``--allow-unquotable``.
 
     python -m dadiff_tpu_torch.eval_ondevice_locomotion \
         --checkpoint logs/.../checkpoint_step_N.pt \
@@ -9,20 +23,16 @@ package's scripts/eval_ondevice_locomotion.py (its ``--backend physics``).
         --n-replans 992 --action-horizon 1 --skip-conditioned-action --seed 42
 
 Initial observations are the gymnasium resets at seeds seed .. seed+B-1,
-drawn from the committed model's constants (envs/locomotion_jax.py
-``reset_obs``), so the card's machine needs no gymnasium. A run is refused
-when ``--action-horizon`` exceeds the env's measured chunk bound K*
-(results/physics_bound_<env>_float32.json, the contiguous quotable prefix),
-unless ``--allow-unquotable``. One untimed run (seed), which captures the
-CUDA graphs on the card, then the timed run (seed + 1), which replays them
-and whose returns are reported, as JSON with the JAX script's keys
+drawn from the committed planar model's constants (envs/locomotion_jax.py
+``reset_obs``), so the card's machine needs no gymnasium; HalfCheetah,
+Hopper and Walker2d are therefore the envs of both backends (they are also
+the only ones with a reward model). One untimed run (seed), which captures
+the CUDA graphs on the card, then the timed run (seed + 1), which replays
+them and whose returns are reported, as JSON with the JAX script's keys
 and in a results file (envs/host.py ``save_results``, policy type
-``ondevice-physics``). Lines before the result give ms per replan, per plan
-and per env step (CUDA events on the card) and episodes/hour.
-
-``--backend learned`` (the learned simulator) is not ported yet: argparse
-refuses it, and with it the simulator's flags (``--model-steps``,
-``--sim-ensemble``).
+``ondevice-<backend>``). Lines before the result give ms per replan, per
+plan and per simulator step (CUDA events on the card), episodes/hour and,
+for the learned backend, ms per training step of the simulator.
 """
 
 from __future__ import annotations
@@ -78,11 +88,12 @@ def _check_chunk_bound(args):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="On-device locomotion eval "
-                                            "(exact planar physics)",
+                                            "(learned simulator or exact "
+                                            "planar physics)",
                                 allow_abbrev=False)
     p.add_argument("--checkpoint", type=str, required=True)
     p.add_argument("--dataset", type=str, required=True,
-                   help="episode spec of the normalizer")
+                   help="episode spec: trains the simulator + the normalizer")
     p.add_argument("--env", type=str, default="HalfCheetah-v5")
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--n-replans", type=int, default=25)
@@ -90,21 +101,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sampling-timesteps", type=int, default=None)
     p.add_argument("--sampler", type=str, default="ddpm",
                    choices=["ddpm", "ddim", "dpmpp", "consistency"])
-    p.add_argument("--backend", type=str, default="physics",
-                   choices=["physics"],
+    p.add_argument("--model-steps", type=int, default=3000,
+                   help="dynamics-MLP training steps")
+    p.add_argument("--sim-ensemble", type=int, default=4,
+                   help="simulator ensemble size; the evaluator steps the "
+                        "ensemble MEAN (the surrogate the measured error "
+                        "bound applies to). 1 = single model.")
+    p.add_argument("--backend", type=str, default="learned",
+                   choices=["learned", "physics"],
                    help="'physics' = exact planar MuJoCo dynamics "
                         "(HalfCheetah/Hopper/Walker2d): returns are real. "
-                        "The learned simulator is not ported yet.")
+                        "'learned' = ensemble-mean DynamicsMLP: returns are "
+                        "model-based, bounded by python -m "
+                        "dadiff_tpu_torch.surrogate_bound.")
     p.add_argument("--solver-iters", type=int, default=100,
-                   help="constraint-solver iterations")
+                   help="physics backend: constraint-solver iterations")
     p.add_argument("--solver", type=str, default="pgs",
                    choices=["pgs", "jacobi"],
-                   help="constraint solver; 'jacobi' (parallel FISTA) is "
+                   help="physics backend: constraint solver; 'jacobi' "
+                        "(parallel FISTA) is "
                         "one masked product per iteration — use it for long "
                         "loops on the card")
     p.add_argument("--skip-conditioned-action", action="store_true",
                    help="start execution at plan row 1 (the host MPC "
-                        "locomotion protocol)")
+                        "locomotion protocol; physics backend only)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
@@ -112,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory for the timestamped results JSON ('' "
                         "disables)")
     p.add_argument("--allow-unquotable", action="store_true",
-                   help="run even when --action-horizon exceeds the env's "
+                   help="physics backend: run even when --action-horizon "
+                        "exceeds the env's "
                         "measured K* chunk bound; returns are then NOT "
                         "quotable as real-env numbers")
     return p
@@ -141,16 +162,64 @@ def main(argv=None) -> dict:
                          "pass --sampler consistency")
     stats = NormStats.from_normalizer(dataset.normalizer, device)
 
-    print("backend: exact planar physics (no simulator fit; returns are "
-          "real, bound: results/physics_bound_*.json)", flush=True)
-    _check_chunk_bound(args)
-    env = physics_env_for(args.env, solver_iters=args.solver_iters,
-                          solver=args.solver)
-    evaluate = make_physics_locomotion_evaluator(
-        diffusion, env, action_horizon=args.action_horizon,
-        n_replans=args.n_replans, sampling_timesteps=args.sampling_timesteps,
-        sampler=args.sampler,
-        skip_conditioned_action=args.skip_conditioned_action)
+    physics = args.backend == "physics"
+    try:
+        # the resets' constants (and, for physics, the engine)
+        env = physics_env_for(args.env, solver_iters=args.solver_iters,
+                              solver=args.solver)
+    except ValueError:
+        raise SystemExit(
+            f"--env {args.env}: the on-device locomotion loop covers "
+            f"HalfCheetah, Hopper and Walker2d (their resets replay from the "
+            f"committed planar models, and only they have a reward model)")
+    sim_timing = {}
+    if physics:
+        print("backend: exact planar physics (no simulator fit; returns are "
+              "real, bound: results/physics_bound_*.json)", flush=True)
+        _check_chunk_bound(args)
+        # exact dynamics: no fitted simulator, hence no held-out R^2
+        metrics = {"r2_mean": None, "r2_min": None}
+        evaluate = make_physics_locomotion_evaluator(
+            diffusion, env, action_horizon=args.action_horizon,
+            n_replans=args.n_replans,
+            sampling_timesteps=args.sampling_timesteps, sampler=args.sampler,
+            skip_conditioned_action=args.skip_conditioned_action)
+    else:
+        from dadiff_tpu_torch.datasets.sources import load_episodes
+        from dadiff_tpu_torch.envs.learned_model import (
+            make_ondevice_locomotion_evaluator,
+            reward_model_for,
+            train_dynamics_ensemble,
+            train_dynamics_model,
+        )
+
+        episodes = load_episodes(args.dataset)
+        print(f"fitting simulator on {len(episodes)} episodes ...",
+              flush=True)
+        fit = dict(n_steps=args.model_steps, seed=args.seed, verbose=True,
+                   device=device)
+        t0 = time.perf_counter()
+        if args.sim_ensemble > 1:
+            # the ensemble MEAN is the surrogate surrogate_bound bounds
+            model, mstats, metrics = train_dynamics_ensemble(
+                episodes, n_models=args.sim_ensemble, **fit)
+        else:
+            model, mstats, metrics = train_dynamics_model(episodes, **fit)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        fit_s = time.perf_counter() - t0
+        sim_timing = {"sim_fit_s": fit_s,
+                      "ms_per_sim_train_step": fit_s * 1e3
+                      / max(args.model_steps, 1)}
+        print(f"simulator held-out one-step R^2: "
+              f"mean={metrics['r2_mean']:.4f} "
+              f"min={metrics['r2_min']:.4f}; fit {fit_s:.3f} s, "
+              f"{sim_timing['ms_per_sim_train_step']:.3f} ms a step "
+              f"(host clock, set-up included)", flush=True)
+        evaluate = make_ondevice_locomotion_evaluator(
+            diffusion, model, mstats, reward_model_for(args.env),
+            action_horizon=args.action_horizon, n_replans=args.n_replans,
+            sampling_timesteps=args.sampling_timesteps, sampler=args.sampler)
     init_obs = torch.as_tensor(
         env.reset_obs(range(args.seed, args.seed + args.batch)),
         dtype=torch.float32, device=device)
@@ -187,16 +256,19 @@ def main(argv=None) -> dict:
         "first_replan_ms": first_replan_ms,
         "episodes_per_hour": args.batch / dt * 3600.0,
         "first_run_s": first_s,
+        **sim_timing,
     }
     if device.type == "cuda":
         timing["peak_memory_mib"] = torch.cuda.max_memory_allocated(
             device) / 2 ** 20
     print(f"ms per replan {timing['ms_per_replan']:.3f} (plan "
-          f"{timing['ms_per_plan']:.3f}, env steps "
+          f"{timing['ms_per_plan']:.3f}, "
+          f"{'env' if physics else 'model'} steps "
           f"{timing['ms_per_env_step'] * args.action_horizon:.3f}; {clock}, "
           f"{timing['replans_timed']} replans of the timed run, "
           f"graph={evaluate.graph})", flush=True)
-    print(f"ms per env step {timing['ms_per_env_step']:.3f}; first replan "
+    print(f"ms per {'env' if physics else 'model'} step "
+          f"{timing['ms_per_env_step']:.3f}; first replan "
           f"{timing['first_replan_ms']:.3f} ms (host-driven, untimed run)",
           flush=True)
     print(f"episodes/hour {timing['episodes_per_hour']:.1f} ({args.batch} "
@@ -212,16 +284,22 @@ def main(argv=None) -> dict:
         "sampler": args.sampler,
         "batch": args.batch,
         "env_steps_per_episode": n_steps,
-        "mean_return": round(float(mean_ret), 2),
-        "return_std": round(std, 2),
+        ("mean_return" if physics else "model_based_mean_return"):
+            round(float(mean_ret), 2),
+        ("return_std" if physics else "model_based_return_std"):
+            round(std, 2),
         "return_se": round(std / max(args.batch, 1) ** 0.5, 2),
         "mean_alive_length": round(float(mean_len), 1),
         "wall_clock_s": round(dt, 3),
         "episodes_per_hour_per_chip": round(args.batch / dt * 3600.0, 1),
-        "simulator_r2_mean": None,
+        "simulator_r2_mean": (None if metrics["r2_mean"] is None
+                              else round(metrics["r2_mean"], 4)),
         "note": ("REAL returns: exact planar-physics dynamics (parity with "
                  "the JAX engine pinned in tests/test_torch_planar_physics"
-                 ".py; K-step bound in results/physics_bound_*.json)"),
+                 ".py; K-step bound in results/physics_bound_*.json)"
+                 if physics else
+                 "model-based surrogate returns (learned simulator); "
+                 "host-env MPC eval is ground truth"),
     }
     print(json.dumps(result), flush=True)
     if args.results_dir:
@@ -248,8 +326,8 @@ def main(argv=None) -> dict:
             extra={k: v for k, v in result.items() if k != "env"} | {
                 "action_horizon": args.action_horizon,
                 "n_replans": args.n_replans,
-                "solver": args.solver,
-                "solver_iters": args.solver_iters,
+                "solver": args.solver if physics else None,
+                "solver_iters": args.solver_iters if physics else None,
                 "skip_conditioned_action": args.skip_conditioned_action,
                 "timing": timing,
             },

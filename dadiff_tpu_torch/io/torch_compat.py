@@ -87,6 +87,24 @@ def value_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return _state_from_table(params, table)
 
 
+def mlp_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax params of a DynamicsMLP or InverseDynamicsMLP (``Dense_0`` ..
+    ``Dense_L``, numpy) -> the state dict of envs/learned_model.py's MLP of
+    the same widths, loadable with ``strict=True``. Each kernel (in, out)
+    becomes the weight (out, in). An ensemble-stacked tree (a leading member
+    axis on every leaf, as train_dynamics_ensemble returns it) becomes the
+    stacked layers' (E, out, in) weights and (E, out) biases."""
+    n = sum(1 for k in params if k.startswith("Dense_"))
+    state = {}
+    for i in range(n):
+        node = params[f"Dense_{i}"]
+        state[f"layers.{i}.weight"] = torch.tensor(np.swapaxes(
+            np.asarray(node["kernel"], np.float32), -1, -2).copy())
+        state[f"layers.{i}.bias"] = torch.tensor(
+            np.asarray(node["bias"], np.float32))
+    return state
+
+
 def _state_from_table(params, table) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for prefix, path, kind in table:

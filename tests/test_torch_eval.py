@@ -468,17 +468,12 @@ def _recording(policy, actions):
     policy.get_action = wrapped
 
 
-@pytest.mark.parametrize("path", ["module", "planner_chain"])
-@pytest.mark.parametrize("batched", [False, True], ids=["sequential",
-                                                        "batched"])
-def test_evaluate_main_matches_jax(checkpoint, tmp_path, monkeypatch, batched,
-                                   path):
+def _evaluate_both(checkpoint, tmp_path, monkeypatch, batched, path,
+                   extra=()):
     """evaluate_main of both packages on the same .pt, seeds and injected
-    noise, 2 episodes of PointMaze_UMaze-v3, 20 steps, best of 2: the same
-    replans, the same actions to TOL, the same results dicts, and results
-    files with the same keys."""
-    pytest.importorskip("gymnasium")
-    pytest.importorskip("gymnasium_robotics")
+    noise (2 episodes of PointMaze_UMaze-v3, 20 steps, best of 2, argv
+    ``extra`` added): (metrics, plan calls, actions, results file) of
+    each."""
     runs = {}
     for name, mod, inject in (("jax", jcli, _inject_jax),
                               ("port", cli, None)):
@@ -502,15 +497,29 @@ def test_evaluate_main_matches_jax(checkpoint, tmp_path, monkeypatch, batched,
                 "--env", "PointMaze_UMaze-v3", "--policy-type",
                 "dynamics-aware", "--n-candidates", "2", "--action-horizon",
                 "4", "--n-episodes", "2", "--max-steps", "20", "--seed", "3",
-                "--device", "cpu", "--results-dir", str(results)]
+                "--device", "cpu", "--results-dir", str(results), *extra]
         if batched:
             argv += ["--batched", "--save-episodes", str(tmp_path / name)
                      + ".npz"]
         metrics = mod.evaluate_main(argv)
         (saved,) = [json.load(open(results / f)) for f in os.listdir(results)]
         runs[name] = (metrics, calls, actions, saved)
-    (jm, jcalls, jacts, jsaved), (pm, pcalls, pacts, psaved) = (runs["jax"],
-                                                                runs["port"])
+    return runs["jax"], runs["port"]
+
+
+@pytest.mark.parametrize("path", ["module", "planner_chain"])
+@pytest.mark.parametrize("batched", [False, True], ids=["sequential",
+                                                        "batched"])
+def test_evaluate_main_matches_jax(checkpoint, tmp_path, monkeypatch, batched,
+                                   path):
+    """evaluate_main of both packages on the same .pt, seeds and injected
+    noise, 2 episodes of PointMaze_UMaze-v3, 20 steps, best of 2: the same
+    replans, the same actions to TOL, the same results dicts, and results
+    files with the same keys."""
+    pytest.importorskip("gymnasium")
+    pytest.importorskip("gymnasium_robotics")
+    (jm, jcalls, jacts, jsaved), (pm, pcalls, pacts, psaved) = \
+        _evaluate_both(checkpoint, tmp_path, monkeypatch, batched, path)
     assert pcalls == jcalls and len(jcalls) == (4 if batched else 8)
     assert set(psaved) == set(jsaved)
     assert set(psaved["metrics"]) == set(jsaved["metrics"])
@@ -537,6 +546,53 @@ def test_evaluate_main_matches_jax(checkpoint, tmp_path, monkeypatch, batched,
     else:
         assert len(pacts) == len(jacts) == 40
         np.testing.assert_allclose(np.stack(pacts), np.stack(jacts), atol=TOL)
+
+
+def _inverse_dynamics(s, s_next):
+    """One inverse model for both packages: physical states in, actions
+    out (numpy)."""
+    s, s_next = np.atleast_2d(s), np.atleast_2d(s_next)
+    return np.clip(5.0 * (s_next[:, 2:4] - s[:, 2:4]) + 0.1 * s[:, 0:2],
+                   -1.0, 1.0)
+
+
+@pytest.mark.parametrize("source", ["inverse-dynamics", "track"])
+def test_evaluate_main_action_source_matches_jax(checkpoint, tmp_path,
+                                                 monkeypatch, source):
+    """``--action-source`` through both CLIs in lockstep (the batched
+    branch) with one inverse model for both (each CLI's fit replaced by
+    it): the same replans, executed actions and episodes, and the results
+    file's ``action_source``."""
+    pytest.importorskip("gymnasium")
+    pytest.importorskip("gymnasium_robotics")
+    from dadiff_tpu.envs import learned_model as jax_learned
+
+    from dadiff_tpu_torch.envs import learned_model as port_learned
+
+    fits = []
+
+    def fit(episodes, **kw):
+        fits.append(kw["seed"])
+        return _inverse_dynamics, {"r2_mean": 0.5, "r2_min": 0.1}
+
+    for mod in (jax_learned, port_learned):
+        monkeypatch.setattr(mod, "train_inverse_dynamics", fit)
+    (jm, jcalls, _, jsaved), (pm, pcalls, _, psaved) = _evaluate_both(
+        checkpoint, tmp_path, monkeypatch, True, "module",
+        ["--action-source", source])
+    assert fits == [3, 3] and pcalls == jcalls
+    assert psaved["action_source"] == jsaved["action_source"] == source
+    for key in ("episode_lengths", "episode_success", "episode_rewards"):
+        assert pm[key] == jm[key], key
+    from dadiff_tpu.datasets.sources import load_episodes as jload
+
+    from dadiff_tpu_torch.datasets.sources import load_episodes
+
+    for a, b in zip(load_episodes("npz:" + str(tmp_path / "port.npz")),
+                    jload("npz:" + str(tmp_path / "jax.npz"))):
+        np.testing.assert_allclose(a["actions"], b["actions"], atol=TOL)
+        np.testing.assert_allclose(a["observations"], b["observations"],
+                                   atol=TOL)
 
 
 def test_save_results_writes_the_jax_keys(tmp_path):

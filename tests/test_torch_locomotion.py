@@ -260,23 +260,26 @@ def test_chunk_bound_guard(env, capsys):
 
 
 def test_cli_flags_against_the_jax_script(capsys):
-    """Every flag of the JAX script is the port's, but the learned
-    simulator's: ``--backend learned``, ``--model-steps`` and
-    ``--sim-ensemble`` are refused (the learned backend is not ported)."""
+    """The port's flags are the JAX script's, with its default backend
+    (learned) and both backends' choices; ``--device`` takes cuda or cpu
+    where the JAX script names the TPU."""
     src = (REPO / "scripts" / "eval_ondevice_locomotion.py").read_text()
     jax_flags = set(re.findall(r'add_argument\("(--[a-z-]+)"', src))
     port = {a.option_strings[0] for a in evl.build_parser()._actions
             if a.option_strings and a.option_strings[0] != "-h"}
-    assert port == jax_flags - {"--model-steps", "--sim-ensemble"}
+    assert port == jax_flags
     base = ["--checkpoint", "c", "--dataset", "d"]
-    for extra in (["--backend", "learned"], ["--model-steps", "10"],
-                  ["--sim-ensemble", "2"], ["--device", "tpu"]):
+    for extra in (["--backend", "mjx"], ["--device", "tpu"]):
         with pytest.raises(SystemExit):
             evl.build_parser().parse_args(base + extra)
     args = evl.build_parser().parse_args(base)
     assert (args.backend, args.device, args.solver, args.solver_iters,
-            args.batch, args.n_replans, args.action_horizon) == (
-        "physics", "cuda", "pgs", 100, 128, 25, 8)
+            args.batch, args.n_replans, args.action_horizon,
+            args.model_steps, args.sim_ensemble) == (
+        "learned", "cuda", "pgs", 100, 128, 25, 8, 3000, 4)
+    backend = next(a for a in evl.build_parser()._actions
+                   if a.dest == "backend")
+    assert backend.choices == ["learned", "physics"]
 
 
 # the keys of the JAX script's printed result (physics backend) and of its
@@ -292,7 +295,13 @@ FILE_KEYS = ({"policy_type", "environment", "checkpoint", "dataset",
                 "skip_conditioned_action"})
 
 
-def test_cli_runs_and_writes_the_jax_keys(tiny, tmp_path, capsys):
+# the learned backend's: model-based returns (eval_ondevice_locomotion.py:
+# 221-222)
+LEARNED_KEYS = RESULT_KEYS - {"mean_return", "return_std"} | {
+    "model_based_mean_return", "model_based_return_std"}
+
+
+def _tiny_checkpoint(tiny, tmp_path) -> str:
     jdiff, params, _, stats = tiny
     path = str(tmp_path / "model.pt")
     names = ("obs_mean", "obs_std", "action_mean", "action_std")
@@ -301,9 +310,15 @@ def test_cli_runs_and_writes_the_jax_keys(tiny, tmp_path, capsys):
         "n_timesteps": T_STEPS, "beta_schedule": "cosine",
         "dim_mults": (1, 2),
         "normalizer_stats": {k: v.tolist() for k, v in zip(names, stats)}})
+    return path
+
+
+def test_cli_runs_and_writes_the_jax_keys(tiny, tmp_path, capsys):
+    path = _tiny_checkpoint(tiny, tmp_path)
     out = evl.main([
         "--checkpoint", path, "--dataset", "npz:data/hopper_mppi.npz",
-        "--env", "Hopper-v5", "--solver", "jacobi", "--solver-iters", "5",
+        "--env", "Hopper-v5", "--backend", "physics", "--solver", "jacobi",
+        "--solver-iters", "5",
         "--batch", "3", "--n-replans", "2", "--action-horizon", "1",
         "--skip-conditioned-action", "--device", "cpu", "--results-dir",
         str(tmp_path / "results")])
@@ -318,6 +333,36 @@ def test_cli_runs_and_writes_the_jax_keys(tiny, tmp_path, capsys):
     assert len(saved["metrics"]["episode_rewards"]) == 3
     assert out["timing"]["clock"].startswith("host clock")
     assert np.isfinite(out["mean_return"])
+
+
+def test_cli_learned_backend_writes_the_jax_learned_keys(tiny, tmp_path,
+                                                         capsys):
+    """No ``--backend``: the learned simulator (an ensemble of 2 fitted for
+    5 steps) steps the loop; the printed result and the results file carry
+    the JAX script's learned keys, policy type ``ondevice-learned`` and no
+    solver; no chunk-bound guard runs. An env without a reward model is
+    refused."""
+    path = _tiny_checkpoint(tiny, tmp_path)
+    argv = ["--checkpoint", path, "--dataset", "npz:data/hopper_mppi.npz",
+            "--env", "Hopper-v5", "--model-steps", "5", "--sim-ensemble",
+            "2", "--batch", "3", "--n-replans", "2", "--action-horizon", "2",
+            "--device", "cpu", "--results-dir", str(tmp_path / "results")]
+    out = evl.main(argv)
+    printed = capsys.readouterr().out
+    assert "simulator held-out one-step R^2" in printed
+    assert "chunk bound" not in printed and "ms per model step" in printed
+    line = next(ln for ln in printed.splitlines() if ln.startswith('{"env"'))
+    assert set(json.loads(line)) == LEARNED_KEYS
+    saved = json.loads(pathlib.Path(out["results_path"]).read_text())
+    assert FILE_KEYS - RESULT_KEYS | LEARNED_KEYS - {"env"} <= set(saved)
+    assert saved["policy_type"] == "ondevice-learned"
+    assert saved["backend"] == "learned"
+    assert saved["solver"] is None and saved["solver_iters"] is None
+    assert np.isfinite(saved["simulator_r2_mean"])
+    assert np.isfinite(out["model_based_mean_return"])
+    assert out["timing"]["ms_per_sim_train_step"] > 0
+    with pytest.raises(SystemExit, match="HalfCheetah, Hopper and Walker2d"):
+        evl.main(argv[:4] + ["--env", "Ant-v5"] + argv[6:])
 
 
 # ---------------------------------------------------------------------------

@@ -292,7 +292,6 @@ DELIBERATE = {
     "device",        # cuda or cpu; JAX names the TPU
     "render",        # none only: the card's machine has no display
     "video_dir",     # goes with render
-    "action_source", # inverse dynamics waits for envs/learned_model.py
 }
 
 
@@ -371,6 +370,37 @@ def test_cli_builds_each_policy_type(cli_parts, ptype, cls, horizon):
         ptype == "value-guided")
     plan = policy.plan(np.zeros(OBS, np.float32))
     assert plan.shape == (1, H, D) and np.isfinite(plan).all()
+
+
+@pytest.mark.parametrize("ptype,source", [
+    ("guided", "inverse-dynamics"), ("mpc", "track"),
+    ("dynamics-aware", "inverse-dynamics"), ("value-guided", "track")])
+def test_cli_wires_the_action_source(cli_parts, monkeypatch, ptype, source):
+    """``--action-source inverse-dynamics|track`` fits the port's inverse
+    model to the dataset (cut to 5 steps of a (16, 16) MLP here) and hands
+    it to every policy type; an action comes back from it, of the action
+    width and finite."""
+    from dadiff_tpu_torch.envs import learned_model
+
+    real = learned_model.train_inverse_dynamics
+    fits = []
+
+    def short(episodes, **kw):
+        fits.append(kw)
+        return real(episodes, **dict(kw, n_steps=5, hidden=(16, 16)))
+
+    monkeypatch.setattr(learned_model, "train_inverse_dynamics", short)
+    extra = ["--value-checkpoint", cli_parts[2]] \
+        if ptype == "value-guided" else []
+    policy = _build(cli_parts, "--policy-type", ptype, "--action-source",
+                    source, *extra)
+    assert len(fits) == 1 and fits[0]["seed"] == 42
+    assert policy.inverse_dynamics is not None
+    assert policy.track_planned_states == (source == "track")
+    act = policy.get_action(np.zeros(OBS, np.float32))
+    assert act.shape == (ACT,) and np.isfinite(act).all()
+    default = _build(cli_parts, "--policy-type", ptype, *extra)
+    assert default.inverse_dynamics is None
 
 
 def test_cli_scorers_and_refusals(cli_parts):

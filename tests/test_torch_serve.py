@@ -143,7 +143,12 @@ def test_port_imports_no_jax():
             "dadiff_tpu_torch.envs.vector_eval",
             "dadiff_tpu_torch.eval_ondevice",
             "dadiff_tpu_torch.evaluate", "dadiff_tpu_torch.distill",
-            "dadiff_tpu_torch.models.consistency"} <= set(names)
+            "dadiff_tpu_torch.models.consistency",
+            "dadiff_tpu_torch.envs.learned_model",
+            "dadiff_tpu_torch.envs.mppi_tpu",
+            "dadiff_tpu_torch.surrogate_bound",
+            "dadiff_tpu_torch.collect_mppi_tpu",
+            "dadiff_tpu_torch.dagger_relabel"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
