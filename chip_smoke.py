@@ -2443,7 +2443,7 @@ def locomotion_phase(root: Path, card: str) -> dict:
             "--action-horizon", "1", "--skip-conditioned-action", "--seed",
             str(LOCO_SEED), "--results-dir", str(results_dir)]
     audits = []   # one per evaluator call: the untimed run, the timed run
-    call = loco.PhysicsLocomotionEvaluator.__call__
+    call = loco.LocomotionEvaluator.__call__
 
     def audited(self, *a, **kw):
         audits.append(_DeviceAudit())
@@ -2451,7 +2451,7 @@ def locomotion_phase(root: Path, card: str) -> dict:
             return call(self, *a, **kw)
 
     # the CLI as a user runs it: TF32 convs on (the library's default)
-    loco.PhysicsLocomotionEvaluator.__call__ = audited
+    loco.LocomotionEvaluator.__call__ = audited
     torch.backends.cudnn.allow_tf32 = True
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2462,7 +2462,7 @@ def locomotion_phase(root: Path, card: str) -> dict:
             result = evl.main(argv)
         run_s = time.perf_counter() - t0
     finally:
-        loco.PhysicsLocomotionEvaluator.__call__ = call
+        loco.LocomotionEvaluator.__call__ = call
     counts = read_counts()
     log(printed.getvalue().rstrip())
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -2722,10 +2722,18 @@ def learned_phase(ckpt: Path, root: Path, card: str) -> dict:
             and all(runs[True, 1][1]) and not any(runs[False, 0][1]),
             f"replayed replans: {[runs[k][1] for k in runs]}")
     tm = result["timing"]
+    # this run's episodes are cut to LEARNED_REPLANS replans; the CLI's
+    # default episode (25 replans of 8 actions, 200 steps) at the same
+    # measured ms per replan is the figure comparable with other runs
+    parser = evl.build_parser()
+    cli_replans = parser.get_default("n_replans")
+    cli_steps = cli_replans * parser.get_default("action_horizon")
+    cli_eph = LEARNED_ENVS * 3.6e6 / (cli_replans * tm["ms_per_replan"])
     out["evaluator"] = {
         "argv": argv, "result": {k: v for k, v in result.items()
                                  if k != "timing"},
         "timing": tm, "run_s": run_s,
+        "episodes_per_hour_cli_episode": cli_eph,
         "audited_ops": [a.ops for a in audits], "launches": counts,
         "graph_equals_host_driven": same}
     log(f"learned evaluator (Hopper, {LEARNED_ENVS} envs, {LEARNED_REPLANS} "
@@ -2736,7 +2744,8 @@ def learned_phase(ckpt: Path, root: Path, card: str) -> dict:
         f"steps {tm['ms_per_env_step'] * 8:.3f}; CUDA events, graph "
         f"replays), simulator fit {tm['ms_per_sim_train_step']:.3f} ms a "
         f"step, {tm['episodes_per_hour']:.1f} episodes/hour "
-        f"({result['env_steps_per_episode']}-step episodes), peak memory "
+        f"({result['env_steps_per_episode']}-step episodes; "
+        f"{cli_eph:.1f} at the CLI's {cli_steps}-step episode), peak memory "
         f"{tm['peak_memory_mib']:.1f} MiB; graph replays == host-driven bit "
         f"for bit (two graph calls); {sum(a.ops for a in audits)} ops "
         f"audited, none on the CPU; launches {counts}; card {card}")

@@ -323,15 +323,6 @@ class LocomotionEvaluator:
         return total.mean(), length.mean(), total.clone()
 
 
-class PhysicsLocomotionEvaluator(LocomotionEvaluator):
-    """The evaluator on exact physics (locomotion_jax.py:198-292): a
-    :class:`LocomotionEvaluator` whose simulator is ``env``."""
-
-    def __init__(self, diffusion, env: PlanarGymEnv, **kwargs):
-        self.env = env
-        super().__init__(diffusion, PhysicsSim(env), **kwargs)
-
-
 class _Loop:
     """The fixed buffers of an evaluator's replans and, once captured, their
     two CUDA graphs: the simulator's ``state``, ``totals`` [total, length,
@@ -423,7 +414,8 @@ def _capture(fn):
 
 
 def make_physics_locomotion_evaluator(diffusion, env: PlanarGymEnv,
-                                      **kwargs) -> PhysicsLocomotionEvaluator:
-    """The exact-physics on-device evaluator (locomotion_jax.py:198-292);
-    keyword arguments as :class:`PhysicsLocomotionEvaluator`."""
-    return PhysicsLocomotionEvaluator(diffusion, env, **kwargs)
+                                      **kwargs) -> LocomotionEvaluator:
+    """The exact-physics on-device evaluator (locomotion_jax.py:198-292):
+    a :class:`LocomotionEvaluator` on ``PhysicsSim(env)``, keyword
+    arguments as there."""
+    return LocomotionEvaluator(diffusion, PhysicsSim(env), **kwargs)

@@ -47,25 +47,23 @@ class MPPIPlanner:
     shifted by ``n_exec`` with its last row repeated. Reset an env's mean to
     zeros when it resets.
 
-    On the card, with ``graph`` (the default there), the first replan of a
-    batch size runs from the host and is then captured in a CUDA graph over
-    fixed buffers; later replans copy obs, mean and noise in and replay it.
-    ``replayed`` says whether the last call replayed."""
+    On the card the first replan of a batch size runs from the host and is
+    then captured in a CUDA graph over fixed buffers; later replans copy
+    obs, mean and noise in and replay it. ``replayed`` says whether the
+    last call replayed."""
 
     def __init__(self, step_fn: Callable, reward_done: Callable, *,
                  act_dim: int, horizon: int = 20, n_samples: int = 256,
                  lam: float = 0.3, sigma: float = 0.4, n_exec: int = 1,
                  noise_beta: float = 0.0, smooth_weight: float = 0.0,
-                 device="cuda", graph: Optional[bool] = None):
+                 device="cuda"):
         self.step_fn, self.reward_done = step_fn, reward_done
         self.act_dim, self.horizon, self.n_samples = act_dim, horizon, \
             n_samples
         self.lam, self.sigma, self.n_exec = lam, sigma, n_exec
         self.noise_beta, self.smooth_weight = noise_beta, smooth_weight
         self.device = torch.device(device)
-        self.graph = self.device.type == "cuda" if graph is None else graph
-        if self.graph and self.device.type != "cuda":
-            raise ValueError("CUDA graphs need the card")
+        self.graph = self.device.type == "cuda"
         self.replayed = False
         self._graphs = {}   # B -> (graph, inputs, outputs)
 
@@ -136,20 +134,8 @@ class MPPIPlanner:
         return graph, inputs, outputs
 
 
-def make_mppi_planner(step_fn: Callable, reward_done: Callable, *,
-                      act_dim: int, horizon: int = 20, n_samples: int = 256,
-                      lam: float = 0.3, sigma: float = 0.4, n_exec: int = 1,
-                      noise_beta: float = 0.0, smooth_weight: float = 0.0,
-                      device="cuda", graph: Optional[bool] = None
-                      ) -> MPPIPlanner:
-    """The batched MPPI planner over ``step_fn(obs, act) -> next_obs`` and
-    ``reward_done(obs, next_obs, act) -> (reward, done)`` (mppi_tpu.py:
-    34-143); arguments as :class:`MPPIPlanner`."""
-    return MPPIPlanner(step_fn, reward_done, act_dim=act_dim,
-                       horizon=horizon, n_samples=n_samples, lam=lam,
-                       sigma=sigma, n_exec=n_exec, noise_beta=noise_beta,
-                       smooth_weight=smooth_weight, device=device,
-                       graph=graph)
+# the JAX package's name for the planner's factory (mppi_tpu.py:34)
+make_mppi_planner = MPPIPlanner
 
 
 def make_sim_step_fn(model, stats):

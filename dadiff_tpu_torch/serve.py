@@ -87,7 +87,14 @@ def make_handler(policy):
             policy.action_buffer.clear()
             policy._fill_action_buffer(traj)
             policy._actions_taken += 1
+            if policy._planned_obs:
+                policy._planned_obs.pop(0)
             action = policy.action_buffer.pop(0)
+            if policy.track_planned_states:
+                # the buffer holds planned next states: u = g(s, s_next),
+                # as get_action takes it
+                action = policy.inverse_dynamics(
+                    policy._process_observation(obs), action[None])
             resp = {"plan": np.asarray(traj)[0].tolist()}
         else:
             action = policy.get_action(obs)

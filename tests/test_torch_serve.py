@@ -99,6 +99,39 @@ def test_serve_handler_on_cpu(checkpoint, extra):
     assert "error" in handle({"bogus": 1})
 
 
+@pytest.mark.parametrize("source", ["plan", "inverse-dynamics", "track"])
+def test_serve_handler_action_source(checkpoint, monkeypatch, source):
+    """Every ``--action-source`` answers a plan request and a plain obs
+    request with an action of the action width. With an inverse model (cut
+    to 5 steps of a (16, 16) MLP here) the plan request's action is
+    ``g(obs, planned next state)``: under ``track`` the buffer holds planned
+    states, which the handler turns into an action as ``get_action`` does.
+    The planned rows kept for the deviation check stay aligned with the
+    buffer."""
+    from dadiff_tpu_torch.envs import learned_model
+
+    real = learned_model.train_inverse_dynamics
+    monkeypatch.setattr(
+        learned_model, "train_inverse_dynamics",
+        lambda episodes, **kw: real(episodes,
+                                    **dict(kw, n_steps=5, hidden=(16, 16))))
+    policy = _policy(checkpoint[0], ("--action-source", source))
+    assert (policy.inverse_dynamics is None) == (source == "plan")
+    handle = make_handler(policy)
+    obs = np.asarray([0.5, -0.5, 0.0, 0.1, 1.0, 1.0], np.float32)
+    r = handle({"obs": obs.tolist(), "plan": True})
+    act = np.asarray(r["action"])
+    assert act.shape == (ACT,) and np.isfinite(act).all()
+    assert len(policy._planned_obs) == len(policy.action_buffer)
+    if source != "plan":
+        plan = np.asarray(r["plan"], np.float32)
+        nxt = policy.normalizer.unnormalize_observations(plan[1:2, :OBS])
+        want = np.ravel(policy.inverse_dynamics(obs[None], nxt))
+        np.testing.assert_allclose(act, want, rtol=1e-5, atol=1e-5)
+    act = np.asarray(handle({"obs": obs.tolist()})["action"])
+    assert act.shape == (ACT,) and np.isfinite(act).all()
+
+
 def test_serve_tcp_roundtrip(checkpoint):
     policy = _policy(checkpoint[0], ("--megakernel",))
     ready = threading.Event()
