@@ -78,7 +78,17 @@
    512)) replayed from its CUDA graph, against the CPU on the same noise.
    At the 1,024-chain wave's shapes it also times the U-Net's final conv
    alone beside cuDNN's.
-10. Prints the card, the kernel table as one JSON line, and as the last
+10. Drives the second model family (``transformer_phase``): ``train_main
+   --model-type transformer`` at the JAX recipe's width (dim 256, depth 6,
+   8 heads) for a few steps of batch 256, its forward on the card against
+   the CPU at 8 and 1,024 chains with its bound, ``serve.main`` on its
+   ``.pt`` (best of 8 through the module path; ``--megakernel`` refused),
+   ``eval_ondevice`` at 128 envs x best of 8, cold and warm (K=40), cut
+   to a few replans; Picard sampling at tol 0 against the sequential
+   chain, and ``dadiff_tpu_torch.bench_picard``; ``distill --method
+   progressive`` from the U-Net checkpoint and a DDIM-25 plan of its
+   student against the CPU. No port kernel launches on these paths.
+11. Prints the card, the kernel table as one JSON line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
@@ -2827,6 +2837,374 @@ def learned_phase(ckpt: Path, root: Path, card: str) -> dict:
     return out
 
 
+# the second model family: the JAX recipe's width
+# (scripts/r3_session_chain.sh:22-27) on the UMaze data, whose transitions
+# are 8 wide: 7,893,512 parameters (7,892,486 at 6 wide)
+TT_DIM, TT_DEPTH, TT_HEADS, TT_BATCH, TT_STEPS = 256, 6, 8, 256, 100
+TT_PARAMS = 7_893_512
+TT_REPLANS = 3       # the protocol's 20 replans cut to 3
+TOL_TT_FWD = 1e-5    # f32 products summed in another order, of (1 + |x|)
+TOL_PICARD = 1e-4    # tests/test_parallel_sampling.py:42
+PD_TARGET, PD_STEPS, PD_BATCH = 25, 5, 64
+
+
+def transformer_cost(model, chains: int, horizon: int):
+    """(FLOPs, bytes) of one TemporalTransformer forward on ``chains``
+    chains of ``horizon`` rows: per token and block 12 dim^2 products
+    (q, k, v, out: 4 dim^2; the MLP 2 mlp_ratio dim^2) and 2 horizon dim
+    for the attention; in_proj and out_proj per token; the time MLP and the
+    adaLN projections per chain. Bytes: the weights, x, t and the output
+    once each."""
+    dim, tdim, D = model.dim, model.time_dim, model.transition_dim
+    tokens = chains * horizon
+    per_token = model.depth * (4 * dim * dim + 2 * model.mlp_ratio * dim * dim
+                               + 2 * horizon * dim) + 2 * D * dim
+    per_chain = (dim * 4 * tdim + 4 * tdim * tdim
+                 + model.depth * tdim * 6 * dim + tdim * 2 * dim)
+    flops = 2.0 * (tokens * per_token + chains * per_chain)
+    nbytes = 4 * sum(p.numel() for p in model.parameters()) \
+        + 4 * (2 * tokens * D + chains)
+    return flops, nbytes
+
+
+def transformer_phase(unet_ckpt: Path, root: Path, results_dir: Path,
+                      card: str) -> dict:
+    """The second model family, Picard and progressive distillation on the
+    card, through their entry points, each path with the counters set to 0
+    before and read after (K1-K4 must read 0: the JAX package runs these
+    through XLA, and the planner chain takes a U-Net only):
+    ``train_main --model-type transformer`` at the recipe's width for
+    TT_STEPS steps of batch TT_BATCH (the loss must fall; the step timed
+    with CUDA events; the parameter count from the code); its forward on
+    the card against the CPU at 8 and 1,024 chains, timed, beside its
+    bound; ``serve.main`` on the ``.pt`` (dynamics-aware best of 8, the
+    module path) over TCP, a best-of-8 plan held against the CPU on the same
+    draws, and ``--megakernel`` refused; ``eval_ondevice`` at the published
+    protocol's 128 envs x best of 8, cut to TT_REPLANS replans, cold and
+    with ``--warm-start-t 40``; ``parallel_sample_loop`` at tol 0 against
+    ``p_sample_loop`` on the same draws, and ``bench_picard``; ``distill
+    --method progressive --target-steps PD_TARGET`` from the U-Net
+    checkpoint (two rounds of PD_STEPS steps) and a DDIM-25 best-of-8 plan
+    of its student against the CPU."""
+    import numpy as np
+    from dadiff_tpu_torch import bench_picard, eval_ondevice, serve
+    from dadiff_tpu_torch.cli import (
+        build_policy_from_args, distill_main, load_model, train_main,
+    )
+    from dadiff_tpu_torch.datasets.sequence import create_dataloader
+    from dadiff_tpu_torch.datasets.sources import load_episodes
+    from dadiff_tpu_torch.envs import rollout
+    from dadiff_tpu_torch.guides.sampling import (
+        conditions_for_initial_obs, make_sampler,
+    )
+    from dadiff_tpu_torch.losses import build_loss, make_generators
+    from dadiff_tpu_torch.models.parallel_sampling import parallel_sample_loop
+    from dadiff_tpu_torch.models.temporal_transformer import (
+        TemporalTransformer,
+    )
+    from dadiff_tpu_torch.serve import build_server_parser
+    from dadiff_tpu_torch.utils import training as tt
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    # -- train at the recipe's width
+    reset_counts()
+    t0 = time.perf_counter()
+    log_dir = Path(train_main([
+        "--dataset", DATASET, "--model-type", "transformer", "--dim",
+        str(TT_DIM), "--depth", str(TT_DEPTH), "--n-heads", str(TT_HEADS),
+        "--horizon", str(HORIZON), "--n-timesteps", str(T_STEPS),
+        "--batch-size", str(TT_BATCH), "--lr", "2e-4", "--n-epochs", "3",
+        "--max-steps", str(TT_STEPS), "--warmup-steps", "10", "--log-freq",
+        str(LOG_FREQ), "--eval-freq", "0", "--save-freq", "0", "--seed",
+        str(SEED), "--log-dir", str(root / "transformer")]))
+    train_s = time.perf_counter() - t0
+    record = json.loads((log_dir / "metrics.jsonl").read_text()
+                        .splitlines()[-1])
+    series = [v for line in (log_dir / "metrics.jsonl").read_text()
+              .splitlines() for v in json.loads(line)["total_series"]]
+    require(record["step"] == TT_STEPS and all(v == v and abs(v) < 1e6
+                                               for v in series),
+            f"transformer trained {record['step']} steps, finite: {series}")
+    first, last = sum(series[:3]) / 3, sum(series[-3:]) / 3
+    require(last < first, f"transformer loss fell ({first} -> {last})")
+    ckpt = log_dir / f"checkpoint_step_{TT_STEPS}.pt"
+    diff, dataset = load_model(str(ckpt), DATASET, device="cuda")
+    require(isinstance(diff.model, TemporalTransformer)
+            and diff.model.depth == TT_DEPTH, "load_model rebuilt it")
+    n_params = sum(p.numel() for p in diff.model.parameters())
+    require(n_params == TT_PARAMS, f"{n_params} parameters, not {TT_PARAMS}")
+    # the step alone: loss, grad, clip, Adam, EMA at batch TT_BATCH
+    tdiff, _ = load_model(str(ckpt), DATASET, device="cuda")
+    tdiff.train()
+    loss_fn, names = build_loss(tdiff)
+    state = tt.TrainState(tdiff, tt.make_optimizer(tdiff.parameters()),
+                          tt.EMA(tdiff).shadow)
+    step = tt.make_train_step(
+        loss_fn, lr_schedule=tt.warmup_cosine_schedule(2e-4, 10, 10000),
+        gradient_clip=4.0)
+    gens = make_generators(len(names), SEED, "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
+        create_dataloader(dataset, TT_BATCH, seed=SEED))).items()}
+    step_ms = cuda_ms(lambda: step(state, batch, gens), 20, warmup=3)
+    step_flops = 3 * transformer_cost(diff.model, TT_BATCH, HORIZON)[0]
+    del state, step, tdiff
+    out["train"] = {"steps": TT_STEPS, "batch": TT_BATCH, "wall_s": train_s,
+                    "loss_first": first, "loss_last": last,
+                    "step_ms": step_ms, "parameters": n_params,
+                    "step_bound_ms": step_flops / F32_FLOPS * 1e3}
+    log(f"transformer train: {TT_STEPS} steps of batch {TT_BATCH} in "
+        f"{train_s:.1f} s (set-up included); loss {first:.4f} -> "
+        f"{last:.4f}; a step {step_ms:.3f} ms (CUDA events, 20 steps; "
+        f"~3x the forward's FLOPs at the f32 peak: "
+        f"{out['train']['step_bound_ms']:.3f} ms); {n_params:,} parameters; "
+        f"card {card}")
+
+    # -- the forward on the card against the CPU, timed, with its bound
+    cpu_diff, _ = load_model(str(ckpt), DATASET, device="cpu")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    H, D = diff.horizon, diff.transition_dim
+    out["forward"] = {}
+    for chains in (N_CAND, EVAL_CHAINS):
+        x = torch.randn(chains, H, D, device="cuda", generator=g)
+        t = torch.randint(0, T_STEPS, (chains,), device="cuda", generator=g)
+        with torch.no_grad():
+            got = diff(x, t)
+            want = cpu_diff(x.cpu(), t.cpu())
+            ms = cuda_ms(lambda: diff(x, t), 10, warmup=2)
+        err = _rel_err(got, want)
+        flops, nbytes = transformer_cost(diff.model, chains, H)
+        bound, by = bound_ms(flops, nbytes, F32_FLOPS)
+        require(err <= TOL_TT_FWD and bool(torch.isfinite(got).all()),
+                f"transformer forward at {chains} chains vs CPU: {err}")
+        out["forward"][chains] = {"ms": ms, "max_rel_err": err,
+                                  "gflop": flops / 1e9, "bound_ms": bound,
+                                  "bound_by": by}
+        log(f"transformer forward at {chains} x {H} rows: {ms:.3f} ms (CUDA "
+            f"events, f32, TF32 off), bound {bound:.3f} ms ({by}; "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); card vs CPU "
+            f"{err:.2e} of (1 + |x|) (tolerance {TOL_TT_FWD}); card {card}")
+    launches = {"train": read_counts()}
+
+    # -- serving through the module path, and a bo8 plan against the CPU
+    reset_counts()
+    port = free_port()
+    flags = ["--checkpoint", str(ckpt), "--env", ENV, "--dataset", DATASET,
+             "--policy-type", "dynamics-aware", "--n-candidates",
+             str(N_CAND)]
+    failure = []
+
+    def run():
+        try:
+            serve.main(flags + ["--port", str(port), "--max-requests",
+                                str(N_PLANS + 3)])
+        except BaseException as e:  # reported by the main thread too
+            failure.append(e)
+            raise
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    eps_rows = [np.asarray(ep["observations"][0], np.float32) for ep in
+                load_episodes(DATASET)[:N_PLANS]]
+    plan_ms = []
+    with _connect(port, 300, failure) as conn, conn.makefile("rwb") as f:
+        require(_ask(f, {"ping": True}).get("ok"), "transformer ping")
+        for o in eps_rows:
+            r = _ask(f, {"obs": o.tolist(), "plan": True})
+            require("error" not in r and np.asarray(r["plan"]).shape
+                    == (H, D) and np.isfinite(r["plan"]).all(),
+                    f"transformer plan request: {r.get('error')}")
+            plan_ms.append(r["plan_ms"])
+        require(len(_ask(f, {"obs": eps_rows[0].tolist()})["action"]) == 2,
+                "transformer action")
+        require(_ask(f, {"reset": True}) == {"ok": True}, "reset")
+    th.join(timeout=120)
+    require(not th.is_alive() and not failure,
+            f"transformer server did not stop {failure}")
+    args = build_server_parser().parse_args(flags)
+    policy = build_policy_from_args(args, diff, dataset, DATASET, T_STEPS)
+    spec, P, stats = (policy._sampler_config["projection"], policy._P,
+                      policy._stats)
+    P_cpu, stats_cpu = P.cpu(), type(stats)(*(v.cpu() for v in stats))
+    obs = (torch.randn(1, diff.observation_dim, device="cuda", generator=g)
+           * 0.5).repeat(N_CAND, 1)
+    cond = conditions_for_initial_obs(obs, diff.observation_dim, H, D)
+    cond_cpu = type(cond)(cond.values.cpu(), cond.mask.cpu())
+    draws = {"init_noise": torch.randn(N_CAND, H, D, device="cuda",
+                                       generator=g),
+             "step_noise": torch.randn(T_STEPS, N_CAND, H, D, device="cuda",
+                                       generator=g)}
+    got = make_sampler(diff, projection=spec)(None, cond, P, stats, **draws)
+    want = make_sampler(cpu_diff, projection=spec)(
+        None, cond_cpu, P_cpu, stats_cpu,
+        **{k: v.cpu() for k, v in draws.items()})
+    plan_err = (got.cpu() - want).abs().max().item()
+    require(plan_err <= TOL_CHAIN_F32 and bool(torch.isfinite(got).all()),
+            f"transformer bo8 plan on the card vs the CPU: {plan_err}")
+    args_mk = build_server_parser().parse_args(flags + ["--megakernel"])
+    require(refused(lambda: build_policy_from_args(
+        args_mk, diff, dataset, DATASET, T_STEPS), ValueError, "module path"),
+        "--megakernel refuses the transformer")
+    launches["serving"] = read_counts()
+    out["serving"] = {"plan_ms": plan_ms, "bo8_plan_max_abs_err": plan_err}
+    log(f"transformer serving (module path, bo8): plan_ms {plan_ms}; a bo8 "
+        f"plan on the card vs the CPU {plan_err:.2e} (tolerance "
+        f"{TOL_CHAIN_F32}); --megakernel refused; card {card}")
+
+    # -- the on-device protocol, cut to TT_REPLANS replans; cold and warm
+    reset_counts()
+    out["eval_ondevice"] = {}
+    for name, extra in (("bo8", []), ("warm40", ["--warm-start-t", "40"])):
+        spans, audits = [], []
+        original = _timed_samplers(rollout, spans)
+        make_eval = rollout.make_ondevice_evaluator
+
+        def audited_evaluator(*a, **kw):
+            evaluate = make_eval(*a, **kw)
+
+            def run_audited(*ea, **ekw):
+                if audits:  # the timed run: no dispatch hook in its time
+                    return evaluate(*ea, **ekw)
+                audits.append(_DeviceAudit())
+                with audits[-1]:
+                    return evaluate(*ea, **ekw)
+
+            run_audited.model_calls = evaluate.model_calls
+            return run_audited
+
+        rollout.make_ondevice_evaluator = audited_evaluator
+        try:
+            res = eval_ondevice.main([
+                "--checkpoint", str(ckpt), "--dataset", DATASET,
+                "--projection", "--n-candidates", str(N_CAND), "--batch",
+                str(EVAL_ENVS), "--n-replans", str(TT_REPLANS),
+                "--action-horizon", str(EVAL_ACTIONS), "--seed",
+                str(EVAL_SEED), "--results-dir", str(results_dir), *extra])
+        finally:
+            rollout.make_sampler = original
+            rollout.make_ondevice_evaluator = make_eval
+        torch.cuda.synchronize()
+        require(Path(res["results_path"]).is_file(),
+                f"transformer eval {name}: results file written")
+        require(len(spans) == 2 * TT_REPLANS and len(audits) == 1,
+                f"transformer eval {name}: {len(spans)} planner calls")
+        timed = [a.elapsed_time(b) for a, b in spans[TT_REPLANS:]]
+        calls = res["model_calls_per_replan"]
+        per_call = [ms / c for ms, c in zip(
+            timed, [calls[0]] + [calls[1]] * (TT_REPLANS - 1))]
+        audit = audits[0]  # the untimed run, set-up included
+        cpu_share = sum(audit.cpu_ops.values()) / max(audit.ops, 1)
+        require(audit.ops > 0 and cpu_share < 0.01,
+                f"transformer eval {name}: the loop on the card "
+                f"({audit.ops} ops, on the CPU {audit.cpu_ops})")
+        out["eval_ondevice"][name] = {
+            "success_rate": res["success_rate"],
+            "wallclock_s": res["wallclock_s"],
+            "replan_ms": timed, "model_call_ms": per_call,
+            "model_calls_per_replan": calls,
+            "planner_share": sum(timed) / 1e3 / res["wallclock_s"],
+            "audited_ops": audit.ops, "cpu_ops": audit.cpu_ops}
+        log(f"transformer eval_ondevice {name}: {EVAL_ENVS} envs x bo8 "
+            f"({EVAL_CHAINS} chains a replan), {TT_REPLANS} replans (cut "
+            f"from {EVAL_REPLANS}); model calls {calls}; replan ms "
+            f"{[round(v, 3) for v in timed]} (CUDA events), per model call "
+            f"{[round(v, 3) for v in per_call]} ms; timed run "
+            f"{res['wallclock_s']:.3f} s; success {res['success_rate']} "
+            f"(not gated); {audit.ops} ops of the untimed run audited, "
+            f"{sum(audit.cpu_ops.values())} on the CPU; card {card}")
+    require(out["eval_ondevice"]["warm40"]["model_calls_per_replan"]
+            == [T_STEPS, 40], "warm start: 100 calls, then 40")
+    require(refused(lambda: eval_ondevice.main([
+        "--checkpoint", str(ckpt), "--dataset", DATASET, "--megakernel",
+        "--results-dir", ""]), ValueError, "module path"),
+        "eval_ondevice --megakernel refuses the transformer")
+    launches["evaluation"] = read_counts()
+
+    # -- Picard: exact at tol 0 (window T), then the bench
+    reset_counts()
+    shape = (2, H, D)
+    init = torch.randn(shape, device="cuda", generator=g)
+    noise = torch.randn((T_STEPS,) + shape, device="cuda", generator=g)
+    seq = diff.p_sample_loop(shape, init_noise=init, step_noise=noise)
+    par, sweeps = parallel_sample_loop(
+        diff, diff.schedule, shape, window=T_STEPS, tol=0.0,
+        init_noise=init, step_noise=noise, return_sweeps=True,
+        device="cuda")
+    pic_err = (par - seq).abs().max().item()
+    require(pic_err <= TOL_PICARD and sweeps == 2 * T_STEPS,
+            f"Picard at tol 0 vs the sequential chain: {pic_err}, {sweeps}")
+    pic25, sweeps25 = parallel_sample_loop(
+        diff, diff.schedule, shape, window=25, tol=1e-2, init_noise=init,
+        step_noise=noise, return_sweeps=True, device="cuda")
+    bench = bench_picard.main(["--out", str(root / "picard_crossover.json")])
+    launches["picard"] = read_counts()
+    out["picard"] = {"tol0_max_abs_err": pic_err, "tol0_sweeps": sweeps,
+                     "transformer_tol1e-2_sweeps": sweeps25,
+                     "transformer_tol1e-2_max_abs_diff":
+                         (pic25 - seq).abs().max().item(),
+                     "bench": bench["rows"]}
+    log(f"Picard: the transformer at tol 0 (window {T_STEPS}, {sweeps} "
+        f"sweeps) vs p_sample_loop {pic_err:.2e} (tolerance {TOL_PICARD}); "
+        f"at tol 1e-2, window 25: {sweeps25} sweeps, "
+        f"{out['picard']['transformer_tol1e-2_max_abs_diff']:.2e} from the "
+        f"chain; bench_picard {json.dumps([{k: r[k] for k in ('dim', 'sequential_chain_ms', 'picard_chain_ms', 'sweeps', 'picard_speedup')} for r in bench['rows']])}; "
+        f"card {card}")
+
+    # -- progressive distillation from the U-Net, and its DDIM-25 student
+    reset_counts()
+    t0 = time.perf_counter()
+    pd_dir = Path(distill_main([
+        "--checkpoint", str(unet_ckpt), "--dataset", DATASET, "--method",
+        "progressive", "--target-steps", str(PD_TARGET), "--n-epochs", "1",
+        "--max-steps", str(PD_STEPS), "--batch-size", str(PD_BATCH),
+        "--warmup-steps", "0", "--log-freq", "1", "--save-freq", "0",
+        "--seed", str(SEED), "--log-dir", str(root / "progressive")]))
+    pd_s = time.perf_counter() - t0
+    rounds = sorted(p.name for p in pd_dir.iterdir() if p.is_dir())
+    require(rounds == ["round_0_steps50", "round_1_steps25"],
+            f"progressive rounds {rounds}")
+    student_pt = pd_dir / "round_1_steps25" / f"checkpoint_step_{PD_STEPS}.pt"
+    require(student_pt.is_file(), f"{student_pt} written")
+    student, sdata = load_model(str(student_pt), DATASET, device="cuda")
+    require(sdata.checkpoint_config.get("progressive_steps") == PD_TARGET,
+            "the student's checkpoint records progressive_steps")
+    cpu_student, _ = load_model(str(student_pt), DATASET, device="cpu")
+    plan = make_sampler(student, projection=spec, sampler="ddim",
+                        sampling_timesteps=PD_TARGET)
+    d25 = {"init_noise": draws["init_noise"],
+           "step_noise": draws["step_noise"][:len(plan.timesteps)]}
+    got = plan(None, cond, P, stats, **d25)
+    want = make_sampler(cpu_student, projection=spec, sampler="ddim",
+                        sampling_timesteps=PD_TARGET)(
+        None, cond_cpu, P_cpu, stats_cpu, **{k: v.cpu() for k, v in
+                                             d25.items()})
+    pd_err = (got.cpu() - want).abs().max().item()
+    require(len(plan.timesteps) == PD_TARGET and pd_err <= TOL_CHAIN_F32
+            and bool(torch.isfinite(got).all()),
+            f"the DDIM-{PD_TARGET} student plan vs the CPU: {pd_err}")
+    pd_ms = cuda_ms(lambda: plan(None, cond, P, stats, **d25), 3, warmup=1)
+    launches["progressive"] = read_counts()
+    out["progressive"] = {"rounds": rounds, "steps_per_round": PD_STEPS,
+                          "batch": PD_BATCH, "wall_s": pd_s,
+                          "ddim25_bo8_ms": pd_ms,
+                          "ddim25_bo8_max_abs_err": pd_err}
+    log(f"progressive: rounds {rounds} ({PD_STEPS} steps of batch "
+        f"{PD_BATCH} each) in {pd_s:.1f} s; the student's DDIM-{PD_TARGET} "
+        f"bo8 plan {pd_ms:.3f} ms (CUDA events), card vs CPU {pd_err:.2e} "
+        f"(tolerance {TOL_CHAIN_F32}); card {card}")
+
+    for path, counts in launches.items():
+        require(not any(counts.values()),
+                f"a port kernel launched on the transformer's {path} path: "
+                f"{counts}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"transformer_phase: K1-K4 launches {launches}; "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def host_eval_phase(ckpt: Path, results_dir: Path) -> dict:
     """The host evaluator (``python -m dadiff_tpu_torch.evaluate``) in
     lockstep through the planner chain, where gymnasium and
@@ -3048,6 +3426,9 @@ def main() -> int:
     learned = learned_phase(locomotion["checkpoint"], ROOT / "build"
                             / "dadiff_tpu_torch" / "smoke", card)
     log(f"learned_phase: {json.dumps(learned)}")
+    transformer = transformer_phase(ckpt, ROOT / "build" / "dadiff_tpu_torch"
+                                    / "smoke", results_dir, card)
+    log(f"transformer_phase: {json.dumps(transformer)}")
 
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
@@ -3093,6 +3474,13 @@ def main() -> int:
         kernels[-1]["launches_learned"] = \
             learned["evaluator"]["launches"][name]
         kernels[-1]["launches_mppi"] = learned["mppi"]["launches"][name]
+        # the transformer (train, serve, evaluate), Picard and progressive
+        # distillation run the module path: none
+        tt_counts = transformer["launches"]
+        kernels[-1]["launches_transformer"] = sum(
+            tt_counts[p][name] for p in ("train", "serving", "evaluation"))
+        kernels[-1]["launches_picard"] = tt_counts["picard"][name]
+        kernels[-1]["launches_progressive"] = tt_counts["progressive"][name]
         if name in evaluation:
             # the evaluation path's count (its untimed and timed runs)
             kernels[-1]["launches_evaluation"] = evaluation[name]

@@ -1,20 +1,20 @@
-"""Command-line pieces: training, consistency distillation, and the
-planning path's flags, model loading and policy construction.
+"""Command-line pieces: training, distillation, and the planning path's
+flags, model loading and policy construction.
 
 Counterpart of the JAX package's cli.py: build_train_parser :57 and train_main
-:147 (the U-Net family and the flagship flags, fine-tune and resume
-included; ``--model-type transformer``, ``--mesh-dp``, ``--config`` and
-``--dtype`` are not ported), distill_main :509 (the consistency method;
-``--method progressive`` is not ported), train_value_main :358 and
-load_value_checkpoint :463 (a ``.pt`` with the JAX checkpoint's config
-keys; orbax is JAX-only), build_eval_parser :695 (its flags, defaults and
-choices, ``--policy-type`` defaulting to mpc; ``--action-source`` and
-``--video-dir`` are not ported and refused by argparse),
-maze_grid_for_env :810, _apply_stored_normalizer :821, load_model :854 (the
-``.pt`` branch, EMA weights and the checkpoint's config included),
+:147 (both model families, the U-Net and the transformer of
+``--model-type``, and the flagship flags, fine-tune and resume included;
+``--mesh-dp``, ``--config`` and ``--dtype`` are not ported), distill_main
+:509 (``--method consistency`` and ``--method progressive``),
+train_value_main :358 and load_value_checkpoint :463 (a ``.pt`` with the
+JAX checkpoint's config keys; orbax is JAX-only), build_eval_parser :695
+(its flags, defaults and choices, ``--policy-type`` defaulting to mpc;
+``--video-dir`` is not ported and refused by argparse), maze_grid_for_env
+:810, _apply_stored_normalizer :821, load_model :854 (the ``.pt`` branch
+of either family, EMA weights and the checkpoint's config included),
 build_policy_from_args :1002 (every policy type, the scorers and
-``--megakernel``) and evaluate_main :1162. Everything runs on the card
-unless ``--device cpu`` is given.
+``--megakernel``, which takes a U-Net only) and evaluate_main :1162.
+Everything runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -45,9 +45,17 @@ def build_train_parser() -> argparse.ArgumentParser:
                    choices=["LimitsNormalizer", "GaussianNormalizer"])
     p.add_argument("--max-path-length", type=int, default=1000)
     # Model
+    p.add_argument("--model-type", type=str, default="unet",
+                   choices=["unet", "transformer"],
+                   help="denoiser family: conv U-Net (reference parity) or "
+                        "DiT-style temporal transformer")
     p.add_argument("--dim", type=int, default=128)
     p.add_argument("--dim-mults", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--kernel-size", type=int, default=5)
+    p.add_argument("--depth", type=int, default=4,
+                   help="transformer blocks (model-type=transformer)")
+    p.add_argument("--n-heads", type=int, default=4,
+                   help="attention heads (model-type=transformer)")
     p.add_argument("--n-timesteps", type=int, default=200)
     p.add_argument("--beta-schedule", type=str, default="cosine",
                    choices=["linear", "cosine"])
@@ -101,9 +109,26 @@ def build_train_parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_denoiser(model_type: str, transition_dim: int, *, dim: int,
+                   dim_mults=(1, 2, 4), kernel_size: int = 5, depth: int = 4,
+                   n_heads: int = 4, mlp_ratio: int = 4):
+    """The denoiser of ``--model-type`` (cli.py:224-244 and :947-962)."""
+    if model_type == "transformer":
+        from dadiff_tpu_torch.models.temporal_transformer import (
+            TemporalTransformer,
+        )
+
+        return TemporalTransformer(transition_dim, dim=dim, depth=depth,
+                                   n_heads=n_heads, mlp_ratio=mlp_ratio)
+    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
+
+    return TemporalUnet(transition_dim, dim=dim, dim_mults=tuple(dim_mults),
+                        kernel_size=kernel_size)
+
+
 def train_main(argv=None) -> str:
-    """Train or fine-tune a U-Net planner; returns the log directory, which
-    holds the train states, the reference-schema ``.pt`` exports,
+    """Train or fine-tune a planner of either family; returns the log
+    directory, which holds the train states, the ``.pt`` exports,
     ``metrics.jsonl`` and the configs (cli.py:147-350)."""
     from dadiff_tpu_torch.datasets.sequence import (
         SequenceDataset,
@@ -111,7 +136,6 @@ def train_main(argv=None) -> str:
     )
     from dadiff_tpu_torch.losses import build_loss
     from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
-    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
     from dadiff_tpu_torch.utils.training import (
         Trainer,
         count_parameters,
@@ -143,12 +167,15 @@ def train_main(argv=None) -> str:
 
         checkpoint = load_pt_checkpoint(args.checkpoint)
         inferred = infer_model_config_from_checkpoint(checkpoint)
+        args.model_type = inferred["model_type"]
         args.dim, args.dim_mults = inferred["dim"], inferred["dim_mults"]
+        if args.model_type == "transformer":
+            args.depth, args.n_heads = inferred["depth"], inferred["n_heads"]
         args.n_timesteps = inferred["n_timesteps"]
         args.beta_schedule = inferred["beta_schedule"]
         args.horizon = inferred["horizon"]
-        print(f"checkpoint config inferred: dim={args.dim} "
-              f"mults={args.dim_mults} T={args.n_timesteps} "
+        print(f"checkpoint config inferred: {args.model_type} "
+              f"dim={args.dim} mults={args.dim_mults} T={args.n_timesteps} "
               f"horizon={args.horizon}")
 
     dataset = SequenceDataset(
@@ -163,11 +190,12 @@ def train_main(argv=None) -> str:
         # the pretrained weights expect the ORIGINAL dataset's scaling
         _apply_stored_normalizer(dataset, checkpoint.get("config", {}))
 
-    unet = TemporalUnet(
-        transition_dim=dataset.transition_dim, dim=args.dim,
-        dim_mults=tuple(args.dim_mults), kernel_size=args.kernel_size)
+    denoiser = build_denoiser(
+        args.model_type, dataset.transition_dim, dim=args.dim,
+        dim_mults=args.dim_mults, kernel_size=args.kernel_size,
+        depth=args.depth, n_heads=args.n_heads)
     diffusion = GaussianDiffusion(
-        unet, horizon=args.horizon, observation_dim=dataset.observation_dim,
+        denoiser, horizon=args.horizon, observation_dim=dataset.observation_dim,
         action_dim=dataset.action_dim, n_timesteps=args.n_timesteps,
         beta_schedule=args.beta_schedule, loss_type=args.loss_type,
         predict_epsilon=args.predict_epsilon,
@@ -244,8 +272,8 @@ def train_main(argv=None) -> str:
 
 def build_distill_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Consistency-distill a trained diffusion planner",
-        allow_abbrev=False)
+        description="Distill a trained diffusion planner (consistency or "
+                    "progressive)", allow_abbrev=False)
     p.add_argument("--checkpoint", type=str, required=True,
                    help="teacher checkpoint (.pt)")
     p.add_argument("--dataset", type=str, required=True,
@@ -282,17 +310,28 @@ def build_distill_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", type=str, default="consistency",
                    choices=["consistency", "progressive"],
                    help="consistency = 1-4-call CM student "
-                        "(models/consistency.py); progressive is not "
-                        "ported")
+                        "(models/consistency.py); progressive = "
+                        "Salimans-Ho step-halving rounds "
+                        "(models/progressive.py): the student stays a "
+                        "standard eps-model evaluated with --sampler ddim "
+                        "--sampling-timesteps <target-steps>")
+    p.add_argument("--target-steps", type=int, default=6,
+                   help="progressive: final model-call budget (halving "
+                        "rounds T/2 -> ... -> target; --n-epochs applies "
+                        "PER ROUND)")
     return p
 
 
 def distill_main(argv=None) -> str:
-    """Distill a trained DDPM planner into a consistency student that plans
-    in 1-4 model calls (cli.py:509-690, the consistency method). The
-    student starts from the teacher's weights; the trainer's EMA shadow is
-    the CD target network; the checkpoints are the reference ``.pt`` schema
-    with ``consistency: true`` in their config. Returns the log directory."""
+    """Distill a trained DDPM planner (cli.py:509-690). ``--method
+    consistency``: a consistency student that plans in 1-4 model calls; it
+    starts from the teacher's weights, the trainer's EMA shadow is the CD
+    target network, and its checkpoints carry ``consistency: true``.
+    ``--method progressive``: halving rounds down to ``--target-steps``
+    (:600-636), each round's student starting from (and distilling) the
+    previous round's, without EMA, at seed ``seed + r``, in
+    ``round_{r}_steps{S}``; its checkpoints carry ``progressive`` and
+    ``progressive_steps``. Returns the log directory."""
     from dadiff_tpu_torch.datasets.sequence import create_dataloader
     from dadiff_tpu_torch.models.consistency import make_cd_loss
     from dadiff_tpu_torch.utils.training import (
@@ -302,10 +341,6 @@ def distill_main(argv=None) -> str:
     )
 
     args = build_distill_parser().parse_args(argv)
-    if args.method == "progressive":
-        raise NotImplementedError(
-            "progressive distillation is not ported yet (ROADMAP.md, Queue 1 "
-            "item 6: models/progressive.py)")
     device = resolve_device(args.device)
     torch.manual_seed(args.seed)
     np.random.seed(args.seed)
@@ -327,6 +362,8 @@ def distill_main(argv=None) -> str:
     log_dir = Path(args.log_dir) / safe_ds / (args.run_name or args.method)
     log_dir.mkdir(parents=True, exist_ok=True)
     save_config(vars(args), str(log_dir / "config.json"))
+    if args.method == "progressive":
+        return _progressive_rounds(args, diffusion, dataset, loader, log_dir)
 
     # the student trains the loaded module in place: it starts as the
     # teacher, whose weights stay frozen in this copy
@@ -358,6 +395,47 @@ def distill_main(argv=None) -> str:
     finally:
         trainer.close()
     print(f"Distillation complete. Logs: {log_dir}")
+    return str(log_dir)
+
+
+def _progressive_rounds(args, diffusion, dataset, loader, log_dir) -> str:
+    """The halving rounds of ``distill --method progressive``
+    (cli.py:600-636). The loaded module is the student throughout: each
+    round freezes a copy of its weights as that round's teacher and trains
+    it in place."""
+    from dadiff_tpu_torch.models.progressive import (
+        make_pd_loss,
+        pd_round_schedule,
+    )
+    from dadiff_tpu_torch.utils.training import Trainer
+
+    rounds = pd_round_schedule(diffusion.n_timesteps, args.target_steps)
+    print(f"progressive rounds (steps): {rounds}")
+    for r, steps in enumerate(rounds):
+        round_dir = log_dir / f"round_{r}_steps{steps}"
+        round_dir.mkdir(parents=True, exist_ok=True)
+        teacher = {n: p.detach().clone()
+                   for n, p in diffusion.named_parameters()}
+        trainer = Trainer(
+            diffusion, loader, make_pd_loss(diffusion, teacher, steps),
+            lr=args.lr, warmup_steps=args.warmup_steps,
+            total_steps=args.n_epochs * len(loader),
+            gradient_clip=args.gradient_clip, use_ema=False,
+            log_dir=str(round_dir), save_freq=args.save_freq, eval_freq=0,
+            log_freq=args.log_freq, loss_names=["progressive"],
+            seed=args.seed + r, normalizer=dataset.normalizer,
+            extra_config={"progressive": True,
+                          "progressive_steps": int(steps),
+                          "teacher_checkpoint": args.checkpoint})
+        print(f"[pd round {r}] distilling to {steps} steps "
+              f"({args.n_epochs} epochs)...")
+        try:
+            trainer.train(args.n_epochs, max_steps=args.max_steps)
+        finally:
+            trainer.close()
+    print(f"Progressive distillation complete ({rounds[-1]}-step student). "
+          f"Evaluate with --sampler ddim --sampling-timesteps {rounds[-1]}. "
+          f"Logs: {log_dir}")
     return str(log_dir)
 
 
@@ -665,25 +743,27 @@ def load_model(checkpoint_path: str, dataset_spec: str, horizon_hint=None,
 def diffusion_from_checkpoint(checkpoint: dict, observation_dim: int,
                               action_dim: int, horizon: int,
                               use_ema: bool = False):
-    """Rebuild the GaussianDiffusion of a loaded reference-schema checkpoint
-    from its weight shapes and stored flags, and load it with
+    """Rebuild the GaussianDiffusion of a loaded checkpoint (a U-Net, or the
+    transformer its config's ``model_type`` names) from its weight shapes
+    and stored flags, and load it with
     ``strict=True`` (on the CPU): ``ema_state_dict`` if ``use_ema`` and the
     checkpoint has one, else ``model_state_dict`` (cli.py:912)."""
     from dadiff_tpu_torch.io.torch_compat import (
         infer_model_config_from_checkpoint,
     )
     from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
-    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
 
     cfg = infer_model_config_from_checkpoint(checkpoint)
     saved = checkpoint.get("config", {}) or {}
     for key in ("predict_epsilon", "clip_denoised", "prediction"):
         if key in saved:
             cfg[key] = saved[key]
-    unet = TemporalUnet(transition_dim=observation_dim + action_dim,
-                        dim=cfg["dim"], dim_mults=tuple(cfg["dim_mults"]))
+    denoiser = build_denoiser(
+        cfg["model_type"], observation_dim + action_dim, dim=cfg["dim"],
+        dim_mults=cfg["dim_mults"], depth=cfg.get("depth", 4),
+        n_heads=cfg.get("n_heads", 4), mlp_ratio=cfg.get("mlp_ratio", 4))
     diffusion = GaussianDiffusion(
-        unet, horizon=horizon, observation_dim=observation_dim,
+        denoiser, horizon=horizon, observation_dim=observation_dim,
         action_dim=action_dim, n_timesteps=cfg["n_timesteps"],
         beta_schedule=cfg["beta_schedule"],
         predict_epsilon=bool(cfg.get("predict_epsilon", True)),

@@ -76,7 +76,8 @@ def make_ondevice_evaluator(
     at build time; its weights are bf16 on the card and f32 on the CPU, as
     the TPU path takes bf16 and its interpret mode f32. The chain is the
     DDPM sampler: with another ``sampler`` or with warm start it raises, as
-    the JAX evaluator does (rollout.py:84-87).
+    the JAX evaluator does (rollout.py:84-87); it runs a U-Net only, and
+    raises for the transformer (``ops/planner.py`` ``make_bo_sampler``).
 
     ``warm_start_t=K``: the first replan runs the full chain; every later
     one re-noises the previous selected plan, shifted by ``action_horizon``

@@ -9,7 +9,9 @@ ema_state_dict?}`` with the denoiser under ``model.`` and the 12 schedule
 buffers at the top of ``model_state_dict``.
 
 ``params_from_jax`` turns a Flax TemporalUnet parameter tree (as numpy)
-into the port's TemporalUnet state dict, ``value_params_from_jax`` a Flax
+into the port's TemporalUnet state dict, ``transformer_params_from_jax`` a
+Flax TemporalTransformer tree into the port's TemporalTransformer's,
+``value_params_from_jax`` a Flax
 ValueNet tree into the port's ValueNet's; ``block_params_from_jax`` one
 residual block's dict and ``train_state_from_jax`` an optax Adam state and
 EMA tree. Layouts:
@@ -17,6 +19,15 @@ EMA tree. Layouts:
   ConvTranspose1d jax  (k, out, in) -> torch (in, out, k)
   Dense           flax (in, out)    -> torch Linear (out, in)
   GroupNorm       scale/bias        -> weight/bias
+  attention q/k/v flax (in, heads, head_dim) -> torch Linear (out, in)
+  attention out   flax (heads, head_dim, out) -> torch Linear (out, in)
+
+A transformer ``.pt`` is the port's own schema: the JAX trainer writes a
+``.pt`` for U-Nets only and keeps transformers in orbax
+(utils/training.py:420-425), while the port's only format is ``.pt``. It
+holds the module's state dict (``model.*`` and the 12 schedule buffers) and
+the config keys of ``_CONFIG_EXTRAS``, ``model_type: transformer`` among
+them; a checkpoint without ``model_type`` is a U-Net.
 """
 
 from __future__ import annotations
@@ -69,6 +80,39 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     ``TemporalUnet`` state dict, loadable with ``strict=True``."""
     n_levels = sum(1 for k in params if k.startswith("down_") and k.endswith("_res1"))
     return _state_from_table(params, unet_key_mapping(n_levels))
+
+
+def transformer_params_from_jax(params: Dict[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax TemporalTransformer params (nested dicts of numpy arrays) -> the
+    port's ``TemporalTransformer`` state dict, loadable with
+    ``strict=True``."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    def dense(prefix, node):
+        return {f"{prefix}.weight": t(np.asarray(node["kernel"]).T),
+                f"{prefix}.bias": t(node["bias"])}
+
+    state = {"pos_emb": t(params["pos_emb"])}
+    for name in ("time_dense1", "time_dense2", "in_proj", "final_mod",
+                 "out_proj"):
+        state.update(dense(name, params[name]))
+    depth = sum(1 for k in params if k.startswith("block_"))
+    for i in range(depth):
+        blk, pre = params[f"block_{i}"], f"blocks.{i}"
+        for name in ("adaln_mod", "mlp1", "mlp2"):
+            state.update(dense(f"{pre}.{name}", blk[name]))
+        for name in ("query", "key", "value"):
+            k = np.asarray(blk["attn"][name]["kernel"])   # (in, heads, hd)
+            state[f"{pre}.attn.{name}.weight"] = t(
+                k.reshape(k.shape[0], -1).T)
+            state[f"{pre}.attn.{name}.bias"] = t(
+                np.asarray(blk["attn"][name]["bias"]).reshape(-1))
+        k = np.asarray(blk["attn"]["out"]["kernel"])      # (heads, hd, out)
+        state[f"{pre}.attn.out.weight"] = t(k.reshape(-1, k.shape[-1]).T)
+        state[f"{pre}.attn.out.bias"] = t(blk["attn"]["out"]["bias"])
+    return state
 
 
 def value_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -174,11 +218,33 @@ def infer_n_levels(model_state: Dict[str, Any]) -> int:
 
 
 def infer_model_config_from_checkpoint(checkpoint: Dict[str, Any]) -> Dict[str, Any]:
-    """Architecture from weight shapes (torch_compat.py:202-255)."""
+    """Architecture from weight shapes (torch_compat.py:202-255), and the
+    model family from the config's ``model_type`` (a U-Net without it). A
+    transformer's dim, depth and mlp_ratio come from its weights, its
+    n_heads from the config (JAX's default of 4 without it)."""
     state = checkpoint["model_state_dict"]
     saved = checkpoint.get("config", {}) or {}
     n_timesteps = (int(state["betas"].shape[0]) if "betas" in state
                    else int(saved.get("n_timesteps", 200)))
+    common = {
+        "n_timesteps": n_timesteps,
+        "beta_schedule": saved.get("beta_schedule", "cosine"),
+        "horizon": saved.get("horizon", 16),
+        "observation_dim": saved.get("observation_dim"),
+        "action_dim": saved.get("action_dim"),
+    }
+    if saved.get("model_type", "unet") == "transformer":
+        dim = int(state["model.in_proj.weight"].shape[0])
+        return {
+            "model_type": "transformer", "dim": dim, "dim_mults": [],
+            "depth": sum(1 for k in state if k.startswith("model.blocks.")
+                         and k.endswith(".adaln_mod.weight")),
+            "n_heads": int(saved.get("n_heads", 4)),
+            "mlp_ratio": int(state["model.blocks.0.mlp1.weight"].shape[0])
+            // dim,
+            "transition_dim": int(state["model.out_proj.weight"].shape[0]),
+            **common,
+        }
     num_levels = infer_n_levels(state)
     key = "model.downs.0.0.blocks.0.block.0.weight"
     dim = int(state[key].shape[0]) if key in state else 128
@@ -193,20 +259,18 @@ def infer_model_config_from_checkpoint(checkpoint: Dict[str, Any]) -> Dict[str, 
         dim_mults = (1, 2, 4, 8)
     fkey = "model.final_conv.1.weight"
     return {
+        "model_type": "unet",
         "dim": dim,
         "dim_mults": list(dim_mults),
-        "n_timesteps": n_timesteps,
-        "beta_schedule": saved.get("beta_schedule", "cosine"),
-        "horizon": saved.get("horizon", 16),
         "transition_dim": int(state[fkey].shape[0]) if fkey in state else None,
-        "observation_dim": saved.get("observation_dim"),
-        "action_dim": saved.get("action_dim"),
+        **common,
     }
 
 
 _CONFIG_EXTRAS = ("normalizer_name", "normalizer_stats", "predict_epsilon",
                   "clip_denoised", "prediction", "consistency", "sigma_data",
-                  "teacher_checkpoint")
+                  "teacher_checkpoint", "model_type", "dim", "depth",
+                  "n_heads", "mlp_ratio", "progressive", "progressive_steps")
 
 
 def save_pt_checkpoint(path: str, diffusion, config: Dict[str, Any], *,

@@ -910,7 +910,15 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
     B)`` lays B streams' own draws out as the wave of B streams takes them
     (a micro-batched server, serving.py)."""
     from dadiff_tpu_torch.models.diffusion import default_timesteps
+    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
 
+    if not isinstance(diffusion.model, TemporalUnet):
+        # the JAX package builds the wave for any denoiser and fails at its
+        # first plan (pallas_unet.py:137, KeyError: 'mid_block1')
+        raise ValueError(
+            f"--megakernel runs the TemporalUnet's layer program only; a "
+            f"{type(diffusion.model).__name__} plans through the module "
+            f"path (guides/sampling.py): drop --megakernel")
     if diffusion.prediction == "v":
         raise NotImplementedError(
             "the planner chain reads the model output as epsilon or x0; a "
@@ -1058,7 +1066,8 @@ def wire_policy_megakernel(policy, *, n_candidates: int,
     (pallas_planner.py:449-494). Weights are bf16 on the card and f32 on the
     CPU, as the TPU path takes bf16 and its interpret mode f32. The chain is
     the DDPM sampler alone: another sampler, guidance or warm start raises
-    (pallas_planner.py:465-470), never routed quietly to the module path.
+    (pallas_planner.py:465-470), never routed quietly to the module path; so
+    does a denoiser other than the U-Net (``make_bo_sampler``).
     The replan function carries the sampler (``.sampler``) and its prepared
     operands (``.prepared()``), which a micro-batched server shares."""
     cfg = policy._sampler_config

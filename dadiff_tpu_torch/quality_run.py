@@ -3,6 +3,7 @@ README recipe, then evaluate on the on-device protocol and its ablation.
 
     python -m dadiff_tpu_torch.quality_run [--out build/quality/results]
     python -m dadiff_tpu_torch.quality_run --suite hopper --out ...
+    python -m dadiff_tpu_torch.quality_run --suite transformer --out ...
 
 1. ``train_main`` at the flagship flags (horizon 32, dim 128, mults 1 2 4,
    T = 100, 100 epochs of batch 256, lr 2e-4, seed 42) on
@@ -26,6 +27,16 @@ data/hopper_mppi.npz + data/hopper_engine_r5.npz, then
 ``eval_ondevice_locomotion.main`` at that script's on-device protocol
 (:45-48: exact physics, jacobi, 30 envs, 992 replans of one action,
 skip-conditioned, seed 42), untuned.
+
+With ``--suite transformer`` it runs the second model family's cells:
+``train_main`` with the JAX recipe's flags (scripts/r3_session_chain.sh:22-27:
+``--model-type transformer``, dim 256, depth 6, 8 heads, horizon 32, T =
+100, 100 epochs of batch 256, lr 2e-4, seed 42) on
+data/pointmaze_umaze_expert.npz, 3,900 steps as RESULTS.md:1061-1066 trains
+it, then ``eval_ondevice.main`` at the
+published protocol through the module path (the planner chain takes a
+U-Net only): dynamics-aware best of 8, and the same with warm start K=40,
+each at the four seeds.
 
 Prints one JSON line per cell and a summary line with the card's name and
 power limit; writes the results files under ``--out``. Needs a CUDA device.
@@ -77,6 +88,14 @@ FEW_CELLS = {
     "ddim20": (False, ["--sampler", "ddim", "--sampling-timesteps", "20"]),
     "ddpm_warm40": (False, ["--warm-start-t", "40"]),
 }
+# the transformer's cells: scripts/r3_session_chain.sh:22-27's flags on the
+# UMaze data (RESULTS.md:1061-1066), the on-device protocol through the
+# module path
+TT_RECIPE = ["--dataset", DATASET, "--model-type", "transformer", "--dim",
+             "256", "--depth", "6", "--n-heads", "8", "--horizon", "32",
+             "--n-timesteps", "100", "--n-epochs", "100", "--batch-size",
+             "256", "--lr", "2e-4"]
+TT_CELLS = {"projection_bo8": [], "ddpm_warm40": ["--warm-start-t", "40"]}
 CELL_KEYS = ("success_rate", "mean_reward", "mean_final_distance",
              "wallclock_s", "episodes_per_hour", "compile_s")
 # the locomotion cell: scripts/r5_phase3.sh:28-31 and :45-48
@@ -142,12 +161,32 @@ def hopper_suite(args, card: str) -> dict:
     return summary
 
 
+def transformer_suite(args, card: str) -> dict:
+    """The transformer's cells: train by the JAX recipe, then the on-device
+    protocol through the module path, best of 8 and warm start K=40, at
+    each seed."""
+    from dadiff_tpu_torch import eval_ondevice
+
+    summary = train(TT_RECIPE, "transformer", args.train_dir, card)
+    for seed in SEEDS:
+        for cell, flags in TT_CELLS.items():
+            name = f"transformer_{cell}_seed{seed}"
+            out = eval_ondevice.main([
+                "--checkpoint", summary["checkpoint"], *FEW_PROTOCOL, *flags,
+                "--seed", str(seed), "--results-dir",
+                os.path.join(args.out, name)])
+            summary["cells"][name] = {k: out[k] for k in CELL_KEYS} | {
+                "model_calls_per_replan": out["model_calls_per_replan"]}
+            print(json.dumps({name: summary["cells"][name]}), flush=True)
+    return summary
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", type=str, default="build/quality/results")
     p.add_argument("--train-dir", type=str, default="build/quality")
     p.add_argument("--suite", type=str, default="pointmaze",
-                   choices=["pointmaze", "hopper"])
+                   choices=["pointmaze", "hopper", "transformer"])
     args = p.parse_args(argv)
     import torch
 
@@ -161,6 +200,8 @@ def main(argv=None) -> dict:
     print(f"card: {card}", flush=True)
     if args.suite == "hopper":
         return _finish(hopper_suite(args, card), args.out)
+    if args.suite == "transformer":
+        return _finish(transformer_suite(args, card), args.out)
     summary = train(RECIPE, "flagship", args.train_dir, card)
     ckpt = summary["checkpoint"]
     for name, flags in RUNS:

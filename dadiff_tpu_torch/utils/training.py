@@ -342,6 +342,16 @@ class Trainer:
         }
         if d.prediction:
             cfg["prediction"] = d.prediction
+        # the second model family records its type and its own widths, so
+        # that load_model rebuilds it (training.py:380-391)
+        model_type = type(d.model).__name__
+        if model_type != "TemporalUnet":
+            cfg["model_type"] = ("transformer"
+                                 if model_type == "TemporalTransformer"
+                                 else model_type)
+            for key in ("depth", "n_heads", "mlp_ratio"):
+                if hasattr(d.model, key):
+                    cfg[key] = int(getattr(d.model, key))
         if self.normalizer is not None and hasattr(self.normalizer, "as_arrays"):
             cfg["normalizer_name"] = getattr(self.normalizer,
                                              "normalizer_name", "stored")

@@ -181,7 +181,11 @@ def test_port_imports_no_jax():
             "dadiff_tpu_torch.envs.mppi_tpu",
             "dadiff_tpu_torch.surrogate_bound",
             "dadiff_tpu_torch.collect_mppi_tpu",
-            "dadiff_tpu_torch.dagger_relabel"} <= set(names)
+            "dadiff_tpu_torch.dagger_relabel",
+            "dadiff_tpu_torch.models.temporal_transformer",
+            "dadiff_tpu_torch.models.parallel_sampling",
+            "dadiff_tpu_torch.models.progressive",
+            "dadiff_tpu_torch.bench_picard"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
