@@ -88,7 +88,18 @@
    chain, and ``dadiff_tpu_torch.bench_picard``; ``distill --method
    progressive`` from the U-Net checkpoint and a DDIM-25 plan of its
    student against the CPU. No port kernel launches on these paths.
-11. Prints the card, the kernel table as one JSON line, and as the last
+11. Drives the parallelism layer (``parallel_phase``) at world 1: a NCCL
+   process group of one rank and the ('dp',) mesh; DDP steps through
+   ``Trainer(mesh=)`` and FSDP2 steps of the flagship at batch 256 against
+   the Trainer without a mesh, each step timed; ``make_batched_planner``
+   at 1,024 chains against ``make_sampler``; ``make_ondevice_evaluator``
+   under the mesh at 128 envs x best of 8 for 2 replans against the
+   unsharded run, and its refusal of ``use_megakernel``; the tp and sp
+   forwards of the flagship U-Net and of the transformer against their
+   plain forwards. No port kernel launches there. Then two processes on
+   the one card join over gloo and take a DDP step, held against the same
+   step in one process.
+12. Prints the card, the kernel table as one JSON line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
@@ -3205,6 +3216,279 @@ def transformer_phase(unet_ckpt: Path, root: Path, results_dir: Path,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The parallelism layer at world 1 (and a two-rank DDP step over gloo)
+# ---------------------------------------------------------------------------
+
+PAR_BATCH, PAR_STEPS, PAR_LR = 256, 3, 3e-4
+PAR_ENVS, PAR_REPLANS = 128, 2
+# a DDP or FSDP run against the same steps without a mesh: the loss to 1e-5
+# relative (f32 sums, cuDNN's backward may add in another order); a weight
+# whose true gradient is 0 (a conv bias before a one-channel GroupNorm
+# group) takes Adam steps of up to the learning rate on rounding noise, so
+# weights are held to the summed learning rates
+TOL_PAR_LOSS = 1e-5
+TOL_PAR_W = PAR_STEPS * PAR_LR * 1.01
+# the sharded forward at world 1 against the plain one: its GroupNorm sums
+# in another order, its convs pad by hand (another cuDNN algorithm may run)
+TOL_TP_FWD = 1e-4
+
+
+def _par_trainer(ckpt: Path, log_dir: Path, mesh=None, fsdp_axis=None):
+    """The flagship, loaded from the trained ``.pt``, in a Trainer."""
+    from dadiff_tpu_torch.cli import load_model
+    from dadiff_tpu_torch.losses import build_loss
+    from dadiff_tpu_torch.utils.training import Trainer
+
+    diff, dataset = load_model(str(ckpt), DATASET, device="cuda")
+    diff.train()
+    loss_fn, names = build_loss(diff)
+    trainer = Trainer(diff, [None], loss_fn, lr=PAR_LR, warmup_steps=0,
+                      total_steps=10000, log_dir=str(log_dir), save_freq=0,
+                      loss_names=names, seed=SEED, export_pt=False,
+                      mesh=mesh, fsdp_axis=fsdp_axis)
+    return trainer, dataset
+
+
+def _par_run(trainer, batches, mesh):
+    """PAR_STEPS steps on this rank's rows: the losses, the weights after
+    the first step and after the last."""
+    from dadiff_tpu_torch.parallel.mesh import full_state_dict, local_rows
+
+    losses, first = [], None
+    for b in batches:
+        losses.append(trainer.train_step(local_rows(b, mesh))["total"])
+        state = {k: v.detach().clone() for k, v in full_state_dict(
+            trainer.diffusion.state_dict()).items()}
+        first = first or state
+    return losses, first, state
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def _gloo_rank(rank: int, rendezvous: str, ckpt: str, batch_file: str,
+               out_file: str) -> None:
+    """One of two processes on the one card, joined over gloo: a DDP step
+    of the flagship on its rows of the batch."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from dadiff_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=rendezvous, rank=rank,
+                            world_size=2)
+    try:
+        mesh = make_mesh({"dp": 2})
+        trainer, _ = _par_trainer(Path(ckpt), Path(out_file).parent
+                                  / f"gloo{rank}", mesh)
+        batch = {k: v.cuda() for k, v in torch.load(batch_file).items()}
+        losses, state, _ = _par_run(trainer, [batch], mesh)
+        trainer.close()
+        if rank == 0:
+            torch.save({"loss": losses[0],
+                        "state": {k: v.cpu() for k, v in state.items()}},
+                       out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
+    """The parallelism layer (dadiff_tpu_torch/parallel/) on the card at
+    world 1, each path against the same work without a mesh, with the
+    counters set to 0 before and read after (K1-K4 must read 0: the JAX
+    package runs its mesh paths through XLA, and its evaluator refuses the
+    planner kernel under a mesh): a world-1 NCCL process group and the
+    ('dp',) mesh; PAR_STEPS DDP steps through ``Trainer(mesh=)`` and
+    PAR_STEPS FSDP2 steps (``fsdp_axis='dp'``) of the flagship at batch
+    PAR_BATCH against the Trainer without a mesh, and the ms of a step of
+    each; ``make_batched_planner`` at 1,024 chains against ``make_sampler``;
+    ``make_ondevice_evaluator(mesh=)`` at PAR_ENVS envs x best of 8 for
+    PAR_REPLANS replans against the unsharded evaluator, and its refusal of
+    the planner chain; the tp and sp forwards of the flagship U-Net and of
+    the transformer at the recipe's width on a ('dp', 'sp', 'tp') mesh of
+    one rank against their plain forwards. Then two processes on the one
+    card join over gloo and take a DDP step, against the first step of the
+    run without a mesh."""
+    import copy
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from dadiff_tpu_torch.datasets.sequence import create_dataloader
+    from dadiff_tpu_torch.envs.pointmaze_jax import PointMazeJax
+    from dadiff_tpu_torch.envs.rollout import make_ondevice_evaluator
+    from dadiff_tpu_torch.guides.sampling import (
+        conditions_for_initial_obs,
+        make_sampler,
+    )
+    from dadiff_tpu_torch.models.temporal_transformer import (
+        TemporalTransformer,
+    )
+    from dadiff_tpu_torch.ops.projection import NormStats
+    from dadiff_tpu_torch.parallel.distributed import initialize_distributed
+    from dadiff_tpu_torch.parallel.mesh import make_mesh
+    from dadiff_tpu_torch.parallel.planner import make_batched_planner
+    from dadiff_tpu_torch.parallel.tp import shard_params_tp
+
+    out = {"card": card}
+    root.mkdir(parents=True, exist_ok=True)
+    rendezvous = root / "nccl_rendezvous"
+    rendezvous.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    reset_counts()
+    require(initialize_distributed(f"file://{rendezvous}", rank=0,
+                                   world_size=1, device="cuda")
+            and dist.get_backend() == "nccl", "a world-1 NCCL group")
+    try:
+        mesh = make_mesh({"dp": 1})
+
+        # -- training: DDP and FSDP2 against no mesh
+        runs, times, first_state = {}, {}, None
+        for name, m, fsdp in (("none", None, None), ("ddp", mesh, None),
+                              ("fsdp", mesh, "dp")):
+            trainer, dataset = _par_trainer(ckpt, root / f"train_{name}", m,
+                                            fsdp)
+            it = iter(create_dataloader(dataset, PAR_BATCH, seed=SEED))
+            batches = [{k: torch.as_tensor(v, device="cuda")
+                        for k, v in next(it).items()}
+                       for _ in range(PAR_STEPS)]
+            runs[name] = _par_run(trainer, batches, m)
+            times[name] = cuda_ms(lambda: trainer._step(batches[0]), 10)
+            trainer.close()
+            if name == "none":
+                first_batch = {k: v.cpu() for k, v in batches[0].items()}
+        for name in ("ddp", "fsdp"):
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(runs[name][0], runs["none"][0]))
+            w_err = _max_diff(runs[name][2], runs["none"][2])
+            require(loss_err <= TOL_PAR_LOSS and w_err <= TOL_PAR_W,
+                    f"{name} steps against no mesh: loss {loss_err:.2e} "
+                    f"weights {w_err:.2e}")
+            out[f"{name}_loss_rel_err"], out[f"{name}_w_max_diff"] = \
+                loss_err, w_err
+        out["step_ms"] = times
+        log(f"parallel: train step at batch {PAR_BATCH}: no mesh "
+            f"{times['none']:.3f} ms, DDP (world 1, NCCL) "
+            f"{times['ddp']:.3f} ms, FSDP2 {times['fsdp']:.3f} ms ({card}); "
+            f"losses {runs['none'][0]} / {runs['ddp'][0]} / "
+            f"{runs['fsdp'][0]}")
+
+        # -- the batched planner at 1,024 chains
+        from dadiff_tpu_torch.cli import load_model
+
+        diff, dataset = load_model(str(ckpt), DATASET, device="cuda")
+        g = torch.Generator("cuda").manual_seed(SEED)
+        obs = 0.5 * torch.randn(EVAL_CHAINS, diff.observation_dim,
+                                generator=g, device="cuda")
+        cond = conditions_for_initial_obs(obs, diff.observation_dim, HORIZON,
+                                          diff.transition_dim)
+        planner = make_batched_planner(diff, mesh)
+        sampler = make_sampler(diff)
+        plans = {}
+        for name, fn in (("mesh", planner), ("none", sampler)):
+            t1 = time.perf_counter()
+            plans[name] = fn(torch.Generator("cuda").manual_seed(1), cond)
+            torch.cuda.synchronize()
+            out[f"planner_{name}_s"] = time.perf_counter() - t1
+        err = float((plans["mesh"] - plans["none"]).abs().max())
+        require(plans["mesh"].shape == (EVAL_CHAINS, HORIZON,
+                                        diff.transition_dim) and err <= 1e-5,
+                f"batched planner against make_sampler ({err})")
+        out["planner_max_abs_err"] = err
+
+        # -- the on-device evaluator under the mesh
+        stats = NormStats.from_normalizer(dataset.normalizer, device="cuda")
+        require(refused(lambda: make_ondevice_evaluator(
+            diff, PointMazeJax(), use_megakernel=True, mesh=mesh),
+            ValueError, "single-chip"), "the planner chain refuses a mesh")
+        evals = {}
+        for name, m in (("mesh", mesh), ("none", None)):
+            ev = make_ondevice_evaluator(
+                diff, PointMazeJax(), action_horizon=EVAL_ACTIONS,
+                n_replans=PAR_REPLANS, n_candidates=N_CAND, mesh=m)
+            t1 = time.perf_counter()
+            evals[name] = ev(torch.Generator("cuda").manual_seed(EVAL_SEED),
+                             stats, PAR_ENVS)
+            torch.cuda.synchronize()
+            out[f"eval_{name}_s"] = time.perf_counter() - t1
+        pos_err = float((evals["mesh"][1].pos - evals["none"][1].pos)
+                        .abs().max())
+        require(pos_err <= TOL_ENV_POS and torch.equal(
+            evals["mesh"][0].per_env_success,
+            evals["none"][0].per_env_success),
+            f"meshed evaluator against unsharded ({pos_err})")
+        out["eval_pos_max_abs_err"] = pos_err
+        out["eval_success_rate"] = float(evals["mesh"][0].success_rate)
+
+        # -- tp and sp forwards at world 1, both families
+        mesh3 = make_mesh({"dp": 1, "sp": 1, "tp": 1})
+        x = torch.randn(PAR_BATCH, HORIZON, diff.transition_dim, generator=g,
+                        device="cuda")
+        t = torch.randint(0, T_STEPS, (PAR_BATCH,), generator=g,
+                          device="cuda")
+        torch.manual_seed(SEED)
+        tt_model = TemporalTransformer(diff.transition_dim, dim=TT_DIM,
+                                       depth=TT_DEPTH,
+                                       n_heads=TT_HEADS).cuda()
+        for name, model in (("unet", diff.model), ("transformer", tt_model)):
+            sharded = copy.deepcopy(model)
+            sharded.act_spec = ("dp", "sp", "tp")
+            shard_params_tp(sharded, mesh3)
+            with torch.no_grad():
+                ref = model(x, t)
+                got = sharded(x, t)
+            err = float((got - ref).abs().max())
+            require(err <= TOL_TP_FWD, f"{name} tp/sp forward ({err})")
+            out[f"{name}_tp_sp_max_abs_err"] = err
+        out["launches"] = read_counts()
+        require(not any(out["launches"].values()),
+                f"a port kernel launched on the parallel paths: "
+                f"{out['launches']}")
+    finally:
+        dist.destroy_process_group()
+
+    # -- two ranks on the one card over gloo: a DDP step
+    batch_file, result = root / "gloo_batch.pt", root / "gloo_result.pt"
+    torch.save(first_batch, batch_file)
+    gloo_rdv = root / "gloo_rendezvous"
+    gloo_rdv.unlink(missing_ok=True)
+    t1 = time.perf_counter()
+    ctx = mp.start_processes(
+        _gloo_rank, args=(f"file://{gloo_rdv}", str(ckpt), str(batch_file),
+                          str(result)), nprocs=2, join=False,
+        start_method="spawn")
+    try:
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=5):
+            require(time.monotonic() < deadline, "gloo ranks timed out")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    got = torch.load(result, weights_only=False)
+    ref_loss = runs["none"][0][0]
+    loss_err = abs(got["loss"] - ref_loss) / abs(ref_loss)
+    w_err = _max_diff(got["state"], {k: v.cpu() for k, v in
+                                     runs["none"][1].items()})
+    require(loss_err <= TOL_PAR_LOSS and w_err <= PAR_LR * 1.01,
+            f"two gloo ranks against one process: loss {loss_err:.2e} "
+            f"weights {w_err:.2e}")
+    out.update(gloo_loss_rel_err=loss_err, gloo_w_max_diff=w_err,
+               gloo_s=time.perf_counter() - t1,
+               total_s=time.perf_counter() - t0)
+    log(f"parallel: two gloo ranks on one card: loss {got['loss']:.6f} vs "
+        f"{ref_loss:.6f} ({loss_err:.1e}), weights {w_err:.1e} "
+        f"({out['gloo_s']:.1f} s)")
+    return out
+
+
+
 def host_eval_phase(ckpt: Path, results_dir: Path) -> dict:
     """The host evaluator (``python -m dadiff_tpu_torch.evaluate``) in
     lockstep through the planner chain, where gymnasium and
@@ -3429,6 +3713,9 @@ def main() -> int:
     transformer = transformer_phase(ckpt, ROOT / "build" / "dadiff_tpu_torch"
                                     / "smoke", results_dir, card)
     log(f"transformer_phase: {json.dumps(transformer)}")
+    parallel = parallel_phase(ckpt, ROOT / "build" / "dadiff_tpu_torch"
+                              / "smoke" / "parallel", card)
+    log(f"parallel_phase: {json.dumps(parallel)}")
 
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
@@ -3481,6 +3768,9 @@ def main() -> int:
             tt_counts[p][name] for p in ("train", "serving", "evaluation"))
         kernels[-1]["launches_picard"] = tt_counts["picard"][name]
         kernels[-1]["launches_progressive"] = tt_counts["progressive"][name]
+        # DDP, FSDP, the batched planner, the meshed evaluator and the
+        # tp/sp forwards run the module path: none
+        kernels[-1]["launches_parallel"] = parallel["launches"][name]
         if name in evaluation:
             # the evaluation path's count (its untimed and timed runs)
             kernels[-1]["launches_evaluation"] = evaluation[name]

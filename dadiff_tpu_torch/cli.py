@@ -4,7 +4,8 @@ flags, model loading and policy construction.
 Counterpart of the JAX package's cli.py: build_train_parser :57 and train_main
 :147 (both model families, the U-Net and the transformer of
 ``--model-type``, and the flagship flags, fine-tune and resume included;
-``--mesh-dp``, ``--config`` and ``--dtype`` are not ported), distill_main
+``--mesh-dp`` trains data-parallel over a torchrun world, :func:`_mesh`;
+``--config`` and ``--dtype`` are not ported), distill_main
 :509 (``--method consistency`` and ``--method progressive``),
 train_value_main :358 and load_value_checkpoint :463 (a ``.pt`` with the
 JAX checkpoint's config keys; orbax is JAX-only), build_eval_parser :695
@@ -100,6 +101,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--num-workers", type=int, default=0)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--mesh-dp", type=int, default=1,
+                   help="data-parallel mesh size (1 = single device); needs "
+                        "a torchrun world of that many processes")
     p.add_argument("--no-export-pt", action="store_true",
                    help="skip reference-schema .pt checkpoint export")
     p.add_argument("--resume", action="store_true",
@@ -126,6 +130,28 @@ def build_denoiser(model_type: str, transition_dim: int, *, dim: int,
                         kernel_size=kernel_size)
 
 
+def _mesh(n_dp: int, device: str):
+    """The data-parallel mesh of ``--mesh-dp`` (cli.py:45-50): None for 1;
+    otherwise the torchrun world must hold exactly ``n_dp`` processes, one
+    per device, joined here (NCCL on cards, gloo on the CPU)."""
+    if n_dp <= 1:
+        return None
+    import torch.distributed as dist
+
+    from dadiff_tpu_torch.parallel.distributed import initialize_distributed
+    from dadiff_tpu_torch.parallel.mesh import make_mesh
+
+    initialize_distributed(device=device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n_dp:
+        raise SystemExit(
+            f"--mesh-dp {n_dp} needs a world of {n_dp} processes, one per "
+            f"device, and this one has {world}: launch it as torchrun "
+            f"--nproc-per-node {n_dp} -m dadiff_tpu_torch.train --mesh-dp "
+            f"{n_dp} ...")
+    return make_mesh({"dp": n_dp})
+
+
 def train_main(argv=None) -> str:
     """Train or fine-tune a planner of either family; returns the log
     directory, which holds the train states, the ``.pt`` exports,
@@ -142,8 +168,17 @@ def train_main(argv=None) -> str:
         save_config,
     )
 
+    from dadiff_tpu_torch.parallel.distributed import (
+        is_primary_host,
+        mesh_device,
+    )
+
     args = build_train_parser().parse_args(argv)
     device = resolve_device(args.device)
+    mesh = _mesh(args.mesh_dp, args.device)
+    if mesh is not None:
+        device = mesh_device(mesh)
+    primary = is_primary_host()
     torch.manual_seed(args.seed)
     np.random.seed(args.seed)
 
@@ -155,7 +190,8 @@ def train_main(argv=None) -> str:
     if args.run_name:
         log_dir = log_dir / args.run_name
     log_dir.mkdir(parents=True, exist_ok=True)
-    save_config(vars(args), str(log_dir / "config.json"))
+    if primary:
+        save_config(vars(args), str(log_dir / "config.json"))
 
     # fine-tune / resume from a .pt: the architecture comes from the weights
     checkpoint = None
@@ -241,7 +277,7 @@ def train_main(argv=None) -> str:
         save_freq=args.save_freq, eval_freq=args.eval_freq,
         log_freq=args.log_freq, loss_names=loss_names, seed=args.seed,
         export_pt=not args.no_export_pt, skip_nonfinite=args.skip_nonfinite,
-        val_batch=val_batch, normalizer=dataset.normalizer)
+        val_batch=val_batch, normalizer=dataset.normalizer, mesh=mesh)
     print(f"model parameters: {count_parameters(diffusion.model):,}")
 
     start_epoch = 0
@@ -264,9 +300,10 @@ def train_main(argv=None) -> str:
         "loss_components": loss_names, "normalizer": args.normalizer,
         "dataset": args.dataset,
     }
-    with open(log_dir / "final_config.json", "w") as f:
-        json.dump(final_config, f, indent=2)
-    print(f"{mode} complete. Logs: {log_dir}")
+    if primary:
+        with open(log_dir / "final_config.json", "w") as f:
+            json.dump(final_config, f, indent=2)
+        print(f"{mode} complete. Logs: {log_dir}")
     return str(log_dir)
 
 

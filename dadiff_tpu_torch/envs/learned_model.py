@@ -451,15 +451,18 @@ def make_ondevice_locomotion_evaluator(
         diffusion, model: DynamicsMLP, model_stats: ModelStats,
         reward_done: Callable, *, action_horizon: int = 8,
         n_replans: int = 25, sampling_timesteps: Optional[int] = None,
-        sampler: str = "ddpm", graph: Optional[bool] = None
-) -> LocomotionEvaluator:
+        sampler: str = "ddpm", graph: Optional[bool] = None, mesh=None,
+        batch_axis: str = "dp") -> LocomotionEvaluator:
     """On-device plan -> step -> replan over the learned simulator
     (learned_model.py:502-609): a ``LocomotionEvaluator``
     (envs/locomotion_jax.py) whose simulator is the model, executing the
     plan's actions from row 0. An ensemble (``model.n_models``) steps its
     members' mean. ``evaluate(generator, stats, init_obs, *, noise=None) ->
-    (mean_return, mean_length, returns)``; the returns are model-based."""
+    (mean_return, mean_length, returns)``; the returns are model-based.
+    ``mesh`` shards the envs over ``batch_axis`` (learned_model.py:514 and
+    :549-552), as ``LocomotionEvaluator`` describes."""
     return LocomotionEvaluator(
         diffusion, LearnedSim(model, model_stats, reward_done),
         action_horizon=action_horizon, n_replans=n_replans,
-        sampling_timesteps=sampling_timesteps, sampler=sampler, graph=graph)
+        sampling_timesteps=sampling_timesteps, sampler=sampler, graph=graph,
+        mesh=mesh, batch_axis=batch_axis)

@@ -30,6 +30,7 @@ from dadiff_tpu_torch.envs.planar_physics import (
     PlanarPhysics,
     load_planar_model,
 )
+from dadiff_tpu_torch.parallel.mesh import batch_rows, gather_rows, local_rows
 
 
 class PlanarGymEnv:
@@ -248,12 +249,19 @@ class LocomotionEvaluator:
 
     ``noise``: hook for tests; ``noise[k]`` = (init_noise (B, H, D),
     step_noise (S, B, H, D) or None) replaces replan k's draws, as the
-    sampler's ``plan.draw`` takes them."""
+    sampler's ``plan.draw`` takes them.
+
+    ``mesh`` shards the envs over ``batch_axis`` (locomotion_jax.py:208 and
+    :240-249): ``init_obs`` holds the global batch, which the axis must
+    divide, and the ``noise`` hook is refused; each rank runs its rows,
+    drawing for the global batch (parallel/mesh.py ``batch_rows``), and the
+    ranks gather the returns, so every rank returns the unsharded run's."""
 
     def __init__(self, diffusion, sim, *, action_horizon: int = 8,
                  n_replans: int = 25, sampling_timesteps: Optional[int] = None,
                  sampler: str = "ddpm", skip_conditioned_action: bool = False,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None, mesh=None,
+                 batch_axis: str = "dp"):
         from dadiff_tpu_torch.guides.sampling import make_sampler
 
         self.diffusion, self.sim = diffusion, sim
@@ -272,6 +280,7 @@ class LocomotionEvaluator:
         self.timing: List[Tuple[float, float]] = []
         self.replayed: List[bool] = []
         self._loop: Optional[_Loop] = None
+        self.mesh, self.batch_axis = mesh, batch_axis
 
     @torch.no_grad()
     def __call__(self, generator: Optional[torch.Generator], stats,
@@ -282,18 +291,27 @@ class LocomotionEvaluator:
         if obs.device != device:
             raise ValueError(f"init_obs on {obs.device}, the planner on "
                              f"{device}")
+        mesh, axis = self.mesh, self.batch_axis
+        if mesh is not None and noise is not None:
+            raise ValueError("the noise hook is for one device")
+        obs = local_rows(obs, mesh, axis)
         B = obs.shape[0]
         loop = self._loop
         if loop is None or not loop.fits(B, obs.dtype, stats):
             loop = self._loop = _Loop(self, stats, obs)
-        first = self.plan.draw(generator, B) if noise is None else noise[0]
-        loop.reset(obs, first)
+
+        def draws(k):
+            if noise is not None:
+                return noise[k]
+            with batch_rows(mesh, axis):
+                return self.plan.draw(generator, B)
+
+        loop.reset(obs, draws(0))
         cuda = device.type == "cuda"
         self.timing, self.replayed = [], []
         for k in range(self.n_replans):
             if k:
-                loop.set_draws(self.plan.draw(generator, B) if noise is None
-                               else noise[k])
+                loop.set_draws(draws(k))
             self.replayed.append(loop.graphs is not None)
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -319,7 +337,8 @@ class LocomotionEvaluator:
             torch.cuda.synchronize(device)
             self.timing = [(a.elapsed_time(b), b.elapsed_time(c))
                            for a, b, c in self.timing]
-        total, length = loop.totals[0], loop.totals[1]
+        total, length = gather_rows((loop.totals[0], loop.totals[1]), mesh,
+                                    axis)
         return total.mean(), length.mean(), total.clone()
 
 

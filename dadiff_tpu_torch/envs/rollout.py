@@ -14,6 +14,12 @@ driven from the host and captured in a CUDA graph and every later wave is a
 replay. Otherwise a replan is a sampler of guides/sampling.py (the module
 path: ddpm, ddim, dpmpp or consistency, with or without warm start), best
 of ``n_candidates`` by physical-space goal distance.
+
+With a ``mesh`` every rank runs its block of the envs over ``batch_axis``
+(rollout.py:68-71 and :136-150): it resets and draws for the global batch
+and keeps its rows (parallel/mesh.py), plans and steps them, and the ranks
+gather the per-env results at the end, so the metrics and the final state
+are the unsharded run's on every rank.
 """
 
 from __future__ import annotations
@@ -33,9 +39,12 @@ from dadiff_tpu_torch.guides.sampling import (
     make_sampler,
 )
 from dadiff_tpu_torch.ops.projection import NormStats
-
-NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: parallelism, which "
-              "brings the mesh)")
+from dadiff_tpu_torch.parallel.mesh import (
+    axis_rank,
+    batch_rows,
+    gather_rows,
+    local_rows,
+)
 
 
 class RolloutMetrics(NamedTuple):
@@ -58,6 +67,7 @@ def make_ondevice_evaluator(
     warm_start_t: Optional[int] = None,
     sampler: str = "ddpm",
     mesh=None,
+    batch_axis: str = "dp",
     use_megakernel: bool = False,
     P=None,
     stats: Optional[NormStats] = None,
@@ -92,9 +102,12 @@ def make_ondevice_evaluator(
     x0 is the sampler's ``init_noise`` and step_noise its ``step_noise``
     (S steps; None for a deterministic sampler; for consistency the
     re-noising draws), as guides/sampling.py draws them.
+
+    ``mesh`` shards the envs over ``batch_axis``, which must divide
+    ``batch_size``; ``state`` then holds the global batch, and the ``noise``
+    hook is refused. The planner chain is the single-device latency path
+    and refuses a mesh, as in JAX (rollout.py:88-89).
     """
-    if mesh is not None:
-        raise NotImplementedError(f"a device mesh {NOT_PORTED}")
     device = diffusion.device
     obs_dim = diffusion.observation_dim
     act_dim = diffusion.action_dim
@@ -104,6 +117,8 @@ def make_ondevice_evaluator(
         raise ValueError("--megakernel supports the ddpm sampler only")
     if use_megakernel and warm_start_t is not None:
         raise ValueError("--megakernel does not compose with warm start")
+    if use_megakernel and mesh is not None:
+        raise ValueError("--megakernel is the single-chip latency path")
     if action_horizon > horizon:
         raise ValueError("action_horizon must be <= planning horizon")
 
@@ -176,8 +191,14 @@ def make_ondevice_evaluator(
             state, obs = env.reset(generator, batch_size, device)
         else:
             obs = env.observation(state)
-        total_reward = torch.zeros(batch_size, device=device)
-        succeeded = torch.zeros(batch_size, dtype=torch.bool, device=device)
+        if mesh is not None and noise is not None:
+            raise ValueError("the noise hook is for one device")
+        _, count = axis_rank(mesh, batch_axis)
+        if count > 1:
+            state, obs = local_rows((state, obs), mesh, batch_axis)
+        n_env = obs.shape[0]
+        total_reward = torch.zeros(n_env, device=device)
+        succeeded = torch.zeros(n_env, dtype=torch.bool, device=device)
         traj = None
         for k in range(n_replans):
             x_init = None
@@ -187,8 +208,9 @@ def make_ondevice_evaluator(
                 x_init = torch.cat(
                     [traj[:, action_horizon:],
                      traj[:, -1:].expand(-1, action_horizon, -1)], dim=1)
-            traj = replan(generator, state, obs, stats, P, prepared,
-                          None if noise is None else noise[k], x_init)
+            with batch_rows(mesh, batch_axis):
+                traj = replan(generator, state, obs, stats, P, prepared,
+                              None if noise is None else noise[k], x_init)
             # the next action_horizon actions in physical space, row 0's
             # (zeroed by the conditioning) included (rollout.py:217-220)
             acts = traj[:, :action_horizon, obs_dim:obs_dim + act_dim] \
@@ -198,6 +220,9 @@ def make_ondevice_evaluator(
                 total_reward = total_reward + reward
                 dist = torch.linalg.norm(state.pos - state.goal, dim=-1)
                 succeeded = succeeded | (dist <= GOAL_THRESHOLD)
+        if count > 1:
+            state, total_reward, succeeded = gather_rows(
+                (state, total_reward, succeeded), mesh, batch_axis)
         final_dist = torch.linalg.norm(state.pos - state.goal, dim=-1)
         metrics = RolloutMetrics(
             success_rate=succeeded.to(torch.float32).mean(),

@@ -13,8 +13,9 @@ saved through envs/host.py ``save_results`` with the JAX file's keys.
 ``--sampler ddim|dpmpp|consistency`` and ``--warm-start-t K`` plan through
 the module path (a distilled student needs ``--sampler consistency``, where
 ``--sampling-timesteps`` is the model-call budget); ``--megakernel`` is the
-DDPM chain and refuses both. ``--device cpu`` runs the plain versions. The
-device mesh is not ported.
+DDPM chain and refuses both. ``--device cpu`` runs the plain versions. As
+the JAX script, it runs one device: the mesh is the evaluator's,
+``envs/rollout.py`` ``make_ondevice_evaluator(mesh=)``, in a torchrun world.
 
     python -m dadiff_tpu_torch.eval_ondevice --checkpoint student.pt \
         --dataset npz:data/pointmaze_umaze_expert.npz --batch 128 \

@@ -31,6 +31,7 @@ from dadiff_tpu_torch.ops.projection import (
     apply_projection,
     projection_alpha,
 )
+from dadiff_tpu_torch.parallel.mesh import draw_rows
 
 
 class Conditions(NamedTuple):
@@ -305,11 +306,13 @@ def make_sampler(diffusion: GaussianDiffusion, *,
     def draw(generator: Optional[torch.Generator], batch: int):
         """(init_noise, step_noise or None) of a plan of ``batch`` chains:
         the draws :func:`plan` takes from ``generator`` when none are
-        injected."""
-        shape = (batch, H, D)
-        init = torch.randn(shape, generator=generator, device=device)
-        return init, (torch.randn((n_steps,) + shape, generator=generator,
-                                  device=device) if stochastic else None)
+        injected (inside ``parallel.mesh.batch_rows``, this rank's chains
+        of the global batch's draws)."""
+        init = draw_rows(lambda m: torch.randn(
+            (m, H, D), generator=generator, device=device), batch)
+        return init, (draw_rows(lambda m: torch.randn(
+            (n_steps, m, H, D), generator=generator, device=device), batch,
+            dim=1) if stochastic else None)
 
     plan.timesteps = ts
     plan.stochastic = stochastic

@@ -275,19 +275,22 @@ _CONFIG_EXTRAS = ("normalizer_name", "normalizer_stats", "predict_epsilon",
 
 def save_pt_checkpoint(path: str, diffusion, config: Dict[str, Any], *,
                        ema_params: Optional[Dict[str, torch.Tensor]] = None,
-                       epoch: int = 0, global_step: int = 0) -> None:
+                       epoch: int = 0, global_step: int = 0,
+                       model_state: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> None:
     """Write a reference-schema ``.pt`` from a GaussianDiffusion module
     (torch_compat.py:258-305). ``ema_params`` (parameter name -> tensor, as
     the trainer keeps them) adds ``ema_state_dict``: the module's state with
-    the EMA weights in place of the live ones."""
-
-    def cpu_state(module):
-        return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+    the EMA weights in place of the live ones. ``model_state`` replaces the
+    module's own state dict (a sharded module's, gathered whole)."""
+    if model_state is None:
+        model_state = diffusion.state_dict()
 
     checkpoint: Dict[str, Any] = {
         "epoch": epoch,
         "global_step": global_step,
-        "model_state_dict": cpu_state(diffusion),
+        "model_state_dict": {k: v.detach().cpu().clone()
+                             for k, v in model_state.items()},
         "optimizer_state_dict": {},
         "config": {
             "horizon": config["horizon"],

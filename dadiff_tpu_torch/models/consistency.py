@@ -31,6 +31,7 @@ from dadiff_tpu_torch.models.diffusion import (
     predict_start_from_noise,
     q_sample,
 )
+from dadiff_tpu_torch.parallel.mesh import draw_rows
 
 
 def sigma_of_t(schedule, t: torch.Tensor) -> torch.Tensor:
@@ -233,11 +234,13 @@ def make_consistency_sampler(diffusion: GaussianDiffusion, *,
     def draw(generator: Optional[torch.Generator], batch: int):
         """(init_noise, step_noise) of a plan of ``batch`` chains: the
         draws :func:`plan` takes from ``generator`` when none are
-        injected."""
-        shape = (batch, H, D)
-        init = torch.randn(shape, generator=generator, device=device)
-        return init, torch.randn((len(levels) - 1,) + shape,
-                                 generator=generator, device=device)
+        injected (inside ``parallel.mesh.batch_rows``, this rank's chains
+        of the global batch's draws)."""
+        init = draw_rows(lambda m: torch.randn(
+            (m, H, D), generator=generator, device=device), batch)
+        return init, draw_rows(lambda m: torch.randn(
+            (len(levels) - 1, m, H, D), generator=generator, device=device),
+            batch, dim=1)
 
     plan.timesteps = levels
     plan.stochastic = len(levels) > 1

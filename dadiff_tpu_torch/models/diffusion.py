@@ -23,6 +23,7 @@ from dadiff_tpu_torch.ops.schedules import (
     DiffusionSchedule,
     make_schedule,
 )
+from dadiff_tpu_torch.parallel.mesh import draw_rows
 
 
 def _extract(a: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -80,13 +81,17 @@ def diffusion_loss(apply_fn: Callable, schedule: DiffusionSchedule,
     ``apply_fn(x, t)`` is the denoiser; with ``prediction="v"`` it must be
     the RAW model, not an epsilon-wrapped one. ``t`` and ``noise`` inject the
     randomness; otherwise both are drawn from ``generator``, which must live
-    on ``x_start``'s device."""
+    on ``x_start``'s device (for the global batch inside
+    ``parallel.mesh.batch_rows``, this rank's rows kept)."""
+    n, rest = x_start.shape[0], tuple(x_start.shape[1:])
     if t is None:
-        t = torch.randint(0, schedule.n_timesteps, (x_start.shape[0],),
-                          generator=generator, device=x_start.device)
+        t = draw_rows(lambda m: torch.randint(
+            0, schedule.n_timesteps, (m,), generator=generator,
+            device=x_start.device), n)
     if noise is None:
-        noise = torch.randn(x_start.shape, generator=generator,
-                            device=x_start.device, dtype=x_start.dtype)
+        noise = draw_rows(lambda m: torch.randn(
+            (m,) + rest, generator=generator, device=x_start.device,
+            dtype=x_start.dtype), n)
     model_out = apply_fn(q_sample(schedule, x_start, t, noise), t)
     if prediction == "v":
         target = v_from_x0_eps(schedule, x_start, noise, t)

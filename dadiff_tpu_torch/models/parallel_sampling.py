@@ -31,6 +31,8 @@ from dadiff_tpu_torch.models.diffusion import (
     p_sample,
 )
 from dadiff_tpu_torch.ops.schedules import DiffusionSchedule
+from dadiff_tpu_torch.parallel.mesh import gather_rows
+from dadiff_tpu_torch.parallel.tp import maybe_constrain
 
 
 @torch.no_grad()
@@ -50,6 +52,7 @@ def parallel_sample_loop(
     step_noise: Optional[torch.Tensor] = None,
     return_sweeps: bool = False,
     time_shard_axis: Optional[str] = None,
+    mesh=None,
     device=None,
 ):
     """Sliding-window Picard iteration (parallel_sampling.py:32-156).
@@ -61,13 +64,12 @@ def parallel_sample_loop(
     iterated per sweep; ``tol``: per-position max-abs change below which a
     position counts as converged; ``max_sweeps``: the sweep cap (2T by
     default); ``return_sweeps``: also return the sweeps run (the sequential
-    model calls). ``time_shard_axis`` (a device mesh axis in JAX, where it
-    is a no-op without a mesh) raises ``NotImplementedError``: the port has
-    no mesh yet (ROADMAP.md, Queue 1 item 6)."""
-    if time_shard_axis is not None:
-        raise NotImplementedError(
-            "time_shard_axis needs a device mesh, which is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6: parallelism)")
+    model calls). ``time_shard_axis``: an axis of ``mesh`` over which each
+    sweep's (W*B)-row model call is sharded, every rank running its block
+    of the window's rows and the ranks gathering the outputs, so the chain
+    is the unsharded one (parallel_sampling.py:106-112); the axis must
+    divide W*B. Without a mesh, or when the mesh lacks the axis, it is a
+    no-op, as in JAX. Every rank passes the same draws (or generator)."""
     ts = default_timesteps(schedule.n_timesteps, sampling_timesteps, device)
     T = int(ts.shape[0])
     batch = shape[0]
@@ -93,8 +95,15 @@ def parallel_sample_loop(
         x_win = X[s:s + W]
         x_flat = x_win.reshape((W * batch,) + tuple(shape[1:]))
         t_flat = ts_pad[s:s + W].repeat_interleave(batch)
+        if time_shard_axis is None:
+            out = apply_fn(x_flat, t_flat)
+        else:
+            out = gather_rows(apply_fn(
+                maybe_constrain(x_flat, (time_shard_axis,), mesh),
+                maybe_constrain(t_flat, (time_shard_axis,), mesh)),
+                mesh, time_shard_axis)
         mean, log_var = p_mean_variance(
-            apply_fn(x_flat, t_flat), schedule, x_flat, t_flat,
+            out, schedule, x_flat, t_flat,
             clip_denoised=clip_denoised, predict_epsilon=predict_epsilon)
         stepped = p_sample(mean, log_var, t_flat, noise_pad[s:s + W].reshape(
             x_flat.shape)).reshape(x_win.shape)

@@ -101,12 +101,18 @@ class AdaLNBlock(nn.Module):
 
 class TemporalTransformer(nn.Module):
     """Timestep-conditioned transformer over the horizon axis
-    (temporal_transformer.py:82-168): any horizon up to ``max_horizon``."""
+    (temporal_transformer.py:82-168): any horizon up to ``max_horizon``.
+    ``act_spec`` names the (batch, horizon, channel) mesh axes, as in
+    ``TemporalUnet`` (temporal_transformer.py:96-110): on a mesh the forward
+    shards the horizon and the heads (parallel/tp.py)."""
 
     def __init__(self, transition_dim: int, dim: int = 128, depth: int = 4,
                  n_heads: int = 4, mlp_ratio: int = 4,
-                 time_dim: Optional[int] = None, max_horizon: int = 512):
+                 time_dim: Optional[int] = None, max_horizon: int = 512,
+                 act_spec: Optional[Tuple[Optional[str], ...]] = None):
         super().__init__()
+        self.act_spec = act_spec
+        self.mesh = None  # set by parallel.tp.shard_params_tp
         self.transition_dim = transition_dim
         self.dim, self.depth, self.n_heads = dim, depth, n_heads
         self.mlp_ratio, self.max_horizon = mlp_ratio, max_horizon
@@ -145,6 +151,10 @@ class TemporalTransformer(nn.Module):
         self.pos_emb.normal_(0.0, 0.02)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None and self.act_spec is not None:
+            from dadiff_tpu_torch.parallel.tp import transformer_forward
+
+            return transformer_forward(self, x, time)
         horizon = x.shape[1]
         if horizon > self.max_horizon:
             raise ValueError(f"horizon {horizon} exceeds max_horizon "

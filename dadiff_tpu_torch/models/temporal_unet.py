@@ -21,7 +21,7 @@ reference on the card, set ``torch.backends.cudnn.allow_tf32 = False``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -117,12 +117,21 @@ class Upsample1d(nn.Module):
 class TemporalUnet(nn.Module):
     """1-D conv U-Net over the horizon, timestep-conditioned
     (temporal_unet.py:172-281). ``forward(x (B, H, D), t (B,)) -> (B, H, D)``;
-    H must be divisible by ``2 ** (len(dim_mults) - 1)``."""
+    H must be divisible by ``2 ** (len(dim_mults) - 1)``.
+
+    ``act_spec``: the (batch, horizon, channel) mesh axis names, e.g. ("dp",
+    "sp", "tp") (temporal_unet.py:187-198). Once ``parallel.tp
+    .shard_params_tp`` has placed the weights on a mesh, the forward shards
+    the horizon and the channels over those axes (parallel/tp.py); without
+    a mesh it is the plain forward, as JAX's is without an ambient mesh."""
 
     def __init__(self, transition_dim: int, dim: int = 128,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), kernel_size: int = 5,
-                 time_dim: Optional[int] = None, use_pallas_norm: bool = False):
+                 time_dim: Optional[int] = None, use_pallas_norm: bool = False,
+                 act_spec: Optional[Tuple[Optional[str], ...]] = None):
         super().__init__()
+        self.act_spec = act_spec
+        self.mesh = None  # set by parallel.tp.shard_params_tp
         self.transition_dim = transition_dim
         self.dim = dim
         self.dim_mults = tuple(dim_mults)
@@ -160,6 +169,10 @@ class TemporalUnet(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None and self.act_spec is not None:
+            from dadiff_tpu_torch.parallel.tp import unet_forward
+
+            return unet_forward(self, x, time)
         t = self.time_mlp(time)
         x = x.to(torch.float32)
         skips = []

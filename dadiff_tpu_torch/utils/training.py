@@ -14,8 +14,15 @@ learning rate read from the schedule at the count of updates applied so far.
 
 With ``loss_takes_ema`` the loss also receives the EMA shadow, which then
 serves as the stop-gradient target network of consistency distillation
-(models/consistency.py). Not ported: the mesh argument (data parallelism is
-not ported yet).
+(models/consistency.py).
+
+With a mesh (``Trainer(mesh=)``, training.py:179 and :254-258), every rank
+loads the same global batch and trains on its block of rows over ``dp``,
+drawing the loss's ``t`` and noise for the global batch
+(parallel/mesh.py ``batch_rows``): DDP averages the gradients over dp, or,
+with ``fsdp_axis``, FSDP2 shards the weights and Adam's moments over that
+axis. Only rank 0 logs and writes files; its ``.pt`` holds whole tensors and
+loads with ``strict=True`` into a single-device module.
 """
 
 from __future__ import annotations
@@ -34,6 +41,15 @@ import torch
 
 from dadiff_tpu_torch.datasets.sequence import prefetch_to_device
 from dadiff_tpu_torch.losses import make_generators
+from dadiff_tpu_torch.parallel.distributed import is_primary_host
+from dadiff_tpu_torch.parallel.mesh import (
+    all_reduce_mean,
+    batch_rows,
+    full_state_dict,
+    full_tensor,
+    local_rows,
+    shard_params_fsdp,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +126,8 @@ def make_optimizer(params, lr: float = 3e-4) -> torch.optim.Adam:
 def make_train_step(loss_fn: Callable, *, lr_schedule: Callable[[int], float],
                     gradient_clip: float = 1.0, use_ema: bool = True,
                     ema_decay: float = 0.995, skip_nonfinite: bool = False,
-                    loss_takes_ema: bool = False):
+                    loss_takes_ema: bool = False,
+                    after_backward: Optional[Callable[[], None]] = None):
     """Build ``step(state, batch, generators) -> metrics``: loss, grad, clip,
     Adam, EMA (training.py:97-164). Metrics are 0-dim tensors on the device
     (no host sync), with ``grad_norm`` the global norm before clipping.
@@ -122,6 +139,12 @@ def make_train_step(loss_fn: Callable, *, lr_schedule: Callable[[int], float],
     leaves the parameters AND Adam's moments and step count untouched and
     reports ``nonfinite=1``; the EMA and ``state.step`` still advance, as in
     the JAX step. Deciding that costs one host sync per step.
+
+    Under FSDP or tp (DTensor gradients) the norm is the whole model's,
+    reduced over the shards, so every rank clips by the same factor.
+    ``after_backward()`` runs between the backward and the norm (a tp/sp
+    model averages its gradients over dp there: parallel/tp.py
+    ``average_grads``).
     """
     if loss_takes_ema and not use_ema:
         raise ValueError("loss_takes_ema requires use_ema=True")
@@ -134,10 +157,12 @@ def make_train_step(loss_fn: Callable, *, lr_schedule: Callable[[int], float],
         else:
             loss, metrics = loss_fn(batch, generators)
         loss.backward()
+        if after_backward is not None:
+            after_backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         grads = [p.grad for p in params]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        grad_norm = full_tensor(torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads))))
         apply = True
         if skip_nonfinite:
             finite = torch.stack([g.isfinite().all() for g in grads]).all()
@@ -183,6 +208,13 @@ class Trainer:
             ``loss_takes_ema``, ``(batch, generators, ema_params)``.
         extra_config: written into the checkpoints' config (e.g. the
             consistency student's ``consistency: true``).
+        mesh: a ``DeviceMesh`` with a ``dp`` axis (parallel/mesh.py
+            ``make_mesh``): each rank trains on its block of every batch,
+            which the axis must divide, and DDP averages the gradients over
+            dp. The module's replicas start from rank 0's weights.
+        fsdp_axis: with a mesh, shard the denoiser's weights over this axis
+            with FSDP2 (``shard_params_fsdp``) instead of DDP; resuming such
+            a run from its ``.train.pt`` is not supported.
     """
 
     def __init__(self, diffusion, train_loader, loss_fn: Callable, *,
@@ -195,7 +227,8 @@ class Trainer:
                  export_pt: bool = True, skip_nonfinite: bool = False,
                  val_batch=None, normalizer=None,
                  loss_takes_ema: bool = False,
-                 extra_config: Optional[Dict[str, Any]] = None):
+                 extra_config: Optional[Dict[str, Any]] = None,
+                 mesh=None, fsdp_axis: Optional[str] = None):
         if not hasattr(train_loader, "__len__"):
             raise TypeError(
                 "train_loader must be a sized, re-iterable loader (e.g. "
@@ -214,22 +247,40 @@ class Trainer:
         self.export_pt = export_pt
         self.normalizer = normalizer
         self.extra_config = dict(extra_config) if extra_config else {}
+        self.mesh = mesh
+        self.fsdp = mesh is not None and fsdp_axis is not None
+        self.primary = is_primary_host()
 
-        os.makedirs(log_dir, exist_ok=True)
-        self._log_file = open(os.path.join(log_dir, "training.log"), "a")
-        self._metrics_file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._log_file = self._metrics_file = None
+        if self.primary:
+            os.makedirs(log_dir, exist_ok=True)
+            self._log_file = open(os.path.join(log_dir, "training.log"), "a")
+            self._metrics_file = open(os.path.join(log_dir, "metrics.jsonl"),
+                                      "a")
 
         # one generator per loss component, one more for the val probe
         self.generators = make_generators(len(self.loss_names) + 1, seed,
                                           self.device)
         total_steps = total_steps or (len(train_loader) * 100)
         self.lr_schedule = warmup_cosine_schedule(lr, warmup_steps, total_steps)
+        objective = loss_fn
+        if self.fsdp:
+            shard_params_fsdp(diffusion.model, mesh, axis=fsdp_axis)
+        elif mesh is not None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            objective = DistributedDataParallel(
+                _Objective(diffusion, loss_fn),
+                device_ids=([self.device.index]
+                            if self.device.type == "cuda" else None),
+                process_group=mesh.get_group("dp"))
         self.state = TrainState(
             module=diffusion,
             optimizer=make_optimizer(diffusion.parameters(), lr),
             ema_params=EMA(diffusion, ema_decay).shadow if use_ema else None)
         self._train_step = make_train_step(
-            loss_fn, lr_schedule=self.lr_schedule, gradient_clip=gradient_clip,
+            objective, lr_schedule=self.lr_schedule,
+            gradient_clip=gradient_clip,
             use_ema=use_ema, ema_decay=ema_decay, skip_nonfinite=skip_nonfinite,
             loss_takes_ema=loss_takes_ema)
         self.global_step = 0
@@ -257,19 +308,39 @@ class Trainer:
                 p.copy_(live[n])
 
     # -- core loop ------------------------------------------------------------
-    def train_step(self, batch) -> Dict[str, float]:
-        """One step on a batch already on the device; host metrics."""
-        metrics = self._train_step(self.state, batch,
-                                   self.generators[:len(self.loss_names)])
+    def _step(self, batch):
+        """One step on this rank's rows, already on the device; the metrics
+        stay on the device."""
+        with batch_rows(self.mesh):
+            metrics = self._train_step(self.state, batch,
+                                       self.generators[:len(self.loss_names)])
         self.global_step = self.state.step
+        return metrics
+
+    def train_step(self, batch) -> Dict[str, float]:
+        """One step on this rank's rows of a batch already on the device;
+        host metrics, averaged over dp."""
+        metrics = all_reduce_mean(self._step(batch), self.mesh)
         return {k: float(v) for k, v in metrics.items()}
+
+    def _write(self, line: Optional[str] = None,
+               record: Optional[Dict[str, Any]] = None) -> None:
+        """Rank 0's log line and metrics record."""
+        if not self.primary:
+            return
+        if line is not None:
+            print(line)
+            self._log_file.write(line + "\n")
+            self._log_file.flush()
+        if record is not None:
+            self._metrics_file.write(json.dumps(record) + "\n")
+            self._metrics_file.flush()
 
     def train(self, n_epochs: int, start_epoch: int = 0,
               max_steps: Optional[int] = None) -> Dict[str, List[float]]:
         """Main loop (training.py:297-353); returns the loss history by
         epoch. ``max_steps`` ends the run early after that many steps."""
         history: Dict[str, List[float]] = {}
-        gens = self.generators[:len(self.loss_names)]
         done = 0
         epoch = start_epoch + n_epochs - 1
         self.diffusion.train()
@@ -277,14 +348,14 @@ class Trainer:
             epoch_metrics: Dict[str, List[float]] = {}
             t0 = time.time()
             n_steps = 0
-            for batch in prefetch_to_device(iter(self.train_loader),
-                                            self.device, size=2):
-                metrics = self._train_step(self.state, batch, gens)
+            rows = (local_rows(b, self.mesh) for b in iter(self.train_loader))
+            for batch in prefetch_to_device(rows, self.device, size=2):
+                metrics = self._step(batch)
                 n_steps += 1
                 done += 1
-                self.global_step = self.state.step
                 if n_steps == 1 or (self.log_freq
                                     and n_steps % self.log_freq == 0):
+                    metrics = all_reduce_mean(metrics, self.mesh)
                     for k, v in metrics.items():
                         epoch_metrics.setdefault(k, []).append(float(v))
                 if self.save_freq and self.global_step % self.save_freq == 0:
@@ -304,10 +375,7 @@ class Trainer:
             line = (f"Epoch {epoch + 1}: "
                     + " ".join(f"{k}={v:.4f}" for k, v in summary.items())
                     + f" steps/s={sps:.2f}")
-            print(line)
-            self._log_file.write(line + "\n")
-            self._log_file.flush()
-            self._metrics_file.write(json.dumps({
+            self._write(line, {
                 "epoch": epoch + 1, "step": self.state.step,
                 "steps_per_sec": round(sps, 3),
                 **{k: round(v, 6) for k, v in summary.items()},
@@ -315,8 +383,7 @@ class Trainer:
                 # mean, first to last ("total", or the one loss's own name)
                 "total_series": [round(v, 6) for v in epoch_metrics.get(
                     "total", epoch_metrics.get(self.loss_names[0], []))],
-            }) + "\n")
-            self._metrics_file.flush()
+            })
             for k, v in summary.items():
                 history.setdefault(k, []).append(v)
             if max_steps is not None and done >= max_steps:
@@ -327,7 +394,8 @@ class Trainer:
 
     def close(self) -> None:
         for f in (self._log_file, self._metrics_file):
-            f.close()
+            if f is not None:
+                f.close()
 
     # -- checkpointing --------------------------------------------------------
     def _config_dict(self) -> Dict[str, Any]:
@@ -365,24 +433,33 @@ class Trainer:
         """Write ``checkpoint_step_N.train.pt`` (the full train state, for
         resume) and, with ``export_pt``, the reference-schema
         ``checkpoint_step_N.pt`` that ``cli.load_model`` and the server read
-        (training.py:406-446). Returns the path without extension."""
+        (training.py:406-446). Returns the path without extension. Under a
+        mesh every rank calls it (FSDP gathers the weights) and rank 0
+        writes."""
         self.global_step = self.state.step
         base = os.path.join(self.log_dir, f"checkpoint_step_{self.global_step}")
+        model_state = full_state_dict(self.diffusion.state_dict())
+        ema = (None if self.state.ema_params is None
+               else full_state_dict(self.state.ema_params))
+        if not self.primary:
+            return base
         config = self._config_dict()
         torch.save({
             "step": self.state.step, "n_updates": self.state.n_updates,
             "epoch": epoch, "config": config,
-            "model_state_dict": self.diffusion.state_dict(),
-            "optimizer_state_dict": self.state.optimizer.state_dict(),
-            "ema_params": self.state.ema_params,
+            "model_state_dict": model_state,
+            "optimizer_state_dict": (None if self.fsdp else
+                                     self.state.optimizer.state_dict()),
+            "ema_params": ema,
             "generator_states": [g.get_state() for g in self.generators],
         }, base + ".train.pt")
         if self.export_pt:
             from dadiff_tpu_torch.io.torch_compat import save_pt_checkpoint
 
             save_pt_checkpoint(base + ".pt", self.diffusion, config,
-                               ema_params=self.state.ema_params, epoch=epoch,
-                               global_step=self.global_step)
+                               ema_params=ema, epoch=epoch,
+                               global_step=self.global_step,
+                               model_state=model_state)
         with open(os.path.join(self.log_dir, "config.json"), "w") as f:
             json.dump(config, f, indent=2)
         return base
@@ -405,6 +482,8 @@ class Trainer:
         """Restore a train state written by :meth:`save_checkpoint` (path
         without extension); returns the stored epoch. It unpickles: load only
         checkpoints this program wrote (training.py:466-482)."""
+        if self.fsdp:
+            raise NotImplementedError("resuming an FSDP run is not supported")
         ck = torch.load(path + ".train.pt", map_location=self.device,
                         weights_only=False)
         self.diffusion.load_state_dict(ck["model_state_dict"], strict=True)
@@ -421,6 +500,21 @@ class Trainer:
                 g.set_state(s.cpu())
         self.global_step = self.state.step
         return int(ck.get("epoch", 0))
+
+
+class _Objective(torch.nn.Module):
+    """The loss as a module that owns the diffusion's parameters, so that
+    DDP's forward wraps the whole objective, whatever it calls inside (the
+    denoiser once, or the student and its target), and its reducer averages
+    every gradient over dp in the backward."""
+
+    def __init__(self, diffusion: torch.nn.Module, loss_fn: Callable):
+        super().__init__()
+        self.diffusion = diffusion
+        self.loss_fn = loss_fn
+
+    def forward(self, *args):
+        return self.loss_fn(*args)
 
 
 def count_parameters(module: torch.nn.Module) -> int:

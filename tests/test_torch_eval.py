@@ -267,14 +267,29 @@ def test_ondevice_evaluator_draws_from_its_generator(models, dynamics):
                                 {"sampler": "consistency"}, {"mesh": object()}],
                          ids=["warm_start", "ddim", "dpmpp", "consistency",
                               "mesh"])
-def test_ondevice_evaluator_refuses_what_is_not_ported(models, kw):
-    """The device mesh is not ported; the planner chain is the DDPM sampler
-    and refuses another sampler or warm start, as the JAX evaluator does
-    (rollout.py:84-87), where the module path takes them."""
+def test_ondevice_evaluator_refuses_what_is_not_ported(models, kw,
+                                                       tmp_path):
+    """The planner chain is the DDPM sampler on one device: it refuses
+    another sampler, warm start and a mesh, as the JAX evaluator does
+    (rollout.py:84-89), where the module path takes them. Under a mesh of
+    two gloo ranks the module path's metrics and final state are the
+    unsharded run's."""
     _, _, diff = models
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            make_ondevice_evaluator(diff, PointMazeJax(), **kw)
+        import torch_parallel_workers as w
+
+        with pytest.raises(ValueError, match="single-chip"):
+            make_ondevice_evaluator(diff, PointMazeJax(), use_megakernel=True,
+                                    **kw)
+        want = w.as_numpy(w.pointmaze_run(diff))
+        outs = w.spawn("rollout", 2, {"unet": diff.model.state_dict(),
+                                      "n_timesteps": T_STEPS}, str(tmp_path))
+        for out in outs:
+            got = w.as_numpy(out)
+            for part in ("metrics", "state"):
+                for k, v in want[part].items():
+                    np.testing.assert_allclose(got[part][k], v, rtol=1e-4,
+                                               atol=1e-5, err_msg=k)
         return
     with pytest.raises(ValueError, match="--megakernel"):
         make_ondevice_evaluator(diff, PointMazeJax(), use_megakernel=True,

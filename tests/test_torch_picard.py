@@ -172,9 +172,12 @@ def test_draws_from_a_generator_and_refuses_time_sharding():
     b = parallel_sample_loop(diff, diff.schedule, shape,
                              generator=torch.Generator().manual_seed(3))
     assert a.shape == shape and torch.isfinite(a).all() and torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        parallel_sample_loop(diff, diff.schedule, shape,
+    # without a mesh the time sharding is a no-op, as in JAX
+    # (parallel_sampling.py:70-76)
+    c = parallel_sample_loop(diff, diff.schedule, shape,
+                             generator=torch.Generator().manual_seed(3),
                              time_shard_axis="pt")
+    assert torch.equal(a, c)
 
 
 def test_bench_picard_on_the_cpu(tmp_path):

@@ -185,7 +185,16 @@ def test_port_imports_no_jax():
             "dadiff_tpu_torch.models.temporal_transformer",
             "dadiff_tpu_torch.models.parallel_sampling",
             "dadiff_tpu_torch.models.progressive",
-            "dadiff_tpu_torch.bench_picard"} <= set(names)
+            "dadiff_tpu_torch.bench_picard",
+            "dadiff_tpu_torch.parallel",
+            "dadiff_tpu_torch.parallel.distributed",
+            "dadiff_tpu_torch.parallel.mesh",
+            "dadiff_tpu_torch.parallel.planner",
+            "dadiff_tpu_torch.parallel.tp",
+            "dadiff_tpu_torch.parallel.comm_analysis",
+            "dadiff_tpu_torch.dryrun_multihost",
+            "dadiff_tpu_torch.dryrun_multichip",
+            "dadiff_tpu_torch.analyze_tp_comm"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
