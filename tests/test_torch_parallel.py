@@ -174,6 +174,7 @@ def test_mesh_shapes_and_batch_rows(ranks):
         assert torch.equal(m["rows"], torch.arange(8.0).reshape(4, 2)
                            [2 * rank:2 * rank + 2])
         assert m["round_trip"]
+        assert out["jax_modules"] == []  # the ranks import no JAX
 
 
 # ---------------------------------------------------------------------------
@@ -214,14 +215,18 @@ def test_fsdp_shards_every_parameter_on_dim_0(ranks):
         assert units == want
 
 
-def test_trainer_with_mesh_matches_the_unsharded_trainer(ranks, tmp_path):
-    """Three Adam steps of Trainer(mesh=dp2) against the Trainer on one
-    process: the losses, the weights and the EMA; rank 0 alone logs."""
+@pytest.mark.parametrize("kind", ["ddp", "fsdp"])
+def test_trainer_with_mesh_matches_the_unsharded_trainer(ranks, tmp_path,
+                                                         kind):
+    """Three Adam steps of Trainer(mesh=dp2), DDP or FSDP2, against the
+    Trainer on one process: the losses, the weights and the EMA; rank 0
+    alone logs, and its ``.pt`` loads with strict=True into a one-device
+    module and holds the run's weights."""
     inputs, outs, tmp = ranks
     ref = w.trainer_run(inputs["unet"], str(tmp_path))
     noise = _noise_leaves(inputs["unet"])
     for out in outs:
-        got = out["trainer"]
+        got = out[f"trainer/{kind}"]
         np.testing.assert_allclose(got["history"]["total"],
                                    ref["history"]["total"], rtol=1e-5)
         _assert_state_close(
@@ -232,8 +237,15 @@ def test_trainer_with_mesh_matches_the_unsharded_trainer(ranks, tmp_path):
         _assert_state_close({k[6:]: v for k, v in got["ema"].items()},
                             {k[6:]: v for k, v in ref["ema"].items()},
                             noise=noise)
-    lines = open(os.path.join(tmp, "trainer", "training.log")).readlines()
+    log_dir = os.path.join(tmp, f"trainer_{kind}")
+    lines = open(os.path.join(log_dir, "training.log")).readlines()
     assert len(lines) == 1 and lines[0].startswith("Epoch 1:")
+    ck = torch.load(os.path.join(log_dir, f"checkpoint_step_{STEPS}.pt"),
+                    weights_only=False)
+    diff = w.unet_diffusion()
+    diff.load_state_dict(ck["model_state_dict"], strict=True)
+    for k, v in diff.state_dict().items():
+        assert torch.equal(v, outs[0][f"trainer/{kind}"]["params"][k]), k
 
 
 def test_train_mesh_dp_2_matches_mesh_dp_1(ranks, tmp_path):

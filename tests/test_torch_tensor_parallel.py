@@ -185,8 +185,10 @@ def test_tp_train_step_matches_jax_single_device(ranks, mesh):
 
 def test_tp_forward_collective_structure(ranks):
     """tp contracts the whole-weight final conv's partial sums with an
-    all-reduce, gathers only activations, never a whole weight."""
+    all-reduce, gathers only activations, never a whole weight. (The ranks
+    import no JAX.)"""
     _, outs = ranks
+    assert all(out["jax_modules"] == [] for out in outs)
     for family in ("unet", "transformer"):
         s = outs[0][f"{family}/tp"]
         assert s["summary"].get("all-reduce", {}).get("count", 0) >= 1, s

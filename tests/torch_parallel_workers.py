@@ -56,6 +56,8 @@ def spawn(suite: str, world: int, inputs: Dict[str, Any], tmp: str
 
 
 def _entry(rank: int, world: int, tmp: str, suite: str) -> None:
+    import sys
+
     import torch.distributed as dist
 
     from dadiff_tpu_torch.parallel.distributed import initialize_distributed
@@ -67,6 +69,10 @@ def _entry(rank: int, world: int, tmp: str, suite: str) -> None:
         inputs = torch.load(os.path.join(tmp, "inputs.pt"),
                             weights_only=False)
         out = SUITES[suite](rank, inputs, tmp)
+        # what the rank imported of JAX, flax, optax or the JAX package
+        out["jax_modules"] = sorted(
+            m for m in sys.modules if m.split(".")[0] in (
+                "jax", "jaxlib", "flax", "optax", "dadiff_tpu"))
         torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -201,9 +207,11 @@ def picard_run(diffusion, draws, mesh=None, axis=None):
         init_noise=init, step_noise=noise, time_shard_axis=axis, mesh=mesh)
 
 
-def trainer_run(state, log_dir: str, mesh=None, steps: int = 3):
+def trainer_run(state, log_dir: str, mesh=None, steps: int = 3,
+                fsdp_axis=None):
     """Three Adam steps of the Trainer over a synthetic dataset of 16-row
-    batches: (history, final weights, EMA)."""
+    batches: (history, final weights, EMA); the exported ``.pt`` in
+    ``log_dir``."""
     from dadiff_tpu_torch.datasets.sequence import (
         SequenceDataset,
         create_dataloader,
@@ -216,15 +224,16 @@ def trainer_run(state, log_dir: str, mesh=None, steps: int = 3):
     loss_fn, names = losses.build_loss(diff)
     trainer = Trainer(diff, loader, loss_fn, lr=1e-3, log_dir=log_dir,
                       save_freq=0, log_freq=1, loss_names=names, seed=5,
-                      mesh=mesh)
+                      mesh=mesh, fsdp_axis=fsdp_axis)
     try:
         history = trainer.train(1, max_steps=steps)
     finally:
         trainer.close()
+    from dadiff_tpu_torch.parallel.mesh import full_state_dict
+
     return {"history": history,
-            "params": {k: v.detach().clone()
-                       for k, v in diff.state_dict().items()},
-            "ema": {k: v.clone() for k, v in trainer.state.ema_params.items()}}
+            "params": full_state_dict(diff.state_dict()),
+            "ema": full_state_dict(trainer.state.ema_params)}
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +308,11 @@ def parallel_suite(rank: int, inputs, tmp: str) -> Dict[str, Any]:
                         "params": full_state_dict(diff.model.state_dict())}
 
     # the Trainer and the train CLI under the mesh
-    out["trainer"] = trainer_run(inputs["unet"], os.path.join(tmp, "trainer"),
-                                 mesh)
+    out["trainer/ddp"] = trainer_run(inputs["unet"],
+                                     os.path.join(tmp, "trainer_ddp"), mesh)
+    out["trainer/fsdp"] = trainer_run(
+        inputs["unet"], os.path.join(tmp, "trainer_fsdp"), mesh,
+        fsdp_axis="dp")
     out["cli_log_dir"] = cli.train_main(inputs["cli_argv"] + ["--mesh-dp",
                                                                "2"])
 
