@@ -3221,14 +3221,19 @@ def transformer_phase(unet_ckpt: Path, root: Path, results_dir: Path,
 # ---------------------------------------------------------------------------
 
 PAR_BATCH, PAR_STEPS, PAR_LR = 256, 3, 3e-4
+PAR_TIMED, PAR_REPEATS = 10, 3  # step ms: repeats of 10 steps, interleaved
 PAR_ENVS, PAR_REPLANS = 128, 2
 # a DDP or FSDP run against the same steps without a mesh: the loss to 1e-5
-# relative (f32 sums, cuDNN's backward may add in another order); a weight
+# relative (f32 sums, cuDNN's backward may add in another order). A leaf
 # whose true gradient is 0 (a conv bias before a one-channel GroupNorm
-# group) takes Adam steps of up to the learning rate on rounding noise, so
-# weights are held to the summed learning rates
+# group; picked by its gradient, below 1e-6 of the largest entry) takes Adam
+# steps of up to the learning rate on rounding noise, so it is held to the
+# summed learning rates; every other leaf's change over the steps is held
+# to the run without a mesh's change, relative in the L2 norm (a run that
+# leaves the weights as they were reads 1)
 TOL_PAR_LOSS = 1e-5
-TOL_PAR_W = PAR_STEPS * PAR_LR * 1.01
+TOL_PAR_NOISE = PAR_LR * 1.01  # a step
+TOL_PAR_DELTA = 1e-4
 # the sharded forward at world 1 against the plain one: its GroupNorm sums
 # in another order, its convs pad by hand (another cuDNN algorithm may run)
 TOL_TP_FWD = 1e-4
@@ -3264,8 +3269,48 @@ def _par_run(trainer, batches, mesh):
     return losses, first, state
 
 
-def _max_diff(a: dict, b: dict) -> float:
-    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+def _noise_leaves(ckpt: Path, batch: dict) -> set:
+    """State keys of the parameters whose gradient on ``batch`` is below
+    1e-6 of the largest entry of any (their true gradient is 0)."""
+    from dadiff_tpu_torch.cli import load_model
+    from dadiff_tpu_torch.losses import build_loss
+
+    diff, _ = load_model(str(ckpt), DATASET, device="cuda")
+    diff.train()
+    loss_fn, names = build_loss(diff)
+    gens = [torch.Generator("cuda").manual_seed(SEED + i)
+            for i in range(len(names))]
+    loss_fn(batch, gens)[0].backward()
+    g = {n: float(p.grad.abs().max()) for n, p in diff.named_parameters()}
+    level = 1e-6 * max(g.values())
+    return {n for n, v in g.items() if v <= level}
+
+
+def _weights_against(got: dict, ref: dict, start: dict, noise: set,
+                     steps: int) -> dict:
+    """A run's weights against the reference run's, both from ``start``:
+    the noise leaves' largest difference (held to the summed learning
+    rates), and for every other leaf the difference of the two runs'
+    changes, relative to the reference's change in the L2 norm, and its
+    largest entry."""
+    num = den = 0.0
+    noise_max = other_max = 0.0
+    for k in ref:
+        if not ref[k].is_floating_point():
+            continue
+        d = (got[k].float() - ref[k].float()).abs()
+        if k in noise:
+            noise_max = max(noise_max, float(d.max()))
+            continue
+        other_max = max(other_max, float(d.max()))
+        num += float(d.double().square().sum())
+        den += float((ref[k].double() - start[k].double()).square().sum())
+    out = {"noise_max_abs": noise_max, "max_abs": other_max,
+           "delta_rel": (num / den) ** 0.5}
+    require(noise_max <= steps * TOL_PAR_NOISE
+            and out["delta_rel"] <= TOL_PAR_DELTA,
+            f"weights against the run without a mesh: {out}")
+    return out
 
 
 def _gloo_rank(rank: int, rendezvous: str, ckpt: str, batch_file: str,
@@ -3305,8 +3350,9 @@ def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
     planner kernel under a mesh): a world-1 NCCL process group and the
     ('dp',) mesh; PAR_STEPS DDP steps through ``Trainer(mesh=)`` and
     PAR_STEPS FSDP2 steps (``fsdp_axis='dp'``) of the flagship at batch
-    PAR_BATCH against the Trainer without a mesh, and the ms of a step of
-    each; ``make_batched_planner`` at 1,024 chains against ``make_sampler``;
+    PAR_BATCH against the Trainer without a mesh (the loss, and the change
+    in the weights), and the ms of a step of each, PAR_REPEATS times in
+    turn; ``make_batched_planner`` at 1,024 chains against ``make_sampler``;
     ``make_ondevice_evaluator(mesh=)`` at PAR_ENVS envs x best of 8 for
     PAR_REPLANS replans against the unsharded evaluator, and its refusal of
     the planner chain; the tp and sp forwards of the flagship U-Net and of
@@ -3348,35 +3394,44 @@ def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
         mesh = make_mesh({"dp": 1})
 
         # -- training: DDP and FSDP2 against no mesh
-        runs, times, first_state = {}, {}, None
+        trainers, runs = {}, {}
         for name, m, fsdp in (("none", None, None), ("ddp", mesh, None),
                               ("fsdp", mesh, "dp")):
-            trainer, dataset = _par_trainer(ckpt, root / f"train_{name}", m,
-                                            fsdp)
-            it = iter(create_dataloader(dataset, PAR_BATCH, seed=SEED))
-            batches = [{k: torch.as_tensor(v, device="cuda")
-                        for k, v in next(it).items()}
-                       for _ in range(PAR_STEPS)]
-            runs[name] = _par_run(trainer, batches, m)
-            times[name] = cuda_ms(lambda: trainer._step(batches[0]), 10)
-            trainer.close()
+            trainers[name], dataset = _par_trainer(
+                ckpt, root / f"train_{name}", m, fsdp)
             if name == "none":
-                first_batch = {k: v.cpu() for k, v in batches[0].items()}
+                it = iter(create_dataloader(dataset, PAR_BATCH, seed=SEED))
+                batches = [{k: torch.as_tensor(v, device="cuda")
+                            for k, v in next(it).items()}
+                           for _ in range(PAR_STEPS)]
+                noise = _noise_leaves(ckpt, batches[0])
+                start = {k: v.detach().clone() for k, v in
+                         trainers[name].diffusion.state_dict().items()}
+            runs[name] = _par_run(trainers[name], batches, m)
+        out["noise_leaves"] = sorted(noise)
         for name in ("ddp", "fsdp"):
             loss_err = max(abs(a - b) / abs(b) for a, b in
                            zip(runs[name][0], runs["none"][0]))
-            w_err = _max_diff(runs[name][2], runs["none"][2])
-            require(loss_err <= TOL_PAR_LOSS and w_err <= TOL_PAR_W,
-                    f"{name} steps against no mesh: loss {loss_err:.2e} "
-                    f"weights {w_err:.2e}")
-            out[f"{name}_loss_rel_err"], out[f"{name}_w_max_diff"] = \
-                loss_err, w_err
+            require(loss_err <= TOL_PAR_LOSS,
+                    f"{name} steps against no mesh: loss {loss_err:.2e}")
+            out[f"{name}_loss_rel_err"] = loss_err
+            out[f"{name}_weights"] = _weights_against(
+                runs[name][2], runs["none"][2], start, noise, PAR_STEPS)
+        times = {name: [] for name in trainers}
+        for _ in range(PAR_REPEATS):
+            for name, trainer in trainers.items():
+                times[name].append(cuda_ms(lambda: trainer._step(batches[0]),
+                                           PAR_TIMED))
+        for trainer in trainers.values():
+            trainer.close()
+        first_batch = {k: v.cpu() for k, v in batches[0].items()}
         out["step_ms"] = times
-        log(f"parallel: train step at batch {PAR_BATCH}: no mesh "
-            f"{times['none']:.3f} ms, DDP (world 1, NCCL) "
-            f"{times['ddp']:.3f} ms, FSDP2 {times['fsdp']:.3f} ms ({card}); "
+        log(f"parallel: train step at batch {PAR_BATCH}, {PAR_REPEATS} x "
+            f"{PAR_TIMED} steps each: no mesh {times['none']} ms, DDP (world "
+            f"1, NCCL) {times['ddp']} ms, FSDP2 {times['fsdp']} ms ({card}); "
             f"losses {runs['none'][0]} / {runs['ddp'][0]} / "
-            f"{runs['fsdp'][0]}")
+            f"{runs['fsdp'][0]}; weights DDP {out['ddp_weights']}, FSDP2 "
+            f"{out['fsdp_weights']} ({len(noise)} noise leaves)")
 
         # -- the batched planner at 1,024 chains
         from dadiff_tpu_torch.cli import load_model
@@ -3474,16 +3529,15 @@ def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
     got = torch.load(result, weights_only=False)
     ref_loss = runs["none"][0][0]
     loss_err = abs(got["loss"] - ref_loss) / abs(ref_loss)
-    w_err = _max_diff(got["state"], {k: v.cpu() for k, v in
-                                     runs["none"][1].items()})
-    require(loss_err <= TOL_PAR_LOSS and w_err <= PAR_LR * 1.01,
-            f"two gloo ranks against one process: loss {loss_err:.2e} "
-            f"weights {w_err:.2e}")
-    out.update(gloo_loss_rel_err=loss_err, gloo_w_max_diff=w_err,
-               gloo_s=time.perf_counter() - t1,
-               total_s=time.perf_counter() - t0)
+    require(loss_err <= TOL_PAR_LOSS,
+            f"two gloo ranks against one process: loss {loss_err:.2e}")
+    cpu = {k: v.cpu() for k, v in start.items()}
+    out.update(gloo_loss_rel_err=loss_err, gloo_weights=_weights_against(
+        got["state"], {k: v.cpu() for k, v in runs["none"][1].items()}, cpu,
+        noise, 1), gloo_s=time.perf_counter() - t1,
+        total_s=time.perf_counter() - t0)
     log(f"parallel: two gloo ranks on one card: loss {got['loss']:.6f} vs "
-        f"{ref_loss:.6f} ({loss_err:.1e}), weights {w_err:.1e} "
+        f"{ref_loss:.6f} ({loss_err:.1e}), weights {out['gloo_weights']} "
         f"({out['gloo_s']:.1f} s)")
     return out
 

@@ -1,20 +1,22 @@
 """Multi-process dry run: evidence that parallel/distributed.py joins
 processes into one data-parallel train step.
 
-Counterpart of the JAX package's scripts/dryrun_multihost.py. Two gloo
-processes join one process group through ``initialize_distributed`` (the
-rank and world size in torchrun's variables, the rendezvous in a file of a
-temporary directory), build the ('dp',) mesh and take the REAL train step
-(``utils.training.Trainer`` with its DDP objective) on a deterministic
-global batch, each process on its own rows. The parent takes the same step
+Counterpart of the JAX package's scripts/dryrun_multihost.py. Two
+processes, one per card over NCCL (or gloo processes on the CPU with
+``--device cpu``), join one process group through
+``initialize_distributed`` (the rank and world size in torchrun's
+variables, the rendezvous in a file of a temporary directory), build the
+('dp',) mesh and take the REAL train step (``utils.training.Trainer`` with
+its DDP objective) on a deterministic global batch, each process on its own
+rows. The parent takes the same step
 in one process and requires the same loss from both children: the
 cross-process path computes the single-process math.
 
 It sees the rendezvous, the mesh over the processes, per-process batch rows
-and the gradient all-reduce across processes. It cannot see NCCL, NVLink or
-more than one host.
+and the gradient all-reduce across processes. It cannot see more than one
+host.
 
-    python -m dadiff_tpu_torch.dryrun_multihost
+    python -m dadiff_tpu_torch.dryrun_multihost [--device cpu]
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ NUM_PROCS = 2
 BATCH, HORIZON, DIM = 16, 8, 4
 
 
-def _trainer(log_dir: str, mesh=None):
+def _trainer(log_dir: str, device: str, mesh=None):
     """Tiny diffusion model and the real train step, weights from seed 0."""
     import numpy as np
     import torch
@@ -43,7 +45,7 @@ def _trainer(log_dir: str, mesh=None):
     torch.manual_seed(0)
     diffusion = GaussianDiffusion(
         TemporalUnet(DIM, dim=8, dim_mults=(1, 2)), HORIZON,
-        observation_dim=3, action_dim=1, n_timesteps=10)
+        observation_dim=3, action_dim=1, n_timesteps=10).to(device)
     loss_fn, names = build_loss(diffusion)
     batch = {"conditions": np.random.RandomState(0).randn(
         BATCH, HORIZON, DIM).astype(np.float32)}
@@ -59,8 +61,9 @@ def _loss(trainer, batch) -> float:
     from dadiff_tpu_torch.parallel.mesh import local_rows
 
     rows = local_rows(batch, trainer.mesh)
+    device = next(trainer.diffusion.parameters()).device
     try:
-        return trainer.train_step({k: torch.from_numpy(v)
+        return trainer.train_step({k: torch.from_numpy(v).to(device)
                                    for k, v in rows.items()})["total"]
     finally:
         trainer.close()
@@ -71,25 +74,36 @@ def run_child(args) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    from dadiff_tpu_torch.parallel.distributed import initialize_distributed
+    from dadiff_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        mesh_device,
+    )
     from dadiff_tpu_torch.parallel.mesh import make_mesh
 
-    if not initialize_distributed(args.init_method, device="cpu"):
+    if not initialize_distributed(args.init_method, device=args.device):
         raise SystemExit("initialize_distributed found no world")
-    if dist.get_world_size() != NUM_PROCS:
-        raise SystemExit(f"world of {dist.get_world_size()}, not {NUM_PROCS}")
-    trainer, batch = _trainer(args.log_dir, make_mesh({"dp": NUM_PROCS}))
-    loss = _loss(trainer, batch)
-    print(f"CHILD {dist.get_rank()} LOSS {loss:.10f}", flush=True)
-    dist.destroy_process_group()
+    try:
+        if dist.get_world_size() != NUM_PROCS:
+            raise SystemExit(f"world of {dist.get_world_size()}, not "
+                             f"{NUM_PROCS}")
+        mesh = make_mesh({"dp": NUM_PROCS})
+        trainer, batch = _trainer(args.log_dir, mesh_device(mesh), mesh)
+        loss = _loss(trainer, batch)
+        print(f"CHILD {dist.get_rank()} LOSS {loss:.10f}", flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
-def run_parent() -> None:
+def run_parent(device: str) -> None:
     import torch
 
     torch.set_num_threads(1)
+    if device == "cuda" and torch.cuda.device_count() < NUM_PROCS:
+        raise SystemExit(f"{NUM_PROCS} processes need as many cards; "
+                         f"{torch.cuda.device_count()} visible (pass "
+                         "--device cpu for gloo processes)")
     with tempfile.TemporaryDirectory() as tmp:
-        trainer, batch = _trainer(os.path.join(tmp, "ref"))
+        trainer, batch = _trainer(os.path.join(tmp, "ref"), device)
         ref_loss = _loss(trainer, batch)
         procs = []
         for rank in range(NUM_PROCS):
@@ -97,7 +111,7 @@ def run_parent() -> None:
                        WORLD_SIZE=str(NUM_PROCS), LOCAL_RANK=str(rank))
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "dadiff_tpu_torch.dryrun_multihost",
-                 "--role", "child", "--init-method",
+                 "--role", "child", "--device", device, "--init-method",
                  f"file://{os.path.join(tmp, 'rendezvous')}", "--log-dir",
                  os.path.join(tmp, "run")],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -135,9 +149,10 @@ def main(argv=None) -> None:
     p.add_argument("--role", default="parent", choices=["parent", "child"])
     p.add_argument("--init-method", default=None)
     p.add_argument("--log-dir", default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
     if args.role == "parent":
-        run_parent()
+        run_parent(args.device)
     else:
         run_child(args)
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from dadiff_tpu_torch.envs.learned_model import _lecun_normal_
 from dadiff_tpu_torch.models.temporal_unet import SinusoidalPosEmb
+from dadiff_tpu_torch.parallel.tp import Sharded
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -63,17 +64,25 @@ class Attention(nn.Module):
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, view: Sharded) -> torch.Tensor:
+        """Self-attention of this rank's query rows against every rank's
+        keys and values, over this rank's heads (all of them without a
+        mesh)."""
         B, H, C = h.shape
-        hd = C // self.n_heads
+        hd = self.query.in_features // self.n_heads
 
-        def heads(x):  # (B, H, C) -> (B, heads, H, head_dim)
-            return x.reshape(B, H, self.n_heads, hd).transpose(1, 2)
+        def heads(x):  # (B, rows, heads*hd) -> (B, heads, rows, head_dim)
+            return x.reshape(B, x.shape[1], -1, hd).transpose(1, 2)
 
-        q = heads(self.query(h)) / (hd ** 0.5)
-        k, v = heads(self.key(h)), heads(self.value(h))
-        w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-        return self.out((w @ v).transpose(1, 2).reshape(B, H, C))
+        q = view.dense((h, False), self.query, rows=True)
+        k = view.dense((h, False), self.key, rows=True)
+        v = view.dense((h, False), self.value, rows=True)
+        k_all = view.sp.copy(view.sp.gather(k[0], 1))
+        v_all = view.sp.copy(view.sp.gather(v[0], 1))
+        w = torch.softmax(heads(q[0]) / (hd ** 0.5)
+                          @ heads(k_all).transpose(-1, -2), dim=-1)
+        o = (w @ heads(v_all)).transpose(1, 2).reshape(B, H, -1)
+        return view.whole(view.dense((o, q[1]), self.out, rows=True))
 
 
 class AdaLNBlock(nn.Module):
@@ -88,14 +97,19 @@ class AdaLNBlock(nn.Module):
         self.mlp1 = nn.Linear(dim, mlp_ratio * dim)
         self.mlp2 = nn.Linear(mlp_ratio * dim, dim)
 
-    def forward(self, x: torch.Tensor, t_act: torch.Tensor) -> torch.Tensor:
-        """``t_act`` is ``silu(t_emb)``, shared by every block."""
-        s1, g1, gate1, s2, g2, gate2 = self.adaln_mod(t_act)[:, None, :] \
+    def forward(self, x: torch.Tensor, t_act: torch.Tensor,
+                view: Sharded) -> torch.Tensor:
+        """``t_act`` is ``silu(t_emb)``, shared by every block; ``x`` this
+        rank's rows of the residual stream."""
+        mod = view.whole(view.dense((t_act, False), self.adaln_mod,
+                                    rows=False))
+        s1, g1, gate1, s2, g2, gate2 = view.sp.copy(mod)[:, None, :] \
             .chunk(6, dim=-1)
         h = _layer_norm(x) * (1.0 + g1) + s1
-        x = x + gate1 * self.attn(h)
+        x = x + gate1 * self.attn(h, view)
         h = _layer_norm(x) * (1.0 + g2) + s2
-        h = self.mlp2(F.mish(self.mlp1(h)))
+        h = view.dense((h, False), self.mlp1, rows=True)
+        h = view.whole(view.dense((F.mish(h[0]), h[1]), self.mlp2, rows=True))
         return x + gate2 * h
 
 
@@ -103,8 +117,11 @@ class TemporalTransformer(nn.Module):
     """Timestep-conditioned transformer over the horizon axis
     (temporal_transformer.py:82-168): any horizon up to ``max_horizon``.
     ``act_spec`` names the (batch, horizon, channel) mesh axes, as in
-    ``TemporalUnet`` (temporal_transformer.py:96-110): on a mesh the forward
-    shards the horizon and the heads (parallel/tp.py)."""
+    ``TemporalUnet`` (temporal_transformer.py:96-110). The one forward runs
+    through ``parallel.tp.Sharded``: once ``shard_params_tp`` has placed the
+    weights on a mesh it shards the horizon over sp and the heads and the
+    MLP's hidden units over tp; without a mesh every step is the plain
+    operation."""
 
     def __init__(self, transition_dim: int, dim: int = 128, depth: int = 4,
                  n_heads: int = 4, mlp_ratio: int = 4,
@@ -151,19 +168,27 @@ class TemporalTransformer(nn.Module):
         self.pos_emb.normal_(0.0, 0.02)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
-        if self.mesh is not None and self.act_spec is not None:
-            from dadiff_tpu_torch.parallel.tp import transformer_forward
-
-            return transformer_forward(self, x, time)
+        view = Sharded(self)
         horizon = x.shape[1]
         if horizon > self.max_horizon:
             raise ValueError(f"horizon {horizon} exceeds max_horizon "
                              f"{self.max_horizon}")
-        t = self.time_dense2(F.mish(self.time_dense1(self.time_pos_emb(time))))
-        t_act = F.silu(t)
-        h = self.in_proj(x.to(torch.float32)) + self.pos_emb[None, :horizon]
+        if horizon % view.sp.size:
+            raise ValueError(f"horizon {horizon} does not split over sp "
+                             f"{view.sp.size}")
+        t = view.dense((self.time_pos_emb(time), False), self.time_dense1,
+                       rows=False)
+        t = view.dense((F.mish(t[0]), t[1]), self.time_dense2, rows=False)
+        t_act = F.silu(view.whole(t))
+        x = view.sp.scatter(x.to(torch.float32), 1)
+        pos = view.param(self.pos_emb, rows=True)[view.sp.block(horizon)]
+        h = view.whole(view.dense((x, False), self.in_proj, rows=True)) \
+            + pos[None]
         for block in self.blocks:
-            h = block(h, t_act)
-        shift, scale = self.final_mod(t_act)[:, None, :].chunk(2, dim=-1)
+            h = block(h, t_act, view)
+        mod = view.whole(view.dense((t_act, False), self.final_mod,
+                                    rows=False))
+        shift, scale = view.sp.copy(mod)[:, None, :].chunk(2, dim=-1)
         h = _layer_norm(h) * (1.0 + scale) + shift
-        return self.out_proj(h).to(torch.float32)
+        out = view.whole(view.dense((h, False), self.out_proj, rows=True))
+        return view.sp.gather(out, 1).to(torch.float32)

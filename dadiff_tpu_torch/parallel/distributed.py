@@ -24,7 +24,7 @@ import torch.distributed as dist
 def initialize_distributed(init_method: Optional[str] = None, *,
                            rank: Optional[int] = None,
                            world_size: Optional[int] = None,
-                           device: Optional[str] = None) -> bool:
+                           device: str = "cuda") -> bool:
     """Join the default process group; True when one is running after the
     call. ``rank``/``world_size`` default to torchrun's ``RANK`` and
     ``WORLD_SIZE``, ``init_method`` to ``env://`` (``MASTER_ADDR`` and
@@ -32,9 +32,9 @@ def initialize_distributed(init_method: Optional[str] = None, *,
     Without a world size from either, this is a single process and nothing
     happens.
 
-    ``device`` ``cuda`` (the default where a card is visible) takes NCCL and
-    sets the current card to ``LOCAL_RANK`` (else the rank); ``cpu`` takes
-    gloo. There is no fallback: ``cuda`` without a card raises."""
+    ``device`` ``cuda`` (the default) takes NCCL and sets the current card
+    to ``LOCAL_RANK`` (else the rank); ``cpu`` takes gloo. There is no
+    fallback: ``cuda`` without a card raises."""
     if dist.is_initialized():
         return True
     if world_size is None and "WORLD_SIZE" in os.environ:
@@ -43,8 +43,6 @@ def initialize_distributed(init_method: Optional[str] = None, *,
         return False
     if rank is None:
         rank = int(os.environ.get("RANK", "0"))
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     if device == "cuda":
         local = int(os.environ.get("LOCAL_RANK", rank))
         torch.cuda.set_device(local)

@@ -15,6 +15,9 @@ insert the collectives; here the sharded forward is written out:
     Megatron's layout (:func:`transformer_param_specs`): query, key, value
     and ``mlp1`` split their outputs (heads stay whole on a rank), ``out``
     and ``mlp2`` their inputs, all-reduced; the residual stream stays whole.
+    Its modules' own forwards run through :class:`Sharded`, which is the
+    plain operation on axes of size 1; the U-Net's sharded forward is
+    :func:`unet_forward`.
   * **sp** shards the horizon. A 1-D conv reads its kernel's overlap from
     the neighbouring ranks (a halo: 2 rows on each side at k=5, 1 for the
     stride-2 down- and up-sampling), GroupNorm's statistics are all-reduced
@@ -198,13 +201,15 @@ def maybe_constrain(x: torch.Tensor, spec: Sequence[Optional[str]],
     return x
 
 
-class _Sharded:
+class Sharded:
     """The sharded forward's view of a module: its sp and tp axes (from the
     module's ``act_spec`` = (batch, horizon, channel) axis names) and the tp
-    dim of each parameter."""
+    dim of each parameter. Without a mesh (or ``act_spec``) both axes have
+    size 1 and every method is the plain operation: the transformer's one
+    forward runs through it either way."""
 
     def __init__(self, module):
-        spec = tuple(module.act_spec) + (None,) * 3
+        spec = tuple(module.act_spec or ()) + (None,) * 3
         self.sp = _Axis(module.mesh, spec[1])
         self.tp = _Axis(module.mesh, spec[2])
         self.tp_dim = _tp_dims(module, spec[2])
@@ -298,12 +303,13 @@ class _Sharded:
 
 def _tp_dims(module, tp_axis: Optional[str]) -> Dict[torch.Tensor, int]:
     """Parameter -> its dim sharded over ``tp_axis`` (DTensor placements)."""
-    from torch.distributed.tensor import DTensor, Shard
-
     out = {}
     mesh = module.mesh
-    if tp_axis is None or tp_axis not in (mesh.mesh_dim_names or ()):
+    if (mesh is None or tp_axis is None
+            or tp_axis not in (mesh.mesh_dim_names or ())):
         return out
+    from torch.distributed.tensor import DTensor, Shard
+
     i = mesh.mesh_dim_names.index(tp_axis)
     for p in module.parameters():
         if isinstance(p, DTensor) and isinstance(p.placements[i], Shard):
@@ -330,8 +336,17 @@ def _check_rows(horizon: int, sp: _Axis, levels: int) -> None:
 
 def unet_forward(unet, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
     """``TemporalUnet.forward`` with the horizon sharded over sp and the
-    channels over tp (temporal_unet.py:200-281 under ``act_spec``)."""
-    s = _Sharded(unet)
+    channels over tp (temporal_unet.py:200-281 under ``act_spec``).
+
+    Unlike the transformer, whose one forward runs through :class:`Sharded`
+    with or without a mesh, the U-Net keeps this second copy of its forward:
+    it pads each conv by hand (for the halo), computes GroupNorm from its
+    sums (to all-reduce them over sp), carries a decoder level's skip
+    concatenation as its two halves and has no ``use_pallas_norm`` kernel,
+    all of which would slow the plain path that every single-device
+    sampler, trainer and evaluator runs (``python -m
+    dadiff_tpu_torch.bench_forward`` times both on a card)."""
+    s = Sharded(unet)
     _check_rows(x.shape[1], s.sp, len(unet.dim_mults))
     t = (unet.time_mlp[0](time), False)
     t = _mish_act(s.dense(t, unet.time_mlp[1], rows=False))
@@ -356,14 +371,14 @@ def unet_forward(unet, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
     return s.sp.gather(s.whole(a), 1)
 
 
-def _conv_block(s: _Sharded, block, a):
+def _conv_block(s: Sharded, block, a):
     conv, norm, _ = block.block
     k = conv.kernel_size[0]
     return _mish_act(s.group_norm(s.conv(a, conv, halo=(k // 2, k // 2)),
                                   norm))
 
 
-def _res_block(s: _Sharded, block, a, t):
+def _res_block(s: Sharded, block, a, t):
     """ResidualTemporalBlock (temporal_unet.py:141-169); ``a`` may be the
     (upper, skip) pair of a decoder level, read as their concatenation."""
     x = _cat(s, a) if isinstance(a[0], tuple) else a
@@ -379,70 +394,13 @@ def _res_block(s: _Sharded, block, a, t):
     return h[0] + res[0], h[1]
 
 
-def _cat(s: _Sharded, pair):
+def _cat(s: Sharded, pair):
     """The channel concatenation of two activations: whole when either is
     split, since the halves' shards do not interleave into the whole's."""
     (a, b) = pair
     if not (a[1] or b[1]):
         return torch.cat([a[0], b[0]], dim=-1), False
     return torch.cat([s.whole(a), s.whole(b)], dim=-1), False
-
-
-def transformer_forward(model, x: torch.Tensor,
-                        time: torch.Tensor) -> torch.Tensor:
-    """``TemporalTransformer.forward`` with the horizon sharded over sp and
-    the heads and the MLP's hidden units over tp
-    (temporal_transformer.py:112-160 under ``act_spec``)."""
-    from dadiff_tpu_torch.models.temporal_transformer import _layer_norm
-
-    s = _Sharded(model)
-    horizon = x.shape[1]
-    if horizon > model.max_horizon or horizon % s.sp.size:
-        raise ValueError(f"horizon {horizon} does not split over sp "
-                         f"{s.sp.size} (max {model.max_horizon})")
-    t = (model.time_pos_emb(time), False)
-    t = _mish_act(s.dense(t, model.time_dense1, rows=False))
-    t = s.whole(s.dense(t, model.time_dense2, rows=False))
-    t_act = (F.silu(t), False)
-    rows = s.sp.block(horizon)
-    xs = (s.sp.scatter(x.to(torch.float32), 1), False)
-    pos = s.param(model.pos_emb, rows=True)[rows]
-    h = s.whole(s.dense(xs, model.in_proj, rows=True)) + pos[None]
-    for block in model.blocks:
-        mod = s.sp.copy(s.whole(s.dense(t_act, block.adaln_mod, rows=False)))
-        s1, g1, gate1, s2, g2, gate2 = mod[:, None, :].chunk(6, dim=-1)
-        u = _layer_norm(h) * (1.0 + g1) + s1
-        h = h + gate1 * _attention(s, block.attn, u)
-        u = _layer_norm(h) * (1.0 + g2) + s2
-        u = _mish_act(s.dense((u, False), block.mlp1, rows=True))
-        h = h + gate2 * s.whole(s.dense(u, block.mlp2, rows=True))
-    mod = s.sp.copy(s.whole(s.dense(t_act, model.final_mod, rows=False)))
-    shift, scale = mod[:, None, :].chunk(2, dim=-1)
-    u = _layer_norm(h) * (1.0 + scale) + shift
-    out = s.whole(s.dense((u, False), model.out_proj, rows=True))
-    return s.sp.gather(out, 1)
-
-
-def _attention(s: _Sharded, attn, u):
-    """Self-attention on this rank's query rows against every rank's keys
-    and values, over this rank's heads."""
-    B, H, C = u.shape
-    hd = C // attn.n_heads
-
-    def heads(v):
-        return v.reshape(B, v.shape[1], -1, hd).transpose(1, 2)
-
-    q = s.dense((u, False), attn.query, rows=True)
-    k = s.dense((u, False), attn.key, rows=True)
-    v = s.dense((u, False), attn.value, rows=True)
-    if q[1] != k[1] or k[1] != v[1]:
-        raise ValueError("query, key and value must shard alike")
-    k_all = s.sp.copy(s.sp.gather(k[0], 1))
-    v_all = s.sp.copy(s.sp.gather(v[0], 1))
-    w = torch.softmax(heads(q[0]) / (hd ** 0.5)
-                      @ heads(k_all).transpose(-1, -2), dim=-1)
-    o = (w @ heads(v_all)).transpose(1, 2).reshape(B, H, -1)
-    return s.whole(s.dense((o, q[1]), attn.out, rows=True))
 
 
 # ---------------------------------------------------------------------------

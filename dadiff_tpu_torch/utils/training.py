@@ -213,8 +213,12 @@ class Trainer:
             which the axis must divide, and DDP averages the gradients over
             dp. The module's replicas start from rank 0's weights.
         fsdp_axis: with a mesh, shard the denoiser's weights over this axis
-            with FSDP2 (``shard_params_fsdp``) instead of DDP; resuming such
-            a run from its ``.train.pt`` is not supported.
+            with FSDP2 (``shard_params_fsdp``) instead of DDP. The port's
+            own option (JAX's Trainer replicates the weights; its FSDP step
+            lives in ``dryrun_multichip``), set by no CLI flag, and only
+            partly supported: its ``.pt`` is whole and loads with
+            ``strict=True``, but its ``.train.pt`` holds no optimizer state
+            and resuming it raises ``NotImplementedError``.
     """
 
     def __init__(self, diffusion, train_loader, loss_fn: Callable, *,

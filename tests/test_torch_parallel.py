@@ -350,7 +350,8 @@ def test_dryrun_multihost():
     import sys
 
     r = subprocess.run([sys.executable, "-m",
-                        "dadiff_tpu_torch.dryrun_multihost"],
+                        "dadiff_tpu_torch.dryrun_multihost", "--device",
+                        "cpu"],
                        capture_output=True, text=True, timeout=300,
                        cwd=os.path.dirname(os.path.dirname(__file__)))
     assert r.returncode == 0, r.stdout + r.stderr

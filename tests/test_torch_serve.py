@@ -194,7 +194,8 @@ def test_port_imports_no_jax():
             "dadiff_tpu_torch.parallel.comm_analysis",
             "dadiff_tpu_torch.dryrun_multihost",
             "dadiff_tpu_torch.dryrun_multichip",
-            "dadiff_tpu_torch.analyze_tp_comm"} <= set(names)
+            "dadiff_tpu_torch.analyze_tp_comm",
+            "dadiff_tpu_torch.bench_forward"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

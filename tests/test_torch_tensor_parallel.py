@@ -253,8 +253,26 @@ def test_dryrun_multichip_four_processes():
 def test_analyze_tp_comm(tmp_path):
     out_md = tmp_path / "tp.md"
     _run(["dadiff_tpu_torch.analyze_tp_comm", "--dim", "32", "--nproc", "4",
-          "--out", str(out_md)])
+          "--device", "cpu", "--out", str(out_md)])
     text = out_md.read_text()
     assert "| dp=2 tp=2 | all-reduce | 1 |" in text
     assert "| dp=1 tp=4 | all-gather |" in text
     assert "VIOLATIONS" not in text
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("dryrun_multihost", []),
+    ("dryrun_multichip", ["--nproc", "2"]),
+    ("analyze_tp_comm", ["--nproc", "2"]),
+])
+def test_entry_points_take_the_cards_unless_told_cpu(module, argv,
+                                                    monkeypatch):
+    """Without ``--device cpu`` each entry point asks for a card per
+    process and refuses, naming ``--device cpu``, when too few are
+    visible: no entry point moves to the CPU on its own."""
+    import importlib
+
+    main = importlib.import_module(f"dadiff_tpu_torch.{module}").main
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        main(argv)
