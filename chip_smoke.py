@@ -99,7 +99,20 @@
    plain forwards. No port kernel launches there. Then two processes on
    the one card join over gloo and take a DDP step, held against the same
    step in one process.
-12. Prints the card, the kernel table as one JSON line, and as the last
+12. Drives bf16 training (``dtype_phase``): ``train_main --dtype float32``
+   and ``--dtype bfloat16`` for 10 steps of batch 256, the flagship U-Net
+   (fine-tuned from the smoke checkpoint) and the transformer recipe,
+   three repeats of each in turns, step ms and first losses; each bf16
+   forward on the card against the CPU. Then ``train --config`` with a
+   JSON file and one flag that wins (``config_phase``).
+13. Traces through ``dadiff_tpu_torch.utils.profiling`` (``profile_phase``):
+   5 replays of the served bo8 wave (busy share, top kernels, the trace's
+   K2 launches against the counters') and 5 flagship train steps at batch
+   256 (busy share).
+14. Runs ``dadiff_tpu_torch.physics_bound`` on Hopper-v5 at the committed
+   artifact's settings, K cut to its first rows (``physics_bound_phase``),
+   and ``python -m dadiff_tpu_torch.check_install`` (exit 0).
+15. Prints the card, the kernel table as one JSON line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result, without a CUDA device or outside a
@@ -109,6 +122,7 @@ checkout of the repository. It uses nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import socket
 import subprocess
 import sys
@@ -3543,6 +3557,429 @@ def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# bf16 training, experiment configs, the profiler, the physics bound, the
+# installation check
+# ---------------------------------------------------------------------------
+
+DT_STEPS, DT_REPEATS, DT_BATCH = 10, 3, 256
+# tests/test_torch_dtype.py: a bf16 forward within 3e-2 of the largest
+# |output| of the other side's bf16 forward (rounding points in other order)
+TOL_FWD_BF16 = 3e-2
+# the committed artifact's settings (results/physics_bound_Hopper_v5_float32
+# .json); PGS at 100 iterations dispatches ~925,000 ops a Hopper env step,
+# seconds each host-driven, so the K list is cut to its first rows
+PB_K = (1, 2)
+PB_ARTIFACT = "results/physics_bound_Hopper_v5_float32.json"
+
+
+def _dtype_runs(ckpt: Path, root: Path) -> dict:
+    """``train_main`` for DT_STEPS steps at batch DT_BATCH, per family and
+    dtype, DT_REPEATS repeats in turns (f32, bf16, f32, ...): the run's
+    step ms (its wall time over its steps, data included: the Trainer's
+    steps_per_sec) and its first logged loss."""
+    from dadiff_tpu_torch.cli import train_main
+
+    base = {
+        "unet": ["--checkpoint", str(ckpt), "--reset-optimizer"],
+        "transformer": ["--model-type", "transformer", "--dim", str(TT_DIM),
+                        "--depth", str(TT_DEPTH), "--n-heads", str(TT_HEADS),
+                        "--n-timesteps", str(T_STEPS)],
+    }
+    runs = {fam: {"float32": [], "bfloat16": []} for fam in base}
+    for rep in range(DT_REPEATS):
+        for fam, args in base.items():
+            for dtype in ("float32", "bfloat16"):
+                log_dir = Path(train_main(args + [
+                    "--dataset", DATASET, "--horizon", str(HORIZON),
+                    "--batch-size", str(DT_BATCH), "--n-epochs", "1",
+                    "--max-steps", str(DT_STEPS), "--warmup-steps", "10",
+                    "--log-freq", "1", "--eval-freq", "0", "--save-freq",
+                    "0", "--no-export-pt", "--seed", str(SEED), "--dtype",
+                    dtype, "--log-dir",
+                    str(root / f"{fam}_{dtype}_{rep}")]))
+                rec = json.loads((log_dir / "metrics.jsonl").read_text()
+                                 .splitlines()[-1])
+                series = rec["total_series"]
+                require(rec["step"] == DT_STEPS and len(series) == DT_STEPS
+                        and all(v == v and abs(v) < 1e6 for v in series),
+                        f"{fam} {dtype}: {DT_STEPS} finite losses {series}")
+                runs[fam][dtype].append({
+                    "step_ms": 1e3 / rec["steps_per_sec"],
+                    "first_loss": series[0], "last_loss": series[-1]})
+    return runs
+
+
+def _train_steps(ckpt: Path) -> dict:
+    """One train step (loss, grad, clip, Adam, EMA) at batch DT_BATCH on
+    one batch already on the card, per family and dtype, keyed
+    "<family>_<dtype>": the U-Net with the smoke checkpoint's weights, the
+    transformer recipe with its seed's initialisation."""
+    from dadiff_tpu_torch.cli import load_model
+    from dadiff_tpu_torch.datasets.sequence import create_dataloader
+    from dadiff_tpu_torch.losses import build_loss, make_generators
+    from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
+    from dadiff_tpu_torch.models.temporal_transformer import (
+        TemporalTransformer,
+    )
+    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
+    from dadiff_tpu_torch.utils import training as tt
+
+    base, dataset = load_model(str(ckpt), DATASET, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
+        create_dataloader(dataset, DT_BATCH, seed=SEED))).items()}
+    steps = {}
+    for fam in ("unet", "transformer"):
+        for dtype in (torch.float32, torch.bfloat16):
+            if fam == "unet":
+                model = TemporalUnet(8, dim=DIM, dim_mults=MULTS, dtype=dtype)
+                model.load_state_dict(base.model.state_dict())
+            else:
+                torch.manual_seed(SEED)
+                model = TemporalTransformer(8, dim=TT_DIM, depth=TT_DEPTH,
+                                            n_heads=TT_HEADS, dtype=dtype)
+            diff = GaussianDiffusion(model, HORIZON, base.observation_dim,
+                                     base.action_dim, n_timesteps=T_STEPS
+                                     ).cuda().train()
+            loss_fn, names = build_loss(diff)
+            state = tt.TrainState(diff, tt.make_optimizer(diff.parameters()),
+                                  tt.EMA(diff).shadow)
+            step = tt.make_train_step(
+                loss_fn, lr_schedule=tt.warmup_cosine_schedule(3e-4, 10,
+                                                               10000),
+                gradient_clip=4.0)
+            gens = make_generators(len(names), SEED, "cuda")
+            steps[f"{fam}_{str(dtype)[6:]}"] = (
+                lambda s=step, st=state, g=gens: s(st, batch, g))
+    return steps
+
+
+def _dtype_step_ms(steps: dict) -> dict:
+    """Each step of :func:`_train_steps` timed alone with CUDA events over
+    10 steps after 3, DT_REPEATS repeats in turns: the device-side step
+    without ``train_main``'s data path."""
+    ms = {k: [] for k in steps}
+    for _ in range(DT_REPEATS):
+        for k, fn in steps.items():
+            ms[k].append(cuda_ms(fn, 10, warmup=3))
+    return ms
+
+
+def _bf16_forward_vs_cpu(model_gpu, model_cpu, x, t) -> float:
+    """max |card - CPU| of the bf16 forward over the CPU's largest |out|."""
+    with torch.no_grad():
+        got = model_gpu(x.cuda(), t.cuda()).cpu()
+        want = model_cpu(x, t)
+    require(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+            "bf16 forward: float32 and finite")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def dtype_phase(ckpt: Path, root: Path, card: str) -> dict:
+    """bf16 training (``train --dtype``) on the card: the flagship U-Net
+    (fine-tuned from the smoke checkpoint) and the transformer recipe (dim
+    256, depth 6, 8 heads), DT_STEPS steps of batch DT_BATCH through
+    ``train_main`` at float32 and bfloat16, DT_REPEATS repeats in turns;
+    step ms and first losses; each family's bf16 forward on the card
+    against the same forward on the CPU (TOL_FWD_BF16 of the largest
+    output). No port kernel launches on these paths."""
+    from dadiff_tpu_torch.io.torch_compat import load_pt_checkpoint
+    from dadiff_tpu_torch.models.temporal_transformer import (
+        TemporalTransformer,
+    )
+    from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    runs = _dtype_runs(ckpt, root)
+    step_ms = _dtype_step_ms(_train_steps(ckpt))
+    counts = read_counts()
+    require(not any(counts.values()),
+            f"a port kernel launched on the dtype path: {counts}")
+    out = {"card": card, "runs": runs, "launches": counts,
+           "step_ms": step_ms}
+    log(f"dtype: the train step alone at batch {DT_BATCH} (CUDA events, 10 "
+        f"steps, {DT_REPEATS} repeats in turns), ms: "
+        f"{json.dumps(step_ms)} [{card}]")
+    for fam, r in runs.items():
+        f32 = [x["step_ms"] for x in r["float32"]]
+        bf16 = [x["step_ms"] for x in r["bfloat16"]]
+        rel, rel_last = (abs(r["bfloat16"][0][k] - r["float32"][0][k])
+                         / abs(r["float32"][0][k])
+                         for k in ("first_loss", "last_loss"))
+        out[fam] = {"step_ms_float32": f32, "step_ms_bfloat16": bf16,
+                    "first_loss_rel_diff": rel,
+                    "last_loss_rel_diff": rel_last}
+        log(f"dtype: {fam} batch {DT_BATCH}, {DT_STEPS} steps a run, "
+            f"train_main wall ms a step (data included) f32 "
+            f"{[round(v, 3) for v in f32]} bf16 {[round(v, 3) for v in bf16]}"
+            f"; first loss bf16 {r['bfloat16'][0]['first_loss']:.6f} vs f32 "
+            f"{r['float32'][0]['first_loss']:.6f} (rel {rel:.2e}; the "
+            f"transformer's zero-initialised output makes its first loss "
+            f"equal), last loss rel {rel_last:.2e} [{card}]")
+        require(rel < 5e-2, f"{fam}: bf16's first loss near f32's ({rel})")
+
+    # the bf16 forward on the card against the CPU
+    state = load_pt_checkpoint(str(ckpt))["model_state_dict"]
+    unet_sd = {k[len("model."):]: v for k, v in state.items()
+               if k.startswith("model.")}
+    g = torch.Generator().manual_seed(SEED + 14)
+    x = torch.randn(N_CAND, HORIZON, 8, generator=g)
+    t = torch.randint(0, T_STEPS, (N_CAND,), generator=g)
+    pair = []
+    for dev in ("cuda", "cpu"):
+        m = TemporalUnet(8, dim=DIM, dim_mults=MULTS, dtype=torch.bfloat16)
+        m.load_state_dict(unet_sd)
+        pair.append(m.to(dev).eval())
+    out["unet"]["forward_rel_err"] = _bf16_forward_vs_cpu(*pair, x, t)
+    torch.manual_seed(SEED)
+    tt_cpu = TemporalTransformer(8, dim=TT_DIM, depth=TT_DEPTH,
+                                 n_heads=TT_HEADS, dtype=torch.bfloat16)
+    with torch.no_grad():  # every leaf nonzero, the zero-init ones too
+        for p in tt_cpu.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    tt_gpu = TemporalTransformer(8, dim=TT_DIM, depth=TT_DEPTH,
+                                 n_heads=TT_HEADS, dtype=torch.bfloat16)
+    tt_gpu.load_state_dict(tt_cpu.state_dict())
+    out["transformer"]["forward_rel_err"] = _bf16_forward_vs_cpu(
+        tt_gpu.cuda().eval(), tt_cpu.eval(), x, t)
+    for fam in runs:
+        e = out[fam]["forward_rel_err"]
+        log(f"dtype: {fam} bf16 forward, card vs CPU at {N_CAND} chains: "
+            f"{e:.3e} of the largest output (tolerance {TOL_FWD_BF16})")
+        require(e <= TOL_FWD_BF16, f"{fam} bf16 forward card vs CPU {e}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dtype_phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def config_phase(root: Path) -> dict:
+    """``train --config`` with a JSON experiment file (PyYAML may be absent
+    here) and one flag on the command line: three steps; the file's
+    values apply, the flag wins over the file's value, and the file's
+    "tpu" device means the card."""
+    from dadiff_tpu_torch.cli import train_main
+
+    t0 = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / "experiment.json"
+    path.write_text(json.dumps({
+        "dataset": {"name": DATASET, "horizon": HORIZON},
+        "model": {"dim": DIM, "dim_mults": list(MULTS)},
+        "diffusion": {"n_timesteps": T_STEPS},
+        "training": {"batch_size": BATCH, "warmup_steps": 10,
+                     "eval_freq": 0, "save_freq": 0},
+        "system": {"device": "tpu", "seed": SEED}}))
+    reset_counts()
+    log_dir = Path(train_main(["--config", str(path), "--dim", "64",
+                               "--n-epochs", "1", "--max-steps", "3",
+                               "--log-freq", "1", "--no-export-pt",
+                               "--log-dir", str(root / "run")]))
+    counts = read_counts()
+    final = json.loads((log_dir / "final_config.json").read_text())
+    rec = json.loads((log_dir / "metrics.jsonl").read_text().splitlines()[-1])
+    require(rec["step"] == 3 and all(v == v for v in rec["total_series"]),
+            f"config run: 3 finite steps {rec}")
+    require(final["dim"] == 64 and final["horizon"] == HORIZON
+            and final["n_timesteps"] == T_STEPS
+            and final["dim_mults"] == list(MULTS),
+            f"--dim wins over the file, the file over the defaults: {final}")
+    require(not any(counts.values()), f"kernels launched: {counts}")
+    out = {"dim": final["dim"], "horizon": final["horizon"],
+           "losses": rec["total_series"], "launches": counts,
+           "phase_s": time.perf_counter() - t0}
+    log(f"config_phase: {json.dumps(out)}")
+    return out
+
+
+def kernel_family(name: str):
+    """The port kernel a traced CUDA kernel name belongs to, or None."""
+    import re
+
+    if "ddpm_project" in name:
+        return "ddpm_project_step"
+    if "rows_conv" not in name:
+        return None
+    # rows_conv_kernel<Tile, kGn> (demangled ", true>(" / mangled "Lb1E")
+    gn = re.search(r"true>\s*\(", name) or "Lb1E" in name
+    return "rows_conv_gn" if gn else "rows_conv"
+
+
+def profile_phase(ckpt: Path, policy, root: Path, chain: dict,
+                  card: str) -> dict:
+    """Traces through ``utils/profiling.trace`` on the card: 5 replays of
+    the served bo8 wave (bf16 weights; the trace's launches of each K2
+    kernel must equal the counters', 5 waves of 1,012 / 2,500 / 100), and
+    5 train steps at batch 256 of the flagship U-Net and the transformer
+    recipe, each at float32 and bfloat16. Each trace's busy share and its
+    top kernels by device time; an empty trace fails."""
+    from dadiff_tpu_torch.ops.planner import (
+        build_interleaved_projection, make_planner_chain,
+    )
+    from dadiff_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    diff, spec = policy.diffusion, policy._sampler_config["projection"]
+    H, D = diff.horizon, diff.transition_dim
+    M, b = (v.to(diff.device) for v in build_interleaved_projection(
+        policy._P, policy._stats, observation_dim=diff.observation_dim,
+        action_dim=diff.action_dim, state_dim=spec.state_dim, horizon=H))
+    wave = make_planner_chain(diff.model, diff.schedule, H, N_CAND, 1,
+                              projection=True)
+    x0, noise, _, cond_rows = _wave_inputs(diff, N_CAND, SEED + 7)
+    fw, me, sc = _chain_operands(diff, spec, wave, torch.bfloat16)
+
+    def replay():
+        return wave(fw, x0, me, noise, sc, cond_rows, M, b)
+
+    replay()  # drives from the host and captures the graph
+    torch.cuda.synchronize()
+    t_wave = time.perf_counter()
+    for _ in range(5):
+        replay()
+    torch.cuda.synchronize()
+    t_wave = (time.perf_counter() - t_wave) / 5 * 1e3
+    reset_counts()
+    with profiling.trace(str(root / "wave")):
+        with profiling.annotate("wave"):
+            for _ in range(5):
+                replay()
+            torch.cuda.synchronize()
+    counts = read_counts()
+    r = profiling.read_trace(str(root / "wave" / profiling.TRACE_FILE),
+                             window="wave")
+    require(r["n_device_events"] > 0, "the wave's trace holds no device "
+            "event: the card's CUPTI gave none")
+    by_family = {}
+    for name, k in r["kernels"].items():
+        fam = kernel_family(name)
+        if fam:
+            by_family[fam] = by_family.get(fam, 0) + k["count"]
+    want = {k: 5 * n for k, n in chain["launches_by_kernel"].items()}
+    top = sorted(r["kernels"].items(), key=lambda kv: -kv[1]["us"])[:5]
+    out["wave"] = {
+        "busy_share": r["busy_share"], "wall_ms": r["wall_us"] / 1e3,
+        "untraced_wall_ms_per_wave": t_wave,
+        "device_ms_per_wave": r["busy_us"] / 5e3,
+        "kernel_ms_per_wave": sum(k["us"] for k in r["kernels"].values())
+        / 5e3,
+        "chain_phase_graph_ms": chain["graph_ms"],
+        "trace_launches": by_family, "counter_launches": counts,
+        "top_kernels": [(n[:80], k["count"], k["us"] / 1e3) for n, k in top]}
+    log(f"profile: 5 bo8 wave replays, busy share {r['busy_share']:.4f}, "
+        f"wall ms a wave {r['wall_us'] / 5e3:.3f} traced, {t_wave:.3f} "
+        f"untraced; device ms a wave "
+        f"{out['wave']['device_ms_per_wave']:.3f} beside "
+        f"chain_phase's graph_ms {chain['graph_ms']:.3f}; trace launches "
+        f"{by_family} vs counters {counts} [{card}]")
+    log(f"profile: wave top kernels (name, count, ms): "
+        f"{json.dumps(out['wave']['top_kernels'])}")
+    require(by_family == want and all(counts[k] == n for k, n in want.items()),
+            f"the trace's K2 launches {by_family} equal the counters' "
+            f"{counts} ({want})")
+
+    # 5 train steps at batch 256 of each family at f32 and bf16
+    out["train"] = {}
+    for name, step in _train_steps(ckpt).items():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t_train = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        t_train = (time.perf_counter() - t_train) / 5 * 1e3
+        reset_counts()
+        with profiling.trace(str(root / name)):
+            with profiling.annotate("train"):
+                for _ in range(5):
+                    step()
+                torch.cuda.synchronize()
+        r = profiling.read_trace(str(root / name / profiling.TRACE_FILE),
+                                 window="train")
+        require(r["n_device_events"] > 0, f"the {name} train steps' trace "
+                "holds no device event")
+        top = sorted(r["kernels"].items(), key=lambda kv: -kv[1]["us"])[:5]
+        rec = out["train"][name] = {
+            "busy_share": r["busy_share"],
+            "wall_ms_per_step": r["wall_us"] / 5e3,
+            "untraced_wall_ms_per_step": t_train,
+            "device_ms_per_step": r["busy_us"] / 5e3,
+            "kernels_per_step": sum(k["count"] for k in
+                                    r["kernels"].values()) / 5,
+            "launches": read_counts(),
+            "top_kernels": [(n[:80], k["count"], k["us"] / 1e3)
+                            for n, k in top]}
+        log(f"profile: 5 {name} train steps at batch {DT_BATCH}, busy share "
+            f"{r['busy_share']:.4f}, wall ms a step "
+            f"{rec['wall_ms_per_step']:.3f} traced, {t_train:.3f} untraced, "
+            f"device ms a step {rec['device_ms_per_step']:.3f}, "
+            f"{rec['kernels_per_step']:.0f} kernels a step [{card}]")
+        log(f"profile: {name} top kernels (name, count, ms): "
+            f"{json.dumps(rec['top_kernels'])}")
+        require(not any(rec["launches"].values()),
+                f"kernels launched in the {name} train steps")
+    out["memory"] = profiling.device_memory_stats()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def physics_bound_phase(root: Path, card: str) -> dict:
+    """``python -m dadiff_tpu_torch.physics_bound`` on Hopper-v5 at the
+    committed artifact's settings (100 solver iterations, tolerance 0.1,
+    float32) on the card, its K list cut to PB_K; its K* and per-K errors
+    beside the artifact's rows at those K."""
+    from dadiff_tpu_torch import physics_bound
+
+    t0 = time.perf_counter()
+    reset_counts()
+    report = physics_bound.main([
+        "--env", "Hopper-v5", "--data", "npz:data/hopper_mppi.npz",
+        "--solver-iters", "100", "--tolerance", "0.1",
+        "--k", *map(str, PB_K), "--out", str(root / "physics_bound.json")])
+    counts = read_counts()
+    took = time.perf_counter() - t0
+    art = json.loads((ROOT / PB_ARTIFACT).read_text())
+    got = report["distributions"]["heldout"]
+    ref = {row["K"]: row for row in art["distributions"]["heldout"]["rows"]}
+    require(report["dtype"] == "float32" and got["rows"]
+            and all(math.isfinite(r["err_p90"]) for r in got["rows"]),
+            f"physics bound rows {got}")
+    require(not any(counts.values()), f"kernels launched: {counts}")
+    rows = [{"K": r["K"], "n": r["n_segments"], "err_p50": r["err_p50"],
+             "err_p90": r["err_p90"], "quotable": r["quotable"],
+             "wall_s": r["wall_s"],
+             "artifact": {k: ref[r["K"]][k] for k in (
+                 "n_segments", "err_p50", "err_p90", "quotable")}
+             if r["K"] in ref else None} for r in got["rows"]]
+    out = {"card": card, "k_star": got["k_star"],
+           "artifact_k_star": art["distributions"]["heldout"]["k_star"],
+           "k_cut_to": list(PB_K), "rows": rows, "launches": counts,
+           "phase_s": took}
+    log(f"physics_bound: Hopper-v5 float32, 100 iterations, K cut to "
+        f"{list(PB_K)} (the artifact's K reach 128): K* {got['k_star']} "
+        f"(artifact, all K: {out['artifact_k_star']}); rows "
+        f"{json.dumps(rows)}; {took:.1f} s [{card}]")
+    return out
+
+
+def check_install_phase() -> dict:
+    """``python -m dadiff_tpu_torch.check_install`` on the card: exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "dadiff_tpu_torch.check_install"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+    log("check_install: " + " | ".join(lines))
+    require(proc.returncode == 0,
+            f"check_install exited {proc.returncode}:\n{proc.stdout}\n"
+            f"{proc.stderr}")
+    return {"rc": proc.returncode, "checks": len(lines),
+            "s": time.perf_counter() - t0}
+
+
 def host_eval_phase(ckpt: Path, results_dir: Path) -> dict:
     """The host evaluator (``python -m dadiff_tpu_torch.evaluate``) in
     lockstep through the planner chain, where gymnasium and
@@ -3770,6 +4207,15 @@ def main() -> int:
     parallel = parallel_phase(ckpt, ROOT / "build" / "dadiff_tpu_torch"
                               / "smoke" / "parallel", card)
     log(f"parallel_phase: {json.dumps(parallel)}")
+    smoke = ROOT / "build" / "dadiff_tpu_torch" / "smoke"
+    dtypes = dtype_phase(ckpt, smoke / "dtype", card)
+    log(f"dtype_phase: {json.dumps(dtypes)}")
+    config = config_phase(smoke / "config")
+    profile = profile_phase(ckpt, policy, smoke / "profile", chain, card)
+    log(f"profile_phase: {json.dumps(profile)}")
+    bound = physics_bound_phase(smoke, card)
+    log(f"physics_bound_phase: {json.dumps(bound)}")
+    install = check_install_phase()
 
     csrc = "dadiff_tpu_torch/csrc"
     ref = reference_package()
@@ -3825,6 +4271,15 @@ def main() -> int:
         # DDP, FSDP, the batched planner, the meshed evaluator and the
         # tp/sp forwards run the module path: none
         kernels[-1]["launches_parallel"] = parallel["launches"][name]
+        # bf16 and config training, the traced train steps and the physics
+        # bound run the module path: none; the traced bo8 wave: 5 waves
+        kernels[-1]["launches_dtype"] = dtypes["launches"][name]
+        kernels[-1]["launches_config"] = config["launches"][name]
+        kernels[-1]["launches_profile_wave"] = \
+            profile["wave"]["counter_launches"][name]
+        kernels[-1]["launches_profile_train"] = sum(
+            rec["launches"][name] for rec in profile["train"].values())
+        kernels[-1]["launches_physics_bound"] = bound["launches"][name]
         if name in evaluation:
             # the evaluation path's count (its untimed and timed runs)
             kernels[-1]["launches_evaluation"] = evaluation[name]
@@ -3876,6 +4331,7 @@ def main() -> int:
     log(f"evaluation: env {json.dumps(env)}; two streams "
         f"{json.dumps(streams)}; host evaluator {json.dumps(host_eval)}")
     log(f"train step: {json.dumps(train)}")
+    log(f"check_install: {json.dumps(install)}")
     log(f"flagship: {n_params} parameters; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

@@ -5,7 +5,11 @@ Counterpart of the JAX package's cli.py: build_train_parser :57 and train_main
 :147 (both model families, the U-Net and the transformer of
 ``--model-type``, and the flagship flags, fine-tune and resume included;
 ``--mesh-dp`` trains data-parallel over a torchrun world, :func:`_mesh`;
-``--config`` and ``--dtype`` are not ported), distill_main
+``--dtype bfloat16`` trains on bfloat16 activations over float32 weights,
+:150-154 and :225-243; ``--config`` reads a YAML or JSON experiment file
+whose values give way to flags named on the command line, :150-154),
+download_main :1287 (``python -m dadiff_tpu_torch.download_data``),
+distill_main
 :509 (``--method consistency`` and ``--method progressive``),
 train_value_main :358 and load_value_checkpoint :463 (a ``.pt`` with the
 JAX checkpoint's config keys; orbax is JAX-only), build_eval_parser :695
@@ -36,11 +40,16 @@ ENV_TO_DATASET = {
 
 
 def build_train_parser() -> argparse.ArgumentParser:
+    # allow_abbrev off: an abbreviated flag would dodge the scan for flags
+    # named on the command line (utils/config.apply_config_defaults)
     p = argparse.ArgumentParser(
         description="Train/Fine-tune a diffusion planner", allow_abbrev=False)
+    p.add_argument("--config", type=str, default=None,
+                   help="YAML/JSON experiment config (CLI flags override)")
     # Dataset
     p.add_argument("--dataset", type=str, default="synthetic:pointmaze",
-                   help="dataset spec: synthetic:* | npz:*")
+                   help="dataset spec: minari name | synthetic:* | gym:* | "
+                        "expert:* | mppi:* | npz:*")
     p.add_argument("--horizon", type=int, default=16)
     p.add_argument("--normalizer", type=str, default="LimitsNormalizer",
                    choices=["LimitsNormalizer", "GaussianNormalizer"])
@@ -86,7 +95,8 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--projection-weight", type=float, default=0.0)
     p.add_argument("--env", type=str, default="PointMaze_UMaze-v3")
     p.add_argument("--dynamics-method", type=str, default="data-driven",
-                   choices=["data-driven", "none"])
+                   choices=["data-driven", "analytical", "numerical",
+                            "trajectory", "none"])
     # EMA
     p.add_argument("--use-ema", action=argparse.BooleanOptionalAction,
                    default=True, help="EMA shadow params (--no-use-ema off)")
@@ -104,6 +114,10 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-dp", type=int, default=1,
                    help="data-parallel mesh size (1 = single device); needs "
                         "a torchrun world of that many processes")
+    p.add_argument("--dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="activation dtype of the denoiser (weights stay "
+                        "float32)")
     p.add_argument("--no-export-pt", action="store_true",
                    help="skip reference-schema .pt checkpoint export")
     p.add_argument("--resume", action="store_true",
@@ -115,19 +129,39 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 def build_denoiser(model_type: str, transition_dim: int, *, dim: int,
                    dim_mults=(1, 2, 4), kernel_size: int = 5, depth: int = 4,
-                   n_heads: int = 4, mlp_ratio: int = 4):
-    """The denoiser of ``--model-type`` (cli.py:224-244 and :947-962)."""
+                   n_heads: int = 4, mlp_ratio: int = 4,
+                   dtype: torch.dtype = torch.float32):
+    """The denoiser of ``--model-type`` (cli.py:224-244 and :947-962), its
+    activations in ``dtype``."""
     if model_type == "transformer":
         from dadiff_tpu_torch.models.temporal_transformer import (
             TemporalTransformer,
         )
 
         return TemporalTransformer(transition_dim, dim=dim, depth=depth,
-                                   n_heads=n_heads, mlp_ratio=mlp_ratio)
+                                   n_heads=n_heads, mlp_ratio=mlp_ratio,
+                                   dtype=dtype)
     from dadiff_tpu_torch.models.temporal_unet import TemporalUnet
 
     return TemporalUnet(transition_dim, dim=dim, dim_mults=tuple(dim_mults),
-                        kernel_size=kernel_size)
+                        kernel_size=kernel_size, dtype=dtype)
+
+
+def dynamics_for(env_name: str, dataset_spec: str,
+                 method: str = "data-driven"):
+    """(A, B, state_dim, action_dim) as the JAX CLI asks the registry for
+    them (cli.py:259-275 and :1090-1100): a hermetic spec's episodes are
+    fitted; any other spec is handed over by name, and the registry falls
+    back where it does not load."""
+    from dadiff_tpu_torch.datasets.sources import load_episodes
+    from dadiff_tpu_torch.dynamics.registry import get_dynamics_for_env
+
+    episodes = None
+    if dataset_spec.startswith(("synthetic:", "npz:", "gym:")):
+        episodes = load_episodes(dataset_spec)
+    return get_dynamics_for_env(
+        env_name, dataset_name=None if episodes else dataset_spec,
+        method=method.replace("-", "_"), episodes=episodes)
 
 
 def _mesh(n_dp: int, device: str):
@@ -173,7 +207,16 @@ def train_main(argv=None) -> str:
         mesh_device,
     )
 
-    args = build_train_parser().parse_args(argv)
+    parser = build_train_parser()
+    args = parser.parse_args(argv)
+    if args.config:
+        from dadiff_tpu_torch.utils.config import (
+            apply_config_defaults,
+            load_experiment_config,
+        )
+
+        apply_config_defaults(args, load_experiment_config(args.config),
+                              parser, argv=argv)
     device = resolve_device(args.device)
     mesh = _mesh(args.mesh_dp, args.device)
     if mesh is not None:
@@ -229,7 +272,8 @@ def train_main(argv=None) -> str:
     denoiser = build_denoiser(
         args.model_type, dataset.transition_dim, dim=args.dim,
         dim_mults=args.dim_mults, kernel_size=args.kernel_size,
-        depth=args.depth, n_heads=args.n_heads)
+        depth=args.depth, n_heads=args.n_heads,
+        dtype=getattr(torch, args.dtype))
     diffusion = GaussianDiffusion(
         denoiser, horizon=args.horizon, observation_dim=dataset.observation_dim,
         action_dim=dataset.action_dim, n_timesteps=args.n_timesteps,
@@ -242,12 +286,10 @@ def train_main(argv=None) -> str:
 
     projection_matrix, state_dim = None, None
     if args.projection_weight > 0 and args.dynamics_method != "none":
-        from dadiff_tpu_torch.datasets.sources import load_episodes
         from dadiff_tpu_torch.dynamics.projection import ProjectionMatrixBuilder
-        from dadiff_tpu_torch.dynamics.registry import get_dynamics_for_env
 
-        A, B, state_dim, act_dim = get_dynamics_for_env(
-            args.env, episodes=load_episodes(args.dataset))
+        A, B, state_dim, act_dim = dynamics_for(args.env, args.dataset,
+                                                args.dynamics_method)
         projection_matrix = ProjectionMatrixBuilder(
             A, B, state_dim, act_dim).get_projection_matrix(args.horizon)
         print(f"projection loss enabled: state_dim={state_dim} "
@@ -900,14 +942,11 @@ def build_policy_from_args(args, diffusion, dataset, dataset_spec: str,
             guide_weight=args.guide_weight,
             action_horizon=args.action_horizon, **common)
     else:  # dynamics-aware
-        from dadiff_tpu_torch.datasets.sources import load_episodes
         from dadiff_tpu_torch.dynamics.projection import (
             ProjectionMatrixBuilder,
         )
-        from dadiff_tpu_torch.dynamics.registry import get_dynamics_for_env
 
-        A, B, state_dim, action_dim = get_dynamics_for_env(
-            args.env, episodes=load_episodes(dataset_spec))
+        A, B, state_dim, action_dim = dynamics_for(args.env, dataset_spec)
         P = ProjectionMatrixBuilder(A, B, state_dim, action_dim
                                     ).get_projection_matrix(diffusion.horizon)
         wall_grid = None
@@ -1057,3 +1096,83 @@ def evaluate_main(argv=None) -> dict:
           f"success rate: {metrics['success_rate']:.2f}")
     print(f"Results: {path}")
     return metrics
+
+# ===========================================================================
+# download / dataset management
+# ===========================================================================
+
+def download_main(argv=None) -> None:
+    """Dataset management (cli.py:1287-1366): ``--collect SPEC --episodes N
+    --out X.npz`` saves episodes of any spec; ``--info SPEC`` prints a
+    hermetic spec's totals and shapes; ``--list``, ``--info NAME`` and
+    ``--dataset NAME`` ask minari (absent: refused, naming the hermetic
+    specs)."""
+    p = argparse.ArgumentParser(description="Dataset management")
+    p.add_argument("--list", action="store_true",
+                   help="list remote minari datasets")
+    p.add_argument("--info", type=str, default=None, help="show dataset info")
+    p.add_argument("--dataset", type=str, default=None,
+                   help="download one dataset")
+    p.add_argument("--collect", type=str, default=None,
+                   help="collect episodes from a source spec "
+                        "(synthetic:*/gym:*/expert:*/mppi:*) into --out")
+    p.add_argument("--episodes", type=int, default=100)
+    p.add_argument("--out", type=str, default=None, help=".npz output path")
+    args = p.parse_args(argv)
+
+    from dadiff_tpu_torch.datasets.sources import (
+        load_episodes,
+        save_episodes_npz,
+    )
+
+    if args.collect:
+        episodes = load_episodes(args.collect, n_episodes=args.episodes)
+        out = args.out or "episodes.npz"
+        save_episodes_npz(out, episodes)
+        print(f"saved {len(episodes)} episodes -> {out}")
+        return
+    if args.info and args.info.startswith(
+            ("synthetic:", "gym:", "npz:", "expert:", "mppi:")):
+        episodes = load_episodes(args.info, n_episodes=args.episodes)
+        print(f"Dataset: {args.info}")
+        print(f"  Total episodes: {len(episodes)}")
+        print(f"  Total steps: {sum(len(ep['actions']) for ep in episodes)}")
+        ep = episodes[0]
+        print(f"  observations: {np.asarray(ep['observations']).shape}")
+        print(f"  actions: {np.asarray(ep['actions']).shape}")
+        print(f"  rewards: {np.asarray(ep['rewards']).shape}")
+        return
+    try:
+        import minari
+    except ImportError:
+        raise SystemExit(
+            "minari is not installed; use --collect synthetic:pointmaze or "
+            "--collect gym:<EnvName> for hermetic data")
+    if args.list:
+        for name in sorted(minari.list_remote_datasets()):
+            print(name)
+    elif args.info:
+        ds = minari.load_dataset(args.info, download=True)
+        print(f"Dataset: {args.info}")
+        print(f"  Total episodes: {ds.total_episodes}")
+        print(f"  Total steps: {ds.total_steps}")
+        ep = next(iter(ds.iterate_episodes()))
+        obs = ep.observations
+        if isinstance(obs, dict):
+            for k, v in obs.items():
+                print(f"  observations[{k}]: {np.asarray(v).shape}")
+        else:
+            print(f"  observations: {np.asarray(obs).shape}")
+        print(f"  actions: {np.asarray(ep.actions).shape}")
+        print(f"  rewards: {np.asarray(ep.rewards).shape}")
+    elif args.dataset:
+        minari.load_dataset(args.dataset, download=True)
+        print(f"downloaded {args.dataset}")
+    else:
+        for name in ("D4RL/pointmaze/umaze-v2", "mujoco/halfcheetah/simple-v0",
+                     "mujoco/hopper/simple-v0"):
+            print(f"downloading {name}...")
+            try:
+                minari.load_dataset(name, download=True)
+            except Exception as e:  # report each dataset and go on
+                print(f"  failed: {e}")

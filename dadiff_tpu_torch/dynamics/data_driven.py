@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's dynamics/data_driven.py
 (extract_transitions_from_episodes :17, fit_linear_dynamics :49,
-identify_dynamics_from_data :93), for pre-loaded episodes.
+extract_transitions :41, identify_dynamics_from_data :93), on pre-loaded
+episodes or a dataset spec.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from dadiff_tpu_torch.datasets.sources import Episode
+from dadiff_tpu_torch.datasets.sources import Episode, load_episodes
 
 
 def extract_transitions_from_episodes(
@@ -33,11 +34,19 @@ def extract_transitions_from_episodes(
     return np.concatenate(states), np.concatenate(actions), np.concatenate(next_states)
 
 
+def extract_transitions(dataset_name: str, max_trajectories: int = 1000
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Load a dataset spec and extract its transitions (data_driven.py:41-46)."""
+    return extract_transitions_from_episodes(load_episodes(dataset_name),
+                                             max_trajectories)
+
+
 def fit_linear_dynamics(states, actions, next_states,
-                        state_dim: Optional[int] = None
+                        state_dim: Optional[int] = None, verbose: bool = False
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """Least-squares x_{t+1} = A x_t + B u_t on the first ``state_dim``
-    dims (data_driven.py:49-87)."""
+    dims (data_driven.py:49-87); the fit's R² is left in
+    ``fit_linear_dynamics.last_r2``."""
     states = np.asarray(states, dtype=np.float64)
     actions = np.asarray(actions, dtype=np.float64)
     next_states = np.asarray(next_states, dtype=np.float64)
@@ -45,16 +54,31 @@ def fit_linear_dynamics(states, actions, next_states,
         states = states[:, :state_dim]
         next_states = next_states[:, :state_dim]
     n = states.shape[1]
-    Theta, *_ = np.linalg.lstsq(np.hstack([states, actions]), next_states,
-                                rcond=None)
+    Phi = np.hstack([states, actions])
+    Theta, *_ = np.linalg.lstsq(Phi, next_states, rcond=None)
+    residuals = next_states - Phi @ Theta
+    ss_res = float(np.sum(residuals ** 2))
+    ss_tot = float(np.sum((next_states - next_states.mean(axis=0)) ** 2))
+    fit_linear_dynamics.last_r2 = 1.0 - ss_res / max(ss_tot, 1e-12)
+    if verbose:
+        print(f"sysID: N={len(states)} n={n} m={actions.shape[1]} "
+              f"R²={fit_linear_dynamics.last_r2:.4f} mean|err|="
+              f"{np.mean(np.linalg.norm(residuals, axis=1)):.6f}")
     return Theta[:n].T, Theta[n:].T
 
 
-def identify_dynamics_from_data(episodes: Sequence[Episode],
+fit_linear_dynamics.last_r2 = None
+
+
+def identify_dynamics_from_data(episodes: Optional[Sequence[Episode]] = None,
                                 state_dim: Optional[int] = None,
-                                max_trajectories: int = 1000
+                                max_trajectories: int = 1000,
+                                dataset_name: Optional[str] = None
                                 ) -> Tuple[np.ndarray, np.ndarray, int, int]:
-    """Episodes -> (A, B, state_dim, action_dim) (data_driven.py:93-111)."""
+    """Episodes, or the episodes of the spec ``dataset_name``, -> (A, B,
+    state_dim, action_dim) (data_driven.py:93-111)."""
+    if episodes is None:
+        episodes = load_episodes(dataset_name)
     states, actions, next_states = extract_transitions_from_episodes(
         episodes, max_trajectories)
     if state_dim is None:

@@ -16,7 +16,8 @@ import numpy as np
 class ProjectionMatrixBuilder:
     """Trajectory basis F and projector P = F F+ (projection.py:24-95)."""
 
-    def __init__(self, A, B, state_dim: int, action_dim: int):
+    def __init__(self, A, B, state_dim: int, action_dim: int,
+                 verbose: bool = False):
         A = np.asarray(A, dtype=np.float64)
         B = np.asarray(B, dtype=np.float64)
         if A.shape != (state_dim, state_dim) or B.shape != (state_dim, action_dim):
@@ -24,6 +25,10 @@ class ProjectionMatrixBuilder:
                              f"n={state_dim}, m={action_dim}")
         self.A, self.B = A, B
         self.state_dim, self.action_dim = state_dim, action_dim
+        self.verbose = verbose
+        if verbose:
+            print(f"ProjectionMatrixBuilder: n={state_dim} m={action_dim} "
+                  f"cond(A)={np.linalg.cond(A):.2e}")
 
     def build_F_matrix(self, horizon: int) -> np.ndarray:
         """F of shape ((T+1)n + Tm, n + Tm) (projection.py:45-72)."""
@@ -52,7 +57,15 @@ class ProjectionMatrixBuilder:
         F = self.build_F_matrix(horizon)
         P = F @ np.linalg.pinv(F)
         error = np.linalg.norm(P @ P - P, "fro")
+        if self.verbose:
+            print(f"projection: F{F.shape} ||P^2-P||_F={error:.2e}")
         if error > 1e-4:
             raise RuntimeError(
                 f"P is not a valid projection matrix (||P^2-P||_F={error:.2e})")
         return P.astype(np.float32)
+
+    @staticmethod
+    def verify_projection(P, atol: float = 1e-4) -> bool:
+        """P @ P == P within ``atol`` (projection.py:91-95)."""
+        P = np.asarray(P, dtype=np.float64)
+        return bool(np.allclose(P @ P, P, atol=atol))

@@ -20,6 +20,17 @@ module's arithmetic:
   * the final layer splits ``Linear(2*dim)`` into (shift, scale) and ends in
     a zero-initialised ``out_proj``, so a fresh model predicts zeros.
 
+``dtype`` is the activation dtype (JAX's ``dtype``, float32 or bfloat16),
+cast as flax casts it: the weights stay float32; every dense layer casts
+its input, weight and bias (``Dense(dtype=)``); the residual stream, the
+adaLN modulation, Mish and SiLU run in ``dtype``; LayerNorm computes its
+statistics and its normalisation in float32 and returns ``dtype`` (flax's
+``_compute_stats`` promotes to float32, ``_normalize`` casts the result);
+attention scales the query by ``sqrt(head_dim)`` rounded to ``dtype`` and
+takes its softmax in ``dtype`` (flax's ``force_fp32_for_softmax`` is off);
+the sinusoidal embedding is float32 and the output returns to float32
+(temporal_transformer.py:162).
+
 Module names follow the flax tree (``time_dense1``, ``blocks.{i}.adaln_mod``,
 ``blocks.{i}.attn.query`` ...), so io/torch_compat.py
 ``transformer_params_from_jax`` maps one onto the other. Kernels other than
@@ -43,7 +54,9 @@ LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
 def _layer_norm(x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(x, x.shape[-1:], eps=LN_EPS)
+    """flax ``LayerNorm(use_bias=False, use_scale=False, dtype=x.dtype)``:
+    float32 inside, ``x``'s dtype out."""
+    return F.layer_norm(x.float(), x.shape[-1:], eps=LN_EPS).to(x.dtype)
 
 
 class Attention(nn.Module):
@@ -79,7 +92,9 @@ class Attention(nn.Module):
         v = view.dense((h, False), self.value, rows=True)
         k_all = view.sp.copy(view.sp.gather(k[0], 1))
         v_all = view.sp.copy(view.sp.gather(v[0], 1))
-        w = torch.softmax(heads(q[0]) / (hd ** 0.5)
+        # flax divides by jnp.sqrt(depth).astype(dtype)
+        scale = torch.tensor(hd ** 0.5).to(q[0].dtype).item()
+        w = torch.softmax(heads(q[0]) / scale
                           @ heads(k_all).transpose(-1, -2), dim=-1)
         o = (w @ heads(v_all)).transpose(1, 2).reshape(B, H, -1)
         return view.whole(view.dense((o, q[1]), self.out, rows=True))
@@ -90,8 +105,10 @@ class AdaLNBlock(nn.Module):
     (temporal_transformer.py:37-79)."""
 
     def __init__(self, dim: int, n_heads: int, mlp_ratio: int = 4,
-                 time_dim: Optional[int] = None):
+                 time_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.adaln_mod = nn.Linear(time_dim or dim, 6 * dim)
         self.attn = Attention(dim, n_heads)
         self.mlp1 = nn.Linear(dim, mlp_ratio * dim)
@@ -126,9 +143,11 @@ class TemporalTransformer(nn.Module):
     def __init__(self, transition_dim: int, dim: int = 128, depth: int = 4,
                  n_heads: int = 4, mlp_ratio: int = 4,
                  time_dim: Optional[int] = None, max_horizon: int = 512,
-                 act_spec: Optional[Tuple[Optional[str], ...]] = None):
+                 act_spec: Optional[Tuple[Optional[str], ...]] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act_spec = act_spec
+        self.dtype = dtype
         self.mesh = None  # set by parallel.tp.shard_params_tp
         self.transition_dim = transition_dim
         self.dim, self.depth, self.n_heads = dim, depth, n_heads
@@ -140,7 +159,8 @@ class TemporalTransformer(nn.Module):
         self.pos_emb = nn.Parameter(torch.empty(max_horizon, dim))
         self.in_proj = nn.Linear(transition_dim, dim)
         self.blocks = nn.ModuleList(
-            AdaLNBlock(dim, n_heads, mlp_ratio, td) for _ in range(depth))
+            AdaLNBlock(dim, n_heads, mlp_ratio, td, dtype)
+            for _ in range(depth))
         self.final_mod = nn.Linear(td, 2 * dim)
         self.out_proj = nn.Linear(dim, transition_dim)
         self._init()
@@ -180,10 +200,10 @@ class TemporalTransformer(nn.Module):
                        rows=False)
         t = view.dense((F.mish(t[0]), t[1]), self.time_dense2, rows=False)
         t_act = F.silu(view.whole(t))
-        x = view.sp.scatter(x.to(torch.float32), 1)
+        x = view.sp.scatter(x.to(self.dtype), 1)
         pos = view.param(self.pos_emb, rows=True)[view.sp.block(horizon)]
         h = view.whole(view.dense((x, False), self.in_proj, rows=True)) \
-            + pos[None]
+            + pos[None].to(self.dtype)
         for block in self.blocks:
             h = block(h, t_act, view)
         mod = view.whole(view.dense((t_act, False), self.final_mod,

@@ -16,6 +16,16 @@ to XLA outside any Pallas kernel). With ``use_pallas_norm`` every
 GroupNorm+Mish goes through the K1 kernel (ops/gn_mish.py), the counterpart
 of the JAX ``PallasGroupNormMish`` (:89). When this module serves as a
 reference on the card, set ``torch.backends.cudnn.allow_tf32 = False``.
+
+``dtype`` is the activation dtype (JAX's ``dtype`` knob, float32 or
+bfloat16), cast where the JAX module casts: the weights stay float32 in the
+module and its state dict, and every conv and dense layer casts its input,
+weight and bias to ``dtype`` (flax ``Conv``/``Dense(dtype=)``, the
+transposed conv at :79-86); GroupNorm runs in float32 and Mish on its
+float32 output before the cast back (:134-138; K1 takes float32, :105); the
+sinusoidal embedding is float32 (:47-48) and the time MLP runs in
+``dtype`` (:206-208); the input is cast at :214 and the output returns to
+float32 at the head (:275).
 """
 
 from __future__ import annotations
@@ -25,8 +35,53 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from dadiff_tpu_torch.ops.gn_mish import gn_mish
+
+
+class CastLinear(nn.Linear):
+    """``nn.Linear`` that casts its input, weight and bias to ``act_dtype``
+    (flax ``Dense(dtype=)``); the weights stay float32. Called as a module,
+    so hooks on it (FSDP2's unshard) run."""
+
+    def __init__(self, *args, act_dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.act_dtype = act_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.act_dtype
+        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
+class CastConv1d(nn.Conv1d):
+    """``nn.Conv1d`` on ``act_dtype`` (flax ``Conv(dtype=)``), as
+    :class:`CastLinear`."""
+
+    def __init__(self, *args, act_dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.act_dtype = act_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.act_dtype
+        return self._conv_forward(x.to(d), self.weight.to(d),
+                                  self.bias.to(d))
+
+
+class CastConvTranspose1d(nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d`` on ``act_dtype`` (the JAX module's transposed
+    conv casts input, kernel and bias, :79-86), as :class:`CastLinear`."""
+
+    def __init__(self, *args, act_dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.act_dtype = act_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.act_dtype
+        return F.conv_transpose1d(x.to(d), self.weight.to(d), self.bias.to(d),
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -50,22 +105,26 @@ class Conv1dBlock(nn.Module):
     (temporal_unet.py:108-138)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, n_groups: int = 8,
-                 use_pallas_norm: bool = False):
+                 use_pallas_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.block = nn.Sequential(
-            nn.Conv1d(cin, cout, kernel_size, padding=kernel_size // 2),
+            CastConv1d(cin, cout, kernel_size, padding=kernel_size // 2,
+                       act_dtype=dtype),
             nn.GroupNorm(n_groups, cout, eps=1e-5),
             nn.Mish(),
         )
         self.use_pallas_norm = use_pallas_norm
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv, norm, act = self.block
-        y = conv(x.transpose(1, 2))
+        y = conv(x.transpose(1, 2)).float()
         if self.use_pallas_norm:
             return gn_mish(y.transpose(1, 2).contiguous(), norm.weight,
-                           norm.bias, norm.num_groups, norm.eps)
-        return act(norm(y)).transpose(1, 2)
+                           norm.bias, norm.num_groups, norm.eps
+                           ).to(self.dtype)
+        return act(norm(y)).transpose(1, 2).to(self.dtype)
 
 
 class ResidualTemporalBlock(nn.Module):
@@ -73,16 +132,19 @@ class ResidualTemporalBlock(nn.Module):
     residual conv when the widths differ (temporal_unet.py:141-169)."""
 
     def __init__(self, cin: int, cout: int, time_dim: int, kernel_size: int = 5,
-                 use_pallas_norm: bool = False):
+                 use_pallas_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        kw = dict(use_pallas_norm=use_pallas_norm, dtype=dtype)
         self.blocks = nn.ModuleList([
-            Conv1dBlock(cin, cout, kernel_size, use_pallas_norm=use_pallas_norm),
-            Conv1dBlock(cout, cout, kernel_size,
-                        use_pallas_norm=use_pallas_norm),
+            Conv1dBlock(cin, cout, kernel_size, **kw),
+            Conv1dBlock(cout, cout, kernel_size, **kw),
         ])
-        self.time_mlp = nn.Sequential(nn.Mish(), nn.Linear(time_dim, cout))
-        self.residual_conv = (nn.Conv1d(cin, cout, 1) if cin != cout
-                              else nn.Identity())
+        self.time_mlp = nn.Sequential(
+            nn.Mish(), CastLinear(time_dim, cout, act_dtype=dtype))
+        self.residual_conv = (CastConv1d(cin, cout, 1, act_dtype=dtype)
+                              if cin != cout else nn.Identity())
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
         h = self.blocks[0](x) + self.time_mlp(t_emb)[:, None, :]
@@ -95,9 +157,9 @@ class ResidualTemporalBlock(nn.Module):
 class Downsample1d(nn.Module):
     """Conv1d k=3, s=2, p=1 (temporal_unet.py:230-237)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv1d(dim, dim, 3, 2, 1)
+        self.conv = CastConv1d(dim, dim, 3, 2, 1, act_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.transpose(1, 2)).transpose(1, 2)
@@ -106,9 +168,9 @@ class Downsample1d(nn.Module):
 class Upsample1d(nn.Module):
     """ConvTranspose1d k=4, s=2, p=1 (temporal_unet.py:52-86)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.ConvTranspose1d(dim, dim, 4, 2, 1)
+        self.conv = CastConvTranspose1d(dim, dim, 4, 2, 1, act_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.transpose(1, 2)).transpose(1, 2)
@@ -128,9 +190,11 @@ class TemporalUnet(nn.Module):
     def __init__(self, transition_dim: int, dim: int = 128,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), kernel_size: int = 5,
                  time_dim: Optional[int] = None, use_pallas_norm: bool = False,
-                 act_spec: Optional[Tuple[Optional[str], ...]] = None):
+                 act_spec: Optional[Tuple[Optional[str], ...]] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act_spec = act_spec
+        self.dtype = dtype
         self.mesh = None  # set by parallel.tp.shard_params_tp
         self.transition_dim = transition_dim
         self.dim = dim
@@ -139,19 +203,21 @@ class TemporalUnet(nn.Module):
         self.time_dim = time_dim or dim
         td = self.time_dim
         self.time_mlp = nn.Sequential(
-            SinusoidalPosEmb(dim), nn.Linear(dim, td * 4), nn.Mish(),
-            nn.Linear(td * 4, td),
+            SinusoidalPosEmb(dim), CastLinear(dim, td * 4, act_dtype=dtype),
+            nn.Mish(), CastLinear(td * 4, td, act_dtype=dtype),
         )
         dims = [transition_dim] + [dim * m for m in self.dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         n_levels = len(in_out)
-        kw = dict(kernel_size=kernel_size, use_pallas_norm=use_pallas_norm)
+        kw = dict(kernel_size=kernel_size, use_pallas_norm=use_pallas_norm,
+                  dtype=dtype)
         self.downs = nn.ModuleList()
         for i, (cin, cout) in enumerate(in_out):
             self.downs.append(nn.ModuleList([
                 ResidualTemporalBlock(cin, cout, td, **kw),
                 ResidualTemporalBlock(cout, cout, td, **kw),
-                Downsample1d(cout) if i < n_levels - 1 else nn.Identity(),
+                Downsample1d(cout, dtype) if i < n_levels - 1
+                else nn.Identity(),
             ]))
         mid = dims[-1]
         self.mid_block1 = ResidualTemporalBlock(mid, mid, td, **kw)
@@ -161,11 +227,12 @@ class TemporalUnet(nn.Module):
             self.ups.append(nn.ModuleList([
                 ResidualTemporalBlock(dim_out * 2, dim_in, td, **kw),
                 ResidualTemporalBlock(dim_in, dim_in, td, **kw),
-                Upsample1d(dim_in),
+                Upsample1d(dim_in, dtype),
             ]))
         self.final_conv = nn.Sequential(
-            Conv1dBlock(dim, dim, kernel_size, use_pallas_norm=use_pallas_norm),
-            nn.Conv1d(dim, transition_dim, 1),
+            Conv1dBlock(dim, dim, kernel_size, use_pallas_norm=use_pallas_norm,
+                        dtype=dtype),
+            CastConv1d(dim, transition_dim, 1, act_dtype=dtype),
         )
 
     def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
@@ -174,7 +241,7 @@ class TemporalUnet(nn.Module):
 
             return unet_forward(self, x, time)
         t = self.time_mlp(time)
-        x = x.to(torch.float32)
+        x = x.to(self.dtype)
         skips = []
         for res1, res2, down in self.downs:
             x = res2(res1(x, t), t)
@@ -185,5 +252,5 @@ class TemporalUnet(nn.Module):
             x = torch.cat([x, skips.pop()], dim=-1)
             x = up(res2(res1(x, t), t))
         block, conv = self.final_conv
-        x = block(x)
-        return conv(x.transpose(1, 2)).transpose(1, 2)
+        x = conv(block(x).transpose(1, 2))
+        return x.transpose(1, 2).to(torch.float32)

@@ -213,6 +213,9 @@ class Sharded:
         self.sp = _Axis(module.mesh, spec[1])
         self.tp = _Axis(module.mesh, spec[2])
         self.tp_dim = _tp_dims(module, spec[2])
+        # the module's activation dtype: every layer casts its input,
+        # weight and bias to it (flax Dense/Conv(dtype=))
+        self.dtype = getattr(module, "dtype", torch.float32)
 
     def param(self, p, rows: bool):
         """The local tensor of ``p``; ``rows``: used on this rank's rows of
@@ -234,9 +237,11 @@ class Sharded:
         """``op(x, weight, bias, **kw)`` of a conv or dense layer whose
         weight holds its outputs on ``out_dim`` (0 for conv and dense, 1 for
         the transposed conv) and its inputs on ``1 - out_dim``."""
+        a = (a[0].to(self.dtype), a[1])
         w, b = layer.weight, layer.bias
         wd = self.tp_dim.get(w)
-        wl, bl = self.param(w, rows), self.param(b, rows)
+        wl = self.param(w, rows).to(self.dtype)
+        bl = self.param(b, rows).to(self.dtype)
         if wd == out_dim:  # outputs split: read the whole input
             return op(self.tp.copy(self.whole(a)), wl, bl, **kw), True
         if wd is not None:  # inputs split (Megatron's row-parallel layer)
@@ -346,6 +351,11 @@ def unet_forward(unet, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
     all of which would slow the plain path that every single-device
     sampler, trainer and evaluator runs (``python -m
     dadiff_tpu_torch.bench_forward`` times both on a card)."""
+    if unet.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the sharded U-Net forward runs float32 only, not {unet.dtype}; "
+            "TemporalUnet.forward without a mesh (the plain forward) takes "
+            "its dtype")
     s = Sharded(unet)
     _check_rows(x.shape[1], s.sp, len(unet.dim_mults))
     t = (unet.time_mlp[0](time), False)

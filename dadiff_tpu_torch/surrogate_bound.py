@@ -215,7 +215,7 @@ def main(argv=None) -> dict:
     import torch
 
     from dadiff_tpu_torch.cli import resolve_device
-    from dadiff_tpu_torch.datasets.sources import load_episodes
+    from dadiff_tpu_torch.datasets.sources import as_spec, load_episodes
     from dadiff_tpu_torch.envs.learned_model import train_dynamics_ensemble
 
     device = resolve_device(args.device)
@@ -236,11 +236,7 @@ def main(argv=None) -> dict:
           f"mean={metrics['r2_mean']:.4f}", flush=True)
     visited = None
     if args.visited:
-        # a bare npz path or a full dataset spec
-        known = ("npz:", "synthetic:", "expert:", "mppi:", "gym:", "minari:")
-        spec = (args.visited if args.visited.startswith(known)
-                or "+" in args.visited else f"npz:{args.visited}")
-        visited = load_episodes(spec)
+        visited = load_episodes(as_spec(args.visited))
     report = bound_report(args, fit, held, model, stats, metrics, visited)
     path = args.out or (
         f"results/surrogate_bound_{args.env.replace('-', '_')}.json")

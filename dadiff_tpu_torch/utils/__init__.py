@@ -1,1 +1,3 @@
-"""Training utilities of the port."""
+"""Utilities of the port: training (``training``), experiment configs
+(``config``), profiling on torch.profiler (``profiling``), finite checks
+(``debug``) and array helpers (``arrays``)."""

@@ -50,6 +50,7 @@ from dadiff_tpu_torch.parallel.mesh import (
     local_rows,
     shard_params_fsdp,
 )
+from dadiff_tpu_torch.utils.debug import all_finite
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +166,7 @@ def make_train_step(loss_fn: Callable, *, lr_schedule: Callable[[int], float],
             torch.stack(torch._foreach_norm(grads))))
         apply = True
         if skip_nonfinite:
-            finite = torch.stack([g.isfinite().all() for g in grads]).all()
+            finite = all_finite(grads)
             metrics["nonfinite"] = 1.0 - finite.to(torch.float32)
             apply = bool(finite)
         if apply:

@@ -195,7 +195,21 @@ def test_port_imports_no_jax():
             "dadiff_tpu_torch.dryrun_multihost",
             "dadiff_tpu_torch.dryrun_multichip",
             "dadiff_tpu_torch.analyze_tp_comm",
-            "dadiff_tpu_torch.bench_forward"} <= set(names)
+            "dadiff_tpu_torch.bench_forward",
+            "dadiff_tpu_torch.utils.config",
+            "dadiff_tpu_torch.utils.profiling",
+            "dadiff_tpu_torch.utils.debug",
+            "dadiff_tpu_torch.utils.arrays",
+            "dadiff_tpu_torch.dynamics.extractor",
+            "dadiff_tpu_torch.dynamics.registry",
+            "dadiff_tpu_torch.envs.expert",
+            "dadiff_tpu_torch.envs.mppi_expert",
+            "dadiff_tpu_torch.download_data",
+            "dadiff_tpu_torch.physics_bound",
+            "dadiff_tpu_torch.diagnose_dynamics",
+            "dadiff_tpu_torch.calibrate_contact",
+            "dadiff_tpu_torch.compare_results",
+            "dadiff_tpu_torch.check_install"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

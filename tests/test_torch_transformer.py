@@ -415,10 +415,10 @@ def test_jax_megakernel_wires_a_transformer_then_fails_at_the_first_plan():
 
 
 def test_train_parser_matches_jax():
-    """The port's train flags are the JAX parser's but for --config and
-    --dtype (not ported), plus --max-steps and --log-freq;
-    every shared default equals JAX's but --device (cuda, not tpu), and the
-    model families are the same choices."""
+    """The port's train flags are the JAX parser's (--config and --dtype
+    included), plus --max-steps and --log-freq; every shared default equals
+    JAX's but --device (cuda, not tpu), and the model families, the
+    activation dtypes and the dynamics methods are the same choices."""
     from dadiff_tpu.cli import build_train_parser as jax_parser
 
     def flags(parser):
@@ -426,10 +426,12 @@ def test_train_parser_matches_jax():
                 if a.option_strings and a.option_strings[0] != "-h"}
 
     jf, tf = flags(jax_parser()), flags(cli.build_train_parser())
-    assert set(jf) - set(tf) == {"--config", "--dtype"}
+    assert set(jf) - set(tf) == set()
     assert set(tf) - set(jf) == {"--max-steps", "--log-freq"}
     differ = {k for k in set(jf) & set(tf) if jf[k].default != tf[k].default}
     assert differ == {"--device"} and tf["--device"].default == "cuda"
-    assert tf["--model-type"].choices == jf["--model-type"].choices
-    for name in ("--model-type", "--depth", "--n-heads", "--dim"):
+    for name in ("--model-type", "--dtype", "--dynamics-method"):
+        assert tf[name].choices == jf[name].choices, name
+    for name in ("--model-type", "--depth", "--n-heads", "--dim", "--dtype",
+                 "--config"):
         assert tf[name].type == jf[name].type, name
