@@ -12,12 +12,18 @@
    ``dadiff_tpu_torch.probe_megakernel`` samples one batch-1 chain from the
    exported ``.pt`` through every rung: module path, hoisted sampler, fused
    U-Net (K4 per residual block, K1 in its final block), the one-launch
-   chain (K3).
+   chain (K3). The train step (loss, grad, clip, Adam, EMA) is timed at
+   batch 32 and 256 with the library GroupNorm and through K1's forward and
+   backward kernels (the U-Net's ``use_pallas_norm``), in turns; their
+   first losses must agree.
 3. Holds every kernel against its plain PyTorch version on the card at the
-   flagship shapes (the fused conv + GroupNorm + Mish at every pair of a
-   denoise step, f32 and bf16 weights, with and without its adds), and
-   times kernel, plain version, a library call where one exists, and the
-   least time the card could take.
+   flagship shapes (K1's forward and backward at every GroupNorm shape of a
+   train step, in both layouts, at batch 32 and 256 and at the ladder's,
+   two backward runs and a CUDA-graph replay of both against eager bit for
+   bit; the fused conv + GroupNorm + Mish at every pair of a denoise step,
+   f32 and bf16 weights, with and without its adds), and times kernel,
+   plain version, a library call where one exists, and the least time the
+   card could take.
 4. Drives the serving path: starts ``dadiff_tpu_torch.serve``'s ``main`` on
    the trained ``.pt`` with ``--policy-type dynamics-aware --n-candidates 8
    --megakernel`` in a thread, sends ping, plan requests and reset over TCP,
@@ -279,13 +285,14 @@ def bound_ms(flops, nbytes, peak):
 def _counters():
     """Every kernel wrapper's launch count, by the kernel's name."""
     from dadiff_tpu_torch.ops.chain import launch_chain
-    from dadiff_tpu_torch.ops.gn_mish import gn_mish
+    from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_backward
     from dadiff_tpu_torch.ops.planner import (
         ddpm_project_step, rows_conv, rows_conv_gn,
     )
     from dadiff_tpu_torch.ops.resblock import fused_residual_block
 
-    return {"gn_mish": gn_mish, "rows_conv": rows_conv,
+    return {"gn_mish": gn_mish, "gn_mish_backward": gn_mish_backward,
+            "rows_conv": rows_conv,
             "rows_conv_gn": rows_conv_gn,
             "ddpm_project_step": ddpm_project_step,
             "resblock": fused_residual_block, "chain": launch_chain}
@@ -330,11 +337,29 @@ def train_phase(root: Path) -> Path:
     return ckpt
 
 
+TRAIN_STEP_REPEATS, TRAIN_STEP_STEPS = 3, 10
+TOL_K1_LOSS = 1e-4   # first loss, K1 against the library norm, relative
+# after the timed steps (38 a side), K1's backward as the train step runs it:
+# the loss of one more step, relative, and the two weight changes' difference
+# relative to the library's change; ~1.2e-7 and ~3e-6 observed at batch 32
+# and 256 on an H100, so about 8x and 10x that
+TOL_K1_LAST_LOSS, TOL_K1_DRIFT = 1e-6, 3e-5
+
+
 def train_step_phase(ckpt: Path) -> dict:
     """Times the port's train step (loss, grad, clip, Adam, EMA) on the
-    trained weights at batch BATCH: with the library GroupNorm as trained,
-    and with the U-Net's ``use_pallas_norm`` option (GroupNorm+Mish through
-    K1, its backward through the plain version)."""
+    trained weights at batch BATCH and DT_BATCH: with the library GroupNorm
+    as trained (``library_norm``) and with the U-Net's ``use_pallas_norm``
+    option (``k1_norm``: GroupNorm+Mish through K1's forward and backward
+    kernels), TRAIN_STEP_REPEATS repeats of TRAIN_STEP_STEPS steps each, in
+    turns. The two take the same batch and draws: their first losses must
+    agree within TOL_K1_LOSS, and a ``k1_norm`` step must launch K1's
+    forward and backward once per norm. After the timed steps one more
+    step each holds K1's backward as the step runs it (channels-first,
+    the gradient arriving through the block's transposed view): its loss
+    within TOL_K1_LAST_LOSS and the weights' change since the checkpoint
+    within TOL_K1_DRIFT of the library's, both relative. The counts are set
+    to 0 at the start and read at the end (``launches``)."""
     from dadiff_tpu_torch.cli import load_model
     from dadiff_tpu_torch.datasets.sequence import create_dataloader
     from dadiff_tpu_torch.losses import build_loss, make_generators
@@ -342,25 +367,81 @@ def train_step_phase(ckpt: Path) -> dict:
     from dadiff_tpu_torch.utils import training as tt
 
     out = {}
-    for name, kernel_norm in (("k1_norm", True), ("library_norm", False)):
-        diff, dataset = load_model(str(ckpt), DATASET, device="cuda")
-        diff.train()
-        for m in diff.modules():
-            if isinstance(m, Conv1dBlock):
+    reset_counts()
+    for bs in (BATCH, DT_BATCH):
+        steps, first, launches, models = {}, {}, {}, {}
+        for name, kernel_norm in (("k1_norm", True), ("library_norm", False)):
+            diff, dataset = load_model(str(ckpt), DATASET, device="cuda")
+            diff.train()
+            start = [p.detach().clone() for p in diff.parameters()]
+            models[name] = diff
+            blocks = [m for m in diff.modules() if isinstance(m, Conv1dBlock)]
+            for m in blocks:
                 m.use_pallas_norm = kernel_norm
-        loss_fn, names = build_loss(diff)
-        state = tt.TrainState(diff, tt.make_optimizer(diff.parameters()),
-                              tt.EMA(diff).shadow)
-        step = tt.make_train_step(
-            loss_fn, lr_schedule=tt.warmup_cosine_schedule(3e-4, 10, 10000),
-            gradient_clip=4.0)
-        gens = make_generators(len(names), SEED, "cuda")
-        batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
-            create_dataloader(dataset, BATCH, seed=SEED))).items()}
-        ms = cuda_ms(lambda: step(state, batch, gens), 30, warmup=5)
-        out[name] = {"step_ms": ms, "samples_per_s": BATCH / ms * 1e3}
-        log(f"train step ({name}): {ms:.3f} ms, {BATCH / ms * 1e3:.0f} "
-            f"samples/s at batch {BATCH}")
+            loss_fn, names = build_loss(diff)
+            state = tt.TrainState(diff, tt.make_optimizer(diff.parameters()),
+                                  tt.EMA(diff).shadow)
+            step = tt.make_train_step(
+                loss_fn, lr_schedule=tt.warmup_cosine_schedule(3e-4, 10,
+                                                               10000),
+                gradient_clip=4.0)
+            gens = make_generators(len(names), SEED, "cuda")
+            batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(
+                iter(create_dataloader(dataset, bs, seed=SEED))).items()}
+            before = read_counts()
+            first[name] = float(step(state, batch, gens)["total"])
+            after = read_counts()
+            launches[name] = {k: after[k] - before[k]
+                              for k in ("gn_mish", "gn_mish_backward")}
+            steps[name] = (lambda s=step, st=state, b=batch, g=gens:
+                           s(st, b, g))
+        n = len(blocks)
+        rel = abs(first["k1_norm"] - first["library_norm"]) \
+            / abs(first["library_norm"])
+        log(f"train step at batch {bs}: first loss k1_norm "
+            f"{first['k1_norm']:.7f}, library_norm "
+            f"{first['library_norm']:.7f} (relative {rel:.3e}); K1 launches "
+            f"a step {launches}")
+        require(rel <= TOL_K1_LOSS, f"first loss through K1 vs the library "
+                f"norm at batch {bs}: {rel} > {TOL_K1_LOSS}")
+        require(launches["k1_norm"] == {"gn_mish": n, "gn_mish_backward": n}
+                and not any(launches["library_norm"].values()),
+                f"K1 launches a step: {launches} ({n} norms)")
+        ms = {name: [] for name in steps}
+        for rep in range(TRAIN_STEP_REPEATS):
+            for name in (list(steps) if rep % 2 == 0 else list(steps)[::-1]):
+                ms[name].append(cuda_ms(steps[name], TRAIN_STEP_STEPS,
+                                        warmup=2))
+        last = {name: float(run()["total"]) for name, run in steps.items()}
+        change = {name: torch.cat([(p.detach() - p0).flatten() for p, p0 in
+                                   zip(m.parameters(), start)])
+                  for name, m in models.items()}
+        drift = float((change["k1_norm"] - change["library_norm"]).norm()
+                      / change["library_norm"].norm())
+        last_rel = abs(last["k1_norm"] - last["library_norm"]) \
+            / abs(last["library_norm"])
+        taken = 2 + TRAIN_STEP_REPEATS * (TRAIN_STEP_STEPS + 2)
+        log(f"train step at batch {bs}, after {taken} steps: loss k1_norm "
+            f"{last['k1_norm']:.7f}, library_norm {last['library_norm']:.7f} "
+            f"(relative {last_rel:.3e}); weight change, k1_norm against "
+            f"library_norm, relative {drift:.3e}")
+        require(last_rel <= TOL_K1_LAST_LOSS,
+                f"last loss through K1 vs the library norm at batch {bs}: "
+                f"{last_rel} > {TOL_K1_LAST_LOSS}")
+        require(drift <= TOL_K1_DRIFT,
+                f"weight change through K1 vs the library norm at batch {bs}:"
+                f" {drift} > {TOL_K1_DRIFT}")
+        out[f"batch_{bs}"] = {
+            "step_ms": ms, "first_loss": first, "first_loss_rel": rel,
+            "last_loss": last, "last_loss_rel": last_rel,
+            "weight_change_rel": drift,
+            "k1_launches_per_step": launches["k1_norm"],
+            "samples_per_s": {k: bs / min(v) * 1e3 for k, v in ms.items()}}
+        for name, v in ms.items():
+            log(f"train step ({name}) at batch {bs}: "
+                f"{', '.join(f'{t:.3f}' for t in v)} ms, "
+                f"{bs / min(v) * 1e3:.0f} samples/s")
+    out["launches"] = read_counts()
     return out
 
 
@@ -847,9 +928,271 @@ def gn_pair_bound(fused):
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
+TOL_K1_BWD = 1e-4   # dx, f32; dscale / dbias / dte are sums over up to
+#                     8,192 positions: of their largest entry (at least 1)
+
+
+def k1_grad_err(got, want, is_sum: bool) -> float:
+    e = (got - want).abs().max().item()
+    return e / max(1.0, want.abs().max().item()) if is_sum else e
+
+
+def norm_shapes(unet, batch: int):
+    """(B, C, L) of every GroupNorm of one forward of ``unet`` at ``batch``,
+    in the order the forward runs them (the library norm, hooked)."""
+    from dadiff_tpu_torch.models.temporal_unet import Conv1dBlock
+
+    blocks = [m for m in unet.modules() if isinstance(m, Conv1dBlock)]
+    flags = [m.use_pallas_norm for m in blocks]
+    shapes = []
+    hooks = [m.block[1].register_forward_hook(
+        lambda mod, inp, out: shapes.append(tuple(inp[0].shape)))
+        for m in blocks]
+    try:
+        for m in blocks:
+            m.use_pallas_norm = False
+        with torch.no_grad():
+            unet(torch.zeros(batch, HORIZON, unet.transition_dim,
+                             device="cuda"),
+                 torch.zeros(batch, dtype=torch.long, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+        for m, f in zip(blocks, flags):
+            m.use_pallas_norm = f
+    require(len(shapes) == len(blocks), f"{len(shapes)} norms hooked")
+    return shapes
+
+
+def k1_case(S, L, C, cf: bool, g) -> dict:
+    """K1 forward and backward at one shape and layout against the plain
+    versions: the forward within TOL_GN; the backward kernel against
+    gn_mish_backward_plain and against autograd of gn_mish_plain within
+    TOL_K1_BWD; two backward runs, and both launchers replayed from one CUDA
+    graph against their eager runs, bit for bit."""
+    from dadiff_tpu_torch.ops.gn_mish import (
+        gn_mish_backward, gn_mish_backward_plain, gn_mish_plain,
+        launch_gn_mish, launch_plan,
+    )
+
+    shape = (S, C, L) if cf else (S, L, C)
+    x = torch.randn(shape, device="cuda", generator=g) * 2 + 0.3
+    s = torch.randn(C, device="cuda", generator=g)
+    b = torch.randn(C, device="cuda", generator=g)
+    gy = torch.randn(shape, device="cuda", generator=g)
+    out = torch.empty_like(x)
+    stats = torch.empty(S, 8, 2, device="cuda")
+
+    def fwd():
+        launch_gn_mish(x, out, s, b, None, 0, None, 8, 1e-5, L,
+                       channels_first=cf, stats=stats)
+
+    def bwd():
+        return gn_mish_backward(x, s, b, gy, stats, 8, cf)[:3]
+
+    fwd()
+    want, want_stats = gn_mish_plain(x, s, b, channels_first=cf,
+                                     return_stats=True)
+    e_fwd = (out - want).abs().max().item()
+    got, again = bwd(), bwd()
+    plain = gn_mish_backward_plain(x, s, b, gy, want_stats, 8, cf)
+    leaves = [t.clone().requires_grad_(True) for t in (x, s, b)]
+    gn_mish_plain(*leaves, channels_first=cf).backward(gy)
+    e_plain = max(k1_grad_err(a, w, i > 0)
+                  for i, (a, w) in enumerate(zip(got, plain)))
+    e_auto = max(k1_grad_err(a, l.grad, i > 0)
+                 for i, (a, l) in enumerate(zip(got, leaves)))
+    eager = [out.clone(), stats.clone(), *got]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd()
+        bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    out.zero_()
+    stats.zero_()
+    with torch.cuda.graph(graph):
+        fwd()
+        captured = bwd()
+    graph.replay()
+    torch.cuda.synchronize()
+    replay = [out, stats, *captured]
+    rec = dict(shape=list(shape), layout="channels_first" if cf else
+               "feature_last", route=list(launch_plan(L, C, 8, cf)),
+               fwd_err=e_fwd, bwd_err_plain=e_plain, bwd_err_autograd=e_auto,
+               bwd_bits_equal=all(torch.equal(p, q)
+                                  for p, q in zip(got, again)),
+               graph_bits_equal=all(torch.equal(p, q)
+                                    for p, q in zip(eager, replay)))
+    log(f"K1 {rec['layout']} {tuple(shape)} route {rec['route']}: forward "
+        f"{e_fwd:.3e}, backward vs plain {e_plain:.3e}, vs autograd "
+        f"{e_auto:.3e}, two runs equal {rec['bwd_bits_equal']}, graph == "
+        f"eager {rec['graph_bits_equal']}")
+    require(e_fwd <= TOL_GN, f"gn_mish at {shape}: {e_fwd} > {TOL_GN}")
+    require(max(e_plain, e_auto) <= TOL_K1_BWD,
+            f"gn_mish backward at {shape}: {e_plain}, {e_auto}")
+    require(rec["bwd_bits_equal"], f"gn_mish backward at {shape}: two runs "
+            "differ")
+    require(rec["graph_bits_equal"], f"gn_mish at {shape}: graph replay "
+            "differs from eager")
+    return rec
+
+
+def k1_times(unet, batch: int, g) -> dict:
+    """The 25 norms of a train step at ``batch`` as the use_pallas_norm
+    U-Net runs them (channels-first), replayed from CUDA graphs: K1's
+    forward (with its statistics) and backward launches, the same through
+    the autograd.Function (forward and backward), the plain versions, and
+    the library composition F.group_norm -> F.mish with its autograd
+    backward (timed with its forward; its backward alone is the
+    difference). Bounds in bytes: forward x, scale, bias in and y and the
+    statistics out; backward x, g, scale, bias and the statistics in, dx,
+    dscale, dbias out."""
+    import torch.nn.functional as F
+    from dadiff_tpu_torch.ops.gn_mish import (
+        gn_mish, gn_mish_backward, gn_mish_backward_plain, gn_mish_plain,
+        launch_gn_mish,
+    )
+
+    bufs = []
+    fwd_b = bwd_b = fwd_fl = bwd_fl = 0.0
+    for S, C, L in norm_shapes(unet, batch):
+        x = torch.randn(S, C, L, device="cuda", generator=g)
+        s = torch.randn(C, device="cuda", generator=g)
+        b = torch.randn(C, device="cuda", generator=g)
+        gy = torch.randn_like(x)
+        out, stats = torch.empty_like(x), torch.empty(S, 8, 2, device="cuda")
+        launch_gn_mish(x, out, s, b, None, 0, None, 8, 1e-5, L,
+                       channels_first=True, stats=stats)
+        leaves = [t.clone().requires_grad_(True) for t in (x, s, b)]
+        bufs.append((x, s, b, gy, out, stats, L, leaves))
+        N = S * C * L
+        fwd_b += 4 * (2 * N + 2 * C + 16 * S)
+        bwd_b += 4 * (3 * N + 4 * C + 16 * S)
+        fwd_fl += 20.0 * N
+        bwd_fl += 40.0 * N
+
+    def k1_fwd():
+        for x, s, b, _, out, stats, L, _ in bufs:
+            launch_gn_mish(x, out, s, b, None, 0, None, 8, 1e-5, L,
+                           channels_first=True, stats=stats)
+
+    def k1_bwd():
+        return [gn_mish_backward(x, s, b, gy, stats, 8, True)
+                for x, s, b, gy, _, stats, _, _ in bufs]
+
+    def k1_autograd():
+        return [torch.autograd.grad(gn_mish(*lv, channels_first=True), lv, gy)
+                for _, _, _, gy, _, _, _, lv in bufs]
+
+    def lib_fwd():
+        return [F.mish(F.group_norm(x, 8, s, b, 1e-5))
+                for x, s, b, *_ in bufs]
+
+    def lib_autograd():
+        return [torch.autograd.grad(F.mish(F.group_norm(
+            lv[0], 8, lv[1], lv[2], 1e-5)), lv, gy)
+            for _, _, _, gy, _, _, _, lv in bufs]
+
+    fb, fby = bound_ms(fwd_fl, fwd_b, F32_FLOPS)
+    bb, bby = bound_ms(bwd_fl, bwd_b, F32_FLOPS)
+    lib_f, lib_fb = graph_ms(lib_fwd, 20), graph_ms(lib_autograd, 20)
+    rec = dict(
+        batch=batch, norms=len(bufs),
+        fwd_ms=graph_ms(k1_fwd, 20), fwd_host_ms=cuda_ms(k1_fwd, 20),
+        bwd_ms=graph_ms(k1_bwd, 20), bwd_host_ms=cuda_ms(k1_bwd, 20),
+        autograd_ms=graph_ms(k1_autograd, 20),
+        autograd_host_ms=cuda_ms(k1_autograd, 20),
+        plain_fwd_ms=graph_ms(lambda: [gn_mish_plain(
+            x, s, b, channels_first=True, return_stats=True)
+            for x, s, b, *_ in bufs], 20),
+        plain_bwd_ms=graph_ms(lambda: [gn_mish_backward_plain(
+            x, s, b, gy, stats, 8, True)
+            for x, s, b, gy, _, stats, _, _ in bufs], 20),
+        library_fwd_ms=lib_f, library_autograd_ms=lib_fb,
+        library_bwd_ms=lib_fb - lib_f,
+        library_autograd_host_ms=cuda_ms(lib_autograd, 20),
+        fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby,
+        fwd_bytes=fwd_b, bwd_bytes=bwd_b)
+    log(f"K1 train step's {len(bufs)} norms at batch {batch}: "
+        + json.dumps(rec))
+    return rec
+
+
+def k1_phase(unet, g) -> dict:
+    """K1's checks at every training shape (both layouts, batch BATCH and
+    DT_BATCH) and the ladder's, and its times at the train step's norms
+    and at the ladder's final block; the kernels-line records of
+    ``gn_mish`` and ``gn_mish_backward``."""
+    from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain
+
+    import torch.nn.functional as F
+
+    shapes = sorted({(L, C) for _, C, L in norm_shapes(unet, 1)},
+                    reverse=True)
+    cases = [k1_case(S, L, C, cf, g) for S in (BATCH, DT_BATCH)
+             for L, C in shapes for cf in (False, True)]
+    cases += [k1_case(1, HORIZON, unet.dim, cf, g) for cf in (False, True)]
+    # the routes no flagship shape takes: two vectors a thread, the looped
+    # route (a group past REG_MAX floats), scalar loads (runs of 6 floats)
+    cases += [k1_case(S, L, C, cf, g)
+              for S, L, C in ((2, 64, 256), (2, 64, 512), (4, 6, 48))
+              for cf in (False, True)]
+    fwd_err = max(c["fwd_err"] for c in cases)
+    bwd_err = max(max(c["bwd_err_plain"], c["bwd_err_autograd"])
+                  for c in cases)
+    times = {bs: k1_times(unet, bs, g) for bs in (BATCH, DT_BATCH)}
+    # the ladder's final block: batch 1, feature-last, 100 launches a chain
+    x = torch.randn(1, HORIZON, unet.dim, device="cuda", generator=g)
+    s = torch.randn(unet.dim, device="cuda", generator=g)
+    b = torch.randn(unet.dim, device="cuda", generator=g)
+    xc = x.transpose(1, 2).contiguous()
+    ladder = dict(
+        shape=[1, HORIZON, unet.dim],
+        us=1e3 * graph_ms(lambda: [gn_mish(x, s, b) for _ in range(10)],
+                          20) / 10,
+        plain_us=1e3 * graph_ms(lambda: [gn_mish_plain(x, s, b)
+                                         for _ in range(10)], 20) / 10,
+        library_us=1e3 * graph_ms(lambda: [F.mish(F.group_norm(
+            xc, 8, s, b, 1e-5)) for _ in range(10)], 20) / 10,
+        bound_us=1e3 * bound_ms(20.0 * xc.numel(),
+                                4 * (2 * xc.numel() + 2 * unet.dim),
+                                F32_FLOPS)[0])
+    log(f"K1 ladder final block: {json.dumps(ladder)}")
+    top, low = times[DT_BATCH], times[BATCH]
+    per = (f"the {top['norms']} norms of a train step at batch {DT_BATCH} "
+           "(channels-first)")
+    fwd = dict(
+        max_abs_err=fwd_err, ms=top["fwd_ms"], host_ms=top["fwd_host_ms"],
+        plain_ms=top["plain_fwd_ms"], library_ms=top["library_fwd_ms"],
+        bound_ms=top["fwd_bound_ms"], bound_by=top["fwd_bound_by"],
+        per=per + ", forward", launches_per_step=top["norms"],
+        at_batch_32={k: low[k] for k in (
+            "fwd_ms", "fwd_host_ms", "plain_fwd_ms", "library_fwd_ms",
+            "fwd_bound_ms")},
+        autograd={bs: {k: t[k] for k in (
+            "autograd_ms", "autograd_host_ms", "library_autograd_ms",
+            "library_autograd_host_ms")} for bs, t in times.items()},
+        ladder=ladder, cases=len(cases))
+    bwd = dict(
+        max_abs_err=bwd_err, ms=top["bwd_ms"], host_ms=top["bwd_host_ms"],
+        plain_ms=top["plain_bwd_ms"], library_ms=top["library_bwd_ms"],
+        bound_ms=top["bwd_bound_ms"], bound_by=top["bwd_bound_by"],
+        per=per + ", backward (the group pass and the channel sums, two "
+        "kernels a launch; library: the autograd backward of F.group_norm "
+        "-> F.mish)", launches_per_step=top["norms"],
+        at_batch_32={k: low[k] for k in (
+            "bwd_ms", "bwd_host_ms", "plain_bwd_ms", "library_bwd_ms",
+            "bwd_bound_ms")},
+        cases=len(cases))
+    return {"gn_mish": fwd, "gn_mish_backward": bwd}
+
+
 def kernel_phase(unet, rows, D):
-    """K1 and the K2 kernels against their plain versions, and their times
-    over the launches of one denoise step."""
+    """K1 (``k1_phase``, and at the served step's shapes with its adds) and
+    the K2 kernels against their plain versions, and their times over the
+    launches of one denoise step."""
     import numpy as np
     import torch.nn.functional as F
     from dadiff_tpu_torch.ops.gn_mish import gn_mish, gn_mish_plain
@@ -865,8 +1208,11 @@ def kernel_phase(unet, rows, D):
     fused = [c for c in calls if c[0] == "conv_gn"]
     results = {}
 
-    # -- K1 at the shapes of the 25 norms a served step ran before they were
-    # fused into their convs, with and without its epilogue adds
+    # -- K1 (forward and backward kernels): every training shape in both
+    # layouts at both batches and the ladder's, its times at the 25 norms
+    # of a train step; then the served step's shapes with the epilogue adds
+    results.update(k1_phase(unet, g))
+
     gn_calls = [("gn", c[1], c[4], c[7], c[8], c[9]) for c in fused]
     err = 0.0
     for _, R, C, seg, has_te, has_res in sorted(set(gn_calls)):
@@ -882,50 +1228,31 @@ def kernel_phase(unet, rows, D):
         log(f"K1 gn_mish ({R}, {C}) seg={seg} te={has_te} res={has_res}: "
             f"max|err| {e:.3e}")
         err = max(err, e)
-    # the train-and-ladder path's shapes, without epilogue adds: a batch of
-    # BATCH through the U-Net's use_pallas_norm option at every level, and
-    # the final block of the fused U-Net at batch 1; the gradient (the plain
-    # version's, through the autograd.Function) at the training shapes
-    L = len(unet.dim_mults)
-    train_shapes = [(BATCH, HORIZON >> i, unet.dim * m)
-                    for i, m in enumerate(unet.dim_mults)]
-    for S, Hh, C in train_shapes + [(1, HORIZON, unet.dim)]:
-        args = [torch.randn(S, Hh, C, device=dev, generator=g) * 2 + 0.3,
-                torch.randn(C, device=dev, generator=g),
-                torch.randn(C, device=dev, generator=g)]
-        gy = torch.randn(S, Hh, C, device=dev, generator=g)
-        outs, grads = [], []
+    require(err <= TOL_GN, f"gn_mish vs plain {err} > {TOL_GN}")
+    # the epilogue adds' gradients through the backward kernel (a third
+    # plane of channel sums): a shared row and one row per segment
+    for te_rows in (1, 8):
+        args = [torch.randn(8, HORIZON, DIM, device=dev, generator=g),
+                torch.randn(DIM, device=dev, generator=g),
+                torch.randn(DIM, device=dev, generator=g),
+                torch.randn(te_rows, DIM, device=dev, generator=g).squeeze(0),
+                torch.randn(8, HORIZON, DIM, device=dev, generator=g)]
+        gy = torch.randn(8, HORIZON, DIM, device=dev, generator=g)
+        grads = []
         for fn in (gn_mish, gn_mish_plain):
             leaves = [a.clone().requires_grad_(True) for a in args]
-            y = fn(*leaves)
-            y.backward(gy)
-            outs.append(y.detach())
+            fn(*leaves[:3], te=leaves[3], res=leaves[4]).backward(gy)
             grads.append([a.grad for a in leaves])
-        e = (outs[0] - outs[1]).abs().max().item()
-        eb = max((a - b).abs().max().item() for a, b in zip(*grads))
-        log(f"K1 gn_mish ({S}, {Hh}, {C}) train/ladder shape: max|err| "
-            f"{e:.3e}, backward {eb:.3e}")
-        err = max(err, e)
-        require(eb <= 1e-4, f"gn_mish backward at ({S}, {Hh}, {C}): {eb}")
-    require(len(train_shapes) == L, "one training shape per level")
-    require(err <= TOL_GN, f"gn_mish vs plain {err} > {TOL_GN}")
-    # its gradient is the plain version's (the JAX custom_vjp's backward)
-    args = [torch.randn(8, HORIZON, DIM, device=dev, generator=g),
-            torch.randn(DIM, device=dev, generator=g),
-            torch.randn(DIM, device=dev, generator=g),
-            torch.randn(DIM, device=dev, generator=g)]
-    gy = torch.randn(8, HORIZON, DIM, device=dev, generator=g)
-    grads = []
-    for fn in (gn_mish, gn_mish_plain):
-        leaves = [a.clone().requires_grad_(True) for a in args]
-        fn(*leaves[:3], te=leaves[3]).backward(gy)
-        grads.append([a.grad for a in leaves])
-    e = max((a - b).abs().max().item() for a, b in zip(*grads))
-    log(f"K1 gn_mish backward vs plain autograd: max|err| {e:.3e}")
-    require(e <= 1e-4, f"gn_mish backward {e}")
+        e = max(k1_grad_err(grads[0][i], grads[1][i], i > 0)
+                for i in range(5))
+        log(f"K1 gn_mish backward with te ({te_rows} rows) and res vs plain "
+            f"autograd: {e:.3e}")
+        require(e <= TOL_K1_BWD, f"gn_mish backward with te/res {e}")
 
+    # the served step's 25 norms, unfused (the wave fuses them into their
+    # convs: rows_conv_gn)
     gn_bufs = []
-    flops = nbytes = bnd = 0.0
+    nbytes = bnd = 0.0
     for _, R, C, seg, has_te, has_res in gn_calls:
         x = torch.randn(R // seg, seg, C, device=dev, generator=g)
         s, b = torch.randn(C, device=dev), torch.randn(C, device=dev)
@@ -933,13 +1260,12 @@ def kernel_phase(unet, rows, D):
         res = torch.randn_like(x) if has_res else None
         gn_bufs.append((x, s, b, te, res, x.permute(0, 2, 1).contiguous()))
         nb = 4 * R * C * (2 + has_res) + 4 * C * (2 + has_te)
-        fl = 20.0 * R * C
-        bnd += bound_ms(fl, nb, F32_FLOPS)[0]
-        flops, nbytes = flops + fl, nbytes + nb
+        bnd += bound_ms(20.0 * R * C, nb, F32_FLOPS)[0]
+
     def k1():
         return [gn_mish(x, s, b, te=te, res=res) for x, s, b, te, res, _ in gn_bufs]
 
-    results["gn_mish"] = dict(
+    results["gn_mish"]["served_step"] = dict(
         max_abs_err=err, ms=graph_ms(k1, 50), host_ms=cuda_ms(k1, 50),
         plain_ms=graph_ms(lambda: [gn_mish_plain(x, s, b, te=te, res=res)
                                    for x, s, b, te, res, _ in gn_bufs], 50),
@@ -948,6 +1274,8 @@ def kernel_phase(unet, rows, D):
         bound_ms=bnd, bound_by="bytes",
         per="the 25 norms of a served denoise step, unfused",
         launches_per_step=len(gn_calls))
+    results["gn_mish"]["max_abs_err"] = max(
+        results["gn_mish"]["max_abs_err"], err)
 
     # -- rows_conv: every distinct conv of a step (the fused ones without
     # their epilogue), f32 and bf16 weights
@@ -1652,7 +1980,7 @@ def ondevice_eval_phase(ckpt: Path, policy, results_dir: Path) -> dict:
             and k2["ddpm_project_step"] == want_waves * T_STEPS,
             f"the on-device run launches {want_waves} waves of {per_wave}: "
             f"{k2}")
-    require(counts["gn_mish"] == 0, "K1 launched on the on-device path")
+    require(counts["gn_mish"] == counts["gn_mish_backward"] == 0, "K1 launched on the on-device path")
     waves = sum(k2.values()) / per_wave
     with open(out["results_path"]) as f:
         saved = json.load(f)
@@ -2116,7 +2444,7 @@ def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
     for name in ("rows_conv", "rows_conv_gn", "ddpm_project_step"):
         require(counts[name] > 0,
                 f"{name} was not launched on the micro-batched path")
-    require(counts["gn_mish"] == 0, "K1 launched on the micro-batched path")
+    require(counts["gn_mish"] == counts["gn_mish_backward"] == 0, "K1 launched on the micro-batched path")
     log(f"micro-batched serving: {n_clients} clients, batch sizes "
         f"{batcher.batch_sizes}, plan ms {[round(s[1], 3) for s in served]} "
         f"(host clock, request to response); launches {counts}")
@@ -4103,7 +4431,8 @@ def main_path(ckpt: Path, obs_rows):
     for name in ("rows_conv", "rows_conv_gn", "ddpm_project_step"):
         require(counts[name] > 0,
                 f"{name} was not launched on the serving path")
-    require(counts["gn_mish"] == 0, "K1 launched on the serving path: every "
+    require(counts["gn_mish"] == counts["gn_mish_backward"] == 0,
+            "K1 launched on the serving path: every "
             "GroupNorm there is the epilogue of its conv")
     log(f"serving path launches: {counts}")
     return counts, plan_ms, [w for _, _, w in out]
@@ -4148,7 +4477,10 @@ def main() -> int:
         require(train_counts[name] > 0,
                 f"{name} was not launched on the train-and-ladder path")
     log(f"ladder: {json.dumps(ladder)}")
+    # the train step through K1's forward and backward (use_pallas_norm)
     train = train_step_phase(ckpt)
+    require(train["launches"]["gn_mish_backward"] > 0,
+            "gn_mish_backward was not launched on the train step")
 
     args = build_server_parser().parse_args(
         ["--checkpoint", str(ckpt), "--env", ENV, "--dataset", DATASET,
@@ -4222,6 +4554,9 @@ def main() -> int:
     table = {  # name: (source, TPU kernel replaced, launches on its path)
         "gn_mish": (f"{csrc}/gn_mish.cu", f"{ref}/ops/pallas_kernels.py:84",
                     train_counts["gn_mish"]),
+        "gn_mish_backward": (f"{csrc}/gn_mish.cu",
+                             f"{ref}/ops/pallas_kernels.py:118-139",
+                             train["launches"]["gn_mish_backward"]),
         "rows_conv": (f"{csrc}/planner.cu", f"{ref}/ops/pallas_planner.py:95",
                       counts["rows_conv"]),
         "rows_conv_gn": (f"{csrc}/planner.cu", f"{ref}/ops/pallas_unet.py:198",
@@ -4288,12 +4623,17 @@ def main() -> int:
                       "ms_by_fan_in", "ms_served", "unfused_ms",
                       "library_composition_ms", "ms_in_sequence", "grid",
                       "barriers_per_launch", "step_timing", "ms_per_launch",
-                      "bound_ms_per_launch", "at_32768_rows"):
+                      "bound_ms_per_launch", "at_32768_rows", "at_batch_32",
+                      "autograd", "ladder", "served_step"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
-    # K1 runs on the train-and-ladder path; on the serving path every
-    # GroupNorm is the epilogue of its conv (rows_conv_gn)
-    kernels[0]["launches_serving"] = counts["gn_mish"]
+    # K1 runs on the train-and-ladder path (its forward in the ladder's
+    # fused U-Net) and on the train step under use_pallas_norm (forward and
+    # backward); on the serving path every GroupNorm is the epilogue of its
+    # conv (rows_conv_gn)
+    for k in kernels[:2]:
+        k["launches_serving"] = counts[k["name"]]
+        k["launches_train_step"] = train["launches"][k["name"]]
     kernels.append({
         "name": "planner_chain", "route": "cuda",
         "source": "dadiff_tpu_torch/ops/planner.py",

@@ -13,8 +13,9 @@ applies unchanged.
 
 Convolutions stay ``torch.nn.functional.conv1d`` (the JAX module leaves them
 to XLA outside any Pallas kernel). With ``use_pallas_norm`` every
-GroupNorm+Mish goes through the K1 kernel (ops/gn_mish.py), the counterpart
-of the JAX ``PallasGroupNormMish`` (:89). When this module serves as a
+GroupNorm+Mish goes through the K1 kernels (ops/gn_mish.py: the forward on
+the conv's ``(B, C, H)`` output as it lies, and its backward), the
+counterpart of the JAX ``PallasGroupNormMish`` (:89). When this module serves as a
 reference on the card, set ``torch.backends.cudnn.allow_tf32 = False``.
 
 ``dtype`` is the activation dtype (JAX's ``dtype`` knob, float32 or
@@ -121,9 +122,10 @@ class Conv1dBlock(nn.Module):
         conv, norm, act = self.block
         y = conv(x.transpose(1, 2)).float()
         if self.use_pallas_norm:
-            return gn_mish(y.transpose(1, 2).contiguous(), norm.weight,
-                           norm.bias, norm.num_groups, norm.eps
-                           ).to(self.dtype)
+            # K1 reads the conv's (B, C, H) output as it lies: no layout copy
+            return gn_mish(y, norm.weight, norm.bias, norm.num_groups,
+                           norm.eps, channels_first=True
+                           ).transpose(1, 2).to(self.dtype)
         return act(norm(y)).transpose(1, 2).to(self.dtype)
 
 

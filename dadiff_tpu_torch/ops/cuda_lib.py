@@ -34,8 +34,13 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> {C function: argtypes}; every function returns int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "gn_mish": {
-        # x, out, scale, bias, te, te_stride, res, n_seg, seg, C, groups, eps, stream
-        "gn_mish": [P, P, P, P, P, I, P, I, I, I, I, F, P],
+        # x, out, scale, bias, te, te_stride, res, stats, n_seg, seg, C,
+        # groups, eps, channels_first, vec, nv, threads, stream
+        "gn_mish": [P, P, P, P, P, I, P, P, I, I, I, I, F, I, I, I, I, P],
+        # x, g, scale, bias, stats, dx, part, dscale, dbias, dte, planes,
+        # n_seg, seg, C, groups, channels_first, vec, nv, threads, stream
+        "gn_mish_backward": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                             I, I, I, P],
     },
     "planner": {
         # xa, xb, cin_a, cin_b, w, w_bf16, bias, out, rows_in, seg_in, cout,
@@ -162,7 +167,9 @@ def counters(device, n: int, stream: int):
 
 
 def stream_of(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as a pointer."""
+    """PyTorch's current stream on ``t``'s device (a CUDA tensor), as a
+    pointer, read without building a ``torch.cuda.Stream`` (a few
+    microseconds of host time a launch, which host-bound steps pay)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

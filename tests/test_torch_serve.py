@@ -196,6 +196,7 @@ def test_port_imports_no_jax():
             "dadiff_tpu_torch.dryrun_multichip",
             "dadiff_tpu_torch.analyze_tp_comm",
             "dadiff_tpu_torch.bench_forward",
+            "dadiff_tpu_torch.bench_gn_mish",
             "dadiff_tpu_torch.utils.config",
             "dadiff_tpu_torch.utils.profiling",
             "dadiff_tpu_torch.utils.debug",
