@@ -21,9 +21,10 @@
    train step, in both layouts, at batch 32 and 256 and at the ladder's,
    two backward runs and a CUDA-graph replay of both against eager bit for
    bit; the fused conv + GroupNorm + Mish at every pair of a denoise step,
-   f32 and bf16 weights, with and without its adds), and times kernel,
-   plain version, a library call where one exists, and the least time the
-   card could take.
+   f32 and bf16 weights, with and without its adds; ``rows_conv`` at the
+   1,024-chain wave's K = 5,120 conv over 8 seeds, each within TOL_CONV),
+   and times kernel, plain version, a library call where one exists, and
+   the least time the card could take.
 4. Drives the serving path: starts ``dadiff_tpu_torch.serve``'s ``main`` on
    the trained ``.pt`` with ``--policy-type dynamics-aware --n-candidates 8
    --megakernel`` in a thread, sends ping, plan requests and reset over TCP,
@@ -102,9 +103,12 @@
    under the mesh at 128 envs x best of 8 for 2 replans against the
    unsharded run, and its refusal of ``use_megakernel``; the tp and sp
    forwards of the flagship U-Net and of the transformer against their
-   plain forwards. No port kernel launches there. Then two processes on
-   the one card join over gloo and take a DDP step, held against the same
-   step in one process.
+   plain forwards, and the same through ``shard_params_tp(fsdp_axis=)`` on
+   a ('dp', 'fsdp', 'tp') mesh; an FSDP2 run saved halfway and resumed in a
+   fresh Trainer against the run that did not stop. No port kernel
+   launches there. Then two processes on the one card join over gloo and
+   take a DDP step and a step with the weights split over ``{'fsdp': 2}``
+   (the tp/fsdp path), each held against the same step in one process.
 12. Drives bf16 training (``dtype_phase``): ``train_main --dtype float32``
    and ``--dtype bfloat16`` for 10 steps of batch 256, the flagship U-Net
    (fine-tuned from the smoke checkpoint) and the transformer recipe,
@@ -766,6 +770,51 @@ def hold_rows_conv(conv_calls, dtypes, g) -> float:
     return err
 
 
+SPREAD_SEEDS = 8
+
+
+def conv_spread(unet, D) -> dict:
+    """``rows_conv`` against ``rows_conv_plain`` at the 1,024-chain wave's
+    conv of the longest reduction (K = 5,120: 512 + 512 channels in, k = 5,
+    at 8,192 rows), over SPREAD_SEEDS seeds of its operands, bf16 weights
+    (as the wave runs it) and f32: each seed's max |err| must stay within
+    TOL_CONV."""
+    from dadiff_tpu_torch.ops.planner import UP, rows_conv, rows_conv_plain
+
+    calls, _, _ = step_launches(unet, EVAL_CHAINS * HORIZON, D)
+    shapes = {c[1:8] for c in calls
+              if (4 if c[5] == UP else c[6]) * (c[2] + c[3]) == 5120}
+    require(len(shapes) == 1, f"one conv with K = 5,120: {shapes}")
+    R, ca, cb, cout, mode, k, seg = shapes.pop()
+    out = {"shape": {"rows": R, "cin": [ca, cb], "cout": cout, "k": k},
+           "tolerance": TOL_CONV}
+    for wd in (torch.bfloat16, torch.float32):
+        errs = []
+        for seed in range(SPREAD_SEEDS):
+            g = torch.Generator(device="cuda").manual_seed(SEED + 1000 + seed)
+            xa = torch.randn(R, ca, device="cuda", generator=g)
+            xb = torch.randn(R, cb, device="cuda", generator=g)
+            w = (torch.randn((4 if mode == UP else k) * (ca + cb), cout,
+                             device="cuda", generator=g)
+                 / (ca + cb) ** 0.5).to(wd)
+            bias = torch.randn(1, cout, device="cuda", generator=g)
+            errs.append((rows_conv(xa, xb, w, bias, mode, k, seg)
+                         - rows_conv_plain(xa, xb, w, bias, mode, k, seg)
+                         ).abs().max().item())
+        mean = sum(errs) / len(errs)
+        out[str(wd)[6:]] = {
+            "max_abs_err": errs, "max": max(errs), "min": min(errs),
+            "mean": mean,
+            "std": (sum((e - mean) ** 2 for e in errs) / len(errs)) ** 0.5}
+        log(f"K2 rows_conv K=5,120 ({R} rows, {ca}+{cb} -> {cout}, k {k}) "
+            f"{str(wd)[6:]} over {SPREAD_SEEDS} seeds: max|err| {errs}; "
+            f"max {max(errs):.3e} min {min(errs):.3e} mean {mean:.3e} std "
+            f"{out[str(wd)[6:]]['std']:.3e} (TOL_CONV {TOL_CONV})")
+        require(max(errs) <= TOL_CONV,
+                f"rows_conv at K = 5,120 {str(wd)[6:]}: {errs} > {TOL_CONV}")
+    return out
+
+
 def gn_case(R, ca, cb, cout, k, seg, wd, g):
     """Operands of one fused (conv, GroupNorm) pair, without adds."""
     xa = torch.randn(R, ca, device="cuda", generator=g)
@@ -1281,6 +1330,7 @@ def kernel_phase(unet, rows, D):
     # their epilogue), f32 and bf16 weights
     conv_calls = [c[1:8] for c in calls]
     err = hold_rows_conv(conv_calls, (torch.float32, torch.bfloat16), g)
+    k5120 = conv_spread(unet, D)
 
     conv_bufs = conv_buffers(conv_calls, g)
     bnd = sum(bound_ms(*conv_cost(R, ca, cb, cout, mode, k, 2), BF16_FLOPS)[0]
@@ -1319,7 +1369,7 @@ def kernel_phase(unet, rows, D):
         library_ms=graph_ms(lambda: [lib_conv(c[7], c[8], c[9], c[4], c[5])
                                      for c in conv_bufs], 20),
         bound_ms=bnd, bound_by="operations", per="denoise step",
-        launches_per_step=len(conv_calls))
+        launches_per_step=len(conv_calls), k5120_spread=k5120)
 
     # -- rows_conv_gn: every (conv, GroupNorm) pair of a step, f32 and bf16
     # weights, without adds, with the time row (one for all chains, or one
@@ -3655,10 +3705,60 @@ def _weights_against(got: dict, ref: dict, start: dict, noise: set,
     return out
 
 
+def _tp_fsdp_step(ckpt: Path, batch: dict, axes: dict):
+    """One train step of the flagship as the Trainer takes it (its loss and
+    draws, clip 1, Adam at PAR_LR), the weights placed by
+    ``shard_params_tp(fsdp_axis='fsdp')`` on a mesh of ``axes`` and the
+    forward through the sharded path: (loss, whole weights after the step,
+    the share of the weights this rank stores). The mesh lies on the card
+    whatever the backend (``make_mesh`` puts a gloo group's on the CPU).
+    The whole weights are gathered as the sharded forward gathers them
+    (``Sharded.param``): DTensor's ``full_tensor`` takes a functional
+    all-gather that crashes over gloo on CUDA tensors (torch 2.11)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from dadiff_tpu_torch.cli import load_model
+    from dadiff_tpu_torch.losses import build_loss, make_generators
+    from dadiff_tpu_torch.parallel.mesh import batch_rows, local_rows
+    from dadiff_tpu_torch.parallel.tp import (
+        Sharded, average_grads, shard_params_tp,
+    )
+    from dadiff_tpu_torch.utils import training as tt
+
+    mesh = init_device_mesh("cuda", tuple(axes.values()),
+                            mesh_dim_names=tuple(axes))
+    diff, _ = load_model(str(ckpt), DATASET, device="cuda")
+    diff.train()
+    diff.model.act_spec = ("dp", None, "tp")
+    shard_params_tp(diff.model, mesh, fsdp_axis="fsdp")
+    loss_fn, names = build_loss(diff)
+    state = tt.TrainState(module=diff, ema_params=None,
+                          optimizer=tt.make_optimizer(diff.parameters(),
+                                                      PAR_LR))
+    step = tt.make_train_step(
+        loss_fn, lr_schedule=tt.warmup_cosine_schedule(PAR_LR, 0, 10000),
+        use_ema=False, after_backward=lambda: average_grads(diff, mesh))
+    gens = make_generators(len(names) + 1, SEED, diff.device)[:len(names)]
+    with batch_rows(mesh):
+        loss = float(step(state, local_rows(batch, mesh), gens)["total"])
+    stored = (sum(p.to_local().numel() for p in diff.parameters())
+              / sum(p.numel() for p in diff.parameters()))
+    view = Sharded(diff.model)
+    whole = {k: v for k, v in diff.state_dict().items()
+             if not isinstance(v, DTensor)}
+    with torch.no_grad():
+        whole.update({f"model.{n}": view.param(p, rows=False)
+                      for n, p in diff.model.named_parameters()})
+    return loss, whole, stored
+
+
 def _gloo_rank(rank: int, rendezvous: str, ckpt: str, batch_file: str,
                out_file: str) -> None:
     """One of two processes on the one card, joined over gloo: a DDP step
-    of the flagship on its rows of the batch."""
+    of the flagship on its rows of the batch, then a step with its weights
+    split over ``{'fsdp': 2}`` through the tp/fsdp path, with the launch
+    counters set to 0 before and read after."""
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
@@ -3670,16 +3770,22 @@ def _gloo_rank(rank: int, rendezvous: str, ckpt: str, batch_file: str,
     dist.init_process_group("gloo", init_method=rendezvous, rank=rank,
                             world_size=2)
     try:
+        reset_counts()
         mesh = make_mesh({"dp": 2})
         trainer, _ = _par_trainer(Path(ckpt), Path(out_file).parent
                                   / f"gloo{rank}", mesh)
         batch = {k: v.cuda() for k, v in torch.load(batch_file).items()}
         losses, state, _ = _par_run(trainer, [batch], mesh)
         trainer.close()
+        fsdp_loss, fsdp_state, stored = _tp_fsdp_step(Path(ckpt), batch,
+                                                      {"fsdp": 2})
         if rank == 0:
             torch.save({"loss": losses[0],
-                        "state": {k: v.cpu() for k, v in state.items()}},
-                       out_file)
+                        "state": {k: v.cpu() for k, v in state.items()},
+                        "fsdp_loss": fsdp_loss, "fsdp_stored": stored,
+                        "fsdp_state": {k: v.cpu()
+                                       for k, v in fsdp_state.items()},
+                        "launches": read_counts()}, out_file)
     finally:
         dist.destroy_process_group()
 
@@ -3768,6 +3874,33 @@ def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
             trainer.close()
         first_batch = {k: v.cpu() for k, v in batches[0].items()}
         out["step_ms"] = times
+
+        # -- an FSDP2 run saved halfway, resumed in a fresh Trainer
+        half = PAR_STEPS // 2
+        part, _ = _par_trainer(ckpt, root / "train_resume", mesh, "dp")
+        losses = _par_run(part, batches[:half], mesh)[0]
+        base = part.save_checkpoint(epoch=0)
+        part.close()
+        resumed, _ = _par_trainer(ckpt, root / "train_resume", mesh, "dp")
+        resumed.load_checkpoint(base)
+        rest, _, state = _par_run(resumed, batches[half:], mesh)
+        resumed.close()
+        losses += rest
+        ref_losses, ref_state = runs["fsdp"][0], runs["fsdp"][2]
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref_losses))
+        require(loss_err <= TOL_PAR_LOSS,
+                f"FSDP resumed against the run that did not stop: loss "
+                f"{loss_err:.2e}")
+        out["fsdp_resume"] = {
+            "saved_after": half, "losses": losses, "loss_rel_err": loss_err,
+            "bit_for_bit": losses == ref_losses and all(
+                torch.equal(state[k], ref_state[k]) for k in ref_state),
+            "weights": _weights_against(state, ref_state, start, noise,
+                                        PAR_STEPS)}
+        log(f"parallel: FSDP2 run saved after {half} of {PAR_STEPS} steps "
+            f"and resumed in a fresh Trainer: losses {losses} vs "
+            f"{ref_losses} ({loss_err:.1e}); {out['fsdp_resume']}")
         log(f"parallel: train step at batch {PAR_BATCH}, {PAR_REPEATS} x "
             f"{PAR_TIMED} steps each: no mesh {times['none']} ms, DDP (world "
             f"1, NCCL) {times['ddp']} ms, FSDP2 {times['fsdp']} ms ({card}); "
@@ -3824,6 +3957,7 @@ def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
 
         # -- tp and sp forwards at world 1, both families
         mesh3 = make_mesh({"dp": 1, "sp": 1, "tp": 1})
+        mesh_2d = make_mesh({"dp": 1, "fsdp": 1, "tp": 1})
         x = torch.randn(PAR_BATCH, HORIZON, diff.transition_dim, generator=g,
                         device="cuda")
         t = torch.randint(0, T_STEPS, (PAR_BATCH,), generator=g,
@@ -3833,15 +3967,19 @@ def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
                                        depth=TT_DEPTH,
                                        n_heads=TT_HEADS).cuda()
         for name, model in (("unet", diff.model), ("transformer", tt_model)):
-            sharded = copy.deepcopy(model)
-            sharded.act_spec = ("dp", "sp", "tp")
-            shard_params_tp(sharded, mesh3)
             with torch.no_grad():
                 ref = model(x, t)
-                got = sharded(x, t)
-            err = float((got - ref).abs().max())
-            require(err <= TOL_TP_FWD, f"{name} tp/sp forward ({err})")
-            out[f"{name}_tp_sp_max_abs_err"] = err
+            for layout, m, spec, fsdp in (
+                    ("tp_sp", mesh3, ("dp", "sp", "tp"), None),
+                    ("tp_fsdp", mesh_2d, ("dp", None, "tp"), "fsdp")):
+                sharded = copy.deepcopy(model)
+                sharded.act_spec = spec
+                shard_params_tp(sharded, m, fsdp_axis=fsdp)
+                with torch.no_grad():
+                    got = sharded(x, t)
+                err = float((got - ref).abs().max())
+                require(err <= TOL_TP_FWD, f"{name} {layout} forward ({err})")
+                out[f"{name}_{layout}_max_abs_err"] = err
         out["launches"] = read_counts()
         require(not any(out["launches"].values()),
                 f"a port kernel launched on the parallel paths: "
@@ -3869,18 +4007,33 @@ def parallel_phase(ckpt: Path, root: Path, card: str) -> dict:
                 p.terminate()
                 p.join(10)
     got = torch.load(result, weights_only=False)
+    require(not any(got["launches"].values()),
+            f"a port kernel launched on the gloo ranks: {got['launches']}")
     ref_loss = runs["none"][0][0]
-    loss_err = abs(got["loss"] - ref_loss) / abs(ref_loss)
-    require(loss_err <= TOL_PAR_LOSS,
-            f"two gloo ranks against one process: loss {loss_err:.2e}")
+    ref_state = {k: v.cpu() for k, v in runs["none"][1].items()}
     cpu = {k: v.cpu() for k, v in start.items()}
-    out.update(gloo_loss_rel_err=loss_err, gloo_weights=_weights_against(
-        got["state"], {k: v.cpu() for k, v in runs["none"][1].items()}, cpu,
-        noise, 1), gloo_s=time.perf_counter() - t1,
-        total_s=time.perf_counter() - t0)
-    log(f"parallel: two gloo ranks on one card: loss {got['loss']:.6f} vs "
-        f"{ref_loss:.6f} ({loss_err:.1e}), weights {out['gloo_weights']} "
-        f"({out['gloo_s']:.1f} s)")
+    for kind, loss_key, state_key in (("ddp", "loss", "state"),
+                                      ("fsdp", "fsdp_loss", "fsdp_state")):
+        loss_err = abs(got[loss_key] - ref_loss) / abs(ref_loss)
+        require(loss_err <= TOL_PAR_LOSS,
+                f"two gloo ranks ({kind}) against one process: loss "
+                f"{loss_err:.2e}")
+        out[f"gloo_{kind}"] = {
+            "loss": got[loss_key], "loss_rel_err": loss_err,
+            "weights": _weights_against(got[state_key], ref_state, cpu,
+                                        noise, 1)}
+    require(got["fsdp_stored"] < 0.6,
+            f"a {{'fsdp': 2}} rank stores {got['fsdp_stored']:.3f} of the "
+            "weights")
+    out.update(gloo_fsdp_stored=got["fsdp_stored"],
+               gloo_launches=got["launches"],
+               gloo_s=time.perf_counter() - t1,
+               total_s=time.perf_counter() - t0)
+    log(f"parallel: two gloo ranks on one card against one process "
+        f"(loss {ref_loss:.6f}): DDP {out['gloo_ddp']}; weights split over "
+        f"{{'fsdp': 2}} through the tp/fsdp path {out['gloo_fsdp']}, each "
+        f"rank storing {got['fsdp_stored']:.3f} of them; launches "
+        f"{got['launches']} ({out['gloo_s']:.1f} s)")
     return out
 
 

@@ -4,11 +4,12 @@ processes into one data-parallel train step.
 Counterpart of the JAX package's scripts/dryrun_multihost.py. Two
 processes, one per card over NCCL (or gloo processes on the CPU with
 ``--device cpu``), join one process group through
-``initialize_distributed`` (the rank and world size in torchrun's
-variables, the rendezvous in a file of a temporary directory), build the
-('dp',) mesh and take the REAL train step (``utils.training.Trainer`` with
-its DDP objective) on a deterministic global batch, each process on its own
-rows. The parent takes the same step
+``initialize_distributed`` at the coordinator's address (``--coordinator
+localhost:PORT``, a free port, and ``--process-id``, as the JAX script
+passes them; a child started by torchrun without them reads its
+variables), build the ('dp',) mesh and take the REAL train step
+(``utils.training.Trainer`` with its DDP objective) on a deterministic
+global batch, each process on its own rows. The parent takes the same step
 in one process and requires the same loss from both children: the
 cross-process path computes the single-process math.
 
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -80,7 +82,12 @@ def run_child(args) -> None:
     )
     from dadiff_tpu_torch.parallel.mesh import make_mesh
 
-    if not initialize_distributed(args.init_method, device=args.device):
+    joined = (initialize_distributed(f"tcp://{args.coordinator}",
+                                     rank=args.process_id,
+                                     world_size=NUM_PROCS, device=args.device)
+              if args.coordinator else
+              initialize_distributed(device=args.device))
+    if not joined:
         raise SystemExit("initialize_distributed found no world")
     try:
         if dist.get_world_size() != NUM_PROCS:
@@ -105,17 +112,18 @@ def run_parent(device: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         trainer, batch = _trainer(os.path.join(tmp, "ref"), device)
         ref_loss = _loss(trainer, batch)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            coordinator = f"localhost:{s.getsockname()[1]}"
         procs = []
         for rank in range(NUM_PROCS):
-            env = dict(os.environ, RANK=str(rank),
-                       WORLD_SIZE=str(NUM_PROCS), LOCAL_RANK=str(rank))
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "dadiff_tpu_torch.dryrun_multihost",
-                 "--role", "child", "--device", device, "--init-method",
-                 f"file://{os.path.join(tmp, 'rendezvous')}", "--log-dir",
+                 "--role", "child", "--device", device, "--coordinator",
+                 coordinator, "--process-id", str(rank), "--log-dir",
                  os.path.join(tmp, "run")],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                env=env, cwd=ROOT))
+                cwd=ROOT))
         losses = {}
         try:
             outs = [p.communicate(timeout=300) for p in procs]
@@ -147,7 +155,9 @@ def run_parent(device: str) -> None:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--role", default="parent", choices=["parent", "child"])
-    p.add_argument("--init-method", default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="HOST:PORT of process 0 (a child's rendezvous)")
+    p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--log-dir", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)

@@ -112,6 +112,13 @@ class PlanarGymEnv:
         return torch.ones(qpos.shape[:-1], dtype=torch.bool,
                           device=qpos.device)
 
+    def step(self, qpos, qvel, action):
+        """One env step of a single env (locomotion_jax.py:89-101): qpos
+        (nq,), qvel (nq,), action (nu,) -> (qpos, qvel, obs, reward, done),
+        as :meth:`step_batch` computes them for a batch of one."""
+        out = self.step_batch(qpos[None], qvel[None], action[None])
+        return tuple(o[0] for o in out)
+
     def step_batch(self, qpos, qvel, action):
         """One env step of every env: (qpos, qvel, obs, reward, done), each
         batched (locomotion_jax.py:91-104). The forward reward is the x

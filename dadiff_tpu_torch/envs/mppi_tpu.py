@@ -134,8 +134,22 @@ class MPPIPlanner:
         return graph, inputs, outputs
 
 
-# the JAX package's name for the planner's factory (mppi_tpu.py:34)
-make_mppi_planner = MPPIPlanner
+def make_mppi_planner(step_fn: Callable, reward_done: Callable, *,
+                      act_dim: int, horizon: int = 20, n_samples: int = 256,
+                      lam: float = 0.3, sigma: float = 0.4, n_exec: int = 1,
+                      noise_beta: float = 0.0, smooth_weight: float = 0.0,
+                      jit: bool = True, device="cuda") -> MPPIPlanner:
+    """The JAX package's builder (mppi_tpu.py:34-143): ``plan(generator,
+    obs (B, d), mean (B, H, m)) -> (actions (B, n_exec, m), new_mean (B, H,
+    m))``, an :class:`MPPIPlanner`. ``jit=False`` drives every replan from
+    the host, as JAX's unjitted ``plan``; otherwise the card replays a CUDA
+    graph after each batch size's first call."""
+    planner = MPPIPlanner(step_fn, reward_done, act_dim=act_dim,
+                          horizon=horizon, n_samples=n_samples, lam=lam,
+                          sigma=sigma, n_exec=n_exec, noise_beta=noise_beta,
+                          smooth_weight=smooth_weight, device=device)
+    planner.graph = planner.graph and jit
+    return planner
 
 
 def make_sim_step_fn(model, stats):

@@ -3,9 +3,9 @@ that holds the denoiser and the schedule.
 
 Counterpart of the JAX package's models/diffusion.py: q_sample :38,
 predict_start_from_noise :50, v_from_x0_eps :60, epsilon_from_v :71,
-p_mean_variance :95, p_sample :116, default_timesteps :129, p_sample_loop
-:152, ddim_sample_loop :199, diffusion_loss :274 and the GaussianDiffusion
-container :323. The module's state dict is the reference schema: the
+q_posterior :82, p_mean_variance :95, p_sample :116, default_timesteps
+:129, p_sample_loop :152, ddim_sample_loop :199, diffusion_loss :274 and
+the GaussianDiffusion container :323. The module's state dict is the reference schema: the
 denoiser's weights under ``model.`` and the 12 schedule buffers at the top
 level.
 """
@@ -69,6 +69,17 @@ def epsilon_from_v(schedule: DiffusionSchedule, x_t: torch.Tensor,
     return c1 * x_t + c2 * v
 
 
+def q_posterior(schedule: DiffusionSchedule, x_start: torch.Tensor,
+                x_t: torch.Tensor, t: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Posterior q(x_{t-1} | x_t, x_0) mean and log-variance
+    (diffusion.py:82-92)."""
+    mean = (_extract(schedule.posterior_mean_coef1, t, x_t.dim()) * x_start
+            + _extract(schedule.posterior_mean_coef2, t, x_t.dim()) * x_t)
+    log_var = _extract(schedule.posterior_log_variance_clipped, t, x_t.dim())
+    return mean, log_var
+
+
 def diffusion_loss(apply_fn: Callable, schedule: DiffusionSchedule,
                    x_start: torch.Tensor, *,
                    generator: Optional[torch.Generator] = None,
@@ -122,10 +133,7 @@ def p_mean_variance(model_out: torch.Tensor, schedule: DiffusionSchedule,
         x_recon = model_out
     if clip_denoised:
         x_recon = x_recon.clamp(-1.0, 1.0)
-    mean = (_extract(schedule.posterior_mean_coef1, t, x.dim()) * x_recon
-            + _extract(schedule.posterior_mean_coef2, t, x.dim()) * x)
-    log_var = _extract(schedule.posterior_log_variance_clipped, t, x.dim())
-    return mean, log_var
+    return q_posterior(schedule, x_recon, x, t)
 
 
 def p_sample(mean: torch.Tensor, log_var: torch.Tensor, t: torch.Tensor,
@@ -283,6 +291,9 @@ class GaussianDiffusion(nn.Module):
 
     def predict_start_from_noise(self, x_t, t, noise):
         return predict_start_from_noise(self.schedule, x_t, t, noise)
+
+    def q_posterior(self, x_start, x_t, t):
+        return q_posterior(self.schedule, x_start, x_t, t)
 
     def loss(self, x_start: torch.Tensor,
              weights: Optional[torch.Tensor] = None, *,

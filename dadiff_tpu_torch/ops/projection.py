@@ -30,6 +30,16 @@ class NormStats(NamedTuple):
                      for v in (normalizer.obs_mean, normalizer.obs_std,
                                normalizer.action_mean, normalizer.action_std)))
 
+    @classmethod
+    def identity(cls, observation_dim: int, action_dim: int, device=None,
+                 dtype=torch.float32) -> "NormStats":
+        """Zero means and unit deviations (projection.py:41-47)."""
+        def full(n, v):
+            return torch.full((n,), v, dtype=dtype, device=device)
+
+        return cls(full(observation_dim, 0.0), full(observation_dim, 1.0),
+                   full(action_dim, 0.0), full(action_dim, 1.0))
+
 
 
 def to_concatenated(states: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:

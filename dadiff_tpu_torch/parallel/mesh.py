@@ -206,3 +206,15 @@ def full_state_dict(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     rank calls it; it gathers."""
     return {k: full_tensor(v.detach()) if torch.is_tensor(v) else v
             for k, v in state.items()}
+
+
+def place_like(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A whole ``value`` laid out as ``like``: its shards on ``like``'s mesh
+    and placements when ``like`` is a DTensor (every rank holds the same
+    ``value``), else ``value`` on ``like``'s device."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(like, DTensor):
+        return distribute_tensor(value.to(like.device), like.device_mesh,
+                                 like.placements)
+    return value.to(like.device)

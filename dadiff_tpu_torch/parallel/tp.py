@@ -51,11 +51,12 @@ from dadiff_tpu_torch.parallel.comm_analysis import record
 # ---------------------------------------------------------------------------
 
 
-def _all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, dim: int, group, size: int,
+                kind: str = "all-gather") -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x.contiguous(), group=group)
     out = torch.cat(parts, dim=dim)
-    record("all-gather", out)
+    record(kind, out)
     return out
 
 
@@ -92,17 +93,21 @@ class _Reduce(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """Shards made whole: all-gather along ``dim``, gradient sliced."""
+    """Shards made whole: all-gather along ``dim``, gradient sliced (each
+    rank computed the gradient of the whole value). ``kind`` names it for
+    the counters: ``all-gather/fsdp`` for a weight's fsdp shards, which
+    every rank of the fsdp axis gathers for the same rows (the batch
+    splits over dp only)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, rank, size):
+    def forward(ctx, x, dim, group, rank, size, kind="all-gather"):
         ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
-        return _all_gather(x, dim, group, size)
+        return _all_gather(x, dim, group, size, kind)
 
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None, \
-            None
+            None, None
 
 
 class _Scatter(torch.autograd.Function):
@@ -182,6 +187,10 @@ class _Axis:
         return (_Gather.apply(x, dim, self.group, self.rank, self.size)
                 if self.size > 1 else x)
 
+    def gather_shards(self, x, dim):
+        return (_Gather.apply(x, dim, self.group, self.rank, self.size,
+                              "all-gather/fsdp") if self.size > 1 else x)
+
     def scatter(self, x, dim):
         return (_Scatter.apply(x, dim, self.group, self.rank, self.size)
                 if self.size > 1 else x)
@@ -212,15 +221,18 @@ class Sharded:
         spec = tuple(module.act_spec or ()) + (None,) * 3
         self.sp = _Axis(module.mesh, spec[1])
         self.tp = _Axis(module.mesh, spec[2])
-        self.tp_dim = _tp_dims(module, spec[2])
+        self.tp_dim, self.shards = _placed_dims(module, spec[2])
         # the module's activation dtype: every layer casts its input,
         # weight and bias to it (flax Dense/Conv(dtype=))
         self.dtype = getattr(module, "dtype", torch.float32)
 
     def param(self, p, rows: bool):
-        """The local tensor of ``p``; ``rows``: used on this rank's rows of
-        the horizon, so its gradient is summed over sp."""
+        """The tp-local tensor of ``p``: its local block, gathered over every
+        other axis that shards it (fsdp); ``rows``: used on this rank's rows
+        of the horizon, so its gradient is summed over sp."""
         local = p.to_local() if hasattr(p, "to_local") else p
+        for axis, dim in self.shards.get(p, ()):
+            local = axis.gather_shards(local, dim)
         return self.sp.copy(local) if rows else local
 
     # activations are (tensor, split): split = channels sharded over tp
@@ -306,20 +318,29 @@ class Sharded:
         return y * w + b, split
 
 
-def _tp_dims(module, tp_axis: Optional[str]) -> Dict[torch.Tensor, int]:
-    """Parameter -> its dim sharded over ``tp_axis`` (DTensor placements)."""
-    out = {}
+def _placed_dims(module, tp_axis: Optional[str]):
+    """From the parameters' DTensor placements: parameter -> its dim sharded
+    over ``tp_axis``, and parameter -> [(axis, dim)] of every other axis
+    that shards it (fsdp), which :meth:`Sharded.param` gathers."""
+    tp_dim, shards = {}, {}
     mesh = module.mesh
-    if (mesh is None or tp_axis is None
-            or tp_axis not in (mesh.mesh_dim_names or ())):
-        return out
+    if mesh is None:
+        return tp_dim, shards
     from torch.distributed.tensor import DTensor, Shard
 
-    i = mesh.mesh_dim_names.index(tp_axis)
+    names = mesh.mesh_dim_names or ()
+    axes = [_Axis(mesh, name) for name in names]
     for p in module.parameters():
-        if isinstance(p, DTensor) and isinstance(p.placements[i], Shard):
-            out[p] = p.placements[i].dim
-    return out
+        if not isinstance(p, DTensor):
+            continue
+        for name, axis, where in zip(names, axes, p.placements):
+            if not isinstance(where, Shard):
+                continue
+            if name == tp_axis:
+                tp_dim[p] = where.dim
+            else:
+                shards.setdefault(p, []).append((axis, where.dim))
+    return tp_dim, shards
 
 
 def _mish_act(a):
@@ -422,7 +443,33 @@ def _module_of(model, name: str):
     return model.get_submodule(name.rsplit(".", 1)[0])
 
 
-def unet_param_specs(unet, tp_size: int, *, tp_axis: str = "tp",
+def _fsdp_dim(shape, spec, fsdp_size: int, min_size: int,
+              flax_order: Sequence[int]) -> Optional[int]:
+    """JAX's 2-D rule (tp.py:128-144): among the dims that tp leaves free,
+    the fsdp size divides and are at least ``min_size`` long, the longest;
+    a tie goes to the dim that comes first in flax's layout, visited in
+    ``flax_order`` (torch dims). None when fsdp is 1 or no dim qualifies."""
+    if fsdp_size <= 1:
+        return None
+    free = [d for d in flax_order if spec[d] is None
+            and shape[d] % fsdp_size == 0 and shape[d] >= min_size]
+    return max(free, key=lambda d: shape[d]) if free else None
+
+
+def _with_fsdp(specs, model, fsdp_axis, fsdp_size, min_size, flax_order):
+    if fsdp_axis is None:
+        return specs
+    for name, p in model.named_parameters():
+        spec = list(specs[name])
+        d = _fsdp_dim(p.shape, spec, fsdp_size, min_size, flax_order(p))
+        if d is not None:
+            spec[d] = fsdp_axis
+        specs[name] = tuple(spec)
+    return specs
+
+
+def unet_param_specs(unet, tp_size: int, *, tp_axis: Optional[str] = "tp",
+                     fsdp_axis: Optional[str] = None, fsdp_size: int = 1,
                      min_size: int = 16) -> Dict[str, Tuple]:
     """Parameter name -> the axis name of each of its dims (None:
     replicated), the JAX spec table (tp.py:56-106 and :109-144) in torch's
@@ -430,68 +477,91 @@ def unet_param_specs(unet, tp_size: int, *, tp_axis: str = "tp",
     the transposed conv's (in, out, k) dim 1, biases and GroupNorm's affine
     dim 0. A dim that tp does not divide, or shorter than ``min_size``,
     stays whole, and so do the time projections whose shard would hold
-    fewer than 128 outputs."""
+    fewer than 128 outputs. Without a ``tp_axis`` nothing is split over tp.
+
+    With ``fsdp_axis`` (of ``fsdp_size`` ranks) each parameter also splits
+    one dim that tp leaves free over it, by JAX's rule (:func:`_fsdp_dim`).
+    Every U-Net layout is flax's reversed ((k, in, out) -> (out, in, k)), so
+    a tie goes to the last tying torch dim: a square dense weight splits its
+    inputs, as in JAX."""
     specs = {}
     for name, p in unet.named_parameters():
         layer = _module_of(unet, name)
         out_dim = 1 if (isinstance(layer, torch.nn.ConvTranspose1d)
                         and p.dim() == 3) else 0
         n = p.shape[out_dim]
-        keep = n % tp_size or n < min_size or (
+        keep = tp_axis is None or n % tp_size or n < min_size or (
             ".time_mlp." in f".{name}" and n // max(1, tp_size) < 128)
         spec = [None] * p.dim()
         if not keep:
             spec[out_dim] = tp_axis
         specs[name] = tuple(spec)
-    return specs
+    return _with_fsdp(specs, unet, fsdp_axis, fsdp_size, min_size,
+                      lambda p: range(p.dim() - 1, -1, -1))
 
 
 def transformer_param_specs(model, tp_size: int, *,
-                            tp_axis: str = "tp") -> Dict[str, Tuple]:
+                            tp_axis: Optional[str] = "tp",
+                            fsdp_axis: Optional[str] = None,
+                            fsdp_size: int = 1,
+                            min_size: int = 16) -> Dict[str, Tuple]:
     """Megatron's table for the transformer: the query, key and value
     weights and biases and ``mlp1``'s split their outputs (dim 0), ``out``
     and ``mlp2`` their inputs (dim 1 of the weight; the bias stays whole);
     every other parameter stays whole. JAX's GSPMD table also splits the
-    outputs of ``in_proj``, ``adaln_mod``, ``mlp2`` and ``final_mod``; the
-    port keeps those whole so that the residual stream is whole on every
-    rank. The heads and the hidden units must divide over tp."""
-    if model.n_heads % tp_size or (model.mlp_ratio * model.dim) % tp_size:
+    outputs of ``in_proj``, ``adaln_mod``, ``mlp2`` and ``final_mod`` and
+    the width of ``pos_emb``; the port keeps those whole so that the
+    residual stream is whole on every rank: one all-reduce per sublayer and
+    no gathers. The heads and the hidden units must divide over tp.
+
+    With ``fsdp_axis``, JAX's 2-D rule (:func:`_fsdp_dim`) on top of this
+    table, ties broken in flax's layout: a dense (out, in) weight is flax's
+    (in, out) reversed; ``pos_emb`` keeps flax's order."""
+    if tp_axis is not None and (model.n_heads % tp_size
+                                or (model.mlp_ratio * model.dim) % tp_size):
         raise ValueError(f"tp {tp_size} does not divide the {model.n_heads} "
                          "heads and the MLP's hidden units")
     specs = {}
     for name, p in model.named_parameters():
         spec = [None] * p.dim()
         leaf = name.rsplit(".", 2)
-        if len(leaf) == 3 and leaf[1] in ("query", "key", "value", "mlp1"):
-            spec[0] = tp_axis
-        elif len(leaf) == 3 and leaf[1] in ("out", "mlp2") and p.dim() == 2:
-            spec[1] = tp_axis
+        if tp_axis is not None and len(leaf) == 3:
+            if leaf[1] in ("query", "key", "value", "mlp1"):
+                spec[0] = tp_axis
+            elif leaf[1] in ("out", "mlp2") and p.dim() == 2:
+                spec[1] = tp_axis
         specs[name] = tuple(spec)
-    return specs
+    return _with_fsdp(specs, model, fsdp_axis, fsdp_size, min_size,
+                      lambda p: (range(p.dim()) if p is model.pos_emb
+                                 else range(p.dim() - 1, -1, -1)))
 
 
 def shard_params_tp(model, mesh, *, tp_axis: str = "tp",
-                    min_size: int = 16):
-    """Place ``model``'s parameters on ``mesh`` as DTensors (tp.py:147-165),
-    in place, and keep the mesh for its sharded forward: output channels
-    split over ``tp_axis`` by the model's spec table, every other dim and
-    axis replicated (from rank 0's values). Without a ``tp_axis`` in the
-    mesh every parameter is replicated, as the JAX sp tests place them. The
-    model's ``act_spec`` then picks the sharded forward. Returns ``model``."""
+                    fsdp_axis: Optional[str] = None, min_size: int = 16):
+    """Place ``model``'s parameters on ``mesh`` as DTensors (tp.py:147-167),
+    in place, and keep the mesh for its sharded forward: each parameter
+    ``Shard``s the dim its spec table gives ``tp_axis`` over tp and, with
+    ``fsdp_axis``, the dim it gives that axis over fsdp (2-D sharding), and
+    is replicated over every other axis (from rank 0's values). An axis
+    missing from the mesh shards nothing: without either every parameter is
+    replicated, as the JAX sp tests place them. The model's ``act_spec``
+    then picks the sharded forward, which gathers the fsdp shards where a
+    layer uses them (:meth:`Sharded.param`). Returns ``model``."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     names = mesh.mesh_dim_names or ()
     tp_size = mesh[tp_axis].size() if tp_axis in names else 1
-    if hasattr(model, "blocks"):
-        specs = transformer_param_specs(model, tp_size, tp_axis=tp_axis)
-    else:
-        specs = unet_param_specs(model, tp_size, tp_axis=tp_axis,
-                                 min_size=min_size)
+    fsdp_size = mesh[fsdp_axis].size() if fsdp_axis in names else 1
+    table = (transformer_param_specs if hasattr(model, "blocks")
+             else unet_param_specs)
+    specs = table(model, tp_size, tp_axis=tp_axis if tp_axis in names
+                  else None, fsdp_axis=fsdp_axis if fsdp_axis in names
+                  else None, fsdp_size=fsdp_size, min_size=min_size)
     for name, p in list(model.named_parameters()):
-        spec = specs[name]
         placements = [Replicate()] * len(names)
-        if tp_axis in spec and tp_axis in names:
-            placements[names.index(tp_axis)] = Shard(spec.index(tp_axis))
+        for dim, axis in enumerate(specs[name]):
+            if axis is not None:
+                placements[names.index(axis)] = Shard(dim)
         value = distribute_tensor(p.detach(), mesh, placements)
         owner = _module_of(model, name) if "." in name else model
         setattr(owner, name.rsplit(".", 1)[-1],

@@ -3,10 +3,10 @@ checkpointing.
 
 Counterpart of the JAX package's utils/training.py: warmup_cosine_schedule :34,
 EMA :55, ema_update :69, TrainState :79, make_optimizer :86, make_train_step
-:97, Trainer :171, count_parameters :485, save_config :490 and load_config
-:496. The JAX step is one jitted program over an immutable state; here the
-weights live in the diffusion module and Adam's moments in the optimizer, and
-the step updates both in place.
+:97, Trainer :171, count_parameters :485, save_config :490, load_config :496
+and create_trainer_with_custom_loss :502. The JAX step is one jitted program
+over an immutable state; here the weights live in the diffusion module and
+Adam's moments in the optimizer, and the step updates both in place.
 
 The optimizer is optax's chain: clip by global norm, then Adam with optax's
 defaults (b1 0.9, b2 0.999, eps 1e-8 added to the root, no weight decay), the
@@ -21,8 +21,9 @@ loads the same global batch and trains on its block of rows over ``dp``,
 drawing the loss's ``t`` and noise for the global batch
 (parallel/mesh.py ``batch_rows``): DDP averages the gradients over dp, or,
 with ``fsdp_axis``, FSDP2 shards the weights and Adam's moments over that
-axis. Only rank 0 logs and writes files; its ``.pt`` holds whole tensors and
-loads with ``strict=True`` into a single-device module.
+axis. Only rank 0 logs and writes files; its ``.pt`` and ``.train.pt`` hold
+whole tensors: the ``.pt`` loads with ``strict=True`` into a single-device
+module, and any run, sharded or not, resumes from the ``.train.pt``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from dadiff_tpu_torch.parallel.mesh import (
     full_state_dict,
     full_tensor,
     local_rows,
+    place_like,
     shard_params_fsdp,
 )
 from dadiff_tpu_torch.utils.debug import all_finite
@@ -216,10 +218,11 @@ class Trainer:
         fsdp_axis: with a mesh, shard the denoiser's weights over this axis
             with FSDP2 (``shard_params_fsdp``) instead of DDP. The port's
             own option (JAX's Trainer replicates the weights; its FSDP step
-            lives in ``dryrun_multichip``), set by no CLI flag, and only
-            partly supported: its ``.pt`` is whole and loads with
-            ``strict=True``, but its ``.train.pt`` holds no optimizer state
-            and resuming it raises ``NotImplementedError``.
+            lives in ``dryrun_multichip``), set by no CLI flag. Its
+            ``.pt`` and ``.train.pt`` hold whole tensors, Adam's moments
+            included, so they are the files an unsharded run writes: an
+            FSDP run resumes from an unsharded run's checkpoint and the
+            other way round.
     """
 
     def __init__(self, diffusion, train_loader, loss_fn: Callable, *,
@@ -253,7 +256,6 @@ class Trainer:
         self.normalizer = normalizer
         self.extra_config = dict(extra_config) if extra_config else {}
         self.mesh = mesh
-        self.fsdp = mesh is not None and fsdp_axis is not None
         self.primary = is_primary_host()
 
         self._log_file = self._metrics_file = None
@@ -269,7 +271,7 @@ class Trainer:
         total_steps = total_steps or (len(train_loader) * 100)
         self.lr_schedule = warmup_cosine_schedule(lr, warmup_steps, total_steps)
         objective = loss_fn
-        if self.fsdp:
+        if mesh is not None and fsdp_axis is not None:
             shard_params_fsdp(diffusion.model, mesh, axis=fsdp_axis)
         elif mesh is not None:
             from torch.nn.parallel import DistributedDataParallel
@@ -439,13 +441,16 @@ class Trainer:
         resume) and, with ``export_pt``, the reference-schema
         ``checkpoint_step_N.pt`` that ``cli.load_model`` and the server read
         (training.py:406-446). Returns the path without extension. Under a
-        mesh every rank calls it (FSDP gathers the weights) and rank 0
-        writes."""
+        mesh every rank calls it (FSDP gathers the weights and Adam's
+        moments) and rank 0 writes."""
         self.global_step = self.state.step
         base = os.path.join(self.log_dir, f"checkpoint_step_{self.global_step}")
         model_state = full_state_dict(self.diffusion.state_dict())
         ema = (None if self.state.ema_params is None
                else full_state_dict(self.state.ema_params))
+        optimizer_state = self.state.optimizer.state_dict()
+        optimizer_state["state"] = {
+            i: full_state_dict(s) for i, s in optimizer_state["state"].items()}
         if not self.primary:
             return base
         config = self._config_dict()
@@ -453,8 +458,7 @@ class Trainer:
             "step": self.state.step, "n_updates": self.state.n_updates,
             "epoch": epoch, "config": config,
             "model_state_dict": model_state,
-            "optimizer_state_dict": (None if self.fsdp else
-                                     self.state.optimizer.state_dict()),
+            "optimizer_state_dict": optimizer_state,
             "ema_params": ema,
             "generator_states": [g.get_state() for g in self.generators],
         }, base + ".train.pt")
@@ -485,21 +489,33 @@ class Trainer:
 
     def load_checkpoint(self, path: str, reset_optimizer: bool = False) -> int:
         """Restore a train state written by :meth:`save_checkpoint` (path
-        without extension); returns the stored epoch. It unpickles: load only
-        checkpoints this program wrote (training.py:466-482)."""
-        if self.fsdp:
-            raise NotImplementedError("resuming an FSDP run is not supported")
+        without extension); returns the stored epoch. The file holds whole
+        tensors; under FSDP each rank keeps its shards of them. It
+        unpickles: load only checkpoints this program wrote
+        (training.py:466-482)."""
         ck = torch.load(path + ".train.pt", map_location=self.device,
                         weights_only=False)
-        self.diffusion.load_state_dict(ck["model_state_dict"], strict=True)
+        current = self.diffusion.state_dict()
+        self.diffusion.load_state_dict(
+            {k: place_like(v, current[k])
+             for k, v in ck["model_state_dict"].items()}, strict=True)
         if ck["ema_params"] is not None and self.state.ema_params is not None:
             for n, v in ck["ema_params"].items():
-                self.state.ema_params[n].copy_(v)
+                shadow = self.state.ema_params[n]
+                shadow.copy_(place_like(v, shadow))
         if reset_optimizer:
             self.state.optimizer = make_optimizer(self.diffusion.parameters())
             self.state.step = self.state.n_updates = 0
         else:
-            self.state.optimizer.load_state_dict(ck["optimizer_state_dict"])
+            params = [p for g in self.state.optimizer.param_groups
+                      for p in g["params"]]
+            optimizer_state = dict(ck["optimizer_state_dict"])
+            optimizer_state["state"] = {
+                i: {k: (place_like(v, params[i])
+                        if torch.is_tensor(v) and v.shape == params[i].shape
+                        else v) for k, v in s.items()}
+                for i, s in optimizer_state["state"].items()}
+            self.state.optimizer.load_state_dict(optimizer_state)
             self.state.step, self.state.n_updates = ck["step"], ck["n_updates"]
             for g, s in zip(self.generators, ck["generator_states"]):
                 g.set_state(s.cpu())
@@ -520,6 +536,21 @@ class _Objective(torch.nn.Module):
 
     def forward(self, *args):
         return self.loss_fn(*args)
+
+
+def create_trainer_with_custom_loss(
+        model, train_loader, loss_fn, *, scheduler=None, device=None,
+        log_dir="./logs", save_freq=10000, eval_freq=5000, use_ema=True,
+        ema_decay=0.995, gradient_clip=1.0, loss_names=None, **kwargs):
+    """The reference's factory (training.py:502-516): a :class:`Trainer`.
+    ``scheduler`` and ``device`` are accepted for its signature and unused:
+    the learning rate follows the Trainer's schedule and the module is
+    already on its device."""
+    del scheduler, device
+    return Trainer(model, train_loader, loss_fn, log_dir=log_dir,
+                   save_freq=save_freq, eval_freq=eval_freq, use_ema=use_ema,
+                   ema_decay=ema_decay, gradient_clip=gradient_clip,
+                   loss_names=loss_names, **kwargs)
 
 
 def count_parameters(module: torch.nn.Module) -> int:

@@ -114,6 +114,25 @@ def test_env_steps_match_jax(env_name, dtype, x64):
     assert done_seen == (env_name != "HalfCheetah-v5")
 
 
+def test_single_env_step_matches_jax(x64):
+    """``PlanarGymEnv.step`` on one env, without a batch axis
+    (locomotion_jax.py:89-101): a Hopper from a reset and one pitched past
+    its healthy angle, against the JAX env's single-env step, float64 to
+    1e-9."""
+    jenv, tenv = tj.env("Hopper-v5"), tl.HopperJax(solver_iters=ITERS)
+    qpos, qvel = _start_states(tenv, 2)
+    act = np.clip(np.random.RandomState(4).randn(2, tenv.act_dim) * 0.6,
+                  -1, 1)
+    for i in range(2):
+        want = jenv.step_jit(qpos[i], qvel[i], act[i])
+        got = tenv.step(*(torch.from_numpy(a[i]) for a in (qpos, qvel, act)))
+        for g, w in zip(got, want):
+            assert g.shape == np.shape(w)
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9,
+                                       atol=1e-9)
+    assert bool(got[4]) and bool(want[4])  # the pitched one is done
+
+
 def test_rollout_and_step_fn_shapes():
     env = tl.HopperJax(solver_iters=5, solver="jacobi", search_model=True)
     qpos, qvel = (torch.from_numpy(a) for a in _start_states(env, 3))

@@ -97,11 +97,31 @@ def _unet_state():
     return params_from_jax(_np_tree(_jax_params()))
 
 
+def _resume_batches():
+    rng = np.random.RandomState(4)
+    return [{"conditions": torch.from_numpy(
+        rng.randn(16, w.H, w.D).astype(np.float32))} for _ in range(4)]
+
+
+def _unsharded_checkpoint(tmp: str) -> str:
+    """An unsharded Trainer's checkpoint after the first half of the resume
+    batches (path without extension)."""
+    trainer = w.resume_trainer(_unet_state(), os.path.join(tmp, "unsharded"))
+    w.resume_steps(trainer, _resume_batches()[:2])
+    try:
+        return trainer.save_checkpoint(epoch=3)
+    finally:
+        trainer.close()
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("parallel"))
     rng = np.random.RandomState(3)
     inputs = {
+        "resume_batches": _resume_batches(),
+        "unet_other": w.seeded_state(w.unet_diffusion().model, 11),
+        "unsharded_ckpt": _unsharded_checkpoint(tmp),
         "unet": _unet_state(),
         "sgd_batch": {k: torch.from_numpy(v) for k, v in _sgd_batch().items()},
         "cli_argv": CLI_ARGS + ["--log-dir", os.path.join(tmp, "cli2")],
@@ -246,6 +266,93 @@ def test_trainer_with_mesh_matches_the_unsharded_trainer(ranks, tmp_path,
     diff.load_state_dict(ck["model_state_dict"], strict=True)
     for k, v in diff.state_dict().items():
         assert torch.equal(v, outs[0][f"trainer/{kind}"]["params"][k]), k
+
+
+def _assert_train_states_equal(got, want):
+    """Two ``train_state`` records equal bit for bit."""
+    for part in ("params", "ema"):
+        assert set(got[part]) == set(want[part])
+        for k, v in want[part].items():
+            assert torch.equal(got[part][k], v), (part, k)
+    assert set(got["adam"]) == set(want["adam"])
+    for i, moments in want["adam"].items():
+        for k, v in moments.items():
+            assert torch.equal(got["adam"][i][k], v), ("adam", i, k)
+    assert (got["step"], got["n_updates"]) == (want["step"], want["n_updates"])
+    for a, b in zip(got["generators"], want["generators"]):
+        assert torch.equal(a, b)
+
+
+def test_fsdp_run_resumes_bit_for_bit(ranks):
+    """FSDP2 over two ranks: N steps, a checkpoint, a fresh Trainer (other
+    initial weights) that resumes and takes N more, against 2N steps
+    straight: every loss, weight, EMA leaf, Adam moment, counter and
+    generator state equal bit for bit on both ranks."""
+    _, outs, _ = ranks
+    for out in outs:
+        r = out["resume"]
+        assert r["resumed"]["epoch"] == 3
+        assert r["resumed"]["losses"] == r["straight"]["losses"]
+        _assert_train_states_equal(r["resumed"]["state"],
+                                   r["straight"]["state"])
+
+
+def _file_state(base: str):
+    """A ``.train.pt`` read as a ``train_state`` record."""
+    ck = torch.load(base + ".train.pt", weights_only=False)
+    return ck, {"params": ck["model_state_dict"], "ema": ck["ema_params"],
+                "adam": ck["optimizer_state_dict"]["state"],
+                "step": ck["step"], "n_updates": ck["n_updates"],
+                "generators": ck["generator_states"]}
+
+
+@pytest.mark.parametrize("direction", ["unsharded->fsdp", "fsdp->unsharded"])
+def test_train_pt_crosses_between_fsdp_and_unsharded_runs(ranks, tmp_path,
+                                                          direction):
+    """A ``.train.pt`` is the same file whether the run was sharded: whole
+    tensors, Adam's state keyed as ``Optimizer.state_dict`` keys it. An
+    FSDP Trainer loads an unsharded run's checkpoint, and an unsharded
+    Trainer an FSDP run's, to the bit; each then takes the last N steps,
+    which equal the run that did not stop within the tolerances of
+    ``test_trainer_with_mesh_matches_the_unsharded_trainer``."""
+    inputs, outs, _ = ranks
+    batches = inputs["resume_batches"]
+    ref = w.resume_trainer(inputs["unet"], str(tmp_path / "straight"))
+    ref_losses = w.resume_steps(ref, batches)
+    ref_state = w.train_state(ref)
+    ref.close()
+    fsdp_ck, fsdp_file = _file_state(outs[0]["resume"]["fsdp_ckpt"])
+    plain_ck, plain_file = _file_state(inputs["unsharded_ckpt"])
+    assert fsdp_ck.keys() == plain_ck.keys()
+    assert fsdp_ck["optimizer_state_dict"]["param_groups"] == \
+        plain_ck["optimizer_state_dict"]["param_groups"]
+    for i, moments in plain_file["adam"].items():
+        for k, v in moments.items():
+            assert fsdp_file["adam"][i][k].shape == v.shape, (i, k)
+    if direction == "unsharded->fsdp":
+        runs = [(out["resume"]["from_unsharded"]["loaded"],
+                 out["resume"]["from_unsharded"]["losses"],
+                 out["resume"]["from_unsharded"]["state"]) for out in outs]
+        file = plain_file
+    else:
+        trainer = w.resume_trainer(inputs["unet_other"],
+                                   str(tmp_path / "resumed"))
+        assert trainer.load_checkpoint(outs[0]["resume"]["fsdp_ckpt"]) == 3
+        loaded = w.train_state(trainer)
+        losses = w.resume_steps(trainer, batches[2:])
+        runs = [(loaded, losses, w.train_state(trainer))]
+        trainer.close()
+        file = fsdp_file
+    noise = _noise_leaves(inputs["unet"])
+    for loaded, losses, state in runs:
+        _assert_train_states_equal(loaded, file)
+        np.testing.assert_allclose(losses, ref_losses[2:], rtol=1e-5)
+        for part in ("params", "ema"):
+            _assert_state_close(
+                {k[6:]: v for k, v in state[part].items()
+                 if k.startswith("model.")},
+                {k[6:]: v for k, v in ref_state[part].items()
+                 if k.startswith("model.")}, noise=noise)
 
 
 def test_train_mesh_dp_2_matches_mesh_dp_1(ranks, tmp_path):

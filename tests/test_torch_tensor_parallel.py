@@ -124,12 +124,10 @@ def test_maybe_constrain_is_a_noop_without_a_mesh():
     assert maybe_constrain(x, ("dp", None, "tp")) is x
 
 
-def test_param_specs_match_jax():
-    """The spec table of every U-Net parameter at tp=2 is JAX's
-    (tp.py:109-144) read through ``params_from_jax``'s names, its dims in
-    torch's order (the reverse of flax's: (k, in, out) -> (out, in, k))."""
-    unet, params, _, _ = _jax_models()
-    specs = jax_specs(params, jax_mesh({"dp": 4, "tp": 2}), tp_axis="tp")
+def _unet_specs_by_torch_name(specs):
+    """JAX's U-Net spec tree read through ``params_from_jax``'s names, its
+    dims in torch's order (the reverse of flax's: (k, in, out) -> (out, in,
+    k))."""
     want = {}
     for prefix, path, kind in unet_key_mapping(2):
         node = specs
@@ -142,6 +140,43 @@ def test_param_specs_match_jax():
         kernel = node["scale" if kind == "norm" else "kernel"]
         want[f"{prefix}.weight"] = tuple(reversed(tuple(kernel)))
         want[f"{prefix}.bias"] = tuple(node["bias"])
+    return want
+
+
+def _transformer_specs_by_torch_name(specs, depth=2):
+    """JAX's transformer spec tree read through
+    ``transformer_params_from_jax``'s names and layouts: a dense (in, out)
+    kernel reversed; q/k/v (in, heads, head_dim) -> (heads * head_dim, in);
+    out (heads, head_dim, out) -> (out, heads * head_dim)."""
+    def dense(prefix, node):
+        return {f"{prefix}.weight": tuple(reversed(tuple(node["kernel"]))),
+                f"{prefix}.bias": tuple(node["bias"])}
+
+    want = {"pos_emb": tuple(specs["pos_emb"])}
+    for name in ("time_dense1", "time_dense2", "in_proj", "final_mod",
+                 "out_proj"):
+        want.update(dense(name, specs[name]))
+    for i in range(depth):
+        blk, pre = specs[f"block_{i}"], f"blocks.{i}"
+        for name in ("adaln_mod", "mlp1", "mlp2"):
+            want.update(dense(f"{pre}.{name}", blk[name]))
+        for name in ("query", "key", "value"):
+            k, b = blk["attn"][name]["kernel"], blk["attn"][name]["bias"]
+            want[f"{pre}.attn.{name}.weight"] = (k[1] or k[2], k[0])
+            want[f"{pre}.attn.{name}.bias"] = (b[0] or b[1],)
+        k = blk["attn"]["out"]["kernel"]
+        want[f"{pre}.attn.out.weight"] = (k[2], k[0] or k[1])
+        want[f"{pre}.attn.out.bias"] = tuple(blk["attn"]["out"]["bias"])
+    return want
+
+
+def test_param_specs_match_jax():
+    """The spec table of every U-Net parameter at tp=2 is JAX's
+    (tp.py:109-144) read through ``params_from_jax``'s names, its dims in
+    torch's order (the reverse of flax's: (k, in, out) -> (out, in, k))."""
+    unet, params, _, _ = _jax_models()
+    specs = jax_specs(params, jax_mesh({"dp": 4, "tp": 2}), tp_axis="tp")
+    want = _unet_specs_by_torch_name(specs)
     port = w.unet_diffusion(dim=32, horizon=H).model
     got = unet_param_specs(port, 2)
     assert got == want
@@ -149,6 +184,54 @@ def test_param_specs_match_jax():
     assert got["ups.0.2.conv.weight"] == (None, "tp", None)
     assert got["time_mlp.1.weight"] == (None, None)
     assert got["final_conv.1.weight"] == (None, None, None)
+
+
+def test_2d_param_specs_match_jax():
+    """tp x fsdp (JAX's test_tp_fsdp_2d_param_sharding mesh, {fsdp: 4, tp:
+    2}): every U-Net leaf is JAX's ``unet_param_specs(..., fsdp_axis=)``.
+    A square dense weight ties its two dims; JAX takes the first in flax's
+    (in, out), so the port's (out, in) splits dim 1 over fsdp."""
+    unet, params, _, _ = _jax_models()
+    specs = jax_specs(params, jax_mesh({"fsdp": 4, "tp": 2}), tp_axis="tp",
+                      fsdp_axis="fsdp")
+    want = _unet_specs_by_torch_name(specs)
+    port = w.unet_diffusion(dim=32, horizon=H).model
+    got = unet_param_specs(port, 2, fsdp_axis="fsdp", fsdp_size=4)
+    assert got == want
+    assert port.downs[0][0].time_mlp[1].weight.shape == (32, 32)
+    assert got["downs.0.0.time_mlp.1.weight"] == (None, "fsdp")  # the tie
+    assert got["mid_block1.blocks.0.block.0.weight"] == ("tp", "fsdp", None)
+    assert got["ups.0.2.conv.weight"] == ("fsdp", "tp", None)
+    assert got["final_conv.1.weight"] == (None, "fsdp", None)
+    assert unet_param_specs(port, 2, fsdp_axis="fsdp", fsdp_size=1) == \
+        unet_param_specs(port, 2)
+
+
+# the transformer's Megatron table keeps whole what JAX's GSPMD table
+# splits over tp: the outputs of in_proj, adaln_mod, mlp2 and final_mod and
+# the width of pos_emb (ROADMAP Queue 3: the residual stream stays whole)
+MEGATRON_DEPARTURES = ("in_proj", "adaln_mod", "mlp2", "final_mod", "pos_emb")
+
+
+def test_2d_transformer_specs_match_jax_but_megatron_departures():
+    """The transformer at {fsdp: 4, tp: 2}: every leaf equals JAX's table
+    except the leaves of the departures named above, each of which
+    differs."""
+    from dadiff_tpu_torch.parallel.tp import transformer_param_specs
+
+    _, _, trans, params = _jax_models()
+    specs = jax_specs(params, jax_mesh({"fsdp": 4, "tp": 2}), tp_axis="tp",
+                      fsdp_axis="fsdp")
+    want = _transformer_specs_by_torch_name(specs)
+    port = w.transformer(transformer_params_from_jax(_np_tree(params)))
+    got = transformer_param_specs(port, 2, fsdp_axis="fsdp", fsdp_size=4)
+    assert set(got) == set(want)
+    departing = {n for n in want if any(d in n for d in MEGATRON_DEPARTURES)}
+    assert {n for n in want if got[n] != want[n]} == departing
+    assert len(departing) == 2 + 2 + 2 * 2 * 2 + 1  # depth 2
+    assert got["blocks.0.attn.query.weight"] == ("tp", "fsdp")
+    assert got["blocks.0.attn.out.weight"] == ("fsdp", "tp")
+    assert got["blocks.0.mlp2.weight"] == ("fsdp", "tp")  # JAX: ("tp", "fsdp")
 
 
 @pytest.mark.parametrize("family", ["unet", "transformer"])
@@ -167,11 +250,12 @@ def test_sharded_forward_matches_single_device(ranks, mesh, family):
                                    ref, atol=2e-5)
 
 
-@pytest.mark.parametrize("mesh", ["tp", "sp-tp"])
+@pytest.mark.parametrize("mesh", w.TP_TRAIN)
 def test_tp_train_step_matches_jax_single_device(ranks, mesh):
     """One SGD step after the global-norm clip, the U-Net's channels split
-    over tp (and its horizon over sp): the loss, the whole norm (the
-    DTensor-aware clip) and every weight of JAX's one-device step."""
+    over tp (and its horizon over sp, or its weights in 2-D over fsdp):
+    the loss, the whole norm (the DTensor-aware clip, reduced over both
+    axes of a 2-D placement) and every weight of JAX's one-device step."""
     loss, norm, want = _jax_step()
     _, outs = ranks
     for out in outs:
@@ -181,6 +265,42 @@ def test_tp_train_step_matches_jax_single_device(ranks, mesh):
         for name, v in want.items():
             np.testing.assert_allclose(got["params"][name].numpy(),
                                        v.numpy(), atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("mesh", ["fsdp-tp", "dp-fsdp"])
+def test_2d_ranks_hold_only_their_blocks(ranks, mesh):
+    """Each rank stores its block of every parameter: numel / (tp x fsdp)
+    elements of a leaf split on both axes, numel / fsdp of one split over
+    fsdp alone, the whole of one the table keeps whole."""
+    _, outs = ranks
+    axes = w.TP_MESHES[mesh][0]
+    port = w.unet_diffusion(dim=32, horizon=H).model
+    specs = unet_param_specs(port, axes.get("tp", 1),
+                             tp_axis="tp" if "tp" in axes else None,
+                             fsdp_axis="fsdp", fsdp_size=axes["fsdp"])
+    shapes = {n: p.shape for n, p in port.named_parameters()}
+    two_d = [n for n, s in specs.items() if "tp" in s and "fsdp" in s]
+    assert len(two_d) >= (20 if "tp" in axes else 0)
+    for out in outs:
+        local = out[f"train/{mesh}"]["local_shapes"]
+        for name, spec in specs.items():
+            parts = np.prod([axes[a] for a in spec if a is not None])
+            assert np.prod(local[name]) * parts == np.prod(shapes[name]), name
+        for name in two_d:
+            assert np.prod(local[name]) == np.prod(shapes[name]) // 4, name
+
+
+@pytest.mark.parametrize("family", ["unet", "transformer"])
+def test_2d_forward_collective_structure(ranks, family):
+    """The tp x fsdp forward gathers each fsdp-split weight where a layer
+    uses it, counted under its own kind (``all-gather/fsdp``), and holds
+    the tp side to the rule of the 1-D forwards: no all-gather of the tp
+    kind rebuilds a whole weight."""
+    _, outs = ranks
+    s = outs[0][f"{family}/fsdp-tp"]
+    assert s["summary"]["all-gather/fsdp"]["count"] >= 10, s["summary"]
+    assert s["summary"].get("all-reduce", {}).get("count", 0) >= 1
+    assert s["violations"] == []
 
 
 def test_tp_forward_collective_structure(ranks):

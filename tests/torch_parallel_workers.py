@@ -236,6 +236,77 @@ def trainer_run(state, log_dir: str, mesh=None, steps: int = 3,
             "ema": full_state_dict(trainer.state.ema_params)}
 
 
+def resume_trainer(state, log_dir: str, mesh=None, fsdp_axis=None):
+    """A Trainer of Adam(1e-3), clip 1, EMA, no files but its checkpoints,
+    over the U-Net of ``state``; it is driven batch by batch with
+    :func:`resume_steps`."""
+    from dadiff_tpu_torch.utils.training import Trainer
+
+    diff = unet_diffusion(state)
+    loss_fn, names = losses.build_loss(diff)
+    return Trainer(diff, [None], loss_fn, lr=1e-3, log_dir=log_dir,
+                   save_freq=0, loss_names=names, seed=5, export_pt=False,
+                   mesh=mesh, fsdp_axis=fsdp_axis)
+
+
+def resume_steps(trainer, batches, mesh=None):
+    from dadiff_tpu_torch.parallel.mesh import local_rows
+
+    return [trainer.train_step(local_rows(b, mesh))["total"]
+            for b in batches]
+
+
+def train_state(trainer) -> Dict[str, Any]:
+    """Everything a ``.train.pt`` restores, whole and copied: the weights,
+    the EMA, Adam's moments and step, the counters and the generators'
+    states. Every rank calls it (it gathers)."""
+    from dadiff_tpu_torch.parallel.mesh import full_state_dict
+
+    def whole(state):
+        return {k: v.clone() for k, v in full_state_dict(state).items()}
+
+    opt = trainer.state.optimizer.state_dict()["state"]
+    return {"params": whole(trainer.diffusion.state_dict()),
+            "ema": whole(trainer.state.ema_params),
+            "adam": {i: whole(s) for i, s in opt.items()},
+            "step": trainer.state.step, "n_updates": trainer.state.n_updates,
+            "generators": [g.get_state() for g in trainer.generators]}
+
+
+def fsdp_resume_runs(inputs, tmp: str, mesh) -> Dict[str, Any]:
+    """FSDP2 over dp: 2N steps straight; N steps, a checkpoint, a fresh
+    Trainer (other initial weights) that resumes from it and takes N more;
+    a fresh Trainer that resumes from an unsharded run's checkpoint after N
+    steps and takes N more. Each resumed Trainer's state right after
+    loading, and every run's losses and final state."""
+    batches = inputs["resume_batches"]
+    n = len(batches) // 2
+    out = {}
+    straight = resume_trainer(inputs["unet"], os.path.join(tmp, "straight"),
+                              mesh, "dp")
+    out["straight"] = {"losses": resume_steps(straight, batches, mesh),
+                       "state": train_state(straight)}
+    log_dir = os.path.join(tmp, "resume_fsdp")
+    part = resume_trainer(inputs["unet"], log_dir, mesh, "dp")
+    first = resume_steps(part, batches[:n], mesh)
+    part.save_checkpoint(epoch=3)
+    for name, path in (("resumed", None),
+                       ("from_unsharded", inputs["unsharded_ckpt"])):
+        trainer = resume_trainer(inputs["unet_other"], log_dir, mesh, "dp")
+        epoch = (trainer.load_latest() if path is None
+                 else trainer.load_checkpoint(path))
+        loaded = train_state(trainer)
+        losses = resume_steps(trainer, batches[n:], mesh)
+        out[name] = {"epoch": epoch, "loaded": loaded,
+                     "losses": (first if path is None else []) + losses,
+                     "state": train_state(trainer)}
+        trainer.close()
+    straight.close()
+    part.close()
+    out["fsdp_ckpt"] = os.path.join(log_dir, f"checkpoint_step_{n}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the suites
 # ---------------------------------------------------------------------------
@@ -307,6 +378,9 @@ def parallel_suite(rank: int, inputs, tmp: str) -> Dict[str, Any]:
                         "units": units,
                         "params": full_state_dict(diff.model.state_dict())}
 
+    # FSDP runs that resume, and cross to and from unsharded runs
+    out["resume"] = fsdp_resume_runs(inputs, tmp, mesh)
+
     # the Trainer and the train CLI under the mesh
     out["trainer/ddp"] = trainer_run(inputs["unet"],
                                      os.path.join(tmp, "trainer_ddp"), mesh)
@@ -342,13 +416,17 @@ TP_MESHES = {
     "tp": ({"dp": 2, "tp": 2}, ("dp", None, "tp")),
     "sp": ({"dp": 2, "sp": 2}, ("dp", "sp", None)),
     "sp-tp": ({"sp": 2, "tp": 2}, ("dp", "sp", "tp")),
+    # 2-D parameter sharding: tp x fsdp, and fsdp beside dp
+    "fsdp-tp": ({"fsdp": 2, "tp": 2}, ("dp", None, "tp")),
+    "dp-fsdp": ({"dp": 2, "fsdp": 2}, ("dp", None, None)),
 }
+TP_TRAIN = ("tp", "sp-tp", "fsdp-tp", "dp-fsdp")
 
 
 def tp_suite(rank: int, inputs, tmp: str) -> Dict[str, Any]:
-    """Four ranks: the tp, sp and tp+sp forwards of both families, with
-    their collectives; the tp train steps; the batched planner over a tp
-    U-Net."""
+    """Four ranks: the tp, sp, tp+sp and 2-D (tp x fsdp, dp x fsdp)
+    forwards of both families, with their collectives; their train steps;
+    the batched planner over a tp U-Net."""
     from dadiff_tpu_torch.parallel.comm_analysis import (
         CollectiveCounter,
         weight_gather_violations,
@@ -373,7 +451,7 @@ def tp_suite(rank: int, inputs, tmp: str) -> Dict[str, Any]:
                                        horizon=16, act_spec=spec).model
             else:
                 model = transformer(inputs["transformer"], act_spec=spec)
-            shard_params_tp(model, mesh)
+            shard_params_tp(model, mesh, fsdp_axis="fsdp")
             with torch.no_grad(), CollectiveCounter() as counter:
                 y = model(*local_rows((x, t), mesh))
             whole = inputs["unet32"] if family == "unet" else \
@@ -384,12 +462,14 @@ def tp_suite(rank: int, inputs, tmp: str) -> Dict[str, Any]:
                 "violations": weight_gather_violations(counter.summary,
                                                        whole)}
 
-    for name in ("tp", "sp-tp"):
+    for name in TP_TRAIN:
         axes, spec = TP_MESHES[name]
         mesh = make_mesh(axes)
         diff = unet_diffusion(inputs["unet32"], dim=32, horizon=16,
                               act_spec=spec)
-        shard_params_tp(diff.model, mesh)
+        shard_params_tp(diff.model, mesh, fsdp_axis="fsdp")
+        local = {n: tuple(p.to_local().shape)
+                 for n, p in diff.model.named_parameters()}
         with CollectiveCounter() as counter:
             m = sgd_step(diff, local_rows(inputs["tp_batch"], mesh), clip=4.0,
                          after=lambda: average_grads(diff, mesh, "dp"))
@@ -397,6 +477,7 @@ def tp_suite(rank: int, inputs, tmp: str) -> Dict[str, Any]:
         out[f"train/{name}"] = {
             "loss": float(m["total"]), "grad_norm": float(m["grad_norm"]),
             "params": full_state_dict(diff.model.state_dict()),
+            "local_shapes": local,
             "summary": counter.summary,
             "violations": weight_gather_violations(counter.summary,
                                                    inputs["unet32"])}
