@@ -2,13 +2,15 @@
 replan per wave.
 
 Counterpart of the JAX package's envs/vector_eval.py,
-evaluate_policy_batched :31-260 without its warm-start branch (not ported:
-a policy that asks for it is refused). Episodes are
+evaluate_policy_batched :31-260. Episodes are
 seeded per env (seed + i), so results are not episode for episode those of
 the sequential protocol (envs/host.py). Best of N: each replan samples
 N * K plans in one batched call and keeps the best per env under
 ``policy.candidate_scorer``; with a policy wired to the planner chain
 (``--megakernel``) a replan is one wave of N * K chains, selection included.
+With warm start (``policy.warm_start_t`` or ``warm_start_auto``) every wave
+after the first re-noises the previous wave's selected plans, shifted by
+the actions executed since (vector_eval.py:87-160).
 """
 
 from __future__ import annotations
@@ -37,11 +39,14 @@ def evaluate_policy_batched(policy, env_name: str, n_episodes: int = 10,
     planned states, one batched call per replan, or, with
     ``track_planned_states``, one batched call per lockstep step from the
     observed states toward the planned next states (vector_eval.py:
-    161-205)."""
-    for attr in ("warm_start_t", "warm_start_auto"):
-        if getattr(policy, attr, None):
-            raise NotImplementedError(f"evaluate_policy_batched: {attr} is "
-                                      "not ported")
+    161-205).
+
+    With ``policy.warm_start_t`` (``policy._plan_warm``) a wave re-noises
+    the previous wave's selected plans, shifted by the actions executed
+    since and their last row repeated, to the chain's steps below K; with
+    ``policy.warm_start_auto`` the lockstep envs share one K per wave, from
+    the 90th percentile of the live envs' drift (``policy._k_from_drift``),
+    or the full chain where that gives None (vector_eval.py:87-160)."""
     import gymnasium as gym
 
     try:
@@ -73,18 +78,46 @@ def evaluate_policy_batched(policy, env_name: str, n_episodes: int = 10,
         rec_rew = [[] for _ in range(n_episodes)]
 
     n_cand = max(1, getattr(policy, "n_candidates", 1))
+    warm_plan = getattr(policy, "_plan_warm", None)
+    warm_auto = bool(getattr(policy, "warm_start_auto", False))
+    use_warm = warm_plan is not None or warm_auto
+    prev_trajs = None  # (N, H, D) the last wave's selected plans
+    prev_shift = 0  # env steps executed since prev_trajs were planned
     step = 0
     while step < max_steps and not done.all():
         # one batched replan for all envs, finished or not
         processed = np.concatenate(
             [policy._process_observation(o) for o in obs_list], axis=0)
         normed = policy.normalizer.normalize_observations(processed)
+        x_init, plan_fn = None, policy._plan
+        if use_warm and prev_trajs is not None and prev_shift < horizon:
+            x_init = np.concatenate(
+                [prev_trajs[:, prev_shift:],
+                 np.repeat(prev_trajs[:, -1:], prev_shift, axis=1)],
+                axis=1) if prev_shift > 0 else prev_trajs
+            if warm_auto:
+                # one K per wave, from the live envs' 90th-percentile drift
+                shift_row = min(prev_shift, horizon - 1)
+                drifts = np.linalg.norm(
+                    normed - prev_trajs[:, shift_row, :obs_dim], axis=-1)
+                live = ~done
+                d90 = (float(np.percentile(drifts[live], 90)) if live.any()
+                       else 0.0)
+                k = policy._k_from_drift(d90)
+                if k is None:
+                    x_init = None  # the drift is too large: full chain
+                else:
+                    plan_fn = policy._auto_warm_sampler(k)
+            else:
+                plan_fn = warm_plan
         if n_cand > 1:
             tiled = np.repeat(normed, n_cand, axis=0)
             cond = conditions_for_initial_obs_np(tiled, obs_dim, horizon,
                                                  trans_dim)
-            all_trajs = policy._plan(policy._generator, cond, policy._P,
-                                     policy._stats).reshape(
+            kw = ({} if x_init is None
+                  else {"x_init": np.repeat(x_init, n_cand, axis=0)})
+            all_trajs = plan_fn(policy._generator, cond, policy._P,
+                                policy._stats, **kw).reshape(
                 n_episodes, n_cand, horizon, trans_dim)
             normed_t = torch.as_tensor(normed, device=all_trajs.device)
             scores = torch.stack([policy.candidate_scorer(all_trajs[i],
@@ -96,9 +129,12 @@ def evaluate_policy_batched(policy, env_name: str, n_episodes: int = 10,
         else:
             cond = conditions_for_initial_obs_np(normed, obs_dim, horizon,
                                                  trans_dim)
-            trajs = policy._plan(policy._generator, cond, policy._P,
-                                 policy._stats)
+            kw = {} if x_init is None else {"x_init": x_init}
+            trajs = plan_fn(policy._generator, cond, policy._P,
+                            policy._stats, **kw)
         trajs = trajs.detach().cpu().numpy()
+        if use_warm:
+            prev_trajs = trajs
         inverse = policy.inverse_dynamics
         if inverse is not None:
             # actions from consecutive planned states (one batched call)
@@ -149,6 +185,7 @@ def evaluate_policy_batched(policy, env_name: str, n_episodes: int = 10,
                     success[i] = True
                 done[i] = done[i] | bool(terminated) | bool(truncated)
             step += 1
+        prev_shift = n_exec
 
     for env in envs:
         env.close()

@@ -14,7 +14,8 @@ Flax TemporalTransformer tree into the port's TemporalTransformer's,
 ``value_params_from_jax`` a Flax
 ValueNet tree into the port's ValueNet's; ``block_params_from_jax`` one
 residual block's dict and ``train_state_from_jax`` an optax Adam state and
-EMA tree. Layouts:
+EMA tree. ``slim_pt_checkpoint`` copies a ``.pt`` without its EMA
+weights and optimizer state. Layouts:
   Conv1d          flax (k, in, out) -> torch (out, in, k)
   ConvTranspose1d jax  (k, out, in) -> torch (in, out, k)
   Dense           flax (in, out)    -> torch Linear (out, in)
@@ -32,6 +33,7 @@ them; a checkpoint without ``model_type`` is a U-Net.
 
 from __future__ import annotations
 
+import os
 from collections.abc import Mapping
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -306,6 +308,18 @@ def save_pt_checkpoint(path: str, diffusion, config: Dict[str, Any], *,
             **checkpoint["model_state_dict"],
             **{k: v.detach().cpu().clone() for k, v in ema_params.items()}}
     torch.save(checkpoint, path)
+
+
+def slim_pt_checkpoint(src: str, dst: str) -> None:
+    """Copy the ``.pt`` at ``src`` (written by either package) to ``dst``
+    without its EMA weights and optimizer state: the model's weights and
+    the config, which is all that both packages' evaluators and the
+    distillation read by default, at half the size."""
+    checkpoint = torch.load(src, map_location="cpu", weights_only=False)
+    checkpoint.pop("ema_state_dict", None)
+    checkpoint["optimizer_state_dict"] = {}
+    os.makedirs(os.path.dirname(os.path.abspath(dst)), exist_ok=True)
+    torch.save(checkpoint, dst)
 
 
 def load_pt_checkpoint(path: str) -> Dict[str, Any]:

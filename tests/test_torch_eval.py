@@ -31,6 +31,8 @@ from dadiff_tpu.ops import pallas_planner as jpp
 from dadiff_tpu.ops import projection as jproj
 from dadiff_tpu.ops.pallas_unet import prepare_chain_operands as jax_prepare
 
+from tests.torch_jax_models import seeded_params
+
 from dadiff_tpu_torch import cli
 from dadiff_tpu_torch import eval_ondevice
 from dadiff_tpu_torch.envs.pointmaze_jax import PointMazeJax
@@ -55,18 +57,18 @@ TOL = 3e-3
 DATASET = "synthetic:pointmaze:n=6,T=40"
 
 
-def _tiny_models(seed=0):
+def _tiny_models(seed=0, n_timesteps=T_STEPS):
     jax_diff = JaxDiffusion(model=JaxUnet(transition_dim=D, dim=8,
                                           dim_mults=(1, 2)),
                             horizon=H, observation_dim=OBS, action_dim=ACT,
-                            n_timesteps=T_STEPS)
+                            n_timesteps=n_timesteps)
     params = jax.jit(jax_diff.init_params)(jax.random.PRNGKey(seed))
     unet = TemporalUnet(transition_dim=D, dim=8, dim_mults=(1, 2))
     unet.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray,
                                                                 params)),
                          strict=True)
     diff = GaussianDiffusion(unet, horizon=H, observation_dim=OBS,
-                             action_dim=ACT, n_timesteps=T_STEPS).eval()
+                             action_dim=ACT, n_timesteps=n_timesteps).eval()
     return jax_diff, params, diff
 
 
@@ -301,20 +303,41 @@ def test_ondevice_evaluator_refuses_what_is_not_ported(models, kw,
 # The checkpoint: EMA weights at load, the CLIs
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def checkpoint(tmp_path_factory):
-    """A JAX-written .pt whose EMA weights differ from its model weights."""
-    jax_diff, params, _ = _tiny_models(seed=4)
-    ema = jax.jit(jax_diff.init_params)(jax.random.PRNGKey(5))
+def _jax_checkpoint(tmp_path_factory, n_timesteps, seeded=False):
+    """A JAX-written .pt whose EMA weights differ from its model weights:
+    flax's initialisation, or with ``seeded`` weights drawn from the
+    model's shapes alone (no XLA compile)."""
+    if seeded:
+        jax_diff = JaxDiffusion(model=JaxUnet(transition_dim=D, dim=8,
+                                              dim_mults=(1, 2)),
+                                horizon=H, observation_dim=OBS,
+                                action_dim=ACT, n_timesteps=n_timesteps)
+        params, ema = (seeded_params(jax_diff.model, H, seed=s)
+                       for s in (4, 5))
+    else:
+        jax_diff, params, _ = _tiny_models(seed=4, n_timesteps=n_timesteps)
+        ema = jax.jit(jax_diff.init_params)(jax.random.PRNGKey(5))
     stats = {"obs_mean": [0.1] * OBS, "obs_std": [2.0] * OBS,
              "action_mean": [0.0] * ACT, "action_std": [0.5] * ACT}
     path = str(tmp_path_factory.mktemp("ckpt") / "model.pt")
     jax_save_pt(path, params, jax_diff.schedule, {
         "horizon": H, "observation_dim": OBS, "action_dim": ACT,
-        "n_timesteps": T_STEPS, "beta_schedule": "cosine",
+        "n_timesteps": n_timesteps, "beta_schedule": "cosine",
         "dim_mults": (1, 2), "normalizer_stats": stats,
     }, ema_params=ema)
     return path
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    return _jax_checkpoint(tmp_path_factory, T_STEPS)
+
+
+@pytest.fixture(scope="module")
+def warm_checkpoint(tmp_path_factory):
+    """T = 20: room for a warm start at K = 8 and for the adaptive depth's
+    grid (10)."""
+    return _jax_checkpoint(tmp_path_factory, 20, seeded=True)
 
 
 def test_load_model_use_ema_matches_jax(checkpoint):
@@ -433,8 +456,8 @@ def _inject_jax(policy, calls):
             fw, me, sc = jax_prepare(diff.model, diff.schedule, params,
                                      chain.timesteps, weight_dtype=jnp.float32)
             sc = sc.at[:, 5].set(jproj.projection_alpha(
-                chain.timesteps, T_STEPS, spec.schedule, spec.strength,
-                diff.schedule.betas))
+                chain.timesteps, diff.n_timesteps, spec.schedule,
+                spec.strength, diff.schedule.betas))
             chains[C] = (jax.jit(chain), fw, me, sc)
         chain, fw, me, sc = chains[C]
         x0, noise = _draws(len(calls), C, sc.shape[0])
@@ -483,12 +506,63 @@ def _recording(policy, actions):
     policy.get_action = wrapped
 
 
+def _sampler_draws(key, shape, n_steps):
+    """What a JAX DDPM ``make_sampler`` plan draws from its key
+    (sampling.py:248-269): the initial noise (on a warm start, the forward
+    step's) and the per-step noise."""
+    _, init_key, noise_key = jax.random.split(key, 3)
+    return (torch.from_numpy(np.array(jax.random.normal(init_key, shape))),
+            torch.from_numpy(np.array(jax.random.normal(
+                noise_key, (n_steps,) + tuple(shape)))))
+
+
+def _wrap_warm(policy, record, keys, jax_side):
+    """The policy's warm samplers run as they are, each call's (K, x_init)
+    and each drift the adaptive depth reads, ("drift", d), appended to
+    ``record``. The JAX side appends each warm call's key to ``keys``; the
+    port's warm call i draws what the JAX side's warm call i drew."""
+    port_calls = []
+
+    def wrap(fn, k):
+        if jax_side:
+            def plan(params, key, conditions, P=None, stats=None,
+                     x_init=None):
+                record.append((k, np.asarray(x_init)))
+                keys.append(key)
+                return fn(params, key, conditions, P, stats, x_init=x_init)
+        else:
+            def plan(generator, conditions, P=None, stats=None,
+                     x_init=None):
+                record.append((k, np.asarray(x_init)))
+                init, step = _sampler_draws(keys[len(port_calls)],
+                                            np.shape(x_init),
+                                            len(fn.timesteps))
+                port_calls.append(k)
+                return fn(generator, conditions, P, stats, x_init=x_init,
+                          init_noise=init, step_noise=step)
+        return plan
+
+    if policy._plan_warm is not None:
+        policy._plan_warm = wrap(policy._plan_warm, policy.warm_start_t)
+    auto, depth = policy._auto_warm_sampler, policy._k_from_drift
+    policy._auto_warm_sampler = lambda k: wrap(auto(k), k)
+
+    def k_from_drift(d):
+        record.append(("drift", d))
+        return depth(d)
+
+    policy._k_from_drift = k_from_drift
+
+
 def _evaluate_both(checkpoint, tmp_path, monkeypatch, batched, path,
-                   extra=()):
+                   extra=(), warm=None, warm_auto_scale=None):
     """evaluate_main of both packages on the same .pt, seeds and injected
     noise (2 episodes of PointMaze_UMaze-v3, 20 steps, best of 2, argv
     ``extra`` added): (metrics, plan calls, actions, results file) of
-    each."""
+    each. With ``warm`` ({"jax": [], "port": [], "keys": []}) the warm
+    samplers run through ``_wrap_warm``, the JAX side first, and
+    ``warm_auto_scale`` sets both policies' scale of the adaptive
+    depth."""
     runs = {}
     for name, mod, inject in (("jax", jcli, _inject_jax),
                               ("port", cli, None)):
@@ -496,12 +570,17 @@ def _evaluate_both(checkpoint, tmp_path, monkeypatch, batched, path,
         build = mod.build_policy_from_args
 
         def wrapped(*a, _build=build, _inject=inject, _calls=calls,
-                    _actions=actions, **k):
+                    _actions=actions, _name=name, **k):
             policy = _build(*a, **k)
             if _inject is None:
                 _inject_port(policy, _calls, path)
             else:
                 _inject(policy, _calls)
+            if warm is not None:
+                _wrap_warm(policy, warm[_name], warm["keys"],
+                           jax_side=_name == "jax")
+            if warm_auto_scale is not None:
+                policy.warm_auto_scale = warm_auto_scale
             if not batched:
                 _recording(policy, _actions)
             return policy
@@ -533,9 +612,18 @@ def test_evaluate_main_matches_jax(checkpoint, tmp_path, monkeypatch, batched,
     files with the same keys."""
     pytest.importorskip("gymnasium")
     pytest.importorskip("gymnasium_robotics")
+    jax_run, port_run = _evaluate_both(checkpoint, tmp_path, monkeypatch,
+                                       batched, path)
+    assert len(jax_run[1]) == (4 if batched else 8)
+    _assert_runs_agree(jax_run, port_run, tmp_path, batched)
+
+
+def _assert_runs_agree(jax_run, port_run, tmp_path, batched):
+    """The same replans, the same actions to TOL, the same results dicts,
+    and results files with the same keys."""
     (jm, jcalls, jacts, jsaved), (pm, pcalls, pacts, psaved) = \
-        _evaluate_both(checkpoint, tmp_path, monkeypatch, batched, path)
-    assert pcalls == jcalls and len(jcalls) == (4 if batched else 8)
+        jax_run, port_run
+    assert pcalls == jcalls
     assert set(psaved) == set(jsaved)
     assert set(psaved["metrics"]) == set(jsaved["metrics"])
     assert set(pm) == set(jm)
@@ -561,6 +649,44 @@ def test_evaluate_main_matches_jax(checkpoint, tmp_path, monkeypatch, batched,
     else:
         assert len(pacts) == len(jacts) == 40
         np.testing.assert_allclose(np.stack(pacts), np.stack(jacts), atol=TOL)
+
+
+@pytest.mark.parametrize("warm", ["fixed", "auto"])
+def test_evaluate_main_matches_jax_warm_start(warm_checkpoint, tmp_path,
+                                              monkeypatch, warm):
+    """``evaluate --batched`` with ``--warm-start-t 8`` and with
+    ``--warm-start-auto`` (T = 20): as test_evaluate_main_matches_jax, and
+    every warm wave re-noises the same shifted plans at the same K on both
+    sides, its draws the JAX wave's. A wave executes 5 of the 8 rows, so a
+    warm x_init is the last 3 rows of the previous wave's selected plan and
+    its last row 5 times more. Waves of 5 actions in 20 steps: the first is
+    cold; with K fixed the other 3 are warm; with the adaptive depth at
+    scale 1.2 (a drift of up to 1.45 takes K = 10) the drifts of waves 2-4
+    read 1.64, 1.15 and 1.31, so wave 2 falls back to the full chain and
+    waves 3 and 4 take K = 10."""
+    pytest.importorskip("gymnasium")
+    pytest.importorskip("gymnasium_robotics")
+    record = {"jax": [], "port": [], "keys": []}
+    extra = (["--warm-start-t", "8"] if warm == "fixed"
+             else ["--warm-start-auto"])
+    jax_run, port_run = _evaluate_both(
+        warm_checkpoint, tmp_path, monkeypatch, True, "module", extra=extra,
+        warm=record, warm_auto_scale=None if warm == "fixed" else 1.2)
+    _assert_runs_agree(jax_run, port_run, tmp_path, True)
+    jrec, prec = record["jax"], record["port"]
+    assert [r[0] for r in prec] == [r[0] for r in jrec]
+    for (k, x), (_, jx) in zip(prec, jrec):
+        if k == "drift":
+            np.testing.assert_allclose(x, jx, rtol=1e-4)
+        else:
+            np.testing.assert_allclose(x, jx, atol=TOL)
+            np.testing.assert_array_equal(x[:, 3:],
+                                          np.repeat(x[:, 2:3], 5, axis=1))
+    if warm == "fixed":
+        assert jax_run[1] == [4] and [r[0] for r in prec] == [8, 8, 8]
+    else:
+        assert jax_run[1] == [4, 4]
+        assert [r[0] for r in prec] == ["drift", "drift", 10, "drift", 10]
 
 
 def _inverse_dynamics(s, s_next):
