@@ -20,6 +20,13 @@ With a ``mesh`` every rank runs its block of the envs over ``batch_axis``
 and keeps its rows (parallel/mesh.py), plans and steps them, and the ranks
 gather the per-env results at the end, so the metrics and the final state
 are the unsharded run's on every rank.
+
+Spans (utils/profiling.py; ``evaluate`` drives the card from its caller's
+thread and reads that thread's profiler state once a call):
+``evaluator.call``, ``evaluator.prepare`` (the planner chain's operands),
+``evaluator.replan`` (attribute ``k``; the plan and its env steps),
+``env.steps`` (a replan's ``action_horizon`` steps) and ``env.step``.
+Counters: ``evaluate.counters`` (``calls``, ``prepares``).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from dadiff_tpu_torch.parallel.mesh import (
     gather_rows,
     local_rows,
 )
+from dadiff_tpu_torch.utils.profiling import each, follow_profiler, span
 
 
 class RolloutMetrics(NamedTuple):
@@ -186,7 +194,17 @@ def make_ondevice_evaluator(
                  state: Optional[PointMazeState] = None,
                  noise: Optional[Sequence[Tuple[torch.Tensor,
                                                 Optional[torch.Tensor]]]] = None):
-        prepared = mega_plan.prepare() if mega_plan is not None else None
+        follow_profiler()
+        counters["calls"] += 1
+        with span("evaluator.call", batch=batch_size, replans=n_replans):
+            return _evaluate(generator, stats, batch_size, P, state, noise)
+
+    def _evaluate(generator, stats, batch_size, P, state, noise):
+        prepared = None
+        if mega_plan is not None:
+            counters["prepares"] += 1
+            with span("evaluator.prepare"):
+                prepared = mega_plan.prepare()
         if state is None:
             state, obs = env.reset(generator, batch_size, device)
         else:
@@ -200,7 +218,7 @@ def make_ondevice_evaluator(
         total_reward = torch.zeros(n_env, device=device)
         succeeded = torch.zeros(n_env, dtype=torch.bool, device=device)
         traj = None
-        for k in range(n_replans):
+        for k in each("evaluator.replan", range(n_replans), "k"):
             x_init = None
             if plan_warm is not None and traj is not None:
                 # the previous selected plan shifted by the executed steps,
@@ -215,11 +233,12 @@ def make_ondevice_evaluator(
             # (zeroed by the conditioning) included (rollout.py:217-220)
             acts = traj[:, :action_horizon, obs_dim:obs_dim + act_dim] \
                 * stats.action_std + stats.action_mean
-            for j in range(action_horizon):
-                state, obs, reward, _ = env.step(state, acts[:, j])
-                total_reward = total_reward + reward
-                dist = torch.linalg.norm(state.pos - state.goal, dim=-1)
-                succeeded = succeeded | (dist <= GOAL_THRESHOLD)
+            with span("env.steps", k=k):
+                for j in each("env.step", range(action_horizon)):
+                    state, obs, reward, _ = env.step(state, acts[:, j])
+                    total_reward = total_reward + reward
+                    dist = torch.linalg.norm(state.pos - state.goal, dim=-1)
+                    succeeded = succeeded | (dist <= GOAL_THRESHOLD)
         if count > 1:
             state, total_reward, succeeded = gather_rows(
                 (state, total_reward, succeeded), mesh, batch_axis)
@@ -233,6 +252,8 @@ def make_ondevice_evaluator(
         )
         return metrics, state
 
+    counters = {"calls": 0, "prepares": 0}
+    evaluate.counters = counters
     # model calls of a replan: the first, and each later one
     first = (len(plan.timesteps) if plan is not None
              else sampling_timesteps or diffusion.n_timesteps)

@@ -30,6 +30,7 @@ from dadiff_tpu_torch.guides.sampling import (
     make_sampler,
 )
 from dadiff_tpu_torch.ops.projection import NormStats, wall_violation_mask
+from dadiff_tpu_torch.utils.profiling import span
 
 
 def goal_distance_scorer(trajs: torch.Tensor, normed_obs: torch.Tensor
@@ -235,7 +236,8 @@ class GuidedPolicy:
             scores = self.candidate_scorer(
                 trajs, torch.as_tensor(normed_obs[0], device=trajs.device))
             trajs = trajs[torch.argmin(scores)][None]
-        trajs = trajs.detach().cpu().numpy()
+        with span("policy.readback"):  # waits for the card
+            trajs = trajs.detach().cpu().numpy()
         if self._warm_enabled:
             self._last_plan = trajs
             self._actions_taken = 0

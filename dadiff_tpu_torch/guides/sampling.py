@@ -32,6 +32,7 @@ from dadiff_tpu_torch.ops.projection import (
     projection_alpha,
 )
 from dadiff_tpu_torch.parallel.mesh import draw_rows
+from dadiff_tpu_torch.utils.profiling import each, span
 
 
 class Conditions(NamedTuple):
@@ -249,58 +250,60 @@ def make_sampler(diffusion: GaussianDiffusion, *,
             P = torch.as_tensor(P, dtype=torch.float32, device=device)
         if sampler == "dpmpp":  # no host-to-device copy: graph-capturable
             x0_prev, h_prev = torch.zeros_like(x), x.new_full((), -1.0)
-        for i, t in enumerate(ts):
-            t_b = t.expand(batch)
-            last = i == n_steps - 1
-            out = diffusion(x, t_b)
-            if sampler == "ddpm":
-                mean, log_var = p_mean_variance(
-                    out, schedule, x, t_b,
-                    clip_denoised=diffusion.clip_denoised,
-                    predict_epsilon=diffusion.predict_epsilon)
-                if use_guidance:
-                    mean = mean + guide_weight * torch.exp(log_var) \
-                        * guide_grad(x, t_b)
-                x = mean + (t != 0).to(x.dtype) * torch.exp(0.5 * log_var) \
-                    * step_noise[i].to(device)
-            else:
-                eps = eps_of(out, x, t)
-                if use_guidance:
-                    eps = eps - guide_weight * torch.sqrt(1.0 - acp[t]) \
-                        * guide_grad(x, t_b)
-                x0 = c1s[t] * x - c2s[t] * eps
-                a_t = acp[t]
-                a_next = acp.new_ones(()) if last else acp[ts[i + 1]]
-                if diffusion.clip_denoised:
-                    x0 = x0.clamp(-1.0, 1.0)
-                if sampler == "ddim":
+        with span("sampler.plan", steps=n_steps, batch=batch):
+            for i, t in each("sampler.step", enumerate(ts)):
+                t_b = t.expand(batch)
+                last = i == n_steps - 1
+                out = diffusion(x, t_b)
+                if sampler == "ddpm":
+                    mean, log_var = p_mean_variance(
+                        out, schedule, x, t_b,
+                        clip_denoised=diffusion.clip_denoised,
+                        predict_epsilon=diffusion.predict_epsilon)
+                    if use_guidance:
+                        mean = mean + guide_weight * torch.exp(log_var) \
+                            * guide_grad(x, t_b)
+                    x = mean + (t != 0).to(x.dtype) * torch.exp(0.5 * log_var) \
+                        * step_noise[i].to(device)
+                else:
+                    eps = eps_of(out, x, t)
+                    if use_guidance:
+                        eps = eps - guide_weight * torch.sqrt(1.0 - acp[t]) \
+                            * guide_grad(x, t_b)
+                    x0 = c1s[t] * x - c2s[t] * eps
+                    a_t = acp[t]
+                    a_next = acp.new_ones(()) if last else acp[ts[i + 1]]
                     if diffusion.clip_denoised:
-                        eps = (c1s[t] * x - x0) / c2s[t]
-                    x = ddim_update(eps, x0, a_t, a_next, last, ddim_eta,
-                                    step_noise[i].to(device) if stochastic
-                                    else None)
-                else:  # DPM-Solver++(2M), sampling.py:279-328
-                    h = _half_log_snr(a_next) - _half_log_snr(a_t)
-                    r = h_prev / torch.where(h == 0, torch.ones_like(h), h)
-                    inv = 1.0 / (2.0 * torch.clamp(r, min=1e-8))
-                    d = torch.where(h_prev > 0,
-                                    (1.0 + inv) * x0 - inv * x0_prev, x0)
-                    sig_t = torch.sqrt(torch.clamp(1.0 - a_t, min=1e-12))
-                    sig_next = torch.sqrt(torch.clamp(1.0 - a_next, min=0.0))
-                    # the last step lands on the clean estimate, first order
-                    # (lower_order_final)
-                    x = x0 if last else (sig_next / sig_t) * x \
-                        - torch.sqrt(a_next) * (torch.exp(-h) - 1.0) * d
-                    x0_prev, h_prev = x0, h
-            if use_projection:
-                x = apply_projection(
-                    x, P, alphas[i], stats,
-                    observation_dim=diffusion.observation_dim,
-                    action_dim=diffusion.action_dim,
-                    state_dim=projection.state_dim,
-                    wall_grid=wall_grid, wall_margin=projection.wall_margin,
-                )
-            x = conditions.apply(x)
+                        x0 = x0.clamp(-1.0, 1.0)
+                    if sampler == "ddim":
+                        if diffusion.clip_denoised:
+                            eps = (c1s[t] * x - x0) / c2s[t]
+                        x = ddim_update(eps, x0, a_t, a_next, last, ddim_eta,
+                                        step_noise[i].to(device) if stochastic
+                                        else None)
+                    else:  # DPM-Solver++(2M), sampling.py:279-328
+                        h = _half_log_snr(a_next) - _half_log_snr(a_t)
+                        r = h_prev / torch.where(h == 0, torch.ones_like(h), h)
+                        inv = 1.0 / (2.0 * torch.clamp(r, min=1e-8))
+                        d = torch.where(h_prev > 0,
+                                        (1.0 + inv) * x0 - inv * x0_prev, x0)
+                        sig_t = torch.sqrt(torch.clamp(1.0 - a_t, min=1e-12))
+                        sig_next = torch.sqrt(
+                            torch.clamp(1.0 - a_next, min=0.0))
+                        # the last step lands on the clean estimate, first order
+                        # (lower_order_final)
+                        x = x0 if last else (sig_next / sig_t) * x \
+                            - torch.sqrt(a_next) * (torch.exp(-h) - 1.0) * d
+                        x0_prev, h_prev = x0, h
+                if use_projection:
+                    x = apply_projection(
+                        x, P, alphas[i], stats,
+                        observation_dim=diffusion.observation_dim,
+                        action_dim=diffusion.action_dim,
+                        state_dim=projection.state_dim,
+                        wall_grid=wall_grid, wall_margin=projection.wall_margin,
+                    )
+                x = conditions.apply(x)
         return x
 
     def draw(generator: Optional[torch.Generator], batch: int):

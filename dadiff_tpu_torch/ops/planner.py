@@ -59,6 +59,7 @@ from dadiff_tpu_torch.ops.projection import (
     projection_alpha,
     wall_violation_mask,
 )
+from dadiff_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -732,10 +733,18 @@ class _WaveRunner:
     replay. Capture launches nothing, so the launches it counted are taken
     back, and every replay adds them to the wrappers' counts. The graphs of
     the last ``MAX_GRAPHS`` operand sets are kept (each holds its operands
-    alive)."""
+    alive). Spans ``wave.replay``, ``wave.host_driven`` and
+    ``wave.capture`` lie around the wave, never inside what is captured."""
 
     MAX_GRAPHS = 4
-    captures = 0  # graphs captured by every runner, ever
+    captures = 0     # graphs captured by every runner, ever
+    replays = 0      # waves replayed from a graph
+    host_driven = 0  # waves driven launch by launch from the host
+
+    @classmethod
+    def counters(cls) -> dict:
+        return {"captures": cls.captures, "replays": cls.replays,
+                "host_driven": cls.host_driven}
 
     def __init__(self, unet, cfg: StepConfig, ops, shape, T: int, device):
         R, D = shape
@@ -769,17 +778,21 @@ class _WaveRunner:
 
         operands = [*flat_w, m_embs, scal, M, b]
         key = tuple(None if t is None else t.data_ptr() for t in operands)
-        if not graph:
-            wave()
-        elif key in self.graphs:
+        if graph and key in self.graphs:
             replay, launches, _ = self.graphs[key]
-            replay()
+            _WaveRunner.replays += 1
+            with span("wave.replay"):
+                replay()
             _set_launch_counts(tuple(
                 n + d for n, d in zip(_launch_counts(), launches)))
-        else:
-            wave()  # answers this call and warms the pool
+            return self.x
+        _WaveRunner.host_driven += 1
+        with span("wave.host_driven"):
+            wave()  # answers this call and, before a capture, warms the pool
+        if graph:
             before = _launch_counts()
-            replay = self._capture(wave)
+            with span("wave.capture"):
+                replay = self._capture(wave)
             launches = tuple(a - c for a, c in zip(_launch_counts(), before))
             _set_launch_counts(before)
             if len(self.graphs) >= self.MAX_GRAPHS:
@@ -996,7 +1009,8 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
         Ng, G, C_pad = _layout(B)
         flat_w, m_embs, scal = prepared if prepared is not None else prepare()
         if x0 is None or step_noise is None:
-            drawn = draw(generator, B)
+            with span("wave.draws"):
+                drawn = draw(generator, B)
             x0 = drawn[0] if x0 is None else x0
             step_noise = drawn[1] if step_noise is None else step_noise
         cond = torch.cat([values.repeat_interleave(n_candidates, dim=0),
@@ -1007,7 +1021,13 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
                                 step_noise.to(device).contiguous(), scal, cond,
                                 M, b, graph=prepared is not None)
         plans = out[: C_tot * H].reshape(B, n_candidates, H, D)
-        # physical-space goal distance (pallas_planner.py:427-442)
+        with span("wave.select"):
+            return select(plans, values)
+
+    def select(plans, values):
+        """Each stream's candidate closest to its goal in physical space
+        (pallas_planner.py:427-442)."""
+        B = plans.shape[0]
         gd = obs_dim - 2
         if stats is not None:
             pos_m, pos_s = stats.obs_mean[:2], stats.obs_std[:2]
@@ -1051,6 +1071,7 @@ def make_bo_sampler(diffusion, *, projection_spec=None, P=None,
         return _get_chain(*_layout(n_streams)[:2]), (M, b)
 
     plan.uses_projection = use_projection
+    plan.n_candidates = n_candidates
     plan.prepare = prepare
     plan.chain_of = chain_of
     plan.draw = draw

@@ -23,7 +23,20 @@ Protocol (one JSON object per line, one response per request):
     {"reset": true}                  -> {"ok": true}  (a new episode: clears
                                         the action buffer and warm state)
     {"ping": true}                   -> {"ok": true, "policy": "...", ...}
+    {"stats": true}                  -> {"ok": true, "counters": {...}}
+                                        (cumulative: requests answered,
+                                        the wave runner's captures,
+                                        replays and host-driven waves, and
+                                        with --concurrency > 1 the
+                                        batcher's waves, requests,
+                                        padded_lanes and cold_calls)
 Malformed requests get {"error": "..."} and the connection stays up.
+
+Spans (utils/profiling.py ``span``; recorded while a profiler runs on the
+batcher's thread or a ``profiling.trace`` is open): ``serve.request``
+from a line read to its reply's flush (attributes ``conn`` and
+``request``, the connection and the request's ordinal on it), and inside
+it ``serve.decode``, ``policy.act`` and ``serve.reply``.
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ import threading
 import time
 
 import numpy as np
+
+from dadiff_tpu_torch.utils.profiling import span
 
 
 def build_server_parser() -> argparse.ArgumentParser:
@@ -58,10 +73,15 @@ def build_server_parser() -> argparse.ArgumentParser:
     return p
 
 
-def make_handler(policy):
-    """Request dict -> response dict, no socket concerns (serve.py:64-105)."""
+def make_handler(policy, stats=None):
+    """Request dict -> response dict, no socket concerns (serve.py:64-105).
+    ``stats``: a function that returns the counters of a ``stats``
+    request (default: the wave runner's)."""
+    stats = stats or server_counters
 
     def handle(req: dict) -> dict:
+        if req.get("stats"):
+            return {"ok": True, "counters": stats()}
         if req.get("ping"):
             return {
                 "ok": True,
@@ -81,24 +101,25 @@ def make_handler(policy):
         else:
             obs = np.asarray(obs, np.float32)
         t0 = time.perf_counter()
-        if req.get("plan"):
-            # full replan: return the plan AND refill the buffer from it
-            traj = policy.plan(obs)
-            policy.action_buffer.clear()
-            policy._fill_action_buffer(traj)
-            policy._actions_taken += 1
-            if policy._planned_obs:
-                policy._planned_obs.pop(0)
-            action = policy.action_buffer.pop(0)
-            if policy.track_planned_states:
-                # the buffer holds planned next states: u = g(s, s_next),
-                # as get_action takes it
-                action = policy.inverse_dynamics(
-                    policy._process_observation(obs), action[None])
-            resp = {"plan": np.asarray(traj)[0].tolist()}
-        else:
-            action = policy.get_action(obs)
-            resp = {}
+        with span("policy.act"):
+            if req.get("plan"):
+                # full replan: return the plan AND refill the buffer from it
+                traj = policy.plan(obs)
+                policy.action_buffer.clear()
+                policy._fill_action_buffer(traj)
+                policy._actions_taken += 1
+                if policy._planned_obs:
+                    policy._planned_obs.pop(0)
+                action = policy.action_buffer.pop(0)
+                if policy.track_planned_states:
+                    # the buffer holds planned next states: u = g(s, s_next),
+                    # as get_action takes it
+                    action = policy.inverse_dynamics(
+                        policy._process_observation(obs), action[None])
+                resp = {"plan": np.asarray(traj)[0].tolist()}
+            else:
+                action = policy.get_action(obs)
+                resp = {}
         resp.update({
             "action": np.ravel(action).tolist(),
             "plan_ms": round((time.perf_counter() - t0) * 1e3, 3),
@@ -108,20 +129,25 @@ def make_handler(policy):
     return handle
 
 
-def _serve_connection(conn, handle, counter, max_requests) -> None:
+def _serve_connection(conn, handle, counter, max_requests,
+                      conn_id: int = 0) -> None:
     """Answer one connection's requests until it closes or the server's
     limit is reached (serve.py:108-121)."""
     with conn, conn.makefile("rwb") as f:
-        for line in f:
+        for ordinal, line in enumerate(f):
             line = line.strip()
             if not line:
                 continue
-            try:
-                resp = handle(json.loads(line))
-            except Exception as e:  # malformed request; keep serving
-                resp = {"error": f"{type(e).__name__}: {e}"}
-            f.write((json.dumps(resp) + "\n").encode())
-            f.flush()
+            with span("serve.request", conn=conn_id, request=ordinal):
+                try:
+                    with span("serve.decode"):
+                        req = json.loads(line)
+                    resp = handle(req)
+                except Exception as e:  # malformed request; keep serving
+                    resp = {"error": f"{type(e).__name__}: {e}"}
+                with span("serve.reply"):
+                    f.write((json.dumps(resp) + "\n").encode())
+                    f.flush()
             if counter.bump() and max_requests is not None:
                 return
 
@@ -159,9 +185,13 @@ def serve(policy, host: str, port: int, max_requests=None, ready_cb=None,
 
         batcher = BatchedPlanner(policy, max_batch=max_batch,
                                  window_ms=window_ms)
-    handle = make_handler(policy)
     counter = _Counter(max_requests)
-    threads, next_session = [], 0
+
+    def stats():
+        return server_counters(batcher, counter)
+
+    handle = make_handler(policy, stats)
+    threads, n_conns = [], 0
     try:
         with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as srv:
             srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -180,14 +210,16 @@ def serve(policy, host: str, port: int, max_requests=None, ready_cb=None,
                     threads = [t for t in threads if t.is_alive()]
                     continue
                 conn.settimeout(None)
+                conn_id, n_conns = n_conns, n_conns + 1
                 if batcher is None:
-                    _serve_connection(conn, handle, counter, max_requests)
+                    _serve_connection(conn, handle, counter, max_requests,
+                                      conn_id)
                     continue
-                session = make_handler(batcher.session(seed=next_session))
-                next_session += 1
+                session = make_handler(batcher.session(seed=conn_id), stats)
                 t = threading.Thread(target=_serve_connection,
                                      args=(conn, session, counter,
-                                           max_requests), daemon=True)
+                                           max_requests, conn_id),
+                                     daemon=True)
                 t.start()
                 threads.append(t)
     finally:
@@ -196,6 +228,19 @@ def serve(policy, host: str, port: int, max_requests=None, ready_cb=None,
         if batcher is not None:
             batcher.close()
     return counter.n
+
+
+def server_counters(batcher=None, counter=None) -> dict:
+    """The counters a ``stats`` request answers: the wave runner's, the
+    batcher's where there is one, and the requests answered."""
+    from dadiff_tpu_torch.ops.planner import _WaveRunner
+
+    out = _WaveRunner.counters()
+    if batcher is not None:
+        out.update(batcher.counters())
+    if counter is not None:
+        out["answered"] = counter.n
+    return out
 
 
 def policy_from_args(args):

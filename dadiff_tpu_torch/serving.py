@@ -28,6 +28,15 @@ not depend on its batch company. What that makes equal on the card:
 At construction every padded wave (K_pad = 1, 2, 4, ... max_batch) runs
 once with the shapes of a live request, which on the card captures its
 CUDA graph, so no live burst captures or allocates a new wave.
+
+Spans (utils/profiling.py; the batcher's thread drives the card, so each
+wave reads that thread's profiler state): ``batcher.cycle`` (one wave's
+whole turn of the batcher's loop) around ``batcher.await`` (the wait for
+a wave's first request), ``batcher.window`` (collecting the rest),
+``batcher.queue`` (each request, from its submit to its wave's start),
+``batcher.wave`` (the call) and, on the client's thread,
+``batcher.wait`` (from the submit to the answer). Counters:
+:meth:`BatchedPlanner.counters`.
 """
 
 from __future__ import annotations
@@ -41,12 +50,20 @@ from typing import List
 import numpy as np
 import torch
 
+from dadiff_tpu_torch.utils.profiling import (
+    current,
+    follow_profiler,
+    record,
+    span,
+)
+
 # how long a replan waits for its batch before it gives up
 _WAIT_S = 600.0
 
 
 class _PlanRequest:
-    __slots__ = ("generator", "values", "event", "result", "error")
+    __slots__ = ("generator", "values", "event", "result", "error",
+                 "submitted", "parent", "wave")
 
     def __init__(self, generator, values):
         self.generator = generator
@@ -54,6 +71,9 @@ class _PlanRequest:
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.submitted = time.perf_counter()
+        self.parent = current()  # the submitter's open span, if recording
+        self.wave = None
 
 
 def _padded(k: int) -> int:
@@ -69,8 +89,9 @@ class BatchedPlanner:
     :meth:`session` gives each client connection a policy clone with its own
     generator, action buffer and plan state, whose replans go through the
     batch queue. ``n_calls``, ``n_requests`` and ``batch_sizes`` count the
-    batched calls; ``cold_calls`` counts the calls at a shape the prewarm
-    did not run."""
+    batched calls, ``padded_lanes`` the pad lanes of those calls (K_pad - K
+    summed); ``cold_calls`` counts the calls at a shape the prewarm did not
+    run."""
 
     def __init__(self, policy, *, max_batch: int = 8, window_ms: float = 5.0):
         cfg = getattr(policy, "_sampler_config", None)
@@ -98,7 +119,9 @@ class BatchedPlanner:
         self.n_calls = 0
         self.n_requests = 0
         self.batch_sizes: List[int] = []
+        self.padded_lanes = 0
         self.cold_calls = 0
+        self._wave_id = 0
         self._warm_shapes = set()
         values = np.zeros((policy.n_candidates, policy.horizon,
                            policy.transition_dim), np.float32)
@@ -136,38 +159,61 @@ class BatchedPlanner:
         values = np.asarray(conditions.values, np.float32)
         if values.ndim == 2:
             values = values[None]
-        req = _PlanRequest(generator, values)
-        self._queue.put(req)
-        if not req.event.wait(_WAIT_S):
+        with span("batcher.wait") as sp:
+            req = _PlanRequest(generator, values)
+            self._queue.put(req)
+            answered = req.event.wait(_WAIT_S)
+            sp.set(wave=req.wave)
+        if not answered:
             raise TimeoutError(f"no batch answered within {_WAIT_S} s")
         if req.error is not None:
             raise req.error
         return req.result
 
+    def counters(self) -> dict:
+        """The batcher's cumulative counts (the server's ``stats``)."""
+        return {"waves": self.n_calls, "requests": self.n_requests,
+                "padded_lanes": self.padded_lanes,
+                "cold_calls": self.cold_calls}
+
     # -- batcher thread -----------------------------------------------------
 
-    def _run(self):
-        while not self._stop.is_set():
-            try:
-                first = self._queue.get(timeout=0.1)
-            except queue.Empty:
-                continue
-            batch = [first]
-            deadline = time.monotonic() + self.window_s
-            while len(batch) < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
+    def _await(self):
+        """The next wave's first request; None once the batcher stops."""
+        with span("batcher.await"):
+            while not self._stop.is_set():
                 try:
-                    batch.append(self._queue.get(timeout=remaining))
+                    return self._queue.get(timeout=0.1)
                 except queue.Empty:
-                    break
-            try:
-                self._execute(batch)
-            except Exception as e:  # every waiter gets it
-                for req in batch:
-                    req.error = e
-                    req.event.set()
+                    pass
+        return None
+
+    def _run(self):
+        while True:
+            # a wave's whole cycle: between its parts the thread may wait
+            # for the interpreter lock while the card idles
+            with span("batcher.cycle"):
+                first = self._await()
+                if first is None:
+                    return
+                batch = [first]
+                with span("batcher.window") as sp:
+                    deadline = time.monotonic() + self.window_s
+                    while len(batch) < self.max_batch:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        try:
+                            batch.append(self._queue.get(timeout=remaining))
+                        except queue.Empty:
+                            break
+                    sp.set(K=len(batch))
+                try:
+                    self._execute(batch)
+                except Exception as e:  # every waiter gets it
+                    for req in batch:
+                        req.error = e
+                        req.event.set()
 
     def _execute(self, batch: List[_PlanRequest]) -> None:
         K = len(batch)
@@ -177,6 +223,7 @@ class BatchedPlanner:
         out = self._call(batch + [batch[0]] * (k_pad - K))
         self.n_calls += 1
         self.n_requests += K
+        self.padded_lanes += k_pad - K
         self.batch_sizes.append(K)
         for i, req in enumerate(batch):
             req.result = out[i]
@@ -184,26 +231,45 @@ class BatchedPlanner:
 
     def _call(self, lanes: List[_PlanRequest]) -> List[torch.Tensor]:
         """One batched call over ``lanes`` (a power of two of them, the pad
-        lanes repeating a request object); each lane's plans."""
+        lanes repeating a request object); each lane's plans. The wave's
+        start ends the ``batcher.queue`` span of each of its requests."""
+        follow_profiler()
+        self._wave_id += 1
+        wave = self._wave_id
+        requests = list(dict.fromkeys(lanes))
+        chains = len(lanes) * (self._wave.n_candidates if self.megakernel
+                               else lanes[0].values.shape[0])
+        with span("batcher.wave", wave=wave, K=len(requests),
+                  K_pad=len(lanes), chains=chains):
+            start = time.perf_counter()
+            for r in requests:
+                r.wave = wave
+                record("batcher.queue", r.submitted, start, parent=r.parent,
+                       wave=wave)
+            return self._lanes(lanes)
+
+    def _lanes(self, lanes: List[_PlanRequest]) -> List[torch.Tensor]:
         policy = self.policy
         values = torch.as_tensor(np.stack([r.values for r in lanes]),
                                  device=self.device)
         draws = {}  # a pad lane reuses its request's draws
         if self.megakernel:
-            for r in lanes:
-                if id(r) not in draws:
-                    draws[id(r)] = self._wave.draw(r.generator)
-            x0, step_noise = self._wave.stack_draws(
-                [draws[id(r)] for r in lanes], len(lanes))
+            with span("wave.draws"):
+                for r in lanes:
+                    if id(r) not in draws:
+                        draws[id(r)] = self._wave.draw(r.generator)
+                x0, step_noise = self._wave.stack_draws(
+                    [draws[id(r)] for r in lanes], len(lanes))
             out = self._wave(None, (values[:, 0],), self._prepared(),
                              x0=x0, step_noise=step_noise)
             return [out[i:i + 1] for i in range(len(lanes))]
         from dadiff_tpu_torch.guides.sampling import Conditions
 
         n = values.shape[1]
-        for r in lanes:
-            if id(r) not in draws:
-                draws[id(r)] = self._sampler.draw(r.generator, n)
+        with span("wave.draws"):
+            for r in lanes:
+                if id(r) not in draws:
+                    draws[id(r)] = self._sampler.draw(r.generator, n)
         inits, steps = zip(*(draws[id(r)] for r in lanes))
         mask = torch.zeros(policy.horizon, dtype=torch.bool,
                            device=self.device)
