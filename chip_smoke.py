@@ -305,10 +305,25 @@ def _counters():
 def reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
+        if hasattr(fn, "cluster_launches"):
+            fn.cluster_launches = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def read_cluster_counts() -> dict:
+    """Launches of ``rows_conv`` and ``rows_conv_gn`` on the cluster tile
+    (part of their ``launches``)."""
+    return {name: fn.cluster_launches for name, fn in _counters().items()
+            if hasattr(fn, "cluster_launches")}
+
+
+def tile_name(t) -> str:
+    """A conv tiling as the logs name it: family, shape, ring."""
+    fam = "cluster" if t.cluster else "wgmma" if t.ring else "mma.sync"
+    return f"{fam} tile {t.bm}x{t.bn}" + (f" ring {t.ring}" if t.ring else "")
 
 
 def train_phase(root: Path) -> Path:
@@ -753,10 +768,10 @@ def hold_rows_conv(conv_calls, dtypes, g) -> float:
             got = rows_conv(xa, xb, w, bias, mode, k, seg)
             e = (got - rows_conv_plain(xa, xb, w, bias, mode, k, seg)
                  ).abs().max().item()
-            t = _split_k(R, ca + cb, cout, mode, k, wd == torch.bfloat16)
+            t = _split_k(R, ca + cb, cout, mode, k, wd == torch.bfloat16,
+                         seg=seg, cin_b=cb)
             log(f"K2 rows_conv {str(wd)[6:]} mode={mode} k={k} rows={R} "
-                f"cin={ca}+{cb} cout={cout} tile {t.bm}x{t.bn}"
-                f"{f' ring {t.ring}' if t.ring else ''} splits "
+                f"cin={ca}+{cb} cout={cout} {tile_name(t)} splits "
                 f"{t.splits}: max|err| {e:.3e}")
             err = max(err, e)
             require(torch.equal(got, rows_conv(xa, xb, w, bias, mode, k, seg)),
@@ -848,7 +863,8 @@ def hold_rows_conv_gn(fused, dtypes, g):
             gain = MISH_SLOPE * (rstd[:, :, None] * base[6].abs().reshape(
                 1, 8, -1)).max().item()
             tol = TOL_GN + TOL_CONV * gain
-            t, gp = _split_k_gn(R, ca + cb, cout, k, seg, wd == torch.bfloat16)
+            t, gp = _split_k_gn(R, ca + cb, cout, k, seg, wd == torch.bfloat16,
+                                cb)
             for adds in ("none", "te", "te_per_chain", "res", "te_res"):
                 te = res = None
                 if adds.startswith("te"):
@@ -864,7 +880,7 @@ def hold_rows_conv_gn(fused, dtypes, g):
                             f"two launches of rows_conv_gn at rows={R} "
                             f"cin={ca}+{cb} cout={cout} agree bit for bit")
                 log(f"K2 rows_conv_gn {str(wd)[6:]} rows={R} cin={ca}+{cb} "
-                    f"cout={cout} seg={seg} tile {t.bm}x{t.bn} splits "
+                    f"cout={cout} seg={seg} {tile_name(t)} splits "
                     f"{t.splits} group block {gp.tiles_m}x{gp.tiles_n} "
                     f"{adds}: max|err| {e:.3e} (tolerance {tol:.2e})")
                 require(e <= tol, f"rows_conv_gn vs plain {e} > {tol}")
@@ -1344,10 +1360,11 @@ def kernel_phase(unet, rows, D):
     per_launch = []
     for c in conv_bufs:
         t = _split_k(c[0].shape[0], c[2].shape[0] // (4 if c[4] == UP else c[5]),
-                     c[2].shape[1], c[4], c[5], True)
+                     c[2].shape[1], c[4], c[5], True, seg=c[6],
+                     cin_b=0 if c[1] is None else c[1].shape[1])
         per_launch.append({
             "M": t.M, "K": t.K, "N": t.cout, "mode": c[4],
-            "tile": [t.bm, t.bn], "splits": t.splits,
+            "tile": [t.bm, t.bn], "cluster": t.cluster, "splits": t.splits,
             "us": 1e3 * graph_ms(lambda c=c: [rows_conv(*c[:7])
                                                for _ in range(10)], 5) / 10,
             "library_us": 1e3 * graph_ms(
@@ -1403,11 +1420,12 @@ def kernel_phase(unet, rows, D):
     lib_bufs = [lib_operands(a) for a in gn_bufs]
     for a, bound_us in zip(gn_bufs, pair_bound_us):
         R, cout = a[0].shape[0], a[2].shape[1]
-        t, gp = _split_k_gn(R, a[2].shape[0] // a[4], cout, a[4], a[5], True)
+        t, gp = _split_k_gn(R, a[2].shape[0] // a[4], cout, a[4], a[5], True,
+                            0 if a[1] is None else a[1].shape[1])
         per_pair.append({
             "M": t.M, "K": t.K, "N": cout, "seg": a[5],
             "te": a[8] is not None, "res": a[9] is not None,
-            "tile": [t.bm, t.bn], "splits": t.splits,
+            "tile": [t.bm, t.bn], "cluster": t.cluster, "splits": t.splits,
             "group_block_tiles": [gp.tiles_m, gp.tiles_n],
             "bound_us": bound_us,
             "us": 1e3 * graph_ms(lambda a=a: [served_gn(a)
@@ -1561,23 +1579,31 @@ def chain_phase(policy):
     noise2 = torch.randn(T_STEPS, N_CAND, H, D, device=dev, generator=g)
     for nz in (noise, noise2, noise):
         before = {k: f.launches for k, f in counters.items()}
+        cl_before = read_cluster_counts()
         replayed = run(ops16, noise=nz)
         mid = {k: f.launches for k, f in counters.items()}
+        cl_mid = read_cluster_counts()
         hosted = run(ops16, graph=False, noise=nz)
         after = {k: f.launches for k, f in counters.items()}
+        cl_after = read_cluster_counts()
         require(torch.equal(replayed, hosted),
                 "a replayed wave equals the host-driven wave bit for bit")
-        require(all(mid[k] - before[k] == after[k] - mid[k] for k in before),
-                f"a replay counts a wave's launches ({before} {mid} {after})")
+        require(all(mid[k] - before[k] == after[k] - mid[k] for k in before)
+                and all(cl_mid[k] - cl_before[k] == cl_after[k] - cl_mid[k]
+                        for k in cl_before),
+                f"a replay counts a wave's launches ({before} {mid} {after}; "
+                f"cluster tile {cl_before} {cl_mid} {cl_after})")
     require(torch.equal(replayed, got16), "the wave repeats bit for bit")
     require(not torch.equal(run(ops16, noise=noise2), got16),
             "other noise gives another plan")
     per_wave = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
     calls, _, n_res = step_launches(diff.model, rows, D)
     launches_per_wave = T_STEPS * (len(calls) + 1) + n_res
+    cl_per_wave = {k: cl_after[k] - cl_mid[k] for k in cl_after}
     log(f"K2 chain: replayed wave == host-driven wave bit for bit on 3 "
         f"waves; launches per wave {per_wave} "
-        f"({sum(per_wave.values())} in all)")
+        f"({sum(per_wave.values())} in all), of them on the cluster tile "
+        f"{cl_per_wave}")
     require(sum(per_wave.values()) == launches_per_wave
             and per_wave.get("rows_conv_gn") == 25 * T_STEPS
             and "gn_mish" not in per_wave,
@@ -2407,7 +2433,8 @@ def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
     for bit, (c) every lane of a 64-chain wave and each client's served
     plan against its solo plan within TOL_CHAIN_BF16; no graph captured
     after construction; the bo8 wave (best of 8 included, staged draws)
-    timed at 8, 16, 32 and 64 chains beside its bound and launches, its
+    timed at 8, 16, 32 and 64 chains beside its bound and launches (those
+    on the cluster tile apart), replayed against host-driven bit for bit, its
     chain against the plain chain at bf16 on the same draws (timed too),
     and at 16-64 chains every conv and fused pair of a step against its
     plain version with bf16 weights; and ``bench_serve`` at 4 clients."""
@@ -2566,6 +2593,7 @@ def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
         wave()
         torch.cuda.synchronize()
         launches = sum(read_counts().values())
+        cluster_launches = read_cluster_counts()
         chains = k_pad * N_CAND
         flops, nbytes, _ = wave_cost(unet, flat_w, m_embs, chains * HORIZON,
                                      D)
@@ -2573,6 +2601,11 @@ def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
         chain, (M, b) = batcher._wave.chain_of(k_pad)
         cond_rows = values.repeat_interleave(N_CAND, dim=0).reshape(-1, D)
         got = chain(flat_w, x0, m_embs, noise, scal, cond_rows, M, b)
+        hosted = chain(flat_w, x0, m_embs, noise, scal, cond_rows, M, b,
+                       graph=False)
+        require(torch.equal(got, hosted),
+                f"the {chains}-chain wave replayed equals the host-driven "
+                "wave bit for bit")
         box = {}
 
         def plain():
@@ -2589,14 +2622,15 @@ def microbatch_phase(ckpt: Path, obs_rows, card: str) -> dict:
             "call_ms": cuda_ms(lambda: batcher._call(reqs), 5, warmup=1),
             "plain_ms": plain_ms, "max_abs_err": err,
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-            "launches": launches}
+            "launches": launches, "cluster_launches": cluster_launches}
         log(f"micro-batched wave, {chains} chains: {waves[chains]['ms']:.3f} "
             f"ms replayed (CUDA events, draws staged, best of 8 included), "
             f"{waves[chains]['call_ms']:.3f} ms as a batched call (draws "
             f"included), the plain chain {plain_ms:.3f} ms; chain vs plain "
             f"at bf16 max|err| {err:.3e} (tolerance {TOL_CHAIN_BF16}); bound "
             f"{b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP); {launches} "
-            f"launches; card {card}")
+            f"launches, of them on the cluster tile {cluster_launches}; "
+            f"replayed == host-driven bit for bit; card {card}")
         if k_pad > 1:
             calls = step_launches(unet, chains * HORIZON, D)[0]
             waves[chains]["conv_max_abs_err"] = hold_rows_conv(

@@ -54,8 +54,9 @@
 // more output tiles than the card has room for blocks (at these sizes more,
 // smaller blocks beat fewer re-reads: a sweep on the card put 16x64 first at
 // every conv of the flagship at 8 chains); 32x32 for f32 weights.
-// ops/planner.py _split_k takes these while 64x128 leaves no more blocks
-// than the card has SMs, and the wgmma tile past that.
+// ops/planner.py _split_k takes these for the served waves' convs with
+// little work (ClusterTile of wgmma.cuh takes the rest), and the 128-row
+// wgmma tile once 64x128 would leave more blocks than the card has SMs.
 //
 // Every library's build is keyed by the hash of its .cu and of every .cuh
 // (ops/cuda_lib.py), so an edit here rebuilds all of them.

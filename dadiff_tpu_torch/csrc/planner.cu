@@ -26,35 +26,46 @@
 //
 // Bound on an H100 (flagship: 8 chains x 32 rows, dim 128, mults 1 2 4;
 // the times below are chip_smoke.py's on an NVIDIA H100 80GB HBM3, 700 W):
-// one denoise step is ~2.3 GFLOP of products over ~31.7 MB of bf16 weights,
-// i.e. ~74 operations per weight byte, well under the ~295 the card needs to
-// be compute-bound: the least time is ~2.4 us of tensor-core work and ~9.5 us
-// of weight streaming from HBM per step. What a step really costs is its
-// dependent launches (36: 10 rows_conv, 25 rows_conv_gn, one step) whose
-// GEMMs are 64-256 rows by 8-512 columns: each is bound by the latency of
-// its K loop and by L2, not by the tensor cores, and none can go under the
-// ~3 us a dependent launch costs in a graph. rows_conv therefore takes the
-// tile product of common.cuh (mma.sync on bf16, cp.async ring, hoisted row
-// arithmetic) with the smallest tile that still leaves the card room for
-// every block, 16 x 64 at these shapes, and splits K over blocks
-// (ops/planner.py _want_splits), so that some 200 blocks each walk 2-10 K
-// tiles with their own loads in flight: on the card that beat the 64-row
-// tiles, which read the deep layers' weights once, by 1.4-1.9x. Split-K
-// stays deterministic: the last block of a tile to arrive sums the partial
-// tiles in split order (split_k_last of common.cuh).
-//
-// At the on-device evaluator's 1,024-chain wave (8,192-32,768 rows) those
-// reasons turn over: a step is 0.298 TFLOP, whose least time is set by the
-// bytes (~0.40 ms: f32 activations in and out) and the tensor cores (0.30
-// ms), and the mma.sync tiles, whose every thread gathers A by cp.async,
-// ran at 7-8% of the bf16 peak. There rows_conv and rows_conv_gn run on
-// WgTile of wgmma.cuh (rows_conv_wg, rows_conv_gn_wg below): 128-row
-// tiles, one producer warpgroup issuing TMA for both operands, two
-// consumer warpgroups on wgmma, no split-K (one split won at every conv of
-// that wave in sweep_kernels conv --chains 1024). ops/planner.py _split_k
-// takes the mma.sync tiles while their largest, 64 x 128, leaves no more
-// blocks than the card has SMs (the served wave, the 64-chain chain), and
-// the wgmma tile past that.
+// one denoise step of the 8-chain wave is ~2.3 GFLOP of products over
+// ~31.7 MB of bf16 weights, i.e. ~74 operations per weight byte, well
+// under the ~295 the card needs to be compute-bound: the least time is
+// ~2.4 us of tensor-core work and ~9.5 us of weight streaming from HBM per
+// step. What a step really costs is its dependent launches (36: 10
+// rows_conv, 25 rows_conv_gn, one step) whose GEMMs are 64-256 rows by
+// 8-512 columns: each is bound by the latency of its K loop and by L2, not
+// by the tensor cores, and none can go under the ~3 us a dependent launch
+// costs in a graph. Three tiles serve the convs, chosen by ops/planner.py
+// _split_k from the launch's shape alone (GEMM rows, cout, K):
+// - the tile product of common.cuh (mma.sync on bf16, cp.async ring,
+//   hoisted row arithmetic), smallest tile first, 16 x 64, with K split
+//   over blocks (_want_splits) that meet through global partial planes and
+//   an arrival counter (split_k_last of common.cuh, in split order): the
+//   convs with little work (K of 1-3 K tiles of 64, few output tiles), the
+//   first conv (cin 8: K = 40, less than one K tile) and the final 128 -> 8
+//   conv;
+// - ClusterTile of wgmma.cuh (rows_conv_cl, rows_conv_gn_cl below) for the
+//   rest of the served waves, 8-64 chains: a 64 x 128 wgmma tile whose K
+//   splits are the 1-8 blocks of one thread-block cluster and meet in
+//   distributed shared memory (cl_conv). At 64 chains (512-2,048 rows, 18.6
+//   GFLOP a step: 18.8 us of tensor-core work) the 16 x 64 tiles ran
+//   640-768 blocks in three rounds, each walking up to 27 serial K tiles of
+//   32, and re-read every weight from L2 32-128 times (1.16 GB a step); on
+//   the card (sweep_kernels conv --chains 64) the step's 35 convs took
+//   0.741 ms bare and its 25 fused pairs 0.906 ms there, and 0.302 / 0.317
+//   ms on the cluster tile;
+// - at the on-device evaluator's 1,024-chain wave (8,192-32,768 rows) a
+//   step is 0.298 TFLOP, whose least time is set by the bytes (~0.40 ms:
+//   f32 activations in and out) and the tensor cores (0.30 ms), and the
+//   mma.sync tiles, whose every thread gathers A by cp.async, ran at 7-8%
+//   of the bf16 peak: there rows_conv and rows_conv_gn run on WgTile of
+//   wgmma.cuh (rows_conv_wg, rows_conv_gn_wg below): 128-row tiles, one
+//   producer warpgroup issuing TMA for both operands, two consumer
+//   warpgroups on wgmma, no split-K (one split won at every conv of that
+//   wave in sweep_kernels conv --chains 1024), from the point where the
+//   largest mma.sync tile, 64 x 128, would leave more blocks than the card
+//   has SMs.
+// Every split-K sum is taken in split order, so a replayed wave equals a
+// host-driven one bit for bit.
 //
 // rows_conv_gn. A standalone GroupNorm+Mish (K1, gn_mish.cu) moves 128 KB
 // each way per call at these shapes, ~0.08 us at 3.35 TB/s, and takes
@@ -83,7 +94,12 @@
 // wgmma tile (128 rows, a multiple of every segment; 128 columns, a
 // multiple of every group) the group block is the tile and its only block:
 // no partial planes, no counters, no arrival; the statistics come from the
-// accumulators in registers (wg_gn_epilogue).
+// accumulators in registers (wg_gn_epilogue). On the cluster tile (64
+// rows, a multiple of every segment at the served levels; 128 columns)
+// the group block is the tile too, and its K splits are the cluster's
+// blocks: each adds the splits' partial tiles for its own 8-row pieces,
+// takes their sums x and x^2 per group, and reads the other pieces' sums
+// of its segments from the blocks that own them (cl_conv).
 //
 // ddpm_project_step. The step is ~0.5 MFLOP over a 256 KB M, a 0.09 us
 // bound; one block per chain (8 blocks, each walking a dependent 256-long
@@ -97,6 +113,8 @@
 // shuffle reduce: 32 blocks at the flagship. Every block reads every chain's x while others
 // write theirs, so the step writes into a second buffer: the wave
 // ping-pongs between two fixed buffers (ops/planner.py _CudaOps.step).
+
+#include <cooperative_groups.h>
 
 #include "wgmma.cuh"
 
@@ -580,11 +598,160 @@ __device__ __forceinline__ void wg_gn_epilogue(float (&acc)[Tile::ACC],
   }
 }
 
-// rows_conv_kernel on a wgmma tile (wgmma.cuh): warpgroup 2 loads, 0 and 1
-// multiply and run the epilogue. One block per (output tile, parity, K
-// split); the weights come through the tensor map `wmap`.
+// rows_conv_wg_kernel on a ClusterTile (wgmma.cuh): the K loop, then the K
+// splits of the output tile, the blocks of one cluster (rank = split), meet
+// through distributed shared memory. Block r owns whole 8-row pieces of the
+// tile, ceil(8 / splits) of them, and adds for each of its values the
+// splits' partial tiles in split order (the sum split_k_last takes), then
+// the bias; bare, it stores them. With kGn it sums x and x^2 per (8-row
+// piece, group) of its rows, the cluster meets again, and it takes the
+// statistics of each (segment, group) pair its rows touch from the pieces'
+// sums added in row order (those of wg_gn_epilogue, read from the blocks
+// that own them), then normalises its rows: affine, Mish, + te[segment], +
+// res. Nothing but the output goes to global memory, no counter is used,
+// and every sum is taken in a fixed order, so a replayed wave equals a
+// host-driven one bit for bit.
 template <class Tile, bool kGn>
-__global__ void __launch_bounds__(Tile::kThreads, 1)
+__device__ __forceinline__ void cl_conv(const ConvIn& c,
+                                        const CUtensorMap* wmap,
+                                        const ActMaps& am,
+                                        const float* __restrict__ bias,
+                                        float* __restrict__ out, int parity,
+                                        int split, int splits, int m0, int n0,
+                                        int k_begin, int k_end, const GnEpi& g,
+                                        const typename Tile::Smem& s) {
+  namespace cgr = cooperative_groups;
+  constexpr int BM = Tile::BM, BN = Tile::BN, LDP = Tile::LDP, C4 = BN / 4;
+  constexpr int G = Tile::kMaxGroups, S_MAX = Tile::kMaxSplits;
+  constexpr int kWarps = Tile::kThreads / 32;
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int M = c.M, cout = c.cout;
+
+  float acc[Tile::ACC];
+#pragma unroll
+  for (int i = 0; i < Tile::ACC; ++i) acc[i] = 0.f;
+  if (threadIdx.x >= Tile::kConsumers) {
+    Tile::produce(c, wmap, am, parity, m0, n0, k_begin, k_end, s);
+    __syncwarp();
+  } else {
+    Tile::consume((k_end - k_begin + Tile::BK - 1) / Tile::BK, s, acc);
+  }
+  __syncthreads();  // the K loop is done: the ring takes the partial tile
+  float* part = reinterpret_cast<float*>(s.ring);
+  if (threadIdx.x < Tile::kConsumers)
+    Tile::pairs(acc, 0, 0, [&](int m, int n, float& v0, float& v1) {
+      *reinterpret_cast<float2*>(part + m * LDP + n) = make_float2(v0, v1);
+    });
+  cluster.sync();  // every split's partial tile
+
+  // this block's rows [r0, r1): the split sums, + bias
+  const int per = (BM / 8 + splits - 1) / splits;  // pieces a block
+  const int r0 = min(BM, split * per * 8), r1 = min(BM, r0 + per * 8);
+  const float* peer[S_MAX];
+#pragma unroll
+  for (int q = 0; q < S_MAX; ++q)
+    peer[q] = q < splits ? cluster.map_shared_rank(part, q) : part;
+  for (int i = threadIdx.x; i < (r1 - r0) * C4; i += Tile::kThreads) {
+    const int r = r0 + i / C4, j = 4 * (i % C4), n = n0 + j, m = m0 + r;
+    float4 v[S_MAX];
+#pragma unroll
+    for (int q = 0; q < S_MAX; ++q)  // the splits' loads in flight together
+      if (q < splits)
+        v[q] = *reinterpret_cast<const float4*>(peer[q] + r * LDP + j);
+    float4 x = v[0];
+#pragma unroll
+    for (int q = 1; q < S_MAX; ++q)
+      if (q < splits) {
+        x.x += v[q].x;
+        x.y += v[q].y;
+        x.z += v[q].z;
+        x.w += v[q].w;
+      }
+    if (n < cout) {
+      const float4 b = *reinterpret_cast<const float4*>(bias + n);
+      x = make_float4(x.x + b.x, x.y + b.y, x.z + b.z, x.w + b.w);
+    }
+    if constexpr (kGn)
+      *reinterpret_cast<float4*>(part + r * LDP + j) = x;  // no peer reads it
+    else if (m < M && n < cout)
+      *reinterpret_cast<float4*>(
+          out + (size_t)out_row(c.mode, m, parity, c.seg_in) * cout + n) = x;
+  }
+
+  if constexpr (kGn) {
+    __syncthreads();  // this block's rows of x
+    // sums of x and x^2 per (8-row piece, group) of its rows: a warp a
+    // pair, its lanes over the piece's float4s in order, a shuffle tree
+    const int cg = g.cg, ng = min(BN, cout - n0) / cg, qr = cg / 4;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int p = warp; p < (r1 - r0) / 8 * ng; p += kWarps) {
+      const int u = r0 / 8 + p / ng, gl = p % ng;
+      float s1 = 0.f, s2 = 0.f;
+      for (int it = lane; it < 8 * qr; it += 32) {
+        const int r = 8 * u + it / qr, q = it % qr;
+        const float4 x =
+            *reinterpret_cast<const float4*>(part + r * LDP + gl * cg + 4 * q);
+        s1 += (x.x + x.y) + (x.z + x.w);
+        s2 = fmaf(x.x, x.x, fmaf(x.y, x.y, fmaf(x.z, x.z, fmaf(x.w, x.w, s2))));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+      }
+      if (lane == 0) s.red[u * G + gl] = make_float2(s1, s2);
+    }
+    cluster.sync();  // every piece's sums
+    // the statistics of the pairs this block's rows touch: each pair's
+    // pieces added in row order, from the blocks that own them
+    const int seg = c.seg_in, pieces = seg / 8;
+    const int sl0 = r0 / seg, n_sl = r1 > r0 ? (r1 - 1) / seg + 1 - sl0 : 0;
+    const float n_el = (float)(seg * cg);
+    for (int p = threadIdx.x; p < n_sl * ng; p += Tile::kThreads) {
+      const int sl = sl0 + p / ng, gl = p % ng;
+      float t1 = 0.f, t2 = 0.f;
+      for (int u = sl * pieces; u < (sl + 1) * pieces; ++u) {
+        const float2 v = cluster.map_shared_rank(s.red, u / per)[u * G + gl];
+        t1 += v.x;
+        t2 += v.y;
+      }
+      s.stat[sl * G + gl] = gn_stat(t1, t2, n_el, g.eps);
+    }
+    __syncthreads();
+    // normalise this block's rows
+    for (int i = threadIdx.x; i < (r1 - r0) * C4; i += Tile::kThreads) {
+      const int r = r0 + i / C4, j = 4 * (i % C4), n = n0 + j, m = m0 + r;
+      if (m >= M || n >= cout) continue;
+      const float2 st = s.stat[(r / seg) * G + j / cg];
+      const float4 x = *reinterpret_cast<const float4*>(part + r * LDP + j);
+      const float4 sc = *reinterpret_cast<const float4*>(g.scale + n);
+      const float4 sh = *reinterpret_cast<const float4*>(g.gbias + n);
+      float4 add = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g.te != nullptr)
+        add = *reinterpret_cast<const float4*>(
+            g.te + (size_t)(m / seg) * g.te_stride + n);
+      if (g.res != nullptr) {
+        const float4 q =
+            *reinterpret_cast<const float4*>(g.res + (size_t)m * cout + n);
+        add = make_float4(add.x + q.x, add.y + q.y, add.z + q.z, add.w + q.w);
+      }
+      *reinterpret_cast<float4*>(out + (size_t)m * cout + n) = make_float4(
+          gn_apply(x.x, st, sc.x, sh.x, add.x),
+          gn_apply(x.y, st, sc.y, sh.y, add.y),
+          gn_apply(x.z, st, sc.z, sh.z, add.z),
+          gn_apply(x.w, st, sc.w, sh.w, add.w));
+    }
+  }
+  cluster.sync();  // no peer reads this block's shared memory any more
+}
+
+// rows_conv_kernel on a wgmma tile (wgmma.cuh). WgTile: warpgroup 2 loads,
+// 0 and 1 multiply and run the epilogue; one block per (output tile,
+// parity, K split). ClusterTile: cl_conv, one cluster per (output tile,
+// parity), a block per K split. The weights come through the tensor map
+// `wmap`.
+template <class Tile, bool kGn>
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
 rows_conv_wg_kernel(ConvIn c, const __grid_constant__ CUtensorMap wmap,
                     const __grid_constant__ ActMaps amaps,
                     const float* __restrict__ bias, float* __restrict__ out,
@@ -603,37 +770,43 @@ rows_conv_wg_kernel(ConvIn c, const __grid_constant__ CUtensorMap wmap,
   const int k_end = min(K, k_begin + per_split * Tile::BK);
 
   Tile::setup(c, m0, amaps.tma, s);
-  if (threadIdx.x >= Tile::kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        Tile::kProducerRegs));
-    Tile::produce(c, &wmap, amaps, parity, m0, n0, k_begin, k_end, s);
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      Tile::kConsumerRegs));
-  if constexpr (kGn) wg_gn_stage<Tile>(c, bias, gn, s, m0, n0);
-  float acc[Tile::ACC];
-#pragma unroll
-  for (int i = 0; i < Tile::ACC; ++i) acc[i] = 0.f;
-  Tile::consume((k_end - k_begin + Tile::BK - 1) / Tile::BK, s, acc);
-
-  if constexpr (kGn) {
-    wg_gn_epilogue<Tile>(acc, c, out, gn, s);
-    return;
-  }
-  const int M = c.M, cout = c.cout;
-  if (splits > 1) {
-    const int tile = (parity * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    if (!split_k_last<Tile>(acc, partial, parity, split, splits, M, cout, m0,
-                            n0, &counters[tile], ConsumerSync()))
+  if constexpr (Tile::kCluster) {
+    cl_conv<Tile, kGn>(c, &wmap, amaps, bias, out, parity, split, splits, m0,
+                       n0, k_begin, k_end, gn, s);
+  } else {
+    if (threadIdx.x >= Tile::kConsumers) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          Tile::kProducerRegs));
+      Tile::produce(c, &wmap, amaps, parity, m0, n0, k_begin, k_end, s);
       return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        Tile::kConsumerRegs));
+    if constexpr (kGn) wg_gn_stage<Tile>(c, bias, gn, s, m0, n0);
+    float acc[Tile::ACC];
+#pragma unroll
+    for (int i = 0; i < Tile::ACC; ++i) acc[i] = 0.f;
+    Tile::consume((k_end - k_begin + Tile::BK - 1) / Tile::BK, s, acc);
+
+    if constexpr (kGn) {
+      wg_gn_epilogue<Tile>(acc, c, out, gn, s);
+      return;
+    }
+    const int M = c.M, cout = c.cout;
+    if (splits > 1) {
+      const int tile =
+          (parity * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+      if (!split_k_last<Tile>(acc, partial, parity, split, splits, M, cout,
+                              m0, n0, &counters[tile], ConsumerSync()))
+        return;
+    }
+    Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+      if (m >= M || n >= cout) return;
+      const size_t o = (size_t)out_row(c.mode, m, parity, c.seg_in) * cout + n;
+      *reinterpret_cast<float2*>(out + o) =
+          make_float2(v0 + bias[n], v1 + bias[n + 1]);
+    });
   }
-  Tile::pairs(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
-    if (m >= M || n >= cout) return;
-    const size_t o = (size_t)out_row(c.mode, m, parity, c.seg_in) * cout + n;
-    *reinterpret_cast<float2*>(out + o) =
-        make_float2(v0 + bias[n], v1 + bias[n + 1]);
-  });
 }
 
 // Chains whose DDPM-updated x a block of ddpm_project_kernel holds at once:
@@ -918,15 +1091,15 @@ static int weight_map(CUtensorMap* map, const void* w, int rows, int cout) {
 }
 
 // The tensor map of one activation source x (rows_in, cin_x) f32 over
-// segments of seg_in rows, in boxes of 32 channels x the tile's 128 GEMM
+// segments of seg_in rows, in boxes of 32 channels x the tile's bm GEMM
 // rows with the 128-byte swizzle, zeros outside a segment: (cin_x, seg_in,
 // segments), or for the stride-2 conv (cin_x, 2, seg_in / 2, segments) so
 // that a box takes every other row.
 static int act_map(CUtensorMap* map, const float* x, int cin_x, int rows_in,
-                   int seg_in, int mode) {
+                   int seg_in, int mode, int bm) {
   const bool down = mode == kDown;
   const int seg_m = down ? seg_in / 2 : seg_in;
-  const int rows_box = seg_m < 128 ? seg_m : 128;
+  const int rows_box = seg_m < bm ? seg_m : bm;
   const cuuint64_t row = (cuuint64_t)cin_x * 4;
   const cuuint64_t dims[4] = {
       (cuuint64_t)cin_x, down ? 2u : (cuuint64_t)seg_in,
@@ -936,27 +1109,27 @@ static int act_map(CUtensorMap* map, const float* x, int cin_x, int rows_in,
                                  row * seg_in};
   const cuuint32_t box[4] = {32, down ? 1u : (cuuint32_t)rows_box,
                              down ? (cuuint32_t)rows_box
-                                  : (cuuint32_t)(128 / rows_box),
-                             (cuuint32_t)(128 / rows_box)};
+                                  : (cuuint32_t)(bm / rows_box),
+                             (cuuint32_t)(bm / rows_box)};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, down ? 4 : 3,
                     x, dims, strides, box, elem);
 }
 
-// The activations' maps of a launch: A travels by TMA where every K tile
-// lies in one tap and one of xa / xb (cin_a, cin_b multiples of 64) and a
-// tile's 128 rows are whole segments or lie in one; else tma = 0 and the
-// producer gathers A.
-static int act_maps(ActMaps* am, const ConvIn& c, int rows_in) {
+// The activations' maps of a launch on a tile of bm rows: A travels by TMA
+// where every K tile lies in one tap and one of xa / xb (cin_a, cin_b
+// multiples of 64) and a tile's bm rows are whole segments or lie in one;
+// else tma = 0 and the producer gathers A.
+static int act_maps(ActMaps* am, const ConvIn& c, int rows_in, int bm) {
   const int seg_m = c.mode == kDown ? c.seg_in / 2 : c.seg_in;
   am->has_res = 0;
   am->tma = c.cin_a % 64 == 0 && c.cin_b % 64 == 0 && seg_m > 0 &&
-            (128 % seg_m == 0 || seg_m % 128 == 0) &&
+            (bm % seg_m == 0 || seg_m % bm == 0) &&
             (c.mode != kDown || c.seg_in % 2 == 0);
   if (!am->tma) return 0;
-  int rc = act_map(&am->xa, c.xa, c.cin_a, rows_in, c.seg_in, c.mode);
+  int rc = act_map(&am->xa, c.xa, c.cin_a, rows_in, c.seg_in, c.mode, bm);
   if (rc == 0 && c.xb != nullptr)
-    rc = act_map(&am->xb, c.xb, c.cin_b, rows_in, c.seg_in, c.mode);
+    rc = act_map(&am->xb, c.xb, c.cin_b, rows_in, c.seg_in, c.mode, bm);
   return rc;
 }
 
@@ -996,7 +1169,7 @@ extern "C" int rows_conv_wg(const float* xa, const float* xb, int cin_a,
   CUtensorMap map;
   ActMaps am;
   int rc = weight_map(&map, w, (mode == kUp ? 4 : k) * (cin_a + cin_b), cout);
-  if (rc == 0) rc = act_maps(&am, c, rows_in);
+  if (rc == 0) rc = act_maps(&am, c, rows_in, 128);
   if (rc != 0) return rc;
   dim3 grid((cout + bn - 1) / bn, (M + 127) / 128,
             (mode == kUp ? 2 : 1) * splits);
@@ -1033,7 +1206,7 @@ extern "C" int rows_conv_gn_wg(const float* xa, const float* xb, int cin_a,
   CUtensorMap map;
   ActMaps am;
   int rc = weight_map(&map, w, k * (cin_a + cin_b), cout);
-  if (rc == 0) rc = act_maps(&am, c, rows);
+  if (rc == 0) rc = act_maps(&am, c, rows, 128);
   if (rc == 0 && res != nullptr) {
     const cuuint64_t dims[2] = {(cuuint64_t)cout, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)cout * 4};
@@ -1046,4 +1219,106 @@ extern "C" int rows_conv_gn_wg(const float* xa, const float* xb, int cin_a,
   return launch_wg<WgTile<128, 3>, true>(
       dim3((cout + 127) / 128, (rows + 127) / 128, 1), (cudaStream_t)stream,
       c, map, am, bias, out, 1, nullptr, nullptr, g);
+}
+
+// ---- the cluster tile ------------------------------------------------------
+
+// A launch of the cluster tile: the K splits of an output tile are one
+// cluster of (1, 1, splits) blocks along z.
+template <class Tile, bool kGn>
+static int launch_cl(dim3 grid, int splits, cudaStream_t st, const ConvIn& c,
+                     const CUtensorMap& map, const ActMaps& am,
+                     const float* bias, float* out, const GnEpi& g) {
+  cudaError_t e = cudaFuncSetAttribute(
+      rows_conv_wg_kernel<Tile, kGn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(Tile::kThreads);
+  cfg.dynamicSmemBytes = Tile::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  float* partial = nullptr;
+  unsigned int* counters = nullptr;
+  void* args[] = {(void*)&c,      (void*)&map,      (void*)&am,
+                  (void*)&bias,   (void*)&out,      (void*)&splits,
+                  (void*)&partial, (void*)&counters, (void*)&g};
+  e = cudaLaunchKernelExC(&cfg, (const void*)rows_conv_wg_kernel<Tile, kGn>,
+                          args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+static bool aligned16(const void* p) {
+  return ((size_t)p & 15) == 0;
+}
+
+// The weight and activation maps of a cluster-tile launch; A must travel by
+// TMA (cudaErrorInvalidValue otherwise: the tile has no gathering producer).
+static int cl_maps(CUtensorMap* map, ActMaps* am, const ConvIn& c,
+                   const void* w, int rows_in) {
+  const int taps = c.mode == kUp ? 4 : c.k;
+  int rc = weight_map(map, w, taps * (c.cin_a + c.cin_b), c.cout);
+  if (rc == 0) rc = act_maps(am, c, rows_in, 64);
+  if (rc == 0 && !am->tma) rc = (int)cudaErrorInvalidValue;
+  return rc;
+}
+
+// rows_conv on the 64 x 128 cluster tile with 1-8 K splits, the blocks of
+// one cluster; bf16 weights. cout a multiple of 64, cin_a and cin_b multiples of 64, a
+// segment of GEMM rows a divisor or a multiple of 64; the transposed conv
+// (UP) without xb; bias 16-byte aligned.
+extern "C" int rows_conv_cl(const float* xa, const float* xb, int cin_a,
+                            int cin_b, const void* w, const float* bias,
+                            float* out, int rows_in, int seg_in, int cout,
+                            int mode, int k, int splits, void* stream) {
+  const int M = mode == kDown ? rows_in / 2 : rows_in;
+  if (cout % 64 != 0 || splits < 1 || splits > 8 || !aligned16(bias) ||
+      (mode == kUp && xb != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const ConvIn c{xa, xb, cin_a, cin_b, M, seg_in, cout, mode, k};
+  CUtensorMap map;
+  ActMaps am;
+  const int rc = cl_maps(&map, &am, c, w, rows_in);
+  if (rc != 0) return rc;
+  return launch_cl<ClusterTile, false>(
+      dim3((cout + 127) / 128, (M + 63) / 64, (mode == kUp ? 2 : 1) * splits),
+      splits, (cudaStream_t)stream, c, map, am, bias, out, GnEpi{});
+}
+
+// rows_conv_gn on the cluster tile: every (segment, group) pair lies in one
+// tile (seg_in a multiple of 8 that divides 64; cout / 8 a multiple of 8
+// that divides 128). te: a row of cout per segment at te_stride (0: one
+// row for all), or null; res (rows, cout) or null; bias, scale, gbias, te
+// and res 16-byte aligned.
+extern "C" int rows_conv_gn_cl(const float* xa, const float* xb, int cin_a,
+                               int cin_b, const void* w, const float* bias,
+                               float* out, int rows, int seg_in, int cout,
+                               int k, int splits, const float* scale,
+                               const float* gbias,
+                               const float* te, int te_stride,
+                               const float* res, float eps, void* stream) {
+  const int cg = cout / 8;
+  if (cout % 64 != 0 || seg_in % 8 != 0 || 64 % seg_in != 0 ||
+      rows % seg_in != 0 || 128 % cg != 0 || splits < 1 || splits > 8 ||
+      te_stride % 4 != 0 || !aligned16(bias) || !aligned16(scale) ||
+      !aligned16(gbias) || !aligned16(te) || !aligned16(res))
+    return (int)cudaErrorInvalidValue;
+  const ConvIn c{xa, xb, cin_a, cin_b, rows, seg_in, cout, kSame, k};
+  const GnEpi g{scale, gbias, te, res, te_stride, cg, 1, 1, 64 / seg_in,
+                min(128, cout) / cg, eps, nullptr};
+  CUtensorMap map;
+  ActMaps am;
+  const int rc = cl_maps(&map, &am, c, w, rows);
+  if (rc != 0) return rc;
+  return launch_cl<ClusterTile, true>(
+      dim3((cout + 127) / 128, (rows + 63) / 64, splits), splits,
+      (cudaStream_t)stream, c, map, am, bias, out, g);
 }

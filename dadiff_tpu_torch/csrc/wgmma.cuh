@@ -1,6 +1,8 @@
-// The conv tile product of K2 at large row counts (the on-device
-// evaluator's 1,024-chain wave: 8,192-32,768 GEMM rows), for Hopper's
-// warpgroup MMA: WgTile<BN, STAGES>, a 128 x BN output tile per block.
+// The conv tile product of K2 on Hopper's warpgroup MMA: at large row
+// counts (the on-device evaluator's 1,024-chain wave: 8,192-32,768 GEMM
+// rows) WgTile<BN, STAGES>, a 128 x BN output tile per block; at the
+// served waves' rows ClusterTile (below), a 64 x 128 tile whose K splits
+// meet in a thread-block cluster.
 //
 // Replaces, like MmaTile of common.cuh, the JAX package's
 // ops/pallas_unet.py _conv_stack (:184) and _dot (:192) inside
@@ -308,11 +310,17 @@ struct ActMaps {
   int has_res;         // 1: TMA brings the residual tile
 };
 
-template <int BN_, int STAGES_>
+template <int BN_, int STAGES_, int BM_ = 128>
 struct WgTile {
   using W = __nv_bfloat16;
-  static constexpr int BM = 128, BN = BN_, BK = 64, STAGES = STAGES_;
-  static constexpr int kThreads = 384, kConsumers = 256;
+  static constexpr int BM = BM_, BN = BN_, BK = 64, STAGES = STAGES_;
+  // one consumer warpgroup per 64 rows; 128 rows: a producer warpgroup
+  // (it may gather A), 64 rows (ClusterTile): one producer warp, TMA only
+  static constexpr int kConsumers = 2 * BM, kProducers = BM == 128 ? 128 : 32;
+  static constexpr int kThreads = kConsumers + kProducers;
+  static constexpr bool kCluster = false;
+  static constexpr int kMinBlocks = 1;
+  static_assert(BM == 128 || BM == 64, "one or two consumer warpgroups");
   static constexpr int ACC = BN / 2, NI = BN / 8;
   static constexpr int BOX = BK * 128;  // one 64-column box of B, swizzled
   static constexpr int HALF = BM * 32;  // floats of one 32-channel half of A
@@ -387,7 +395,7 @@ struct WgTile {
     if (threadIdx.x == 0) {
       for (int i = 0; i < STAGES; ++i) {
         // the TMA thread's arrival, and each gathering thread's
-        mbar_init(s.full + i, tma_a ? 1 : 128 + 1);
+        mbar_init(s.full + i, tma_a ? 1 : kProducers + 1);
         mbar_init(s.empty + i, kConsumers / 32);
       }
       mbar_init(s.resbar, 1);
@@ -446,7 +454,7 @@ struct WgTile {
             tma_load_3d(a + h * HALF, xm, cx + 32 * h, l0 + r, s0,
                         s.full + st);
         }
-      } else {
+      } else if constexpr (kProducers == 128) {
 #pragma unroll 4
         for (int i = 0; i < BM / 8; ++i) {
           const int row = (pt >> 4) + 8 * i, q = pt & 15;
@@ -556,6 +564,49 @@ struct WgTile {
       f(m + 8, n + ni * 8, acc[ni * 4 + 2], acc[ni * 4 + 3]);
     }
   }
+};
+
+// The served wave's tile (the micro-batched server's waves of 16-64 chains:
+// 512-2,048 GEMM rows): a 64 x 128 wgmma tile whose K splits are the blocks
+// of one thread-block cluster. One consumer warpgroup owns the 64 rows
+// (m64n128k16, A rounded to bf16 in its registers as in WgTile), one
+// producer warp issues both operands' TMA loads (A always by TMA: the
+// launcher gives this tile only convs whose K tiles lie in one tap and one
+// of xa / xb, and whose 64 rows are whole segments or lie in one). After
+// the K loop a block keeps its partial tile in its own shared memory, over
+// the ring, rows LDP floats apart (conflict-free float2 stores from the
+// accumulators); the cluster's blocks then meet through distributed shared
+// memory (planner.cu cl_conv).
+//
+// Replaces the 16 x 64 MmaTile of common.cuh at these rows, whose 640-768
+// blocks a fused conv of the 64-chain wave walked up to 27 serial K tiles
+// of 32 in three rounds, met through global partial planes and an atomic
+// arrival per group block, and re-read every weight from L2 32-128 times
+// (1.16 GB a step against 30.5 MB of weights). What bounds it: a 64-chain
+// step is 18.6 GFLOP, 18.8 us of tensor-core work at the bf16 peak, over
+// 30.5 MB of weights that stay in L2 and ~2-4 MB of f32 activations a conv;
+// a launch is bound by its K loop's latency and by L2. At 64 chains a 64 x
+// 128 tile leaves 32 output tiles at every level (2,048 x 128, 1,024 x
+// 256, 512 x 512), a segment (32 / 16 / 8 rows) and a group (16 / 32 / 64
+// channels) inside one tile, and four K splits fill 128 of the 132 SMs in
+// one round. Why a cluster: the splits must meet before the GroupNorm,
+// which needs each (segment, group) sum whole; a cluster's blocks run at
+// once on neighbouring SMs, so after one cluster barrier a block reads its
+// peers' partial tiles from their shared memory: no global partial plane,
+// no counter, and the splits are added in a fixed order. A ring of 3
+// stages (96 KB) leaves room for two blocks an SM: on the card 2 stages
+// tied it and 4 (one block an SM) lost at most shapes (sweep_kernels conv
+// --chains 8|16|32|64 on an H100).
+struct ClusterTile : WgTile<128, 3, 64> {
+  using Base = WgTile<128, 3, 64>;
+  static constexpr bool kCluster = true;
+  static constexpr int kMaxSplits = 8;  // the portable cluster size
+  static constexpr int LDP = Base::BN + 8;
+  static constexpr int SMEM = 1024 + Base::TOP + Base::GN_EXTRA;
+  // two blocks an SM where the ring leaves room
+  static constexpr int kMinBlocks = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  static_assert(Base::BM * LDP * 4 <= Base::RING, "the partial tile");
+  static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
 // Runs the statement(s) given last with `Tile` naming the wgmma tile of

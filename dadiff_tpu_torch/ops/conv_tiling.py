@@ -15,7 +15,8 @@ the same tiles on the CPU, so the tests hold the tiling against
 ``rows_conv_plain`` where no kernel can run. Two families of tiles: the
 mma.sync tiles of csrc/common.cuh (``MMA_TILES``, ``F32_TILE``; K tiles of
 32) and the wgmma tiles of csrc/wgmma.cuh (``WG_TILES``: 128 rows, K tiles
-of 64), which only the planner's launcher takes, at large row counts.
+of 64, at large row counts; the cluster tile, ``CL_BM x CL_BN``, at the
+served waves' rows), which only the planner's launcher takes.
 
 A conv that feeds a GroupNorm (``rows_conv_gn`` of csrc/planner.cu) also
 normalises in its epilogue: the tiles that share a (segment, group) meet in a
@@ -46,6 +47,10 @@ WG_BUILT = ((128, 4), (128, 3), (256, 3))
 # rows_conv_gn's wgmma tile: 128 columns, 3 stages (the ring leaves room for
 # the residual tile of its epilogue)
 WG_GN = (128, 3)
+# the cluster tile of csrc/wgmma.cuh (ClusterTile): 64 x 128, K tiles of 64,
+# a ring of 3 stages, the K splits of an output tile one thread-block
+# cluster of at most 8 blocks (the portable cluster size)
+CL_BM, CL_BN, CL_STAGES, CL_MAX_SPLITS = 64, 128, 3, 8
 
 
 def tile_bk(bm: int) -> int:
@@ -63,8 +68,9 @@ def tile_shape(M: int, bf16: bool, cout: int, parities: int = 1,
     the fewer re-reads of a large tile: on the card 16 x 64 came first at
     every conv of the flagship at 8 chains. f32 weights: 32 x 32. (The K3
     and K4 programs cut their convs here too; the planner's launcher takes
-    the wgmma tiles of ``WG_TILES`` past the point where 64 x 128 leaves
-    more blocks than the card has SMs: ops/planner.py ``_split_k``.)"""
+    the cluster tile where it fits and has the work to fill it, and the
+    wgmma tiles of ``WG_TILES`` past the point where 64 x 128 leaves more
+    blocks than the card has SMs: ops/planner.py ``_split_k``.)"""
     if not bf16:
         return F32_TILE
     for bm, bn in MMA_TILES:
@@ -139,10 +145,11 @@ class Tiling(NamedTuple):
     parities: int
     cout: int
     stages: int = 0  # a wgmma tile's ring; 0: WG_STAGES[bn]
+    cluster: bool = False  # the cluster tile: K splits meet in a cluster
 
     @property
     def bk(self) -> int:
-        return tile_bk(self.bm)
+        return WG_BK if self.cluster else tile_bk(self.bm)
 
     @property
     def k_tiles(self) -> int:
@@ -151,13 +158,18 @@ class Tiling(NamedTuple):
     @property
     def ring(self) -> int:
         """Stages of a wgmma tile's ring (0 for the other tiles)."""
+        if self.cluster:
+            return CL_STAGES
         if self.bm != WG_BM:
             return 0
         return self.stages or WG_STAGES[self.bn]
 
     @property
     def partial_elems(self) -> int:
-        """Floats of the split-K partial tiles, [parity][split][M][cout]."""
+        """Floats of the split-K partial tiles, [parity][split][M][cout]
+        (none on the cluster tile: its splits meet in shared memory)."""
+        if self.cluster:
+            return 0
         return self.parities * self.splits * self.M * self.cout
 
 
@@ -183,15 +195,39 @@ def wg_tiling(M: int, K: int, parities: int, cout: int, bn: int,
                   parities, cout, stages)
 
 
+def cl_tiling(M: int, K: int, parities: int, cout: int,
+              splits: int) -> Tiling:
+    """A conv's GEMM on the 64 x 128 cluster tile with at most ``splits``
+    K splits (at most ``CL_MAX_SPLITS``), none of them empty."""
+    tiles = -(-cout // CL_BN) * -(-M // CL_BM) * parities
+    return Tiling(CL_BM, CL_BN, tiles,
+                  even_splits(-(-K // WG_BK), min(splits, CL_MAX_SPLITS)),
+                  M, K, parities, cout, 0, True)
+
+
+def cl_fits(mode: int, seg: int, cin_a: int, cin_b: int, cout: int) -> bool:
+    """The cluster tile takes the conv (csrc/planner.cu rows_conv_cl): A
+    travels by TMA (every K tile in one tap and one of xa / xb, a segment of
+    GEMM rows a divisor or a multiple of 64 rows) and cout is whole 64-wide
+    boxes of the weight."""
+    seg_m = seg // 2 if mode == DOWN else seg
+    return (cin_a % WG_BK == 0 and cin_b % WG_BK == 0 and cout % 64 == 0
+            and seg_m > 0 and (CL_BM % seg_m == 0 or seg_m % CL_BM == 0)
+            and (mode != DOWN or seg % 2 == 0) and (mode != UP or cin_b == 0))
+
+
 def rows_conv_tiled(xa, xb, w, bias, mode: int, k: int, seg_in: int, bm: int,
-                    bn: int, splits: int):
+                    bn: int, splits: int, cluster: bool = False):
     """The conv rebuilt from its kernel tiles on the CPU: every (tile,
     parity, K split) sums its K tiles (of the tile's BK) into a partial
     tile, through the index functions above, and the partials are added in
     split order. A wgmma tile reads the weight rows of a ragged K tile as
-    one box of consecutive rows (its TMA load; SAME and DOWN only). Returns
-    (out, cover): ``cover[parity, tile_m, tile_n, K index]`` counts how often
-    a tile's walk multiplied that index."""
+    one box of consecutive rows (its TMA load; SAME and DOWN only).
+    ``cluster``: the cluster tile (``bm x bn`` = ``CL_BM x CL_BN``, K tiles
+    of 64, whole K tiles in one tap only), whose blocks add the splits'
+    partial tiles in the same split order. Returns (out, cover):
+    ``cover[parity, tile_m, tile_n, K index]`` counts how often a tile's
+    walk multiplied that index."""
     x = xa if xb is None else torch.cat([xa, xb], dim=1)
     if w.dtype == torch.bfloat16:  # rounded as they are staged
         x = x.to(torch.bfloat16).to(torch.float32)
@@ -199,8 +235,10 @@ def rows_conv_tiled(xa, xb, w, bias, mode: int, k: int, seg_in: int, bm: int,
     rows, cin = x.shape
     cout = wf.shape[1]
     M, K, parities = gemm_dims(rows, cin, mode, k)
-    bk, wg = tile_bk(bm), bm == WG_BM
+    bk, wg = (WG_BK if cluster else tile_bk(bm)), bm == WG_BM
     aligned = xa.shape[1] % bk == 0 and (xb is None or xb.shape[1] % bk == 0)
+    if cluster and not aligned:
+        raise ValueError("the cluster tile needs cin_a, cin_b % 64 == 0")
     if wg and not aligned and mode == UP:
         raise ValueError("a wgmma tile's transposed conv needs cin % 64 == 0")
     tiles_m, tiles_n = -(-M // bm), -(-cout // bn)
@@ -309,6 +347,16 @@ def wg_gn_fits(seg: int, cout: int, bn: int, n_groups: int = N_GROUPS
             and cg % 8 == 0 and (bn % cg == 0 or bn >= cout))
 
 
+def cl_gn_fits(seg: int, cout: int, n_groups: int = N_GROUPS) -> bool:
+    """The GroupNorm epilogue of the cluster tile (csrc/planner.cu cl_conv)
+    holds every (segment, group) pair inside one tile: a segment is whole
+    8-row pieces and divides 64 rows, a group is whole 8-column chunks and
+    divides the tile's 128 columns."""
+    cg = cout // n_groups
+    return (cout % 64 == 0 and seg % 8 == 0 and CL_BM % seg == 0
+            and cg % 8 == 0 and CL_BN % cg == 0)
+
+
 class GroupBlock(NamedTuple):
     index: int                       # its counter
     rows: Tuple[int, int]            # [m0, m1) of the conv's rows
@@ -341,22 +389,26 @@ def group_blocks(M: int, cout: int, seg: int, bm: int, bn: int,
 
 def rows_conv_gn_tiled(xa, xb, w, bias, k: int, seg: int, scale, gbias,
                        te=None, res=None, *, bm: int, bn: int, splits: int,
-                       eps: float = 1e-5):
+                       eps: float = 1e-5, cluster: bool = False):
     """The fused conv + GroupNorm + Mish (+ te per segment, + res) rebuilt
     from the kernel's tiles and group blocks on the CPU: a group block's
     tiles, each the sum of its K splits in split order, then per (segment,
-    group) pair mean and var = E[x^2] - mean^2. Returns (out, cover):
-    ``cover[segment, group]`` counts the group blocks that normalised the
-    pair."""
-    pre, _ = rows_conv_tiled(xa, xb, w, bias, SAME, k, seg, bm, bn, splits)
+    group) pair mean and var = E[x^2] - mean^2; on a wgmma tile and on the
+    cluster tile (``cluster``) the pair's sums per 8-row piece, the pieces
+    added in row order. Returns (out, cover): ``cover[segment, group]``
+    counts the group blocks that normalised the pair."""
+    pre, _ = rows_conv_tiled(xa, xb, w, bias, SAME, k, seg, bm, bn, splits,
+                             cluster)
     M, cout = pre.shape
     cg = cout // N_GROUPS
     out = torch.empty_like(pre)
     cover = torch.zeros(M // seg, N_GROUPS, dtype=torch.int64)
     te = None if te is None else te.reshape(-1, cout).expand(M // seg, cout)
-    wg = bm == WG_BM
-    if wg and not wg_gn_fits(seg, cout, bn):
+    wg = bm == WG_BM or cluster
+    if bm == WG_BM and not wg_gn_fits(seg, cout, bn):
         raise ValueError("the wgmma tile does not hold these pairs")
+    if cluster and not cl_gn_fits(seg, cout):
+        raise ValueError("the cluster tile does not hold these pairs")
     for gb in group_blocks(M, cout, seg, bm, bn):
         for _, s, g in gb.pairs:
             rs, cs = slice(s * seg, (s + 1) * seg), slice(g * cg, (g + 1) * cg)

@@ -59,6 +59,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stages, scale, gbias, te, te_stride, res, eps, stream
         "rows_conv_gn_wg": [P, P, I, I, P, P, P, I, I, I, I, I, I, P, P, P,
                             I, P, F, P],
+        # xa, xb, cin_a, cin_b, w, bias, out, rows_in, seg_in, cout, mode,
+        # k, splits, stream
+        "rows_conv_cl": [P, P, I, I, P, P, P, I, I, I, I, I, I, P],
+        # xa, xb, cin_a, cin_b, w, bias, out, rows, seg_in, cout, k, splits,
+        # scale, gbias, te, te_stride, res, eps, stream
+        "rows_conv_gn_cl": [P, P, I, I, P, P, P, I, I, I, I, I, P, P, P, I,
+                            P, F, P],
         # x, out, eps, noise, scal, cond, M, b, n_chains, H, D, clip,
         # predict_eps, wall, grid_h, grid_w, mx, my, sx, sy, margin, stream
         "ddpm_project_step": [P, P, P, P, P, P, P, P, I, I, I, I, I,

@@ -48,9 +48,9 @@ import torch
 from dadiff_tpu_torch.ops import cuda_lib
 from dadiff_tpu_torch.ops.chain_operands import _layer_plan, prepare_chain_operands
 from dadiff_tpu_torch.ops.conv_tiling import (
-    DOWN, F32_TILE, MMA_TILES, N_GROUPS, N_SM, SAME, UP, BK, WG_BK, WG_BM,
-    WG_GN, GroupPlan, Tiling, even_splits, gemm_dims, group_plan, tiling,
-    wg_gn_fits, wg_tiling,
+    CL_MAX_SPLITS, DOWN, F32_TILE, MMA_TILES, N_GROUPS, N_SM, SAME, UP, BK,
+    WG_BK, WG_BM, WG_GN, GroupPlan, Tiling, cl_fits, cl_gn_fits, cl_tiling,
+    even_splits, gemm_dims, group_plan, tiling, wg_gn_fits, wg_tiling,
 )
 from dadiff_tpu_torch.ops.gn_mish import gn_mish_plain
 from dadiff_tpu_torch.ops.projection import (
@@ -140,28 +140,71 @@ def _split_k_mma(rows: int, cin: int, cout: int, mode: int, k: int,
     return tiling(rows, cin, cout, mode, k, bf16, _ROOM, _want_splits)
 
 
+# The work from which a conv takes the cluster tile, in its output tiles
+# times its 64-wide K tiles (``sweep_kernels conv --chains 8|16|32|64`` on
+# the card): at least CL_MIN_WORK, at least CL_MIN_K K tiles, and at least
+# CL_MIN_TILES tiles unless K alone is CL_LONG_K K tiles or more
+CL_MIN_WORK, CL_MIN_K, CL_MIN_TILES, CL_LONG_K = 32, 4, 4, 40
+CL_MAX_BLOCKS = 160  # blocks of a cluster-tile launch, its splits included
+
+
+def _takes_cluster(t: Tiling) -> bool:
+    """Whether a conv on the cluster tiling ``t`` (its splits aside) beats
+    the mma.sync tiles, from its output tiles and K tiles alone."""
+    return (t.k_tiles >= CL_MIN_K and t.tiles * t.k_tiles >= CL_MIN_WORK
+            and (t.tiles >= CL_MIN_TILES or t.k_tiles >= CL_LONG_K))
+
+
+def _cl_splits(tiles: int, k_tiles: int) -> int:
+    """K splits of a cluster-tile launch, a cluster of that many blocks per
+    output tile (``sweep_kernels conv --chains 8|16|32|64``): at most
+    ``CL_MAX_SPLITS``, two K tiles a split or more, no more than
+    ``CL_MAX_BLOCKS`` blocks (at 32 tiles and 10 K tiles, 5 splits beat 4
+    and 8 lost by half), and from 16 output tiles on four K tiles a split
+    unless that leaves fewer than four splits (at 16 tiles and 16-20 K
+    tiles 4-5 splits beat 7-8)."""
+    want = min(CL_MAX_SPLITS, k_tiles // 2, CL_MAX_BLOCKS // tiles)
+    if tiles >= 16:
+        want = min(want, max(4, k_tiles // 4))
+    return max(1, want)
+
+
 def _split_k(rows: int, cin: int, cout: int, mode: int, k: int,
-             bf16: bool) -> Tiling:
-    """Tile shape, output tiles and K splits of one launch. bf16 weights
-    take the mma.sync tiles of ``tile_shape`` while the largest of them
-    leaves no more blocks than the card has SMs (every conv of the served
-    8-chain wave and of the 64-chain chain; K3 and K4 cut their own), and
-    past that the 128-row wgmma tile: every conv of the 1,024-chain wave
-    (8,192-32,768 rows; a transposed conv only where its cin is whole K
-    tiles of 64, the rows its TMA box reads)."""
+             bf16: bool, *, seg: Optional[int] = None,
+             cin_b: int = 0) -> Tiling:
+    """Tile shape, output tiles and K splits of one launch, from its shape:
+    GEMM rows M, cout, K, and its segment (``seg``, the input rows of a
+    chain at this level) and concat (``cin_b`` of ``cin``), which say
+    whether a TMA box holds its activations. bf16 weights take the 64 x
+    128 cluster tile where it fits (:func:`conv_tiling.cl_fits`) and the
+    launch has the work to fill it (:func:`_takes_cluster`: most convs of
+    the served waves of 8-64 chains, not their first and final convs nor
+    the k=1 convs of 2 K tiles), else the mma.sync tiles of ``tile_shape``
+    (K3 and K4 cut their own); and past the point where the largest
+    mma.sync tile would leave more blocks than the card has SMs the 128-row
+    wgmma tile: every conv of the 1,024-chain wave (8,192-32,768 rows; a
+    transposed conv only where its cin is whole K tiles of 64, the rows its
+    TMA box reads). Without ``seg`` the cluster tile is not considered."""
     t = _split_k_mma(rows, cin, cout, mode, k, bf16)
     M, _, parities = gemm_dims(rows, cin, mode, k)
     largest = -(-M // MMA_TILES[-1][0]) * -(-cout // MMA_TILES[-1][1])
-    if not bf16 or largest * parities <= N_SM or (mode == UP and cin % WG_BK):
+    if not bf16:
         return t
-    return wg_tiling(t.M, t.K, t.parities, cout,
-                     _wg_width(t.M, cout, t.parities), 1)
+    if largest * parities > N_SM and not (mode == UP and cin % WG_BK):
+        return wg_tiling(t.M, t.K, t.parities, cout,
+                         _wg_width(t.M, cout, t.parities), 1)
+    if seg is not None and cl_fits(mode, seg, cin - cin_b, cin_b, cout):
+        c = cl_tiling(t.M, t.K, parities, cout, 1)
+        if _takes_cluster(c):
+            return cl_tiling(t.M, t.K, parities, cout,
+                             _cl_splits(c.tiles, c.k_tiles))
+    return t
 
 
 def _partial(xa, t: Tiling, scratch):
     """The split-K partial tiles of a launch: None for one split, else
     ``scratch`` if it is large enough, else a new buffer."""
-    if t.splits == 1:
+    if t.splits == 1 or t.cluster:
         return None
     if scratch is None or scratch.numel() < t.partial_elems:
         scratch = torch.empty(t.partial_elems, dtype=torch.float32,
@@ -185,14 +228,21 @@ def launch_rows_conv(xa, xb, w, bias, out, mode: int, k: int, seg_in: int,
     rows, cout = xa.shape[0], w.shape[1]
     bf16 = w.dtype == torch.bfloat16
     if t is None:
-        t = _split_k(rows, xa.shape[1] + cin_b, cout, mode, k, bf16)
+        t = _split_k(rows, xa.shape[1] + cin_b, cout, mode, k, bf16,
+                     seg=seg_in, cin_b=cin_b)
     partial = _partial(xa, t, scratch)
     stream = cuda_lib.stream_of(xa) if stream is None else stream
     if partial is None:
         counters = None
     elif counters is None:
         counters = cuda_lib.counters(xa.device, t.tiles, stream)
-    if t.bm == WG_BM:  # csrc/wgmma.cuh, bf16 weights
+    if t.cluster:  # csrc/wgmma.cuh ClusterTile, bf16 weights
+        rc = cuda_lib.lib("planner").rows_conv_cl(
+            xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, mode, k,
+            t.splits, stream)
+        rows_conv.cluster_launches += 1
+    elif t.bm == WG_BM:  # csrc/wgmma.cuh, bf16 weights
         rc = cuda_lib.lib("planner").rows_conv_wg(
             xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
             bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, mode, k,
@@ -245,6 +295,7 @@ def rows_conv(xa, xb, w, bias, mode: int, k: int, seg_in: int) -> torch.Tensor:
 
 
 rows_conv.launches = 0
+rows_conv.cluster_launches = 0  # of them on the cluster tile
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +315,7 @@ def rows_conv_gn_plain(xa, xb, w, bias, k: int, seg_in: int, scale, gbias,
 
 
 def _split_k_gn(rows: int, cin: int, cout: int, k: int, seg: int,
-                bf16: bool) -> Tuple[Tiling, GroupPlan]:
+                bf16: bool, cin_b: int = 0) -> Tuple[Tiling, GroupPlan]:
     """Tile, K splits and group blocks of a fused conv: :func:`_split_k`'s
     tile, or the largest smaller one whose group block fits the kernel's
     shared memory (only segments of more than 64 rows at 64-row tiles need
@@ -272,10 +323,14 @@ def _split_k_gn(rows: int, cin: int, cout: int, k: int, seg: int,
     ``WG_GN``, 128 columns and 3 stages (on the card the 256-wide tile lost
     at every fused pair of the 1,024-chain wave, and 3 stages matched 4),
     with one K split, and holds its pairs itself (a group block of one tile,
-    :func:`conv_tiling.wg_gn_fits`); where it cannot, the conv takes the
-    mma.sync tiles."""
-    t = _split_k(rows, cin, cout, SAME, k, bf16)
+    :func:`conv_tiling.wg_gn_fits`). Where it takes the cluster tile, the
+    fused conv keeps it, its splits included, if the tile holds its pairs
+    (:func:`conv_tiling.cl_gn_fits`). Where neither holds them, the conv
+    takes the mma.sync tiles."""
+    t = _split_k(rows, cin, cout, SAME, k, bf16, seg=seg, cin_b=cin_b)
     bn, stages = WG_GN
+    if t.cluster and cl_gn_fits(seg, cout):
+        return t, group_plan(rows, cout, seg, t.bm, t.bn)
     if t.bm == WG_BM and wg_gn_fits(seg, cout, bn):
         t = wg_tiling(t.M, t.K, 1, cout, bn, 1, stages)
         return t, group_plan(rows, cout, seg, t.bm, t.bn)
@@ -307,16 +362,23 @@ def launch_rows_conv_gn(xa, xb, w, bias, out, k: int, seg_in: int, scale,
                         eps: float = 1e-5) -> None:
     """Launch the fused kernel on contiguous CUDA tensors (unchecked).
     ``gcounters``: zeroed int32, one per group block (``g.blocks``), left
-    zeroed (None on a wgmma tile, which needs none); ``scratch`` as for
-    :func:`launch_rows_conv`; ``te``: None or rows of cout at stride
-    ``te_stride`` per segment."""
+    zeroed (None on a wgmma or a cluster tile, which need none);
+    ``scratch`` as for :func:`launch_rows_conv`; ``te``: None or rows of
+    cout at stride ``te_stride`` per segment."""
     cin_b = 0 if xb is None else xb.shape[1]
     rows, cout = xa.shape[0], w.shape[1]
     if t is None or g is None:
         t, g = _split_k_gn(rows, xa.shape[1] + cin_b, cout, k, seg_in,
-                           w.dtype == torch.bfloat16)
+                           w.dtype == torch.bfloat16, cin_b)
     stream = cuda_lib.stream_of(xa) if stream is None else stream
-    if t.bm == WG_BM:  # one split, no group counters
+    if t.cluster:  # the splits meet in the cluster: no scratch, no counters
+        rc = cuda_lib.lib("planner").rows_conv_gn_cl(
+            xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, k, t.splits,
+            scale.data_ptr(), gbias.data_ptr(), _ptr(te), te_stride,
+            _ptr(res), eps, stream)
+        rows_conv_gn.cluster_launches += 1
+    elif t.bm == WG_BM:  # one split, no group counters
         rc = cuda_lib.lib("planner").rows_conv_gn_wg(
             xa.data_ptr(), _ptr(xb), xa.shape[1], cin_b, w.data_ptr(),
             bias.data_ptr(), out.data_ptr(), rows, seg_in, cout, k, t.bn,
@@ -354,10 +416,11 @@ def rows_conv_gn(xa, xb, w, bias, k: int, seg_in: int, scale, gbias,
             raise ValueError(f"rows_conv_gn: {name} must be contiguous float32"
                              f" on {xa.device} with {' or '.join(map(str, n))}"
                              " elements")
-    t, g = _split_k_gn(R, xa.shape[1] + (0 if xb is None else xb.shape[1]), C,
-                       k, seg_in, w.dtype == torch.bfloat16)
+    cin_b = 0 if xb is None else xb.shape[1]
+    t, g = _split_k_gn(R, xa.shape[1] + cin_b, C, k, seg_in,
+                       w.dtype == torch.bfloat16, cin_b)
     out = torch.empty(R, C, dtype=torch.float32, device=xa.device)
-    gcounters = None if t.bm == WG_BM else torch.zeros(
+    gcounters = None if t.bm == WG_BM or t.cluster else torch.zeros(
         g.blocks, dtype=torch.int32, device=xa.device)
     te_stride = 0 if te is None or te.numel() == C else C
     launch_rows_conv_gn(xa, xb, w, bias, out, k, seg_in, scale, gbias, te,
@@ -366,6 +429,7 @@ def rows_conv_gn(xa, xb, w, bias, k: int, seg_in: int, scale, gbias,
 
 
 rows_conv_gn.launches = 0
+rows_conv_gn.cluster_launches = 0  # of them on the cluster tile
 
 
 # ---------------------------------------------------------------------------
@@ -590,12 +654,12 @@ class _CudaOps:
 
     def conv(self, xa, xb, w, bias, mode, k, seg):
         out = self._take(_conv_out_rows(xa.shape[0], mode), w.shape[1])
-        t = _split_k(xa.shape[0],
-                     xa.shape[1] + (0 if xb is None else xb.shape[1]),
-                     w.shape[1], mode, k, w.dtype == torch.bfloat16)
+        cin_b = 0 if xb is None else xb.shape[1]
+        t = _split_k(xa.shape[0], xa.shape[1] + cin_b, w.shape[1], mode, k,
+                     w.dtype == torch.bfloat16, seg=seg, cin_b=cin_b)
         self._grow_scratch(t)
-        if t.splits > 1 and (self.counters is None
-                             or self.counters.numel() < t.tiles):
+        if t.splits > 1 and not t.cluster and (
+                self.counters is None or self.counters.numel() < t.tiles):
             self.counters = torch.zeros(t.tiles, dtype=torch.int32,
                                         device=self.device)
         launch_rows_conv(xa, xb, w, bias, out, mode, k, seg, self.stream,
@@ -605,16 +669,17 @@ class _CudaOps:
     def conv_gn(self, xa, xb, w, bias, k, seg, scale, gbias, te=None,
                 res=None):
         out = self._take(xa.shape[0], w.shape[1])
-        t, g = _split_k_gn(xa.shape[0],
-                           xa.shape[1] + (0 if xb is None else xb.shape[1]),
-                           w.shape[1], k, seg, w.dtype == torch.bfloat16)
+        cin_b = 0 if xb is None else xb.shape[1]
+        t, g = _split_k_gn(xa.shape[0], xa.shape[1] + cin_b, w.shape[1], k,
+                           seg, w.dtype == torch.bfloat16, cin_b)
         self._grow_scratch(t)
-        if t.bm != WG_BM and (self.gcounters is None
-                              or self.gcounters.numel() < g.blocks):
+        counted = t.bm != WG_BM and not t.cluster  # mma.sync group blocks
+        if counted and (self.gcounters is None
+                        or self.gcounters.numel() < g.blocks):
             self.gcounters = torch.zeros(g.blocks, dtype=torch.int32,
                                          device=self.device)
         launch_rows_conv_gn(xa, xb, w, bias, out, k, seg, scale, gbias, te, 0,
-                            res, None if t.bm == WG_BM else self.gcounters,
+                            res, self.gcounters if counted else None,
                             self.stream, self.scratch, t, g)
         return out
 
@@ -714,12 +779,13 @@ def run_chain(ops, unet, flat_w, x0, m_embs, step_noise, scal, cond, M, b,
 
 def _launch_counts():
     return (rows_conv.launches, rows_conv_gn.launches,
-            ddpm_project_step.launches)
+            ddpm_project_step.launches, rows_conv.cluster_launches,
+            rows_conv_gn.cluster_launches)
 
 
 def _set_launch_counts(counts) -> None:
-    rows_conv.launches, rows_conv_gn.launches, ddpm_project_step.launches = \
-        counts
+    (rows_conv.launches, rows_conv_gn.launches, ddpm_project_step.launches,
+     rows_conv.cluster_launches, rows_conv_gn.cluster_launches) = counts
 
 
 class _WaveRunner:

@@ -9,13 +9,17 @@ shapes (horizon 32, dim 128, mults 1 2 4, random weights):
 their GroupNorm epilogue) through ``rows_conv`` (bf16 weights) with each tile
 of ``conv_tiling.MMA_TILES`` and 1-32 K splits and, from 1,024 rows on, each
 wgmma tile of ``conv_tiling.WG_BUILT`` (width 128 or 256, its ring's stages)
-with 1 and 2 K splits, timed as ten launches replayed from a CUDA graph
-(weights warm in L2), beside the tile and split that ``ops/planner.py``
-takes itself; the sums over a step of the best choices and of the rule's.
-Where the rule takes the wgmma tile it also times every fused pair through
-``rows_conv_gn`` at each built wgmma tile that holds its pairs. This is
-where ``tile_shape``, ``_want_splits``, ``_wg_width`` and ``_wg_splits``
-come from (``--chains 1024`` for the wgmma tile).
+with 1 and 2 K splits, and wherever it fits the cluster tile (64 x 128,
+1-8 splits), timed as ten launches replayed from a CUDA graph (weights warm
+in L2), beside the tile and split that ``ops/planner.py`` takes itself and
+the one it took without the cluster tile; the sums over a step of the best
+choices and of the rule's. Then
+every fused pair through ``rows_conv_gn`` the same way (the rule's tile,
+the mma.sync rule's, each cluster tiling, ``WG_GN`` where the rule takes a
+wgmma tile). This is where ``tile_shape``, ``_want_splits``,
+``_wg_width``, ``_takes_cluster`` and ``_cl_splits`` come from (``--chains
+1024`` for the wgmma tile, ``--chains 8|16|32|64`` for the cluster
+tile).
 
 ``chain``: the one-launch chain (K3) with 1 or 2 blocks per SM and several
 caps on the K splits of a conv, ms per chain and block 0's cycle shares: where
@@ -107,9 +111,39 @@ def step_launches(unet, rows: int, D: int, horizon: int):
     return rec.calls, prog, len(tes)
 
 
+def _label(t) -> str:
+    """A tiling's name in the sweep's lines: family, shape, stages, splits."""
+    fam = "cl" if t.cluster else "wg" if t.bm == ct.WG_BM else "mma"
+    return f"{fam}{t.bm}x{t.bn}" + (f"x{t.ring}" if t.ring else "") \
+        + f"/s{t.splits}"
+
+
+def _cluster_tilings(M, K, parities, cout):
+    """The distinct cluster tilings of 1-8 splits."""
+    return list({_label(t): t for t in (
+        ct.cl_tiling(M, K, parities, cout, s)
+        for s in range(1, ct.CL_MAX_SPLITS + 1))}.values())
+
+
+def _print_times(head: str, rule, us: dict, extra: str = "") -> None:
+    best = sorted(us, key=us.get)[:3]
+    shapes = sorted({q.split("/")[0] for q in us})
+    ring = f"cl{ct.CL_BM}x{ct.CL_BN}x{ct.CL_STAGES}"
+    curve = {q.split("/s")[1]: v for q, v in us.items()
+             if q.split("/")[0] == ring}
+    print(f"{head}: rule {_label(rule)} {us[_label(rule)]:.1f} us{extra} | "
+          "best " + " ".join(f"{q}: {us[q]:.1f}" for q in best)
+          + " | by tile " + " ".join(
+              f"{sh}: {min(v for q, v in us.items() if q.split('/')[0] == sh):.1f}"
+              for sh in shapes)
+          + (" | " + ring + " by splits " + " ".join(
+              f"{q}: {curve[q]:.1f}" for q in sorted(curve, key=int))
+             if curve else ""), flush=True)
+
+
 def sweep_conv(unet, n_chains: int) -> None:
     g = torch.Generator(device="cuda").manual_seed(0)
-    total = {"best": 0.0, "rule": 0.0}
+    total = {"best": 0.0, "rule": 0.0, "mma": 0.0}
     calls, _, _ = step_launches(unet, n_chains * HORIZON, D, HORIZON)
     # every conv of the step, with or without the GroupNorm epilogue
     for (R, ca, cb, cout, mode, k, seg), n in Counter(
@@ -137,52 +171,53 @@ def sweep_conv(unet, n_chains: int) -> None:
             torch.cuda.synchronize()
             err = (out - want).abs().max().item()
             if err > 1e-4:
-                raise SystemExit(f"rows_conv {t} disagrees: {err}")
+                raise SystemExit(f"rows_conv {_label(t)} disagrees: {err}")
             return graph_ms(ten) * 100  # us per launch
 
-        us = {}  # (bm, bn, splits, stages) -> us per launch
+        tilings = []
         for bm, bn in ct.MMA_TILES:
             tiles = -(-cout // bn) * -(-M // bm) * parities
             for want_s in (1, 2, 4, 8, 16, 32):
-                s = ct.even_splits(k_tiles, want_s)
-                if (bm, bn, s, 0) not in us:
-                    us[bm, bn, s, 0] = time_of(ct.Tiling(
-                        bm, bn, tiles, s, M, K, parities, cout))
+                tilings.append(ct.Tiling(bm, bn, tiles, ct.even_splits(
+                    k_tiles, want_s), M, K, parities, cout))
         if M >= 8 * ct.WG_BM and (mode != ct.UP or cin % ct.WG_BK == 0):
             for (bn, stages), s in itertools.product(ct.WG_BUILT, (1, 2)):
-                t = ct.wg_tiling(M, K, parities, cout, bn, s, stages)
-                us[t.bm, bn, t.splits, stages] = time_of(t)
-        rule = pl._split_k(R, cin, cout, mode, k, True)
-        rule_us = time_of(rule)
-        best = sorted(us, key=us.get)[:3]
-        total["best"] += n * us[best[0]]
-        total["rule"] += n * rule_us
-        shapes = sorted({q[:2] + (q[3],) for q in us})
-        print(f"x{n} M={M} K={K} N={cout} mode={mode}: rule "
-              f"{(rule.bm, rule.bn, rule.splits, rule.ring)} {rule_us:.1f} us"
-              " | best " + " ".join(f"{q}: {us[q]:.1f}" for q in best)
-              + " | by tile " + " ".join(
-                  f"{t}: {min(v for q, v in us.items() if q[:2] + (q[3],) == t):.1f}"
-                  for t in shapes), flush=True)
+                tilings.append(ct.wg_tiling(M, K, parities, cout, bn, s,
+                                            stages))
+        if ct.cl_fits(mode, seg, ca, cb, cout):
+            tilings += _cluster_tilings(M, K, parities, cout)
+        rule = pl._split_k(R, cin, cout, mode, k, True, seg=seg, cin_b=cb)
+        mma = pl._split_k(R, cin, cout, mode, k, True)  # without the cluster
+        us = {}
+        for t in tilings + [rule, mma]:
+            if _label(t) not in us:
+                us[_label(t)] = time_of(t)
+        total["best"] += n * min(us.values())
+        total["rule"] += n * us[_label(rule)]
+        total["mma"] += n * us[_label(mma)]
+        _print_times(f"x{n} M={M} K={K} N={cout} mode={mode} seg={seg}", rule,
+                     us, f" (without the cluster tile {_label(mma)} "
+                     f"{us[_label(mma)]:.1f})")
     print(f"per step at {n_chains} chains: best of the sweep "
-          f"{total['best'] / 1e3:.4f} ms, the rule {total['rule'] / 1e3:.4f} ms",
+          f"{total['best'] / 1e3:.4f} ms, the rule {total['rule'] / 1e3:.4f} "
+          f"ms, the rule without the cluster tile {total['mma'] / 1e3:.4f} ms",
           flush=True)
     sweep_conv_gn(calls, g)
 
 
 def sweep_conv_gn(calls, g) -> None:
-    """Every distinct fused pair that the rule puts on a wgmma tile, through
-    ``rows_conv_gn`` with a time row and a residual on the fused wgmma tile
-    (``conv_tiling.WG_GN``), checked against the plain version first; beside
-    it the same conv through ``rows_conv`` on that tile, the epilogue's
-    cost."""
-    totals = {}
+    """Every distinct fused pair through ``rows_conv_gn`` with a time row
+    and a residual, checked against the plain version first: on the tile
+    the rule takes, on the rule's tile without the cluster tile, on every
+    cluster tiling that holds its pairs, and where the rule takes a wgmma
+    tile on ``conv_tiling.WG_GN``, beside it the same conv through
+    ``rows_conv`` on that tile (the epilogue's cost)."""
+    totals = {"best": 0.0, "rule": 0.0, "mma": 0.0}
     pairs = Counter(c[1:8] for c in calls if c[0] == "conv_gn")
     for (R, ca, cb, cout, _, k, seg), n in pairs.items():
         cin = ca + cb
-        t, gp = pl._split_k_gn(R, cin, cout, k, seg, True)
-        if t.bm != ct.WG_BM:
-            continue
+        t, gp = pl._split_k_gn(R, cin, cout, k, seg, True, cb)
+        tm, gm = pl._split_k_gn_mma(R, cin, cout, k, seg, True)
         xa = torch.randn(R, ca, device="cuda", generator=g)
         xb = torch.randn(R, cb, device="cuda", generator=g) if cb else None
         w = (torch.randn(k * cin, cout, device="cuda", generator=g)
@@ -194,38 +229,51 @@ def sweep_conv_gn(calls, g) -> None:
         out = torch.empty(R, cout, device="cuda")
         want = pl.rows_conv_gn_plain(xa, xb, w, bias, k, seg, scale, gbias,
                                      te, res)
-        us = {}
-        for bn, stages in (ct.WG_GN,):
+        tilings = [(t, gp), (tm, gm)]
+        if ct.cl_fits(ct.SAME, seg, ca, cb, cout) and ct.cl_gn_fits(seg, cout):
+            tilings += [(tc, ct.group_plan(R, cout, seg, tc.bm, tc.bn))
+                        for tc in _cluster_tilings(R, t.K, 1, cout)]
+        if t.bm == ct.WG_BM:
+            bn, stages = ct.WG_GN
             tw = ct.wg_tiling(R, t.K, 1, cout, bn, 1, stages)
+            tilings.append((tw, gp))
+        us = {}
+        for tt, gg in tilings:
+            if _label(tt) in us:
+                continue
+            gcount = torch.zeros(max(gg.blocks, 1), dtype=torch.int32,
+                                 device="cuda")
+            scratch = torch.empty(max(tt.partial_elems, 1), device="cuda")
 
-            def ten(tw=tw):
+            def ten(tt=tt, gg=gg, gcount=gcount, scratch=scratch):
                 for _ in range(10):
                     pl.launch_rows_conv_gn(xa, xb, w, bias, out, k, seg, scale,
-                                           gbias, te, 0, res, None, t=tw, g=gp)
+                                           gbias, te, 0, res, gcount, None,
+                                           scratch, t=tt, g=gg)
 
             ten()
             torch.cuda.synchronize()
             err = (out - want).abs().max().item()
             if err > 1e-3:
-                raise SystemExit(f"rows_conv_gn {tw} disagrees: {err}")
-            us[bn, stages] = graph_ms(ten) * 100
-            totals[bn, stages] = (totals.get((bn, stages), 0.0)
-                                  + n * us[bn, stages])
-            tc = ct.wg_tiling(R, t.K, 1, cout, bn, 1, stages)
+                raise SystemExit(f"rows_conv_gn {_label(tt)} disagrees: {err}")
+            us[_label(tt)] = graph_ms(ten) * 100
+        extra = f" (without the cluster tile {_label(tm)} {us[_label(tm)]:.1f})"
+        if t.bm == ct.WG_BM:
+            tc = ct.wg_tiling(R, t.K, 1, cout, t.bn, 1, t.ring)
 
             def conv(tc=tc):
                 for _ in range(10):
                     pl.launch_rows_conv(xa, xb, w, bias, out, ct.SAME, k, seg,
                                         None, None, tc)
 
-            us["rows_conv"] = graph_ms(conv) * 100
-        print(f"x{n} fused M={R} K={t.K} N={cout} seg={seg}: rule "
-              f"{(t.bn, t.ring)} | " + " ".join(
-                  f"{q}: {v:.1f} us" for q, v in us.items()), flush=True)
-    if totals:
-        print("fused pairs per step by wgmma tile: " + " ".join(
-                  f"{q}: {v / 1e3:.4f} ms" for q, v in totals.items()),
-              flush=True)
+            extra += f" (rows_conv on it {graph_ms(conv) * 100:.1f})"
+        totals["best"] += n * min(us.values())
+        totals["rule"] += n * us[_label(t)]
+        totals["mma"] += n * us[_label(tm)]
+        _print_times(f"x{n} fused M={R} K={t.K} N={cout} seg={seg}", t, us,
+                     extra)
+    print("fused pairs per step: " + " ".join(
+        f"{q} {v / 1e3:.4f} ms" for q, v in totals.items()), flush=True)
 
 
 def sweep_chain(unet, schedule) -> None:

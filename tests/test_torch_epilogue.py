@@ -65,7 +65,8 @@ def test_group_plan_covers_every_pair_once(flagship_pairs, bf16):
     for _, R, ca, cb, cout, mode, k, seg, _, _ in flagship_pairs:
         t, g = pl._split_k_gn(R, ca + cb, cout, k, seg, bf16)
         # the launcher's own tile: every group block fits shared memory
-        assert (t.bm, t.bn) == pl._split_k(R, ca + cb, cout, mode, k, bf16)[:2]
+        assert (t.bm, t.bn) == pl._split_k(R, ca + cb, cout, mode, k, bf16,
+                                           seg=seg, cin_b=cb)[:2]
         assert g == ct.group_plan(t.M, cout, seg, t.bm, t.bn) and g.fits
         assert g.tiles_m * g.tiles_n <= 4
         tiles = torch.zeros(-(-R // t.bm), -(-cout // t.bn), dtype=torch.int64)

@@ -854,13 +854,15 @@ def test_split_k_counters_belong_to_their_owner(monkeypatch):
     monkeypatch.setattr(pl, "launch_rows_conv",
                         lambda *a, **k: launched.append(a[-1]))
     owners = [pl._CudaOps("cpu"), pl._CudaOps("cpu")]
-    x = torch.zeros(ROWS_1024 // 32, 128)
-    w = torch.zeros(5 * 128, 128, dtype=torch.bfloat16)
+    # the served wave's stride-2 conv: an mma.sync tile with split-K (the
+    # cluster tile's splits meet in the cluster, with no counter)
+    x = torch.zeros(256, 128)
+    w = torch.zeros(3 * 128, 128, dtype=torch.bfloat16)
     for ops in owners:
         ops.begin("step")
-        ops.conv(x, None, w, torch.zeros(1, 128), ct.SAME, 5, 32)
-    t = pl._split_k(x.shape[0], 128, 128, ct.SAME, 5, True)
-    assert t.splits > 1
+        ops.conv(x, None, w, torch.zeros(1, 128), ct.DOWN, 3, 32)
+    t = pl._split_k(x.shape[0], 128, 128, ct.DOWN, 3, True, seg=32)
+    assert t.splits > 1 and not t.cluster
     assert launched[0] is owners[0].counters and launched[1] is owners[1].counters
     assert launched[0].data_ptr() != launched[1].data_ptr()
     assert launched[0].numel() >= t.tiles

@@ -520,7 +520,7 @@ def test_wave_runner_staged_buffers_equal_fresh_chains(monkeypatch, models,
     runner = pl._WaveRunner(unet, cfg, ops, (C * H, D), T_STEPS, "cpu")
     prep = prepared()
     n_res = sum(op[0] == "res" for op in pl._program(unet, prep[0]))
-    pl._set_launch_counts((0, 0, 0))
+    pl._set_launch_counts((0,) * len(pl._launch_counts()))
     per_wave = None
     for wave, seed in enumerate((31, 32, 31)):
         x0, noise, cond = inputs(seed)

@@ -1,12 +1,14 @@
-"""The wgmma tile of K2's conv product (``WgTile`` of csrc/wgmma.cuh, through
-``rows_conv_wg`` / ``rows_conv_gn_wg`` of csrc/planner.cu), held on the CPU
-where no kernel runs: which convs take it (every conv of the 1,024-chain
-wave, none of the served waves of 8-64 chains or K3), and its
-walk (``conv_tiling.rows_conv_tiled`` / ``rows_conv_gn_tiled`` at 128 rows,
-BK = 64, TMA boxes of consecutive weight rows, statistics per 8-row piece)
-against the plain versions and the JAX package's ``_conv_stack`` +
-``_group_norm_mish`` (pallas_unet.py:184, :198, a Pallas kernel in interpret
-mode).
+"""The wgmma tiles of K2's conv product (``WgTile`` and ``ClusterTile`` of
+csrc/wgmma.cuh, through ``rows_conv_wg`` / ``rows_conv_gn_wg`` and
+``rows_conv_cl`` / ``rows_conv_gn_cl`` of csrc/planner.cu), held on the CPU
+where no kernel runs: which convs take them (every conv of the 1,024-chain
+wave takes WgTile; most convs of the served waves of 8-64 chains the
+cluster tile; K3 neither), the launchers' routing and counters, and their
+walks (``conv_tiling.rows_conv_tiled`` / ``rows_conv_gn_tiled`` at 128 rows,
+or at 64 rows with the K splits added in split order, BK = 64, TMA boxes of
+consecutive weight rows, statistics per 8-row piece) against the plain
+versions and the JAX package's ``_conv_stack`` + ``_group_norm_mish``
+(pallas_unet.py:184, :198, a Pallas kernel in interpret mode).
 
 Tolerances: 2e-5 for the conv walk (f32 sums of up to K = 1,280 products in
 another order), 1e-5 for the fused walk against the plain fused conv (as
@@ -37,30 +39,46 @@ def flagship():
 
 
 def _tiles(calls):
+    """(bm, bn, splits) of each launch on an mma.sync tile, ("cl", splits)
+    on the cluster tile."""
     out = []
     for kind, R, ca, cb, cout, mode, k, seg, *_ in calls:
-        t = (pl._split_k(R, ca + cb, cout, mode, k, True) if kind == "conv"
-             else pl._split_k_gn(R, ca + cb, cout, k, seg, True)[0])
-        out.append((t.bm, t.bn, t.splits))
+        t = (pl._split_k(R, ca + cb, cout, mode, k, True, seg=seg, cin_b=cb)
+             if kind == "conv"
+             else pl._split_k_gn(R, ca + cb, cout, k, seg, True, cb)[0])
+        out.append(("cl", t.splits) if t.cluster else (t.bm, t.bn, t.splits))
     return out
 
 
-# (bm, bn, splits) of each of a step's 35 launches in forward order, as the
-# mma.sync rule gave them before the wgmma tile existed
+# each of a step's 35 launches in forward order: ("cl", splits) on the
+# cluster tile, (bm, bn, splits) on an mma.sync tile (the first conv, cin
+# 8; the k=1 convs of 1-2 K tiles of 64 and the down conv at 8 chains; the
+# convs of the 8-chain wave's two lower levels with little work; the final
+# 128 -> 8 conv), as sweep_kernels conv --chains 8|16|32|64 put them
+MMA, CL = (16, 64), "cl"
 PINNED = {
-    8: [(16, 64, s) for s in (1, 1, 7, 7, 7, 6, 7, 1, 8, 8, 8, 8, 8, 4, 8, 8,
-                              8, 8, 8, 8, 8, 16, 8, 8, 8, 8, 8, 8, 8, 7, 7, 7,
-                              4, 7, 1)],
+    8: [(*MMA, 1), (*MMA, 1), (CL, 5), (CL, 5), (CL, 5), (*MMA, 6), (CL, 5),
+        (*MMA, 1), (CL, 7), (CL, 7), (CL, 7), (*MMA, 8), (CL, 7), (*MMA, 4),
+        (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8),
+        (CL, 8), (*MMA, 8), (*MMA, 8), (*MMA, 8), (*MMA, 8), (CL, 4), (CL, 8),
+        (*MMA, 8), (*MMA, 7), (*MMA, 7), (*MMA, 7), (*MMA, 4), (CL, 5),
+        (*MMA, 1)],
     # the micro-batched server's waves of 2 and 4 requests of 8 candidates
-    16: [(16, 64, s) for s in (1, 1, 7, 7, 7, 6, 7, 1, 8, 8, 8, 8, 8, 4, 8, 8,
-                               8, 8, 8, 8, 8, 16, 8, 8, 8, 8, 8, 8, 8, 7, 7, 7,
-                               4, 7, 1)],
-    32: [(16, 64, s) for s in (1, 1, 5, 5, 5, 6, 5, 1, 5, 5, 5, 8, 5, 4, 5, 5,
-                               5, 5, 5, 5, 5, 9, 8, 8, 8, 8, 4, 8, 8, 7, 7, 7,
-                               4, 5, 1)],
-    64: [(16, 64, s) for s in (1, 1, 3, 3, 3, 4, 3, 1, 3, 3, 3, 5, 3, 3, 3, 3,
-                               3, 3, 3, 3, 3, 5, 5, 5, 5, 5, 3, 5, 4, 5, 5, 5,
-                               3, 3, 1)],
+    16: [(*MMA, 1), (*MMA, 1), (CL, 5), (CL, 5), (CL, 5), (*MMA, 6), (CL, 5),
+         (*MMA, 1), (CL, 7), (CL, 7), (CL, 7), (CL, 6), (CL, 7), (CL, 2),
+         (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8),
+         (CL, 8), (CL, 8), (CL, 7), (CL, 7), (CL, 7), (CL, 4), (CL, 8),
+         (CL, 4), (CL, 5), (CL, 5), (CL, 5), (CL, 2), (CL, 5), (*MMA, 1)],
+    32: [(*MMA, 1), (*MMA, 1), (CL, 4), (CL, 4), (CL, 4), (CL, 3), (CL, 4),
+         (*MMA, 1), (CL, 5), (CL, 5), (CL, 5), (CL, 6), (CL, 5), (CL, 2),
+         (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8), (CL, 8),
+         (CL, 8), (CL, 8), (CL, 7), (CL, 7), (CL, 7), (CL, 4), (CL, 8),
+         (CL, 4), (CL, 5), (CL, 5), (CL, 5), (CL, 2), (CL, 4), (*MMA, 1)],
+    64: [(*MMA, 1), (*MMA, 1), (CL, 4), (CL, 4), (CL, 4), (CL, 3), (CL, 4),
+         (*MMA, 1), (CL, 5), (CL, 5), (CL, 5), (CL, 4), (CL, 5), (CL, 2),
+         (CL, 5), (CL, 5), (CL, 5), (CL, 5), (CL, 5), (CL, 5), (CL, 5),
+         (CL, 8), (CL, 4), (CL, 5), (CL, 5), (CL, 5), (CL, 4), (CL, 8),
+         (CL, 4), (CL, 4), (CL, 4), (CL, 4), (CL, 2), (CL, 4), (*MMA, 1)],
 }
 # the one-launch chain's (K3) tiles at batch 1 on its 132-block grid
 K3_PINNED = {
@@ -75,14 +93,17 @@ K3_PINNED = {
 
 
 @pytest.mark.parametrize("chains", [8, 16, 32, 64])
-def test_served_and_64_chain_waves_keep_their_tiles(flagship, chains):
+def test_served_waves_take_the_cluster_tile_where_it_pays(flagship, chains):
     """The served bo8 wave (256 rows), the micro-batched server's waves of
-    16 and 32 chains and the 64-chain chain (8 requests) keep the mma.sync
-    tiles and K splits they had, so their results stay bit for bit those of
-    before."""
+    16 and 32 chains and the 64-chain wave (8 requests) take the cluster
+    tile at every conv that fits it and has the work to fill it, with the
+    K splits of ``_cl_splits``, and the mma.sync tiles at the rest: the
+    first and the final conv always."""
     calls, _, _ = step_launches(flagship, chains * 32, 8, 32)
     assert len(calls) == 35
-    assert _tiles(calls) == PINNED[chains]
+    got = _tiles(calls)
+    assert got == PINNED[chains]
+    assert got[0] == got[-1] == (*MMA, 1)
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
@@ -159,17 +180,20 @@ def test_wgmma_rule_edges():
 # levels of the flagship U-Net: segment rows and channels
 LEVELS = {"seg32_c128": (32, 128), "seg16_c256": (16, 256),
           "seg8_c512": (8, 512)}
+# each level on the cluster tile at the served waves of 16, 32 and 64
+# chains (512-2,048 rows at the top level)
+CL_LEVELS = {f"{lv}.cl{n}": (lv, n) for lv in LEVELS for n in (16, 32, 64)}
 CONV_MODES = {"same5": (ct.SAME, 5, 64), "same1": (ct.SAME, 1, 64),
               "down": (ct.DOWN, 3, 64), "up": (ct.UP, 4, 64),
               "ragged_cin8": (ct.SAME, 5, 8), "concat": (ct.SAME, 5, 128)}
 ROWS = 256  # two 128-row tiles
 
 
-def _conv_case(mode, k, cin, seg, cout, seed):
+def _conv_case(mode, k, cin, seg, cout, seed, rows=ROWS):
     rng = np.random.RandomState(seed)
     ca, cb = (cin // 2, cin // 2) if cin == 128 else (cin, 0)
     taps = 4 if mode == ct.UP else k
-    rows = ROWS // 2 if mode == ct.UP else ROWS
+    rows = rows // 2 if mode == ct.UP else rows
     xa = torch.from_numpy(rng.randn(rows, ca).astype(np.float32))
     xb = torch.from_numpy(rng.randn(rows, cb).astype(np.float32)) if cb else None
     w = torch.from_numpy((rng.randn(taps * cin, cout) / cin ** 0.5)
@@ -178,13 +202,46 @@ def _conv_case(mode, k, cin, seg, cout, seed):
     return xa, xb, w, bias
 
 
-@pytest.mark.parametrize("level", list(LEVELS))
+def _cl_walk_rebuilds_rows_conv(conv, level):
+    """The cluster tile's walk at a level's rows of 16, 32 or 64 chains
+    (64 x 128 tiles, 64-wide K tiles, the splits' partial tiles added in
+    split order): one split, the rule's, three (an odd count) and eight."""
+    mode, k, cin = CONV_MODES[conv]
+    lv, chains = CL_LEVELS[level]
+    seg, cout = LEVELS[lv]
+    xa, xb, w, bias = _conv_case(mode, k, cin, seg, cout,
+                                 len(conv) + 7 * len(level), chains * seg)
+    cb = 0 if xb is None else xb.shape[1]
+    fits = ct.cl_fits(mode, seg, xa.shape[1], cb, cout)
+    assert fits == (conv != "ragged_cin8")  # K tiles of 64 in one tap
+    if not fits:
+        with pytest.raises(ValueError, match="cluster tile"):
+            ct.rows_conv_tiled(xa, xb, w, bias, mode, k, seg, ct.CL_BM,
+                               ct.CL_BN, 1, cluster=True)
+        return
+    want = pl.rows_conv_plain(xa, xb, w, bias, mode, k, seg)
+    M, K, parities = ct.gemm_dims(xa.shape[0], cin, mode, k)
+    rule = pl._cl_splits(ct.cl_tiling(M, K, parities, cout, 1).tiles, K // 64)
+    for want_s in sorted({1, rule, 3, 8}):
+        t = ct.cl_tiling(M, K, parities, cout, want_s)
+        got, cover = ct.rows_conv_tiled(xa, xb, w, bias, mode, k, seg, t.bm,
+                                        t.bn, t.splits, cluster=True)
+        assert cover.shape == (parities, -(-M // 64), -(-cout // 128), K)
+        assert bool((cover == 1).all()), t.splits
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                                   err_msg=f"splits={t.splits}")
+
+
+@pytest.mark.parametrize("level", list(LEVELS) + list(CL_LEVELS))
 @pytest.mark.parametrize("conv", list(CONV_MODES))
 def test_wgmma_walk_rebuilds_rows_conv(conv, level):
     """The wgmma tile's walk (128-row tiles, 64-wide K tiles, a ragged K
     tile's weight rows as one box of consecutive rows) gives
     rows_conv_plain and multiplies every K index of every tile once, at
-    both widths, one and two K splits."""
+    both widths, one and two K splits; so does the cluster tile's at the
+    served waves' rows (``CL_LEVELS``), which refuses a ragged K tile."""
+    if level in CL_LEVELS:
+        return _cl_walk_rebuilds_rows_conv(conv, level)
     mode, k, cin = CONV_MODES[conv]
     seg, cout = LEVELS[level]
     xa, xb, w, bias = _conv_case(mode, k, cin, seg, cout,
@@ -205,9 +262,9 @@ def test_wgmma_walk_rebuilds_rows_conv(conv, level):
 ADDS = ["none", "te", "te_per_segment", "res", "te_res"]
 
 
-def _gn_case(seg, cout, adds, seed, bf16=True, cin=64):
+def _gn_case(seg, cout, adds, seed, bf16=True, cin=64, rows=ROWS):
     rng = np.random.RandomState(seed)
-    xa = torch.from_numpy(rng.randn(ROWS, cin).astype(np.float32))
+    xa = torch.from_numpy(rng.randn(rows, cin).astype(np.float32))
     w = torch.from_numpy((rng.randn(5 * cin, cout) / cin ** 0.5)
                          .astype(np.float32))
     w = w.to(torch.bfloat16) if bf16 else w
@@ -216,20 +273,41 @@ def _gn_case(seg, cout, adds, seed, bf16=True, cin=64):
     te = res = None
     if adds.startswith("te"):
         te = torch.from_numpy(rng.randn(
-            ROWS // seg if adds == "te_per_segment" else 1, cout)
+            rows // seg if adds == "te_per_segment" else 1, cout)
             .astype(np.float32))
     if adds.endswith("res"):
-        res = torch.from_numpy(rng.randn(ROWS, cout).astype(np.float32))
+        res = torch.from_numpy(rng.randn(rows, cout).astype(np.float32))
     return (xa, None, w, f[0], 5, seg, f[1], f[2], te, res)
 
 
 @pytest.mark.parametrize("adds", ADDS)
-@pytest.mark.parametrize("level", list(LEVELS))
+@pytest.mark.parametrize("level", list(LEVELS) + list(CL_LEVELS))
 def test_wgmma_walk_rebuilds_rows_conv_gn(level, adds):
     """The fused conv on the wgmma tile (one K split; each (segment, group)
     pair's sums per 8-row piece, added in row order) gives rows_conv_plain
     -> gn_mish_plain with its adds, normalising every pair once, at each
-    width whose tile holds the pairs."""
+    width whose tile holds the pairs; so does the cluster tile at the
+    served waves' rows (``CL_LEVELS``: its K splits added in split order,
+    then the same sums per piece), at the rule's splits and at one."""
+    if level in CL_LEVELS:
+        lv, chains = CL_LEVELS[level]
+        seg, cout = LEVELS[lv]
+        args = _gn_case(seg, cout, adds, len(level) + 3 * len(adds),
+                        rows=chains * seg)
+        want = pl.rows_conv_gn_plain(*args)
+        assert ct.cl_gn_fits(seg, cout)
+        t, _ = pl._split_k_gn(chains * seg, 64, cout, 5, seg, True)
+        assert t.cluster == pl._takes_cluster(
+            ct.cl_tiling(t.M, t.K, 1, cout, 1))
+        for splits in sorted({1, ct.cl_tiling(t.M, t.K, 1, cout, 8).splits,
+                              pl._cl_splits(-(-t.M // 64) * -(-cout // 128),
+                                            t.K // 64)}):
+            got, cover = ct.rows_conv_gn_tiled(
+                *args, bm=ct.CL_BM, bn=ct.CL_BN, splits=splits, cluster=True)
+            assert bool((cover == 1).all())
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                       err_msg=f"splits={splits}")
+        return
     seg, cout = LEVELS[level]
     args = _gn_case(seg, cout, adds, len(level) + 3 * len(adds))
     want = pl.rows_conv_gn_plain(*args)
@@ -259,17 +337,25 @@ def _jax_conv_gn(x, w, b, scale, gbias, te, res, k, n_chains):
                         te.reshape(1, -1), res))
 
 
-@pytest.mark.parametrize("level", list(LEVELS))
+@pytest.mark.parametrize("level", list(LEVELS) + list(CL_LEVELS))
 def test_wgmma_fused_walk_matches_jax(level):
     """The fused walk on the wgmma tile against the TPU kernel's own conv
-    and GroupNorm+Mish (f32 weights, per-chain statistics)."""
-    seg, cout = LEVELS[level]
-    args = _gn_case(seg, cout, "te_res", 11, bf16=False, cin=32)
+    and GroupNorm+Mish (f32 weights, per-chain statistics); the cluster
+    tile's at the served waves' rows (``CL_LEVELS``, four K splits)."""
+    lv, chains = CL_LEVELS.get(level, (level, None))
+    seg, cout = LEVELS[lv]
+    rows = ROWS if chains is None else chains * seg
+    cin = 32 if chains is None else 64  # the cluster tile: K tiles of 64
+    args = _gn_case(seg, cout, "te_res", 11, bf16=False, cin=cin, rows=rows)
     xa, _, w, bias, k, _, scale, gbias, te, res = args
     want = _jax_conv_gn(xa.numpy(), w.numpy(), bias.numpy(), scale.numpy(),
                         gbias.numpy(), te.numpy(), res.numpy(), k,
-                        ROWS // seg)
-    got, _ = ct.rows_conv_gn_tiled(*args, bm=ct.WG_BM, bn=128, splits=1)
+                        rows // seg)
+    if chains is None:
+        got, _ = ct.rows_conv_gn_tiled(*args, bm=ct.WG_BM, bn=128, splits=1)
+    else:
+        got, _ = ct.rows_conv_gn_tiled(*args, bm=ct.CL_BM, bn=ct.CL_BN,
+                                       splits=4, cluster=True)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
@@ -286,11 +372,28 @@ class _FakeLib:
         return call
 
 
+def _recording_capture(self, wave):
+    """Stands in for the CUDA graph: capture runs the wave's host side (its
+    launches are counted, as under capture), replay runs it again without
+    the wrappers counting, as a graph launch does."""
+    wave()
+
+    def replay():
+        counts = pl._launch_counts()
+        wave()
+        pl._set_launch_counts(counts)
+
+    return replay
+
+
 def test_launchers_route_the_wgmma_tile(monkeypatch):
     """A wgmma tiling goes to rows_conv_wg / rows_conv_gn_wg with its width,
     its ring and its splits (split-K scratch and counters only with more
     than one split; the fused entry takes neither, nor group counters); the
-    mma.sync tiles keep their entries."""
+    mma.sync tiles keep their entries. A 64-chain launch reaches
+    rows_conv_cl / rows_conv_gn_cl with its ring and the split count of the
+    rule, and ``cluster_launches`` adds up over a wave's capture and its
+    replays as ``launches`` does."""
     from dadiff_tpu_torch.ops import cuda_lib
 
     fake = _FakeLib()
@@ -327,6 +430,59 @@ def test_launchers_route_the_wgmma_tile(monkeypatch):
                         scratch=scratch, t=small, counters=counters)
     assert fake.calls[-1][0] == "rows_conv"
 
+    # the 64-chain wave's convs: the cluster tile, from the shape alone
+    R64 = 64 * 32
+    x64, out64 = torch.zeros(R64, cin), torch.zeros(R64, cout)
+    t = pl._split_k(R64, cin, cout, ct.SAME, 5, True, seg=32)
+    assert t.cluster and (t.bm, t.bn) == (ct.CL_BM, ct.CL_BN)
+    assert t.splits == ct.even_splits(t.k_tiles, pl._cl_splits(t.tiles,
+                                                               t.k_tiles))
+    assert t.partial_elems == 0 and pl._partial(x64, t, None) is None
+    before = (pl.rows_conv.cluster_launches, pl.rows_conv_gn.cluster_launches)
+    pl.launch_rows_conv(x64, None, w, bias, out64, ct.SAME, 5, 32, stream=7)
+    name, a = fake.calls[-1]
+    assert name == "rows_conv_cl" and len(a) == 14
+    assert a[12:14] == (t.splits, 7) and a[7:9] == (R64, 32)
+    pl.launch_rows_conv_gn(x64, None, w, bias, out64, 5, 32, bias.reshape(-1),
+                           bias.reshape(-1), None, 0, None, None, stream=7)
+    name, a = fake.calls[-1]
+    assert name == "rows_conv_gn_cl" and len(a) == 19
+    assert a[11] == t.splits and a[-1] == 7
+    assert (pl.rows_conv.cluster_launches, pl.rows_conv_gn.cluster_launches) \
+        == (before[0] + 1, before[1] + 1)
+
+    # a wave of 16 chains of a U-Net at 64-128 channels on the fixed
+    # buffers: counted once host-driven and captured, then once a replay
+    from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
+    from dadiff_tpu_torch.ops.chain_operands import prepare_chain_operands
+
+    monkeypatch.setattr(cuda_lib, "stream_of", lambda x: 7)
+    monkeypatch.setattr(pl._WaveRunner, "_capture", _recording_capture)
+    unet = TemporalUnet(transition_dim=8, dim=64, dim_mults=(1, 2))
+    diff = GaussianDiffusion(unet, 32, 6, 2, n_timesteps=2)
+    fw, me, sc = prepare_chain_operands(unet, diff.schedule,
+                                        torch.arange(1, -1, -1), torch.bfloat16)
+    R = 16 * 32
+    calls, _, _ = step_launches(unet, R, 8, 32)
+    per_step = sum(
+        (pl._split_k(c[1], c[2] + c[3], c[4], c[5], c[6], True, seg=c[7],
+                     cin_b=c[3]) if c[0] == "conv" else
+         pl._split_k_gn(c[1], c[2] + c[3], c[4], c[6], c[7], True, c[3])[0]
+         ).cluster for c in calls)
+    assert 0 < per_step < len(calls)  # the first and last convs keep mma
+    runner = pl._WaveRunner(unet, pl.StepConfig(32), pl._CudaOps("cpu"),
+                            (R, 8), 2, "cpu")
+    zeros = torch.zeros(R, 8)
+    pl._set_launch_counts((0,) * len(pl._launch_counts()))
+    runner.run(fw, zeros, me, torch.zeros(2, R, 8), sc, zeros, None, None)
+    wave = pl._launch_counts()
+    assert wave[3] + wave[4] == 2 * per_step  # two steps
+    assert wave[3] <= wave[0] and 0 < wave[4] <= wave[1]
+    for n in (2, 3):
+        runner.run(fw, zeros, me, torch.zeros(2, R, 8), sc, zeros, None, None)
+        assert pl._launch_counts() == tuple(n * c for c in wave)
+    assert len(runner.graphs) == 1
+
 
 def test_every_c_entry_has_its_ctypes_signature():
     """Each ``extern "C"`` entry of csrc/*.cu is registered in
@@ -350,3 +506,5 @@ def test_every_c_entry_has_its_ctypes_signature():
             assert got == want, name
             seen += 1
     assert seen == sum(len(v) for v in cuda_lib.SIGNATURES.values())
+    assert {"rows_conv_wg", "rows_conv_gn_wg", "rows_conv_cl",
+            "rows_conv_gn_cl"} <= set(cuda_lib.SIGNATURES["planner"])
