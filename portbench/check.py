@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: answers of the window's timed
-path against the plain reference (``reference/``), recomputed after the
-window from the inputs the benchmark made.
+path against the plain reference (``reference/``: the chain, and the
+forward of the configuration's family), recomputed after the window from
+the inputs the benchmark made.
 
 A served answer is a plan. The reference recomputes every candidate of the
 request (its draws re-drawn from the session's generator, in the order the
@@ -26,10 +27,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from portbench import inputs
+from portbench import inputs, spec
 from portbench.reference import chain, data, maze, precision
-from portbench.reference import transformer as ref_transformer
-from portbench.reference import unet as ref_unet
 
 
 class Reference:
@@ -45,9 +44,8 @@ class Reference:
         self.ops = chain.operands(data.cosine_schedule(cfg["n_timesteps"]),
                                   self.stats,
                                   data.projector(A, B, cfg["horizon"]), dev)
-        self.w = inputs.make_weights(cfg, ctx.seed, dev)
-        self.forward = (ref_unet.forward if cfg["family"] == "unet"
-                        else ref_transformer.forward)
+        self.w = inputs.make_weights(cfg, ctx.seed, dev, ctx.pkg)
+        self.forward = spec.reference(cfg, ctx.pkg).forward
 
     def plans(self, obs_norm, x0, noise, product: str) -> torch.Tensor:
         """Every chain's plan with products in ``product`` (a rounding of
@@ -55,10 +53,12 @@ class Reference:
         tf32 = product == "tf32"
         prec = precision.ROUNDING["float32" if tf32 else product]
         cfg = self.cfg
+
+        def eps_fn(x, t, cond):
+            return self.forward(self.w, cfg, x, t, prec, cond)
+
         with precision.float32_products(tf32):
-            return chain.plan(lambda x, t: self.forward(self.w, cfg, x, t,
-                                                        prec),
-                              self.ops, obs_norm, x0, noise,
+            return chain.plan(eps_fn, self.ops, obs_norm, x0, noise,
                               obs_dim=cfg["observation_dim"],
                               state_dim=cfg["state_dim"])
 

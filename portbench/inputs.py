@@ -10,27 +10,26 @@ from typing import Dict, List
 
 import numpy as np
 
-from portbench.spec import REPO, rng, subseed
+from portbench import spec
+from portbench.spec import PKG, REPO, rng, subseed
 
 # the key of the one arrival pattern every seed of a cell is offered
 DESIGN_SEED = 20
 
 
-def model_specs(cfg) -> List[tuple]:
-    if cfg["family"] == "unet":
-        from portbench.reference.unet import param_specs
-    else:
-        from portbench.reference.transformer import param_specs
-    return param_specs(cfg)
+def model_specs(cfg, pkg=PKG) -> List[tuple]:
+    """The denoiser's weights as its family's reference names them."""
+    return spec.reference(cfg, pkg).param_specs(cfg)
 
 
-def make_weights(cfg, seed: int, device) -> "OrderedDict[str, object]":
+def make_weights(cfg, seed: int, device,
+                 pkg=PKG) -> "OrderedDict[str, object]":
     """Every weight of the denoiser, float32 on ``device``, drawn from the
     seed on the device in two calls (one uniform, one normal), at PyTorch's
     default initialisation of each layer."""
     import torch
 
-    specs = model_specs(cfg)
+    specs = model_specs(cfg, pkg)
     g = torch.Generator(device=device).manual_seed(subseed(seed, "weights"))
     sizes = [int(np.prod(s)) for _, s, init, _ in specs if init == "uniform"]
     uni = torch.rand(sum(sizes), generator=g, device=device) * 2.0 - 1.0

@@ -1,6 +1,7 @@
 """The whole model step's share of the card's peak: model FLOPs (every
 denoiser call of the plans or replans completed inside the traced
-sub-window, counted from shapes by portbench/work.py) over the
+sub-window, counted from shapes by the configuration's family,
+portbench/families/<family>.py) over the
 sub-window's wall time times the peak of the precision the path's
 products run in (bf16 989 TFLOP/s for the K2 wave; for float32 products
 TF32 495 TFLOP/s where ``torch.backends.cuda.matmul.allow_tf32`` reads
@@ -19,10 +20,11 @@ def read(name, out, cfg):
     steps = cfg["n_timesteps"]
     if "recv" in out.records:   # served plans answered in the sub-window
         n = sum(1 for r in out.records["recv"] if t0 <= r <= t1)
-        flops = n * steps * work.model_flops(cfg, cfg["n_candidates"])
+        flops = n * steps * work.model_flops(cfg, cfg["n_candidates"],
+                                             out.records["pkg"])
     else:                       # the traced call's replans
         flops = out.records["replans_traced"] * steps * work.model_flops(
-            cfg, out.records["chains"])
+            cfg, out.records["chains"], out.records["pkg"])
     if flops <= 0:
         return None
     peak, _ = work.product_peak(cfg)

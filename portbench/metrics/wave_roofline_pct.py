@@ -12,5 +12,6 @@ def read(name, out, cfg):
     device_s = sum(s for _, s in waves)
     if not waves or device_s <= 0:
         return None
-    least = sum(work.wave_least_s(cfg, chains) for chains, _ in waves)
+    least = sum(work.wave_least_s(cfg, chains, out.records["pkg"])
+                for chains, _ in waves)
     return 100.0 * least / device_s

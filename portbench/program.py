@@ -22,35 +22,36 @@ from typing import List
 
 import torch
 
+from portbench import spec
 from portbench.inputs import dataset_path
-from portbench.spec import subseed
+from portbench.spec import PKG, subseed
 
 ENV_NAME = "PointMaze_UMaze-v3"
 WAVE = "portbench.wave.c"
 
 
-def load_kernels(cfg, device) -> None:
+def k2(cfg, pkg=PKG) -> bool:
+    """Whether the configuration's family plans on K2."""
+    return spec.family(cfg, pkg).PLANNER == "k2"
+
+
+def load_kernels(cfg, device, pkg=PKG) -> None:
     """Load (build on the first run in a checkout) the CUDA libraries of
     the configuration's path; on the CPU the port runs their plain
     versions."""
-    if cfg["family"] == "unet" and device.type == "cuda":
+    if k2(cfg, pkg) and device.type == "cuda":
         from dadiff_tpu_torch.ops import cuda_lib
 
         cuda_lib.lib("planner")
 
 
-def diffusion(cfg, weights, device):
-    """The port's GaussianDiffusion with the benchmark's weights."""
-    from dadiff_tpu_torch.cli import build_denoiser
+def diffusion(cfg, weights, device, pkg=PKG):
+    """The port's GaussianDiffusion around its family's denoiser, with the
+    benchmark's weights."""
     from dadiff_tpu_torch.models.diffusion import GaussianDiffusion
 
     with torch.device(device):
-        model = build_denoiser(
-            cfg["family"], cfg["transition_dim"], dim=cfg["dim"],
-            dim_mults=tuple(cfg.get("dim_mults", (1, 2, 4))),
-            kernel_size=cfg.get("kernel_size", 5),
-            depth=cfg.get("depth", 4), n_heads=cfg.get("n_heads", 4),
-            mlp_ratio=cfg.get("mlp_ratio", 4))
+        model = spec.family(cfg, pkg).denoiser(cfg)
     model.load_state_dict(weights, strict=True)
     diff = GaussianDiffusion(
         model, horizon=cfg["horizon"],
@@ -229,7 +230,7 @@ def annotate_planner():
     return lambda: setattr(planner_mod, "make_bo_sampler", base)
 
 
-def evaluator(cfg, diff, env, d: Data, n_replans: int):
+def evaluator(cfg, diff, env, d: Data, n_replans: int, pkg=PKG):
     """The port's on-device evaluator at the protocol of the cell."""
     from dadiff_tpu_torch.envs.rollout import make_ondevice_evaluator
     from dadiff_tpu_torch.guides.sampling import ProjectionSpec
@@ -239,5 +240,5 @@ def evaluator(cfg, diff, env, d: Data, n_replans: int):
         projection=ProjectionSpec(state_dim=d.state_dim,
                                   schedule=cfg["projection_schedule"]),
         n_candidates=cfg["n_candidates"],
-        use_megakernel=cfg["family"] == "unet", P=d.P, stats=d.stats,
+        use_megakernel=k2(cfg, pkg), P=d.P, stats=d.stats,
         mega_group_chains=64)

@@ -66,7 +66,9 @@ def plan(eps_fn: Callable, ops: Operands, obs_norm: torch.Tensor,
          state_dim: int, block: int = 4096) -> torch.Tensor:
     """Every chain's plan (C, H, D): ``obs_norm`` (C, obs_dim) conditions
     chain c, ``x0`` (C, H, D) and ``noise`` (T, C, H, D) are its draws.
-    Runs ``block`` chains at a time."""
+    ``eps_fn(x, t, cond)`` is the denoiser; ``cond`` is each chain's
+    ``obs_norm``, the observation its row 0 is inpainted with. Runs
+    ``block`` chains at a time."""
     outs = []
     for c0 in range(0, x0.shape[0], block):
         sl = slice(c0, c0 + block)
@@ -84,7 +86,7 @@ def _plan(eps_fn, ops, obs_norm, x0, noise, obs_dim, state_dim):
     x[:, 0] = cond
     for i, t in enumerate(range(T - 1, -1, -1)):
         tt = torch.full((C,), t, dtype=torch.long, device=x.device)
-        eps = eps_fn(x, tt)
+        eps = eps_fn(x, tt, obs_norm)
         xr = (ops.recip[t] * x - ops.recipm1[t] * eps).clamp(-1.0, 1.0)
         x = ops.coef1[t] * xr + ops.coef2[t] * x + ops.sigma[t] * noise[i]
         x = project(x, ops.alpha[t], ops, obs_dim, state_dim)

@@ -8,7 +8,7 @@ final modulated LayerNorm and an output projection. Float32 throughout.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,8 +49,10 @@ def _ln(x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(w: Dict[str, torch.Tensor], cfg, x: torch.Tensor,
-            t: torch.Tensor, prec=None) -> torch.Tensor:
-    """eps (B, H, D) from x (B, H, D) at steps t (B,)."""
+            t: torch.Tensor, prec=None,
+            cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """eps (B, H, D) from x (B, H, D) at steps t (B,). The transformer
+    takes no global condition: ``cond`` is ignored."""
     B, H, _ = x.shape
     heads = cfg["n_heads"]
     hd = cfg["dim"] // heads

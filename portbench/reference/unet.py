@@ -12,7 +12,7 @@ float32; the top time MLP, the norms, Mish and the adds run in float32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,8 +96,10 @@ def time_embedding(w: Dict[str, torch.Tensor], t: torch.Tensor,
 
 
 def forward(w: Dict[str, torch.Tensor], cfg, x: torch.Tensor,
-            t: torch.Tensor, prec: Callable = lambda v: v) -> torch.Tensor:
-    """eps (B, H, D) from x (B, H, D) at steps t (B,)."""
+            t: torch.Tensor, prec: Callable = lambda v: v,
+            cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """eps (B, H, D) from x (B, H, D) at steps t (B,). The U-Net takes no
+    global condition: ``cond`` is ignored."""
     temb = time_embedding(w, t, cfg["dim"])
 
     def conv(h, name, stride=1, pad=None):

@@ -69,8 +69,9 @@ class Context:
 
 def execute(cfg, traffic, seed, seconds, device, *, trace=False,
             control=False, phases=None, pkg=None):
-    """Run the traffic's runner on ``device`` (a test may pass the CPU);
-    returns its Outcome and the context it was given."""
+    """Run the traffic's runner on ``device`` (a test may pass the CPU),
+    with the parts found under ``pkg`` (a copy of the benchmark, in a
+    test); returns its Outcome and the context it was given."""
     from portbench import spec
 
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
@@ -78,9 +79,11 @@ def execute(cfg, traffic, seed, seconds, device, *, trace=False,
                       trace=trace, device=device,
                       phases=phases or Phases(time.perf_counter()),
                       tmpdir=tmp, control=control, readings={},
+                      pkg=pkg or spec.PKG,
                       product_dtype=(cfg["product_dtype"]
                                      if device.type == "cuda" else "float32"))
-        out = spec.runner(traffic["runner"], pkg or spec.PKG).run(ctx)
+        out = spec.runner(traffic["runner"], ctx.pkg).run(ctx)
+    out.records["pkg"] = ctx.pkg    # where a reader finds the family
     return out, ctx
 
 

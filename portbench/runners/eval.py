@@ -1,7 +1,8 @@
 """The on-device evaluator (``envs/rollout.py`` ``make_ondevice_evaluator``)
 on the published protocol: ``batch`` envs x ``n_candidates`` chains a
 replan, replans of ``action_horizon`` env steps, projection on; K2 waves
-for the U-Net, the module-path DDPM sampler for another denoiser.
+for a family whose ``PLANNER`` is ``k2``, the module-path DDPM sampler for
+one whose is ``module``.
 
 The window runs whole evaluator calls back to back, each of
 ``replans_per_call`` replans of an episode, the env state carried into the
@@ -32,17 +33,18 @@ def run(ctx) -> Outcome:
     ph = ctx.phases
     B, R = int(tr["batch"]), int(tr["replans_per_call"])
     per_episode = int(tr["episode_replans"]) // R
-    program.load_kernels(cfg, dev)
+    program.load_kernels(cfg, dev, ctx.pkg)
     ph.mark("kernel_libraries")
-    diff = program.diffusion(cfg, inputs.make_weights(cfg, seed, dev), dev)
+    diff = program.diffusion(
+        cfg, inputs.make_weights(cfg, seed, dev, ctx.pkg), dev, ctx.pkg)
     ph.mark("weights")
     data = program.data(cfg, dev)
     ph.mark("normaliser_and_dynamics")
     restore = program.annotate_planner()
     try:
         env = program.maze(cfg)
-        evaluate = program.evaluator(cfg, diff, env, data, R)
-        warm = program.evaluator(cfg, diff, env, data, 1)
+        evaluate = program.evaluator(cfg, diff, env, data, R, ctx.pkg)
+        warm = program.evaluator(cfg, diff, env, data, 1, ctx.pkg)
         ph.mark("evaluator_build")
         episodes = 1 + int(ctx.seconds * 20)   # far more than can run
         starts = inputs.maze_starts(cfg["env"]["maze"], seed, episodes, B)

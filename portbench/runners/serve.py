@@ -33,9 +33,10 @@ def run(ctx) -> Outcome:
 
     cfg, tr, seed, dev = ctx.cfg, ctx.traffic, ctx.seed, ctx.device
     ph = ctx.phases
-    program.load_kernels(cfg, dev)
+    program.load_kernels(cfg, dev, ctx.pkg)
     ph.mark("kernel_libraries")
-    diff = program.diffusion(cfg, inputs.make_weights(cfg, seed, dev), dev)
+    diff = program.diffusion(
+        cfg, inputs.make_weights(cfg, seed, dev, ctx.pkg), dev, ctx.pkg)
     ph.mark("weights")
     data = program.data(cfg, dev)
     ph.mark("normaliser_and_dynamics")

@@ -3,12 +3,16 @@
 A configuration is ``configs/<name>.json``, a traffic mix
 ``traffic/<name>.json``, the runner of a mix ``runners/<runner>.py`` and
 the reader of a per-layer metric ``metrics/<base>.py``, where ``base`` is
-the metric's name up to its first dot. ``pkg`` is the folder that holds
-them (this one, or a copy in a test).
+the metric's name up to its first dot. A configuration's ``family`` names
+two modules: ``families/<family>.py``, the harness's side (the port's
+denoiser, its planner path, its work counts), and
+``reference/<family>.py``, the plain forward that decides ``correct``.
+``pkg`` is the folder that holds them (this one, or a copy in a test).
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -49,6 +53,19 @@ def load_module(path: Path, name: str):
     return module
 
 
+@functools.lru_cache(maxsize=None)
+def _part(pkg: Path, folder: str, name: str):
+    """``<folder>/<name>.py`` under ``pkg``, loaded once a process: a
+    family's modules are asked for at every dispatch. This package's own
+    are imported as its submodules, so each file runs once."""
+    path = Path(pkg).resolve() / folder / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"portbench: {path} is missing")
+    if path.parent.parent == PKG.resolve():
+        return importlib.import_module(f"portbench.{folder}.{name}")
+    return load_module(path, f"portbench_{folder}_{name}")
+
+
 def runner(name: str, pkg: Path = PKG):
     return load_module(Path(pkg) / "runners" / f"{name}.py",
                        f"portbench_runner_{name}")
@@ -58,6 +75,31 @@ def metric_reader(metric: str, pkg: Path = PKG):
     base = metric.split(".")[0]
     return load_module(Path(pkg) / "metrics" / f"{base}.py",
                        f"portbench_metric_{base}")
+
+
+PLANNERS = ("k2", "module")
+
+
+def family(cfg, pkg: Path = PKG):
+    """``families/<family>.py`` of the configuration: ``PLANNER`` (``k2``,
+    the planner chain's waves, or ``module``, the module-path sampler),
+    ``denoiser(cfg)``, ``model_flops(cfg, chains)`` and, for K2,
+    ``wave_work(cfg, chains)``."""
+    name = cfg["family"]
+    module = _part(pkg, "families", name)
+    if module.PLANNER not in PLANNERS:
+        raise SystemExit(f"portbench: families/{name}.py: PLANNER "
+                         f"{module.PLANNER!r} is not one of {PLANNERS}")
+    return module
+
+
+def reference(cfg, pkg: Path = PKG):
+    """``reference/<family>.py`` of the configuration: ``param_specs(cfg)``
+    and ``forward(w, cfg, x, t, prec, cond)``, where ``cond`` (chains,
+    observation_dim) is each chain's normalised observation, the one its
+    row 0 is conditioned on; a family without a global condition ignores
+    it."""
+    return _part(pkg, "reference", cfg["family"])
 
 
 def cell_metrics(bench: dict, cell: str, kind: str) -> list:

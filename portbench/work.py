@@ -1,5 +1,7 @@
 """The work of a wave and of a model call, counted from shapes, and the
-card's peaks: the yardstick of every roofline and MFU share.
+card's peaks: the yardstick of every roofline and MFU share. The counts
+of a family are its own (``families/<family>.py``); the U-Net's stay
+importable from here.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W: 989 TFLOP/s
 bf16, 495 TFLOP/s TF32, 67 TFLOP/s float32 off the tensor cores, and
@@ -12,123 +14,35 @@ the projection and the per-step operands.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
+
+from portbench import spec
+from portbench.families.unet import (  # noqa: F401  (the U-Net's counts)
+    conv_flops, n_res_blocks, unet_chain_step_flops, unet_convs)
+from portbench.spec import PKG
 
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 HBM_BPS = 3.35e12
 
-SAME, DOWN, UP = "same", "down", "up"
 
-
-def unet_convs(cfg) -> List[Tuple[str, int, int, int, int, bool]]:
-    """Every conv of one U-Net forward on one chain: (mode, rows in, cin,
-    cout, taps, followed by a GroupNorm)."""
-    dim, k, D, H = cfg["dim"], cfg["kernel_size"], cfg["transition_dim"], \
-        cfg["horizon"]
-    dims = [D] + [dim * m for m in cfg["dim_mults"]]
-    in_out = list(zip(dims[:-1], dims[1:]))
-    convs, L = [], H
-
-    def res(ci, co):
-        convs.append((SAME, L, ci, co, k, True))
-        if ci != co:
-            convs.append((SAME, L, ci, co, 1, False))
-        convs.append((SAME, L, co, co, k, True))
-
-    for i, (ci, co) in enumerate(in_out):
-        res(ci, co)
-        res(co, co)
-        if i < len(in_out) - 1:
-            convs.append((DOWN, L, co, co, 3, False))
-            L //= 2
-    mid = in_out[-1][1]
-    res(mid, mid)
-    res(mid, mid)
-    for di, do in reversed(in_out[1:]):
-        res(2 * do, di)
-        res(di, di)
-        convs.append((UP, L, di, di, 4, False))
-        L *= 2
-    convs.append((SAME, L, dim, dim, k, True))
-    convs.append((SAME, L, dim, D, 1, False))
-    return convs
-
-
-def conv_flops(mode: str, rows: int, cin: int, cout: int, taps: int) -> float:
-    """Multiply-adds x 2 of a conv over ``rows`` input rows: a stride-2
-    conv makes rows/2 outputs of ``taps`` taps, a transposed conv 2 x rows
-    outputs of two taps each."""
-    if mode == DOWN:
-        return 2.0 * (rows // 2) * taps * cin * cout
-    if mode == UP:
-        return 2.0 * (2 * rows) * 2 * cin * cout
-    return 2.0 * rows * taps * cin * cout
-
-
-def n_res_blocks(cfg) -> List[int]:
-    """The output width of every residual block, in order."""
-    dim = cfg["dim"]
-    dims = [cfg["transition_dim"]] + [dim * m for m in cfg["dim_mults"]]
-    in_out = list(zip(dims[:-1], dims[1:]))
-    outs = [co for _, co in in_out for _ in range(2)]
-    outs += [in_out[-1][1]] * 2
-    outs += [di for di, _ in reversed(in_out[1:]) for _ in range(2)]
-    return outs
-
-
-def unet_chain_step_flops(cfg) -> float:
-    """The convs of one forward on one chain of ``horizon`` rows."""
-    return sum(conv_flops(m, r, ci, co, t)
-               for m, r, ci, co, t, _ in unet_convs(cfg))
-
-
-def model_flops(cfg, chains: int) -> float:
+def model_flops(cfg, chains: int, pkg=PKG) -> float:
     """Products of one denoiser call on ``chains`` chains (the model FLOPs
-    of MFU): for the U-Net its convs, each block's time dense and the time
-    MLP; for the transformer every dense layer and both attention
-    products."""
-    td = cfg["dim"]
-    if cfg["family"] == "unet":
-        per_chain = unet_chain_step_flops(cfg)
-        per_chain += sum(2.0 * td * co for co in n_res_blocks(cfg))
-        per_chain += 2.0 * cfg["dim"] * 4 * td + 2.0 * 4 * td * td
-        return chains * per_chain
-    d, H, D = cfg["dim"], cfg["horizon"], cfg["transition_dim"]
-    hidden = cfg["mlp_ratio"] * d
-    block = (2.0 * H * d * d * 4          # query, key, value, out
-             + 2.0 * H * H * d * 2        # scores and the weighted sum
-             + 2.0 * H * d * hidden * 2   # the MLP
-             + 2.0 * td * 6 * d)          # the modulation
-    per_chain = (cfg["depth"] * block + 2.0 * H * D * d * 2
-                 + 2.0 * td * 2 * d + 2.0 * d * 4 * td + 2.0 * 4 * td * td)
-    return chains * per_chain
+    of MFU), as the configuration's family counts them."""
+    return spec.family(cfg, pkg).model_flops(cfg, chains)
 
 
-def wave_work(cfg, chains: int) -> Tuple[float, float]:
+def wave_work(cfg, chains: int, pkg=PKG) -> Tuple[float, float]:
     """(operations, bytes) of one K2 wave of ``chains`` chains over the
-    configuration's T steps."""
-    T, H, D = cfg["n_timesteps"], cfg["horizon"], cfg["transition_dim"]
-    td = cfg["dim"]
-    rows = chains * H
-    HD = H * D
-    flops = T * chains * unet_chain_step_flops(cfg)
-    flops += 2.0 * T * chains * HD * HD                      # projection
-    flops += sum(2.0 * T * td * co for co in n_res_blocks(cfg))  # time dense
-    w_bytes = 0
-    for m, _, ci, co, taps, gn in unet_convs(cfg):
-        w_bytes += 2 * taps * ci * co + 4 * co + (8 * co if gn else 0)
-    w_bytes += sum(2 * td * co + 4 * co for co in n_res_blocks(cfg))
-    nbytes = (w_bytes + 4 * rows * D * (T + 3) + 4 * HD * HD
-              + 4 * T * (8 + td))
-    return flops, float(nbytes)
+    configuration's T steps, as its (K2) family counts them."""
+    return spec.family(cfg, pkg).wave_work(cfg, chains)
 
 
-def wave_least_s(cfg, chains: int) -> float:
+def wave_least_s(cfg, chains: int, pkg=PKG) -> float:
     """The least time of one wave: operations at the bf16 peak or bytes at
     the HBM rate, whichever is longer."""
-    flops, nbytes = wave_work(cfg, chains)
+    flops, nbytes = wave_work(cfg, chains, pkg)
     return max(flops / PEAK_BF16, nbytes / HBM_BPS)
 
 
